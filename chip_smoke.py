@@ -24,7 +24,24 @@ Phases (any failure exits non-zero before the result line):
 4. hold the routed ``cuda`` plan against the plain-backend plan on the
    same weights and prompts at reduced depth: greedy streams must match
    wherever the plain path's top-1/top-2 logit margin exceeds the bf16
-   tolerance.
+   tolerance;
+5. the paper's CNN path: the zoo's MobileNet (224, width 1.0, 1000
+   classes) and ResNet18 (224, width 64, 1000 classes) at the zoo's depth,
+   the Figure-5 graph and both Table-4 CBRA graphs, each through
+   ``build_engine`` in vanilla, ho and xenos (xenos under the plan
+   ``select_kernel_plan({"accelerator": "cuda"})`` returns, eager and as
+   one CUDA graph, and under the plain-torch plan).  The modes must agree
+   at the reference's engine tolerance (rtol 3e-4, atol 3e-5, TF32 off),
+   the routed xenos must equal the plain-plan xenos to 2e-5, and the
+   ``cbr_avgpool`` launch counter must rise in the xenos runs of the CBRA
+   graphs.  Prints the median ms per inference per graph and mode (Fig. 7
+   on the card) and the device busy share of xenos.
+
+Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
+by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32) at the
+Figure-5 and Table-4 shapes and at odd H and W, C = 3, OC = 10, N = 2, and
+times the kernel, its plain version and the unlinked form (``addmm``,
+``relu_``, ``avg_pool2d`` over the materialized pre-pool map).
 
 The line before last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of everything measured goes to
@@ -52,6 +69,15 @@ H, K, D = 16, 8, 128
 #: decode: element-wise |kernel - plain| <= atol + rtol * |plain|
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=2e-2, atol=1e-3)}
+#: cbr_avgpool: element-wise, IEEE fp32 on both sides
+CBRA_TOL = dict(rtol=2e-5, atol=2e-5)
+#: the reference's engine tolerance between modes (fp32 conv reassociation)
+ENGINE_TOL = dict(rtol=3e-4, atol=3e-5)
+#: cbr_avgpool shapes, (N,H,W,C) and OC: the Figure-5 example and the two
+#: Table-4 CBRA operators
+CBRA_SHAPES = {"fig5": ((1, 16, 16, 64), 128),
+               "t4_8x8": ((1, 8, 8, 1024), 1024),
+               "t4_224": ((1, 224, 224, 24), 224)}
 #: ~0.1 s of spinning at the H100's 1.98 GHz boost clock (see cuda_ms)
 SPIN_CYCLES = 200_000_000
 #: decode timings rotate over this many input sets (~110 MB of K/V rows,
@@ -86,10 +112,11 @@ def cuda_ms(fns, iters: int = 24, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(label: str, got, want, dtype: str) -> float:
-    """Fail unless every element is within TOL[dtype] of the plain
-    version; return the max abs error."""
-    tol = TOL[dtype]
+def check_close(label: str, got, want, dtype: str,
+                tol: dict | None = None) -> float:
+    """Fail unless every element is within ``tol`` (default TOL[dtype]) of
+    the plain version; return the max abs error."""
+    tol = tol or TOL[dtype]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     worst = (err / (tol["atol"] + tol["rtol"] * want.abs())).max().item()
@@ -278,6 +305,68 @@ def check_fused_mask(torch, ops, gen, report):
     }
 
 
+def unlinked_cbra(x, w, b):
+    """The unlinked form, Table 4's yardstick: ``addmm`` writes the
+    pre-pool map, ``relu_`` rewrites it, ``avg_pool2d`` reads it back."""
+    import torch
+    import torch.nn.functional as F
+    N, H, W, C = x.shape
+    y = torch.addmm(b, x.reshape(-1, C), w).relu_()
+    y = y.view(N, H, W, -1).permute(0, 3, 1, 2)
+    return F.avg_pool2d(y, 2).permute(0, 2, 3, 1)
+
+
+def check_cbr_avgpool(torch, ops, gen, report):
+    # odd H and W, C = 3, OC = 10, N = 2; then one case per launch shape
+    # (narrow, C over clusters of 8 and 4; wide with scalar stores)
+    cases = dict(CBRA_SHAPES, odd=((2, 7, 9, 3), 10),
+                 cluster8=((1, 4, 4, 256), 64), cluster4=((1, 6, 6, 100), 40),
+                 wide_odd_oc=((1, 100, 98, 24), 45))
+    worst, per_shape = 0.0, {}
+    for label, (shape, oc) in cases.items():
+        C = shape[-1]
+        x = torch.randn(shape, generator=gen, device=DEV)
+        w = torch.randn((C, oc), generator=gen, device=DEV) / C ** 0.5
+        b = torch.randn((oc,), generator=gen, device=DEV) * 0.1
+        want = ops.cbr_avgpool_plain(x, w, b)
+        err = check_close(f"cbr_avgpool {label} {shape}@({C},{oc})",
+                          ops.cbr_avgpool(x, w, b), want, "float32",
+                          CBRA_TOL)
+        worst = max(worst, err)
+        if label not in CBRA_SHAPES:
+            continue
+        check_close(f"unlinked form {label}", unlinked_cbra(x, w, b), want,
+                    "float32", CBRA_TOL)
+        N, H, W, _ = shape
+        M = N * H * W
+        nbytes = 4 * (x.numel() + w.numel() + b.numel()
+                      + N * (H // 2) * (W // 2) * oc)
+        flops = 2 * M * C * oc + 3 * M * oc    # matmul; bias, relu, pool
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        per_shape[label] = {
+            "shape": [*shape, oc],
+            "ms": cuda_ms([lambda: ops.cbr_avgpool(x, w, b)]),
+            "plain_ms": cuda_ms([lambda: ops.cbr_avgpool_plain(x, w, b)]),
+            "unlinked_ms": cuda_ms([lambda: unlinked_cbra(x, w, b)]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        r = per_shape[label]
+        print(f"cbr_avgpool {label}: {r['ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
+              f"unlinked {r['unlinked_ms']:.4f} ms")
+    head = per_shape["t4_224"]
+    report["cbr_avgpool"] = {
+        "name": "cbr_avgpool", "route": "cuda",
+        "source": "src/repro_torch/csrc/linked_cbr_pool.cu",
+        "replaces": "src/repro/kernels/linked_cbr_pool/linked_cbr_pool.py:33",
+        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        # no single PyTorch call computes it; the unlinked form is Table 4's
+        # yardstick, recorded beside it
+        "library_ms": None, "unlinked_ms": head["unlinked_ms"],
+        "shape": head["shape"], "per_shape": per_shape,
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 3 + 4: the served path
 # ---------------------------------------------------------------------------
@@ -431,6 +520,128 @@ def parity_phase(torch, serve, pipeline, Model, cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the CNN path (the paper's Fig. 7 on the card)
+# ---------------------------------------------------------------------------
+
+def cnn_graphs(cnn_zoo, launch) -> dict:
+    """The zoo's MobileNet and ResNet18 at their published input size and
+    widths (zoo depth), the Figure-5 graph and the Table-4 CBRA graphs."""
+    return {
+        "mobilenet_224": cnn_zoo.mobilenet(res=224, width=1.0,
+                                           n_classes=1000),
+        "resnet18_224": cnn_zoo.resnet18(res=224, width=64, n_classes=1000),
+        "fig5": launch.fig5_graph(),
+        **{label: launch.cbra_graph(label, shape, oc)
+           for label, (shape, oc) in CBRA_SHAPES.items() if label != "fig5"},
+    }
+
+
+def host_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Median host time of ``fn`` (which synchronizes the card)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return 1e3 * times[len(times) // 2]
+
+
+def device_ms(torch, fn, calls: int = 10):
+    """Device kernel time per call over ``calls`` calls (torch.profiler's
+    CUDA rows), or None when the profiler sees no device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return profile_window(torch, prof, calls)["device_ms_per_tick"]
+
+
+RUNS = (("vanilla", "vanilla", False, False), ("ho", "ho", False, False),
+        ("xenos_torch", "xenos", False, False),
+        ("xenos_eager", "xenos", True, False),
+        ("xenos_graph", "xenos", True, True))
+
+
+def cnn_phase(torch, kernels, core, plan, graphs, iters: int = 20) -> dict:
+    """Every graph through build_engine in each mode; returns per-graph
+    times, launches and agreement."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    out: dict = {}
+    print("CNN path, median ms per inference (host clock, synchronized):")
+    print(f"  {'graph':14s} {'vanilla':>9s} {'ho':>9s} {'xenos/torch':>11s} "
+          f"{'xenos eager':>11s} {'xenos graph':>11s}  device ms "
+          "(eager, graph)  cbr_avgpool launches")
+    for label, g in graphs.items():
+        params = core.init_params(g, seed=0, device=DEV)
+        shape = g.tensors[g.inputs[0]].shape
+        x = torch.randn(shape, generator=gen, device=DEV)
+        res, outs = {}, {}
+        for run, mode, routed, graphed in RUNS:
+            eng, _ = core.build_engine(g, mode, plan=plan if routed else None,
+                                       graphed=graphed)
+            kernels.reset_launches()
+            got = eng(params, x)
+            outs[run] = [o.clone() for o in got]
+            ms = host_ms(lambda: eng(params, x), iters)
+            res[run] = {"ms": ms,
+                        "launches": kernels.LAUNCHES["cbr_avgpool"]}
+            if mode == "xenos" and routed:
+                res[run]["device_ms"] = device_ms(
+                    torch, lambda: eng(params, x))
+            del eng
+        want_shape = g.tensors[g.outputs[0]].shape
+        for run, o in outs.items():
+            if tuple(o[0].shape) != tuple(want_shape) \
+                    or not torch.isfinite(o[0]).all():
+                fail(f"{label} {run}: output {tuple(o[0].shape)} not finite "
+                     f"or not {want_shape}")
+        errs = {run: check_close(f"  {label} {run} vs vanilla", outs[run][0],
+                                 outs["vanilla"][0], "float32", ENGINE_TOL)
+                for run in ("ho", "xenos_torch", "xenos_eager",
+                            "xenos_graph")}
+        errs["routed_vs_torch"] = check_close(
+            f"  {label} routed xenos vs torch-plan xenos",
+            outs["xenos_eager"][0], outs["xenos_torch"][0], "float32",
+            CBRA_TOL)
+        errs["graph_vs_eager"] = check_close(
+            f"  {label} CUDA-graph xenos vs eager xenos",
+            outs["xenos_graph"][0], outs["xenos_eager"][0], "float32",
+            CBRA_TOL)
+        cbra = label in CBRA_SHAPES
+        for run in ("xenos_eager", "xenos_graph"):
+            if cbra and res[run]["launches"] <= 0:
+                fail(f"{label} {run}: cbr_avgpool was never launched")
+        for run in ("vanilla", "ho", "xenos_torch"):
+            if res[run]["launches"]:
+                fail(f"{label} {run}: cbr_avgpool launched off its route")
+        dev = [res[r]["device_ms"] for r in ("xenos_eager", "xenos_graph")]
+        busy = [d / res[r]["ms"] if d else None for d, r in
+                zip(dev, ("xenos_eager", "xenos_graph"))]
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+        print(f"  {label:14s} " + " ".join(
+            f"{res[r]['ms']:{9 if i < 2 else 11}.4f}"
+            for i, r in enumerate(("vanilla", "ho", "xenos_torch",
+                                   "xenos_eager", "xenos_graph")))
+            + f"  {fmt(dev[0])}, {fmt(dev[1])}  "
+            f"{res['xenos_eager']['launches']}, "
+            f"{res['xenos_graph']['launches']}")
+        print(f"    busy share eager {fmt(busy[0])}, graph {fmt(busy[1])}; "
+              f"max abs err {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}")
+        out[label] = {"shape": list(shape), "runs": res, "errors": errs,
+                      "busy_share": {"xenos_eager": busy[0],
+                                     "xenos_graph": busy[1]},
+                      "ops": len(g.nodes)}
+        del params
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -445,11 +656,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
+    from repro_torch import core
+    from repro_torch.configs import cnn_zoo
     from repro_torch.configs.base import get_config
     from repro_torch.core import pipeline
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.fused_sampler import ops as fs_ops
-    from repro_torch.launch import serve
+    from repro_torch.kernels.linked_cbr_pool import ops as cb_ops
+    from repro_torch.launch import optimize_graph, serve
     from repro_torch.models.model import Model
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -493,6 +707,7 @@ def main() -> int:
     check_dense(torch, dec_ops, gen, report)
     check_paged(torch, dec_ops, gen, bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
+    check_cbr_avgpool(torch, cb_ops, gen, report)
     result["kernels"] = report
     if cli.kernels_only:
         print(json.dumps(result, default=str))
@@ -517,12 +732,25 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
+    torch.cuda.empty_cache()
+
+    plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
+    if plan.linked_matmul != "cuda":
+        fail(f"the cuda kernel plan does not route linked_matmul: {plan}")
+    result["cnn"] = cnn_phase(torch, kernels, core, plan,
+                              cnn_graphs(cnn_zoo, optimize_graph))
 
     table = []
-    for name in ("gqa_decode", "gqa_decode_paged", "fused_mask"):
+    for name in ("gqa_decode", "gqa_decode_paged", "fused_mask",
+                 "cbr_avgpool"):
         row = dict(report[name])
-        row["launches"] = sum(r["launches"].get(name, 0)
-                              for r in runs.values())
+        if name == "cbr_avgpool":
+            row["launches"] = sum(
+                g["runs"][r]["launches"] for g in result["cnn"].values()
+                for r in ("xenos_eager", "xenos_graph"))
+        else:
+            row["launches"] = sum(r["launches"].get(name, 0)
+                                  for r in runs.values())
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -4,7 +4,9 @@ The counterpart of ``repro.core.costmodel``, retargeted from the TPU v5e
 to the card the port runs on.  The constants are the data-sheet figures
 of one H100 SXM at its full 700 W power limit (NVIDIA H100 data sheet
 and Hopper architecture white paper); a card capped lower runs slower
-under load.
+under load.  The analytic per-op counts (:func:`op_flops`,
+:func:`op_bytes`) are the reference's, unchanged; its HLO collective
+parser has no counterpart yet (ROADMAP queue 1 item 11).
 
 Terms (seconds):
     compute    = FLOPs            / (chips * PEAK_FLOPS)
@@ -44,16 +46,32 @@ def roofline(flops: float, hbm_bytes: float, collective_bytes: float,
     )
 
 
+# -- analytic per-op costs (used by the planner fast path) -------------------
+
 def op_flops(node, tensors) -> float:
-    """Approximate FLOPs of one graph op (inference) — the ops the serving
-    proxy graph holds; the CNN ops follow with ROADMAP queue 1 item 6."""
+    """Approximate FLOPs of one graph op (inference, fp32 count)."""
     t = node.op_type
-    out = tensors[node.outputs[0]]
+    outs = [tensors[o] for o in node.outputs]
+    out = outs[0]
+    if t in ("conv", "cbr", "cbra", "cbrm"):
+        k = node.attrs.get("ksize", 1)
+        in_c = tensors[node.inputs[0]].shape[-1]
+        # conv MACs * 2; linked pool adds one more pass over the conv output
+        n, oh, ow, oc = _conv_out_shape(node, tensors)
+        f = 2.0 * n * oh * ow * oc * k * k * in_c
+        if t in ("cbra", "cbrm"):
+            f += float(n * oh * ow * oc)
+        return f
+    if t == "dwconv":
+        k = node.attrs.get("ksize", 1)
+        return 2.0 * out.size * k * k
     if t == "matmul":
         in_f = tensors[node.inputs[0]].shape[-1]
         return 2.0 * out.size * in_f
     if t in ("add", "mul", "bias", "relu", "bn", "softmax"):
         return float(out.size) * (4.0 if t == "softmax" else 1.0)
+    if t == "gampool":
+        return float(tensors[node.inputs[0]].size)
     if t == "mac":
         return 2.0 * out.size
     return 0.0
@@ -61,12 +79,32 @@ def op_flops(node, tensors) -> float:
 
 def op_bytes(node, tensors, linked: bool = False,
              bytes_per_el: int = 4) -> float:
-    """HBM traffic of one op: read inputs+params, write outputs.
-    ``linked=True`` elides reads of inputs produced inside the op's link
-    group (operator linking keeps them on chip)."""
+    """Device-memory traffic of one op: read inputs+params, write outputs.
+
+    ``linked=True`` models operator linking: the op's inputs that come from
+    the same link group stay on chip (registers / shared memory), so their
+    device-memory read (and the producer's write) is elided.  This is the
+    quantitative content of Figure 4.
+    """
     read = sum(tensors[i].nbytes(bytes_per_el) for i in node.inputs
-               if not (linked and tensors[i].producer is not None
-                       and node.dataflow.get("link_group") is not None))
+               if not (linked and _same_group_producer(node, i, tensors)))
     read += sum(tensors[p].nbytes(bytes_per_el) for p in node.params)
     write = sum(tensors[o].nbytes(bytes_per_el) for o in node.outputs)
     return float(read + write)
+
+
+def _same_group_producer(node, tensor_name, tensors) -> bool:
+    spec = tensors[tensor_name]
+    return (spec.producer is not None
+            and node.dataflow.get("link_group") is not None)
+
+
+def _conv_out_shape(node, tensors):
+    out = tensors[node.outputs[0]]
+    if node.op_type in ("cbra", "cbrm"):
+        # output is post-pool; conv output is pre-pool
+        pool_attrs = node.attrs.get("pool", {})
+        s = pool_attrs.get("stride", 2)
+        n, oh, ow, oc = out.shape
+        return n, oh * s, ow * s, oc
+    return out.shape

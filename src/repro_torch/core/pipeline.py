@@ -1,12 +1,27 @@
-"""Pass manager, serving half: ``serve_schedule`` and ``kernel_select``.
+"""Pass manager of the port: the paper's graph passes, the serving
+planner and the kernel router (the counterpart of
+``repro.core.pipeline``).
 
-The counterpart of ``repro.core.pipeline`` for what the serving engine
-reaches: the pass registry and :func:`optimize` (verify after every
-rewrite, memoize on the graph fingerprint), :class:`StageTimer`, the
-serving-schedule planner and the per-site kernel router.  The graph
-passes of the paper's CNN path (``fuse_cbr``, ``link_operators``,
-``dos_split``, ``dxenos_plan``) follow with ROADMAP queue 1 item 6, so
-there are no numbered levels here: callers name their passes.
+Every optimization stage is a registered :class:`Pass`; :func:`optimize`
+runs a pass list or a numbered level, checks the graph after every
+rewrite (:func:`verify_graph` plus the pass's declared invariants),
+memoizes on the graph fingerprint and returns a :class:`PassReport`.
+
+Registered passes:
+
+  ==================  ========================================================
+  ``fuse_cbr``        preprocessing fusion Conv+Bn(+Bias)+Relu -> CBR (§3)
+  ``link_operators``  vertical optimization: Table-1 linking (§4.1)
+  ``dos_split``       horizontal optimization: DSP-aware operator split (§4.2)
+  ``dxenos_plan``     d-Xenos partition-scheme planning, Algorithm 1 (§5)
+  ``serve_schedule``  serving-schedule planning (slots/chunk/KV pool)
+  ``kernel_select``   kernel routing: accelerator + cost model -> ``KernelPlan``
+  ==================  ========================================================
+
+Levels are cumulative pass prefixes (``dxenos_plan`` is opt-in because
+it needs an ``n_devices`` choice): ``O0`` none (the Fig.-7 *vanilla*
+dataflow), ``O1`` ``fuse_cbr``, ``O2`` + ``link_operators``, ``O3`` +
+``dos_split`` (the default).
 
 Vocabulary: the reference's ``"xla"`` backend is ``"torch"`` here (plain
 PyTorch ops) and ``"pallas"`` is ``"cuda"`` (the hand-written kernels in
@@ -20,8 +35,9 @@ import time
 from typing import Any, Callable, Sequence
 
 from . import costmodel as cm
+from . import dos, linking, patterns, planner
 from .dos import DeviceSpec
-from .graph import Graph, LAYOUTS, OP_VOCABULARY, link_groups
+from .graph import Graph, LAYOUTS, OP_VOCABULARY
 
 
 class PipelineError(ValueError):
@@ -87,7 +103,7 @@ def verify_graph(g: Graph) -> list[str]:
             problems.append(
                 f"tensor {t!r} claims producer {spec.producer!r} which is "
                 f"not a node in the graph")
-    for gid, members in link_groups(g).items():
+    for gid, members in linking.link_groups(g).items():
         if len(members) < 2:
             problems.append(
                 f"link_group {gid} has a single member "
@@ -138,6 +154,15 @@ class Pass:
 
 REGISTRY: dict[str, Pass] = {}
 
+#: cumulative optimization levels (dxenos_plan is opt-in, see module docstring)
+LEVELS: dict[int, tuple[str, ...]] = {
+    0: (),
+    1: ("fuse_cbr",),
+    2: ("fuse_cbr", "link_operators"),
+    3: ("fuse_cbr", "link_operators", "dos_split"),
+}
+DEFAULT_LEVEL = 3
+
 
 def register_pass(p: Pass) -> Pass:
     if p.name in REGISTRY:
@@ -146,9 +171,18 @@ def register_pass(p: Pass) -> Pass:
     return p
 
 
-def resolve_passes(passes: Sequence[str]) -> list[Pass]:
+def resolve_passes(level: int | None = None,
+                   passes: Sequence[str] | None = None) -> list[Pass]:
+    """Pass list for an explicit ``passes`` selection or a numbered level."""
+    if passes is not None:
+        names = list(passes)
+    else:
+        lvl = DEFAULT_LEVEL if level is None else level
+        if lvl not in LEVELS:
+            raise PipelineError(f"unknown level {lvl!r}; have {sorted(LEVELS)}")
+        names = list(LEVELS[lvl])
     out = []
-    for name in passes:
+    for name in names:
         if name not in REGISTRY:
             raise PipelineError(
                 f"unknown pass {name!r}; registered: {sorted(REGISTRY)}")
@@ -218,6 +252,21 @@ class PassReport:
             "cache_hit": self.cache_hit,
             "passes": [p.as_dict() for p in self.passes],
         }
+
+    def format(self) -> str:
+        """Human-readable table (what the launch modules print)."""
+        lines = [f"PassReport[{self.graph_name} @ {self.device}] "
+                 f"total {self.total_s * 1e3:.2f} ms, modeled saving "
+                 f"{100 * self.modeled_saving:.1f}%"
+                 f"{' (cache hit)' if self.cache_hit else ''}"]
+        for p in self.passes:
+            extras = "".join(f" {k}={v}" for k, v in p.summary.items())
+            lines.append(
+                f"  {p.name:16s} {p.wall_s * 1e3:7.2f} ms  "
+                f"nodes {p.nodes_before:3d} -> {p.nodes_after:3d}  "
+                f"edges {p.edges_before:3d} -> {p.edges_after:3d}"
+                f"{extras}")
+        return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -299,37 +348,41 @@ def clear_optimize_cache() -> None:
 
 
 def _cache_key(g: Graph, plist: list[Pass], options: dict[str, Any],
-               device: DeviceSpec, verify: bool) -> tuple:
+               device: DeviceSpec) -> tuple:
     return (graph_fingerprint(g),
             tuple((p.name, id(p.fn)) for p in plist),
             repr(sorted(options.items(), key=lambda kv: kv[0])),
-            repr(device), verify)
+            repr(device))
 
 
-def _modeled_serial_s(g: Graph) -> float:
+def _modeled_serial_s(g: Graph, device: DeviceSpec, linked: bool) -> float:
     flops = sum(cm.op_flops(n, g.tensors) for n in g.nodes)
-    byts = sum(cm.op_bytes(n, g.tensors) for n in g.nodes)
+    byts = sum(cm.op_bytes(n, g.tensors, linked=linked) for n in g.nodes)
     return cm.roofline(flops, byts, 0.0, chips=1).serial_s
 
 
 def optimize(g: Graph, device: DeviceSpec | None = None, *,
-             passes: Sequence[str], options: dict[str, Any] | None = None,
-             verify: bool = True, cache: bool = True
+             level: int | None = None, passes: Sequence[str] | None = None,
+             options: dict[str, Any] | None = None, cache: bool = True
              ) -> tuple[Graph, PassReport]:
-    """Run the named passes; returns ``(optimized_graph, report)``.
+    """Run the pipeline; returns ``(optimized_graph, report)``.
 
+    ``level`` selects a cumulative pass prefix (default ``O3`` = fuse +
+    link + DOS split); ``passes`` overrides it with an explicit ordered
+    list of registered pass names.  ``options`` is pass-visible
+    configuration (e.g. ``n_devices``/``sync`` for ``dxenos_plan``).
     Every pass's output is checked by :func:`verify_graph` plus the
-    pass's declared invariants (``verify=True``), and results are
+    pass's declared invariants, and results are
     memoized on ``(graph_fingerprint, passes, options, device)`` — a
     repeated call returns clones with ``cache_hit=True``, which is what
     lets the serving scheduler re-plan every N ticks for free."""
     device = device or DeviceSpec()
     ctx = PassContext(device=device, options=dict(options or {}))
-    plist = resolve_passes(passes)
+    plist = resolve_passes(level, passes)
 
     key: tuple | None = None
     if cache:
-        key = _cache_key(g, plist, ctx.options, device, verify)
+        key = _cache_key(g, plist, ctx.options, device)
         hit = _OPTIMIZE_CACHE.get(key)
         if hit is not None:
             cached_graph, cached_report = hit
@@ -338,11 +391,10 @@ def optimize(g: Graph, device: DeviceSpec | None = None, *,
                 cache_hit=True)
 
     report = PassReport(graph_name=g.name, device=device.name)
-    if verify:
-        pre = verify_graph(g)
-        if pre:
-            raise PassVerificationError("<input>", pre)
-    report.modeled_before_s = _modeled_serial_s(g)
+    pre = verify_graph(g)
+    if pre:
+        raise PassVerificationError("<input>", pre)
+    report.modeled_before_s = _modeled_serial_s(g, device, linked=False)
     out = g
     for p in plist:
         before = out
@@ -350,29 +402,114 @@ def optimize(g: Graph, device: DeviceSpec | None = None, *,
         t0 = time.perf_counter()
         out = p.fn(before, ctx)
         wall = time.perf_counter() - t0
-        verified = False
-        if verify:
-            problems = verify_graph(out)
-            for inv_name, pred in p.invariants:
-                if not pred(out):
-                    problems.append(f"declared invariant violated: {inv_name}")
-            if problems:
-                raise PassVerificationError(p.name, problems)
-            verified = True
+        problems = verify_graph(out)
+        for inv_name, pred in p.invariants:
+            if not pred(out):
+                problems.append(f"declared invariant violated: {inv_name}")
+        if problems:
+            raise PassVerificationError(p.name, problems)
         summary = dict(p.summarize(before, out)) if p.summarize else {}
         summary.update(ctx.artifacts)
         report.record(PassRecord(
             name=p.name, wall_s=wall,
             nodes_before=before.num_ops(), nodes_after=out.num_ops(),
             edges_before=_edge_count(before), edges_after=_edge_count(out),
-            verified=verified, summary=summary))
-    report.modeled_after_s = _modeled_serial_s(out)
+            verified=True, summary=summary))
+    report.modeled_after_s = _modeled_serial_s(out, device, linked=True)
     if key is not None:
         if len(_OPTIMIZE_CACHE) >= _OPTIMIZE_CACHE_MAX:
             _OPTIMIZE_CACHE.pop(next(iter(_OPTIMIZE_CACHE)))
         _OPTIMIZE_CACHE[key] = (out.clone(), dataclasses.replace(
             report, passes=list(report.passes)))
     return out, report
+
+
+# ---------------------------------------------------------------------------
+# Built-in passes (the paper's stages, registered)
+# ---------------------------------------------------------------------------
+
+def _summarize_fuse(before: Graph, after: Graph) -> dict[str, Any]:
+    fused = [n for n in after.nodes if n.op_type == "cbr"]
+    return {"cbr_fused": len(fused)}
+
+
+def _no_fusable_chain_left(g: Graph) -> bool:
+    """After fusion the §3 pattern finder must come up empty (fixpoint)."""
+    return not patterns.find_cbr_fusions(g)
+
+
+register_pass(Pass(
+    name="fuse_cbr",
+    fn=lambda g, ctx: linking.fuse_cbr(g),
+    description="Preprocessing fusion: Conv+Bn(+Bias)+Relu -> CBR (paper §3)",
+    invariants=(("no_fusable_chain_left", _no_fusable_chain_left),),
+    summarize=_summarize_fuse,
+))
+
+
+def _summarize_link(before: Graph, after: Graph) -> dict[str, Any]:
+    groups = linking.link_groups(after)
+    linked_ops = [n for n in after.nodes if n.op_type in ("cbra", "cbrm")]
+    return {"link_groups": len(groups), "linked_ops": len(linked_ops)}
+
+
+register_pass(Pass(
+    name="link_operators",
+    fn=lambda g, ctx: linking.link(g),
+    description="Vertical optimization: Table-1 operator linking (paper §4.1)",
+    summarize=_summarize_link,
+))
+
+
+def _summarize_dos(before: Graph, after: Graph) -> dict[str, Any]:
+    plans = dos.plans(after)
+    split = [p for p in plans.values() if p.param_chunks]
+    worst = max((p.imbalance for p in plans.values()), default=0.0)
+    return {"split_plans": len(plans), "param_splits": len(split),
+            "max_imbalance": round(worst, 4)}
+
+
+def _all_compute_planned(g: Graph) -> bool:
+    return all("split_plan" in n.dataflow for n in g.nodes
+               if n.op_type in dos.COMPUTE_OPS)
+
+
+register_pass(Pass(
+    name="dos_split",
+    fn=lambda g, ctx: dos.optimize(g, ctx.device),
+    description="Horizontal optimization: DSP-aware operator split (paper §4.2)",
+    invariants=(("every_compute_op_has_split_plan", _all_compute_planned),),
+    summarize=_summarize_dos,
+))
+
+
+def _dxenos_fn(g: Graph, ctx: PassContext) -> Graph:
+    """d-Xenos planning (§5): Algorithm 1 over the Figure-6 scheme set.
+
+    Annotates every compute op with its best per-op scheme (the paper's
+    winning "Ring-Mix") and records the best whole-graph scheme in the
+    report.  ``options``: ``n_devices`` (default 4), ``sync`` (ring|ps),
+    """
+    n_devices = int(ctx.options.get("n_devices", 4))
+    sync = ctx.options.get("sync", "ring")
+    best, best_t, _ = planner.plan_distributed(g, n_devices, sync, ctx.device)
+    mix = planner.plan_mix(g, n_devices, sync, ctx.device)
+    out = g.clone()
+    for node in out.nodes:
+        if node.name in mix:
+            node.dataflow["partition_scheme"] = str(mix[node.name])
+    ctx.artifacts.update({
+        "n_devices": n_devices, "sync": sync,
+        "best_scheme": str(best), "best_modeled_s": best_t,
+    })
+    return out
+
+
+register_pass(Pass(
+    name="dxenos_plan",
+    fn=_dxenos_fn,
+    description="d-Xenos partition-scheme planning, Algorithm 1 (paper §5)",
+))
 
 
 # ---------------------------------------------------------------------------
@@ -515,16 +652,20 @@ register_pass(Pass(
 #:                         gather as an exact one-hot contraction |
 #:                         ``cuda`` the paged flash-decode kernel);
 #:   * ``prefill_chunk`` — chunked prefill attention (``torch`` only);
+#:   * ``linked_matmul`` — the CNN executor's linked 1x1 ``cbra`` op
+#:                         (``torch`` conv+relu+pool | ``cuda`` the
+#:                         ``cbr_avgpool`` kernel);
 #:   * ``sampler``       — token sampling (``reference`` two-sort |
 #:                         ``fused`` one-sort | ``cuda`` sort-free
 #:                         ``fused_mask`` kernel).
 #:
-#: The reference's ``decode_ring``, ``linked_matmul`` and ``ssm_scan``
-#: sites come with the paths that run them (ROADMAP queue 1 items 6-7).
+#: The reference's ``decode_ring`` and ``ssm_scan`` sites come with the
+#: path that runs them (ROADMAP queue 1 item 7).
 KERNEL_SITE_BACKENDS: dict[str, tuple[str, ...]] = {
     "decode_dense": ("torch", "cuda"),
     "decode_paged": ("gather", "fold", "cuda"),
     "prefill_chunk": ("torch",),
+    "linked_matmul": ("torch", "cuda"),
     "sampler": ("reference", "fused", "cuda"),
 }
 
@@ -540,6 +681,7 @@ class KernelPlan:
     decode_dense: str = "torch"
     decode_paged: str = "gather"
     prefill_chunk: str = "torch"
+    linked_matmul: str = "torch"
     sampler: str = "reference"
 
     def __post_init__(self):
@@ -595,8 +737,8 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
     """Decide the per-site backends.  Returns ``(plan, decision detail)``.
 
     ``accelerator == "cuda"`` (the engine's device type) routes dense and
-    paged decode attention and the sampler to the hand-written CUDA
-    kernels, the way the reference routes ``tpu`` to Pallas; a host keeps
+    paged decode attention, the linked ``cbra`` op and the sampler to the
+    hand-written CUDA kernels, the way the reference routes ``tpu`` to Pallas; a host keeps
     plain-torch attention, the gather/fold roofline choice and the
     one-sort ``fused`` sampler.  The reference's measured-timings
     override comes with the autotuner that measures them."""
@@ -610,6 +752,7 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
         decode_dense="cuda" if cuda else "torch",
         decode_paged="cuda" if cuda else paged_default,
         prefill_chunk="torch",
+        linked_matmul="cuda" if cuda else "torch",
         sampler="cuda" if cuda else "fused",
     )
     return plan, detail
@@ -630,5 +773,25 @@ register_pass(Pass(
     name="kernel_select",
     fn=_kernel_select_fn,
     description="Kernel routing: accelerator + roofline cost model -> "
-                "per-site KernelPlan (decode attention, sampler)",
+                "per-site KernelPlan (decode attention, linked matmul, "
+                "sampler)",
 ))
+
+
+#: engine mode -> pass list (the Fig.-7 ablation axes; ``ho`` is DOS without
+#: the vertical rewrites, which is why it is not a numbered level)
+MODE_PASSES: dict[str, tuple[str, ...]] = {
+    "vanilla": (),
+    "ho": ("dos_split",),
+    "xenos": ("fuse_cbr", "link_operators", "dos_split"),
+}
+
+
+def optimize_for_mode(g: Graph, mode: str,
+                      device: DeviceSpec | None = None
+                      ) -> tuple[Graph, PassReport]:
+    """Pipeline entry keyed by engine execution mode (vanilla/ho/xenos)."""
+    if mode not in MODE_PASSES:
+        raise PipelineError(f"unknown engine mode {mode!r}; "
+                            f"have {sorted(MODE_PASSES)}")
+    return optimize(g, device, passes=MODE_PASSES[mode])

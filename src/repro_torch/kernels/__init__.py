@@ -16,8 +16,11 @@ missing library, all at once.  Importing this package needs neither
 ``nvcc`` nor a card.
 
 :data:`LAUNCHES` counts kernel launches per kernel name: each wrapper
-adds one where it launches its kernel and nowhere else, so a run can
-show which kernels its path reached.
+calls :func:`count_launch` where it launches its kernel and nowhere else,
+so a run can show which kernels its path reached.  A launch recorded
+into a CUDA graph under capture runs nothing: it is counted in
+:data:`RECORDED` instead, and whoever replays the graph adds its
+recorded launches to :data:`LAUNCHES` at each replay.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: one shared library per CUDA source
-SOURCES: tuple[str, ...] = ("decode_attention", "fused_sampler")
+SOURCES: tuple[str, ...] = ("decode_attention", "fused_sampler",
+                            "linked_cbr_pool")
 
 NVCC_FLAGS: tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,7 +45,10 @@ NVCC_FLAGS: tuple[str, ...] = (
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"gqa_decode": 0, "gqa_decode_paged": 0,
-                            "fused_mask": 0}
+                            "fused_mask": 0, "cbr_avgpool": 0}
+
+#: kernel name -> launches recorded into CUDA graphs under capture
+RECORDED: dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -49,6 +56,17 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of ``name`` on the current stream: in
+    :data:`LAUNCHES`, or in :data:`RECORDED` while that stream is
+    capturing a CUDA graph."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

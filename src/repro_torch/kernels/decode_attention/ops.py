@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .. import LAUNCHES, check_launch, library
+from .. import check_launch, count_launch, library
 
 NEG_INF = -1e30
 
@@ -116,7 +116,7 @@ def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel):
         out.data_ptr(), part_acc.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), B, H, K, D, W, n_split, split_len, bs, M, stream)
     check_launch(err, kernel)
-    LAUNCHES[kernel] += 1
+    count_launch(kernel)
     return out
 
 

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from ...serving.sampling import keyed_draw
-from .. import LAUNCHES, check_launch, library
+from .. import check_launch, count_launch, library
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +145,7 @@ def fused_mask(rows: torch.Tensor, temperature: torch.Tensor,
                    top_k.data_ptr(), top_p.data_ptr(), out.data_ptr(), B, V,
                    stream)
     check_launch(err, "fused_mask")
-    LAUNCHES["fused_mask"] += 1
+    count_launch("fused_mask")
     return out
 
 

@@ -251,3 +251,42 @@ def test_port_init_draws_the_reference_distributions():
             else:
                 assert abs(x.std() / y.std() - 1) < 0.1, f"{path}/{k}"
     walk(tp, ref)
+
+
+@pytest.mark.parametrize("S,scan", [(2080, False), (3072, True)])
+def test_one_shot_prefill_past_2048_matches_reference(S, scan, monkeypatch):
+    """Past 2048 tokens the reference's one-shot prefill calls
+    ``chunked_attention`` (``attention.py:686``), which falls back to
+    ``full_attention`` unless S is a multiple of its 512 / 1024 chunks: at
+    2080 both packages run full attention, at 3072 the reference runs its
+    flash-style double scan and the port full attention.  Narrow
+    two-layer config; logits of the last position and the cache agree at
+    the model tolerance."""
+    jcfg = dataclasses.replace(
+        jax_get_config("qwen3-1.7b").reduced(), d_model=64, n_heads=2,
+        n_kv_heads=1, head_dim=32, d_ff=128, max_len=S)
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    jm = JaxModel(jcfg)
+    jp = jm.init(jax.random.key(1))
+    tm = Model(tcfg, device="cpu")
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(S).integers(0, jcfg.vocab, (1, S)) \
+        .astype(np.int32)
+    from repro.models import attention as ref_attention
+    seen = []
+    real = ref_attention.chunked_attention
+
+    def spy(q, k, *a, **kw):
+        seen.append(q.shape[1] % 512 == 0 and k.shape[1] % 1024 == 0)
+        return real(q, k, *a, **kw)
+
+    monkeypatch.setattr(ref_attention, "chunked_attention", spy)
+    lj, cj = jm.prefill_step(jp, {"tokens": jnp.asarray(toks)}, max_len=S)
+    lt, ct = tm.prefill_step(tp, {"tokens": torch.from_numpy(toks)},
+                             max_len=S)
+    assert seen and set(seen) == {scan}   # traced once: layers are scanned
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **RTOL)
+    nt = np.asarray([[7]], np.int32)
+    lj, _ = jm.serve_step(jp, cj, jnp.asarray(nt))
+    lt, _ = tm.serve_step(tp, ct, torch.from_numpy(nt))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **RTOL)
