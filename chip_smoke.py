@@ -20,28 +20,47 @@ Phases (any failure exits non-zero before the result line):
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
    once with paged KV sampled (T 0.8, top-k 50, top-p 0.95).  Every
    request must complete with in-vocabulary tokens and each kernel's
-   launch counter must rise during the runs that route through it;
-4. hold the routed ``cuda`` plan against the plain-backend plan on the
-   same weights and prompts at reduced depth: greedy streams must match
-   wherever the plain path's top-1/top-2 logit margin exceeds the bf16
-   tolerance;
+   launch counter must rise during the runs that route through it
+   (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and decode);
+4. hold the routed ``cuda`` plan against the plain-torch plan (every
+   site) on the same weights and prompts at reduced depth: greedy streams
+   must match wherever the plain path's top-1/top-2 logit margin exceeds
+   the bf16 tolerance;
 5. the paper's CNN path: the zoo's MobileNet (224, width 1.0, 1000
    classes) and ResNet18 (224, width 64, 1000 classes) at the zoo's depth,
-   the Figure-5 graph and both Table-4 CBRA graphs, each through
-   ``build_engine`` in vanilla, ho and xenos (xenos under the plan
-   ``select_kernel_plan({"accelerator": "cuda"})`` returns, eager and as
-   one CUDA graph, and under the plain-torch plan).  The modes must agree
-   at the reference's engine tolerance (rtol 3e-4, atol 3e-5, TF32 off),
-   the routed xenos must equal the plain-plan xenos to 2e-5, and the
+   the Figure-5 graph, both Table-4 CBRA graphs, and the zoo's
+   ``bert_s(seq=128, d=768, n_layers=2)`` planned under the paper's DSP
+   spec (``DeviceSpec.tms320c6678()``), each
+   through ``build_engine`` in vanilla, ho and xenos (ho and xenos also
+   under the plan ``select_kernel_plan({"accelerator": "cuda"})``
+   returns, xenos eager and as one CUDA graph).  The modes must agree at
+   the reference's engine tolerance (rtol 3e-4, atol 3e-5, TF32 off), the
+   routed ho and xenos must equal their plain-plan runs to 2e-5, the
    ``cbr_avgpool`` launch counter must rise in the xenos runs of the CBRA
-   graphs.  Prints the median ms per inference per graph and mode (Fig. 7
-   on the card) and the device busy share of xenos.
+   graphs, and ``split_matmul`` must launch 4 times per routed ho or
+   xenos inference of bert_s (its four FFN matmuls, split three ways)
+   and never for the other graphs.  Prints the
+   median ms per inference per graph and mode (Fig. 7 on the card) and
+   the device busy share of xenos.
 
 Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
 by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32) at the
 Figure-5 and Table-4 shapes and at odd H and W, C = 3, OC = 10, N = 2, and
 times the kernel, its plain version and the unlinked form (``addmm``,
-``relu_``, ``avg_pool2d`` over the materialized pre-pool map).
+``relu_``, ``avg_pool2d`` over the materialized pre-pool map);
+``linked_mlp`` against ``linked_mlp_plain`` (bf16 1e-3 / 2e-2, fp32
+2e-5 / 2e-5) at the serving shapes, decode (8, 2048, 6144) and prefill
+(8 x the engine's chunk, 2048, 6144), and at fp32, ragged and M = 1
+shapes; at batched prefill's shape (8 x the longest prompt, 2048, 6144)
+bf16, the kernel and its plain version each against the fp64-summed MLP
+(the kernel's worst error within ``MLP_ORDER_FACTOR`` times the plain
+version's; two planted faults must fail that test); timing the kernel,
+its plain version and the unlinked three-matmul form (after phase 3
+also at each chunked-prefill shape the serving runs reached: the chunk
+the scheduler replanned to); and
+``split_matmul`` against ``split_matmul_plain`` (fp32, 2e-5 / 2e-5) at
+bert_s's two plan tiles, an inC split and a ragged case, timing the
+kernel, its plain version and ``torch.addmm``.
 
 The line before last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of everything measured goes to
@@ -71,6 +90,26 @@ TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=2e-2, atol=1e-3)}
 #: cbr_avgpool: element-wise, IEEE fp32 on both sides
 CBRA_TOL = dict(rtol=2e-5, atol=2e-5)
+#: linked_mlp: element-wise (bf16: h and y rounded to bf16 on both sides)
+MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=2e-2, atol=1e-3)}
+#: linked_mlp at batched prefill's shape: the kernel's worst error from
+#: the fp64-summed MLP, at most this many times the plain version's
+MLP_ORDER_FACTOR = 2.0
+#: the serving runs' prompt lengths, shortest and longest
+PROMPT_LENS = (480, 544)
+#: split_matmul: element-wise, IEEE fp32 on both sides
+SPLIT_TOL = dict(rtol=2e-5, atol=2e-5)
+#: qwen3-1.7b's MLP widths (configs/qwen3_1_7b.py)
+D_MODEL, D_FF = 2048, 6144
+#: split_matmul cases, (M, K, N, block_n, block_k): bert_s at seq 128,
+#: d 768 under the DSP spec (its FFN matmuls split three ways), an inC
+#: split, and ragged cases on both of the kernel's block shapes
+SPLIT_CASES = {"ffn1": (128, 768, 3072, 1024, 768),
+               "ffn2": (128, 3072, 768, 256, 3072),
+               "inC": (128, 768, 3072, 3072, 256),
+               "ragged": (33, 70, 100, 30, 27),
+               "ragged_wide": (600, 70, 1000, 333, 27)}
 #: the reference's engine tolerance between modes (fp32 conv reassociation)
 ENGINE_TOL = dict(rtol=3e-4, atol=3e-5)
 #: cbr_avgpool shapes, (N,H,W,C) and OC: the Figure-5 example and the two
@@ -367,6 +406,226 @@ def check_cbr_avgpool(torch, ops, gen, report):
     }
 
 
+def mlp_inputs(torch, M, d, ff, dtype, gen):
+    """x ~ N(0, 1) and weights at the model's fan-in scale, in dtype."""
+    rnd = lambda *s: torch.randn(s, generator=gen, device=DEV)
+    return (rnd(M, d).to(dtype), (rnd(d, ff) / d ** 0.5).to(dtype),
+            (rnd(d, ff) / d ** 0.5).to(dtype),
+            (rnd(ff, d) / ff ** 0.5).to(dtype))
+
+
+def unlinked_mlp(x, wg, wu, wd):
+    """The unlinked form, the served ``torch`` backend of the
+    ``linked_matmul`` site: three matmuls in x's dtype, h through device
+    memory."""
+    import torch.nn.functional as F
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def mlp_fp64(torch, args):
+    """The MLP with its sums taken in fp64 and h and y rounded to x's
+    dtype as in the plain version: what any correct summation order
+    rounds to, up to order noise."""
+    F = torch.nn.functional
+    dt = args[0].dtype
+    x, wg, wu, wd = (a.double() for a in args)
+    h = (F.silu(x @ wg) * (x @ wu)).to(dt)
+    return (h.double() @ wd).to(dt)
+
+
+def mlp_err(got, ref, tol) -> float:
+    """Worst |got - ref| / (atol + rtol |ref|) over the elements."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
+            ).max().item()
+
+
+def time_mlp_case(torch, ops, gen, label, args, row):
+    """The kernel's, plain and unlinked times at ``args``' shape, rotating
+    over two weight sets (151 MB at the served widths, past the 50 MB L2:
+    serving reads each layer's weights cold)."""
+    (M, d), ff = args[0].shape, args[1].shape[1]
+    sets = [args, mlp_inputs(torch, M, d, ff, args[0].dtype, gen)]
+    nbytes = 2 * (3 * d * ff + 2 * M * d)
+    flops = 2 * M * d * ff * 3 + 4 * M * ff    # matmuls; silu, product
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    r = row["per_shape"].setdefault(label, {})
+    r.update({
+        "shape": [M, d, ff],
+        "ms": cuda_ms([lambda a=a: ops.linked_mlp(*a) for a in sets]),
+        "plain_ms": cuda_ms([lambda a=a: ops.linked_mlp_plain(*a)
+                             for a in sets]),
+        "unlinked_ms": cuda_ms([lambda a=a: unlinked_mlp(*a) for a in sets]),
+        "bound_ms": b_ms, "bound_by": b_by})
+    print(f"linked_mlp {label} ({M},{d})@({d},{ff}): {r['ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
+          f"unlinked {r['unlinked_ms']:.4f} ms")
+
+
+def linked_mlp_case(torch, ops, gen, label, shape, row, timed):
+    """Hold ``linked_mlp`` against its plain version at ``shape`` (M, d,
+    ff, dtype), twice (the same bits both times), and fold the error into
+    ``row``; ``timed`` also prints how far the plain version lands from
+    the fp64-summed one and times the shape."""
+    M, d, ff, dt = shape
+    name = str(dt).split(".")[-1]
+    args = mlp_inputs(torch, M, d, ff, dt, gen)
+    got = ops.linked_mlp(*args)
+    if not torch.equal(got, ops.linked_mlp(*args)):
+        fail(f"linked_mlp {label}: two launches gave different bits")
+    plain = ops.linked_mlp_plain(*args)
+    err = check_close(f"linked_mlp {label} {name} ({M},{d})@({d},{ff})",
+                      got, plain, name, MLP_TOL[name])
+    key = "max_abs_err" if name == "bfloat16" else "max_abs_err_fp32"
+    row[key] = max(row.get(key, 0.0), err)
+    if not timed:
+        return
+    # how far two correct summation orders land apart once h is rounded
+    # to bf16, in units of the limit
+    noise = mlp_err(plain, mlp_fp64(torch, args), MLP_TOL[name])
+    print(f"linked_mlp {label}: fp32 plain vs fp64-summed plain, worst "
+          f"err / (atol + rtol |fp64|) {noise:.3f}")
+    row["per_shape"][label] = {"order_noise": noise}
+    time_mlp_case(torch, ops, gen, label, args, row)
+
+
+def linked_mlp_batched(torch, ops, gen, row):
+    """Batched prefill's shape: the engine pads a group of ``SLOTS``
+    admitted prompts to the longest, so M = SLOTS x PROMPT_LENS[1].  In
+    bf16 at thousands of rows the kernel and the plain version (each a
+    correct fp32 summation order, each rounding h to bf16) can land a few
+    ulps apart, past the element-wise limit.  So each is held against the
+    fp64-summed MLP instead: on 3 input sets the kernel's worst error must stay within ``MLP_ORDER_FACTOR`` times the
+    plain version's on the same inputs.  Two planted faults, launched
+    through the kernel, must fail the same test: one up-projection term
+    (the last of d) and one ff column (the last) left out."""
+    M = SLOTS * PROMPT_LENS[1]
+    tol = MLP_TOL["bfloat16"]
+    worst = {"kernel": 0.0, "plain": 0.0, "ratio": 0.0}
+    for i in range(3):
+        args = mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen)
+        got = ops.linked_mlp(*args)
+        if not torch.equal(got, ops.linked_mlp(*args)):
+            fail("linked_mlp batched_prefill: two launches gave different "
+                 "bits")
+        ref = mlp_fp64(torch, args)
+        plain = ops.linked_mlp_plain(*args)
+        e_k, e_p = mlp_err(got, ref, tol), mlp_err(plain, ref, tol)
+        e_kp = mlp_err(got, plain, tol)
+        x, wg, wu, wd = args
+        x_cut = x.clone()
+        x_cut[:, -1] = 0
+        wd_cut = wd.clone()
+        wd_cut[-1] = 0
+        faults = {"d_term": mlp_err(ops.linked_mlp(x_cut, wg, wu, wd), ref,
+                                    tol),
+                  "ff_column": mlp_err(ops.linked_mlp(x, wg, wu, wd_cut),
+                                       ref, tol)}
+        print(f"linked_mlp batched_prefill set {i} ({M},{D_MODEL})@"
+              f"({D_MODEL},{D_FF}) bf16, worst err / (atol + rtol |fp64|): "
+              f"kernel {e_k:.3f}, plain {e_p:.3f} (kernel vs plain "
+              f"{e_kp:.3f}); planted faults "
+              + ", ".join(f"{k} {v:.3f}" for k, v in faults.items()))
+        if not e_k <= MLP_ORDER_FACTOR * e_p:
+            fail(f"linked_mlp batched_prefill set {i}: kernel {e_k:.3f} > "
+                 f"{MLP_ORDER_FACTOR} x plain {e_p:.3f} from the fp64 sum")
+        for k, v in faults.items():
+            if v <= MLP_ORDER_FACTOR * e_p:
+                fail(f"linked_mlp batched_prefill set {i}: the planted "
+                     f"fault {k} ({v:.3f}) passes the test")
+        worst = {"kernel": max(worst["kernel"], e_k),
+                 "plain": max(worst["plain"], e_p),
+                 "ratio": max(worst["ratio"], e_k / e_p)}
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0),
+                                 (got.float() - plain.float()).abs().max()
+                                 .item())
+        del args, got, ref, plain, x_cut, wd_cut
+    row["per_shape"]["batched_prefill"] = {"vs_fp64": worst}
+    time_mlp_case(torch, ops, gen, "batched_prefill",
+                  mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen),
+                  row)
+
+
+def check_linked_mlp(torch, ops, gen, chunk, report):
+    """The served shapes, decode (slots rows), chunked prefill (slots x
+    the engine's chunk rows) and batched prefill, timed; then fp32,
+    ragged and M = 1."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    row = report["linked_mlp"] = {
+        "name": "linked_mlp", "route": "cuda",
+        "source": "src/repro_torch/csrc/linked_mlp.cu",
+        "replaces": "src/repro/kernels/linked_matmul/linked_matmul.py:42",
+        # no single PyTorch call computes it; the unlinked three-matmul
+        # form (the served torch backend) is recorded beside it
+        "library_ms": None, "per_shape": {}}
+    cases = {"decode": (SLOTS, D_MODEL, D_FF, bf16),
+             f"prefill_c{chunk}": (SLOTS * chunk, D_MODEL, D_FF, bf16),
+             "m1": (1, D_MODEL, D_FF, bf16),
+             "fp32": (64, 1024, 2048, f32),
+             # more row tiles than SMs: one ff split, each CTA walks all
+             # of ff (as batched prefill does)
+             "fp32_one_split": (1100, 256, 512, f32),
+             "ragged_bf16": (37, 2000, 1000, bf16),
+             "ragged_fp32": (13, 2047, 129, f32),
+             "ragged_ff_bf16": (5, 136, 200, bf16),
+             "ragged_m_bf16": (37, 256, 208, bf16)}
+    for i, (label, shape) in enumerate(cases.items()):
+        linked_mlp_case(torch, ops, gen, label, shape, row, timed=i < 2)
+    linked_mlp_batched(torch, ops, gen, row)
+    head = row["per_shape"]["decode"]
+    row.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "unlinked_ms", "shape")})
+
+
+def linked_mlp_path_shapes(torch, ops, gen, runs, chunk, report):
+    """The chunked-prefill shapes the serving runs reached that phase 2
+    did not time: the chunks ``serve_schedule`` replanned to."""
+    chunks = sorted({r["plan"]["chunk"] for r in runs.values()} - {chunk})
+    for c in chunks:
+        linked_mlp_case(torch, ops, gen, f"prefill_c{c}",
+                        (SLOTS * c, D_MODEL, D_FF, torch.bfloat16),
+                        report["linked_mlp"], timed=True)
+
+
+def check_split_matmul(torch, ops, gen, report):
+    worst, per_shape = 0.0, {}
+    for label, (M, K, N, bn, bk) in SPLIT_CASES.items():
+        x = torch.randn((M, K), generator=gen, device=DEV)
+        w = torch.randn((K, N), generator=gen, device=DEV) / K ** 0.5
+        b = torch.randn((N,), generator=gen, device=DEV)
+        worst = max(worst, check_close(
+            f"split_matmul {label} ({M},{K})@({K},{N}) block_n {bn} "
+            f"block_k {bk}", ops.split_matmul(x, w, b, block_n=bn,
+                                               block_k=bk),
+            ops.split_matmul_plain(x, w, b, bn, bk), "float32", SPLIT_TOL))
+        if label not in ("ffn1", "ffn2"):
+            continue
+        nbytes = 4 * (M * K + K * N + N + M * N)
+        b_ms, b_by = bound_ms(nbytes, 2 * M * K * N + M * N, "float32")
+        per_shape[label] = {
+            "shape": [M, K, N, bn, bk],
+            "ms": cuda_ms([lambda: ops.split_matmul(x, w, b, block_n=bn,
+                                                    block_k=bk)]),
+            "plain_ms": cuda_ms([lambda: ops.split_matmul_plain(
+                x, w, b, bn, bk)]),
+            "library_ms": cuda_ms([lambda: torch.addmm(b, x, w)]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        r = per_shape[label]
+        print(f"split_matmul {label}: {r['ms']:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), plain {r['plain_ms']:.4f} ms, addmm "
+              f"{r['library_ms']:.4f} ms")
+    head = per_shape["ffn1"]
+    report["split_matmul"] = {
+        "name": "split_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/split_matmul.cu",
+        "replaces": "src/repro/kernels/split_matmul/split_matmul.py:33",
+        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "shape": head["shape"],
+        "per_shape": per_shape,
+    }
+
+
 # ---------------------------------------------------------------------------
 # phase 3 + 4: the served path
 # ---------------------------------------------------------------------------
@@ -385,7 +644,7 @@ def ragged_prompts(reqs, vocab, seed):
     import numpy as np
     rng = np.random.default_rng(seed)
     for r in reqs:
-        n = int(rng.integers(480, 545))
+        n = int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
         r.prompt = rng.integers(0, vocab, size=n).astype(np.int32)
 
 
@@ -476,11 +735,14 @@ def serve_phase(torch, kernels, serve, engine, args, label,
 def parity_phase(torch, serve, pipeline, Model, cfg):
     """Routed cuda plan vs plain-backend plan, reduced depth, greedy."""
     small = dataclasses.replace(cfg, n_layers=2)
-    model = Model(small, device=DEV)
+    # the plain-torch plan at every site; the model's own plan, so the
+    # margin logits of model.forward come from it too
+    plain = pipeline.KernelPlan(decode_dense="torch", decode_paged="gather",
+                                prefill_chunk="torch", linked_matmul="torch",
+                                split_matmul="torch", sampler="fused")
+    model = Model(small, kernel_plan=plain, device=DEV)
     params = model.cast_params(model.init(
         torch.Generator(device=DEV).manual_seed(1)))
-    plain = pipeline.KernelPlan(decode_dense="torch", decode_paged="gather",
-                                sampler="fused")
     out = {}
     for kv in ("dense", "paged"):
         streams = {}
@@ -493,8 +755,9 @@ def parity_phase(torch, serve, pipeline, Model, cfg):
             serve.serve(engine, reqs, args)
             streams[name] = ([list(r.generated) for r in reqs],
                              [r.prompt for r in reqs], engine.kernel_plan)
-        if streams["routed"][2].decode_dense != "cuda" \
-                or streams["routed"][2].sampler != "cuda":
+        routed = streams["routed"][2]
+        if routed.decode_dense != "cuda" or routed.sampler != "cuda" \
+                or routed.linked_matmul != "cuda":
             fail(f"parity {kv}: the routed plan did not route to cuda")
         compared = diverged = 0
         for a, b, prompt in zip(streams["plain"][0], streams["routed"][0],
@@ -524,16 +787,21 @@ def parity_phase(torch, serve, pipeline, Model, cfg):
 # phase 5: the CNN path (the paper's Fig. 7 on the card)
 # ---------------------------------------------------------------------------
 
-def cnn_graphs(cnn_zoo, launch) -> dict:
-    """The zoo's MobileNet and ResNet18 at their published input size and
-    widths (zoo depth), the Figure-5 graph and the Table-4 CBRA graphs."""
+def cnn_graphs(cnn_zoo, launch, dsp) -> dict:
+    """label -> (graph, planner's DeviceSpec or None for the H100's): the
+    zoo's MobileNet and ResNet18 at their published input size and widths
+    (zoo depth), the Figure-5 graph, the Table-4 CBRA graphs, and the
+    zoo's bert_s at BERT-base width planned under the paper's DSP spec
+    ``dsp``."""
     return {
-        "mobilenet_224": cnn_zoo.mobilenet(res=224, width=1.0,
-                                           n_classes=1000),
-        "resnet18_224": cnn_zoo.resnet18(res=224, width=64, n_classes=1000),
-        "fig5": launch.fig5_graph(),
-        **{label: launch.cbra_graph(label, shape, oc)
+        "mobilenet_224": (cnn_zoo.mobilenet(res=224, width=1.0,
+                                            n_classes=1000), None),
+        "resnet18_224": (cnn_zoo.resnet18(res=224, width=64,
+                                          n_classes=1000), None),
+        "fig5": (launch.fig5_graph(), None),
+        **{label: (launch.cbra_graph(label, shape, oc), None)
            for label, (shape, oc) in CBRA_SHAPES.items() if label != "fig5"},
+        "bert_s_dsp": (cnn_zoo.bert_s(seq=128, d=768, n_layers=2), dsp),
     }
 
 
@@ -563,10 +831,16 @@ def device_ms(torch, fn, calls: int = 10):
     return profile_window(torch, prof, calls)["device_ms_per_tick"]
 
 
+#: (run, mode, routed, graphed); a routed run uses the cuda plan
 RUNS = (("vanilla", "vanilla", False, False), ("ho", "ho", False, False),
+        ("ho_cuda", "ho", True, False),
         ("xenos_torch", "xenos", False, False),
         ("xenos_eager", "xenos", True, False),
         ("xenos_graph", "xenos", True, True))
+#: the CNN path's kernels
+CNN_KERNELS = ("cbr_avgpool", "split_matmul")
+#: split_matmul launches per routed ho / xenos inference, by graph
+SPLITS = {"bert_s_dsp": 4}
 
 
 def cnn_phase(torch, kernels, core, plan, graphs, iters: int = 20) -> dict:
@@ -575,26 +849,32 @@ def cnn_phase(torch, kernels, core, plan, graphs, iters: int = 20) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(5)
     out: dict = {}
     print("CNN path, median ms per inference (host clock, synchronized):")
-    print(f"  {'graph':14s} {'vanilla':>9s} {'ho':>9s} {'xenos/torch':>11s} "
-          f"{'xenos eager':>11s} {'xenos graph':>11s}  device ms "
-          "(eager, graph)  cbr_avgpool launches")
-    for label, g in graphs.items():
+    print(f"  {'graph':14s} {'vanilla':>9s} {'ho':>9s} {'ho cuda':>9s} "
+          f"{'xenos/torch':>11s} {'xenos eager':>11s} {'xenos graph':>11s}  "
+          "device ms (eager, graph)  launches per inference")
+    for label, (g, device) in graphs.items():
         params = core.init_params(g, seed=0, device=DEV)
-        shape = g.tensors[g.inputs[0]].shape
-        x = torch.randn(shape, generator=gen, device=DEV)
+        xs = [torch.randn(g.tensors[name].shape, generator=gen, device=DEV)
+              for name in g.inputs]
         res, outs = {}, {}
         for run, mode, routed, graphed in RUNS:
-            eng, _ = core.build_engine(g, mode, plan=plan if routed else None,
+            eng, _ = core.build_engine(g, mode, device=device,
+                                       plan=plan if routed else None,
                                        graphed=graphed)
             kernels.reset_launches()
-            got = eng(params, x)
+            got = eng(params, *xs)      # graphed: warm-up, capture, replay
             outs[run] = [o.clone() for o in got]
-            ms = host_ms(lambda: eng(params, x), iters)
-            res[run] = {"ms": ms,
-                        "launches": kernels.LAUNCHES["cbr_avgpool"]}
+            first = dict(kernels.LAUNCHES)
+            kernels.reset_launches()
+            eng(params, *xs)
+            per_inference = {k: kernels.LAUNCHES[k] for k in CNN_KERNELS}
+            ms = host_ms(lambda: eng(params, *xs), iters)
+            res[run] = {"ms": ms, "per_inference": per_inference,
+                        **{k: first[k] + kernels.LAUNCHES[k]
+                           for k in CNN_KERNELS}}
             if mode == "xenos" and routed:
                 res[run]["device_ms"] = device_ms(
-                    torch, lambda: eng(params, x))
+                    torch, lambda: eng(params, *xs))
             del eng
         want_shape = g.tensors[g.outputs[0]].shape
         for run, o in outs.items():
@@ -604,37 +884,47 @@ def cnn_phase(torch, kernels, core, plan, graphs, iters: int = 20) -> dict:
                      f"or not {want_shape}")
         errs = {run: check_close(f"  {label} {run} vs vanilla", outs[run][0],
                                  outs["vanilla"][0], "float32", ENGINE_TOL)
-                for run in ("ho", "xenos_torch", "xenos_eager",
+                for run in ("ho", "ho_cuda", "xenos_torch", "xenos_eager",
                             "xenos_graph")}
         errs["routed_vs_torch"] = check_close(
             f"  {label} routed xenos vs torch-plan xenos",
             outs["xenos_eager"][0], outs["xenos_torch"][0], "float32",
             CBRA_TOL)
+        errs["routed_ho_vs_torch"] = check_close(
+            f"  {label} routed ho vs torch-plan ho", outs["ho_cuda"][0],
+            outs["ho"][0], "float32", SPLIT_TOL)
         errs["graph_vs_eager"] = check_close(
             f"  {label} CUDA-graph xenos vs eager xenos",
             outs["xenos_graph"][0], outs["xenos_eager"][0], "float32",
             CBRA_TOL)
         cbra = label in CBRA_SHAPES
         for run in ("xenos_eager", "xenos_graph"):
-            if cbra and res[run]["launches"] <= 0:
+            if cbra and res[run]["per_inference"]["cbr_avgpool"] <= 0:
                 fail(f"{label} {run}: cbr_avgpool was never launched")
+        for run in ("ho_cuda", "xenos_eager", "xenos_graph"):
+            n = res[run]["per_inference"]["split_matmul"]
+            if n != SPLITS.get(label, 0):
+                fail(f"{label} {run}: split_matmul launched {n} times per "
+                     f"inference, want {SPLITS.get(label, 0)}")
         for run in ("vanilla", "ho", "xenos_torch"):
-            if res[run]["launches"]:
-                fail(f"{label} {run}: cbr_avgpool launched off its route")
+            if any(res[run][k] for k in CNN_KERNELS):
+                fail(f"{label} {run}: a kernel launched off its route")
         dev = [res[r]["device_ms"] for r in ("xenos_eager", "xenos_graph")]
         busy = [d / res[r]["ms"] if d else None for d, r in
                 zip(dev, ("xenos_eager", "xenos_graph"))]
         fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+        counts = ", ".join(f"{k} {res['xenos_graph']['per_inference'][k]}"
+                           for k in CNN_KERNELS)
         print(f"  {label:14s} " + " ".join(
-            f"{res[r]['ms']:{9 if i < 2 else 11}.4f}"
-            for i, r in enumerate(("vanilla", "ho", "xenos_torch",
+            f"{res[r]['ms']:{9 if i < 3 else 11}.4f}"
+            for i, r in enumerate(("vanilla", "ho", "ho_cuda", "xenos_torch",
                                    "xenos_eager", "xenos_graph")))
-            + f"  {fmt(dev[0])}, {fmt(dev[1])}  "
-            f"{res['xenos_eager']['launches']}, "
-            f"{res['xenos_graph']['launches']}")
+            + f"  {fmt(dev[0])}, {fmt(dev[1])}  {counts}")
         print(f"    busy share eager {fmt(busy[0])}, graph {fmt(busy[1])}; "
               f"max abs err {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}")
-        out[label] = {"shape": list(shape), "runs": res, "errors": errs,
+        out[label] = {"inputs": [list(x.shape) for x in xs], "runs": res,
+                      "errors": errs, "planner": device.name if device
+                      else "h100_sxm",
                       "busy_share": {"xenos_eager": busy[0],
                                      "xenos_graph": busy[1]},
                       "ops": len(g.nodes)}
@@ -662,7 +952,10 @@ def main() -> int:
     from repro_torch.core import pipeline
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.fused_sampler import ops as fs_ops
+    from repro_torch.core.dos import DeviceSpec
     from repro_torch.kernels.linked_cbr_pool import ops as cb_ops
+    from repro_torch.kernels.linked_matmul import ops as lm_ops
+    from repro_torch.kernels.split_matmul import ops as sm_ops
     from repro_torch.launch import optimize_graph, serve
     from repro_torch.models.model import Model
 
@@ -701,6 +994,8 @@ def main() -> int:
                             top_p=0.95)
     paged_engine = serve.build_engine(paged_args, model, params)
     bs = paged_engine.pool.cfg.block_size
+    # and its prefill chunk: linked_mlp's prefill shape is (slots x chunk)
+    chunk = paged_engine.scheduler.cfg.chunk
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     report: dict = {}
@@ -708,6 +1003,8 @@ def main() -> int:
     check_paged(torch, dec_ops, gen, bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
     check_cbr_avgpool(torch, cb_ops, gen, report)
+    check_linked_mlp(torch, lm_ops, gen, chunk, report)
+    check_split_matmul(torch, sm_ops, gen, report)
     result["kernels"] = report
     if cli.kernels_only:
         print(json.dumps(result, default=str))
@@ -722,32 +1019,36 @@ def main() -> int:
                                      paged_args, "paged_sampled"),
     }
     del dense_engine, paged_engine
-    need = {"dense_greedy": ("gqa_decode", "fused_mask"),
-            "paged_sampled": ("gqa_decode_paged", "fused_mask")}
+    need = {"dense_greedy": ("gqa_decode", "fused_mask", "linked_mlp"),
+            "paged_sampled": ("gqa_decode_paged", "fused_mask",
+                              "linked_mlp")}
     for label, names in need.items():
         for name in names:
             if runs[label]["launches"].get(name, 0) <= 0:
                 fail(f"{label}: kernel {name} was never launched")
     result["serve"] = runs
+    linked_mlp_path_shapes(torch, lm_ops, gen, runs, chunk, report)
     del params
     torch.cuda.empty_cache()
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
     torch.cuda.empty_cache()
 
     plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
-    if plan.linked_matmul != "cuda":
-        fail(f"the cuda kernel plan does not route linked_matmul: {plan}")
-    result["cnn"] = cnn_phase(torch, kernels, core, plan,
-                              cnn_graphs(cnn_zoo, optimize_graph))
+    if plan.linked_matmul != "cuda" or plan.split_matmul != "cuda":
+        fail(f"the cuda kernel plan does not route linked_matmul and "
+             f"split_matmul: {plan}")
+    result["cnn"] = cnn_phase(
+        torch, kernels, core, plan,
+        cnn_graphs(cnn_zoo, optimize_graph, DeviceSpec.tms320c6678()))
 
     table = []
     for name in ("gqa_decode", "gqa_decode_paged", "fused_mask",
-                 "cbr_avgpool"):
+                 "cbr_avgpool", "linked_mlp", "split_matmul"):
         row = dict(report[name])
-        if name == "cbr_avgpool":
+        if name in CNN_KERNELS:
             row["launches"] = sum(
-                g["runs"][r]["launches"] for g in result["cnn"].values()
-                for r in ("xenos_eager", "xenos_graph"))
+                g["runs"][r][name] for g in result["cnn"].values()
+                for r in ("ho_cuda", "xenos_eager", "xenos_graph"))
         else:
             row["launches"] = sum(r["launches"].get(name, 0)
                                   for r in runs.values())

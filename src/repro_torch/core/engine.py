@@ -27,8 +27,10 @@ the engine to fp32 references turn TF32 off.
 
 The ``linked_matmul`` site of a ``KernelPlan`` routes an eligible linked
 ``cbra`` op (1x1 conv, stride 1, 2x2 pool) to the hand-written
-``cbr_avgpool`` CUDA kernel (``kernels/linked_cbr_pool``).  On CPU
-tensors the kernel's wrapper runs its plain version.
+``cbr_avgpool`` CUDA kernel (``kernels/linked_cbr_pool``); its
+``split_matmul`` site routes the DOS parameter split of a matmul (``ho``
+and ``xenos``) to the ``split_matmul`` kernel (``kernels/split_matmul``).
+On CPU tensors each kernel's wrapper runs its plain version.
 
 ``build_engine`` runs the per-mode pipeline and wraps the result; it
 returns the PassReport too.
@@ -141,19 +143,35 @@ def _pool(x, kind: str, ksize: int = 2, stride: int | None = None):
     return y.permute(0, 2, 3, 1)
 
 
-def _matmul_split(x, w, b, plan: SplitPlan | None):
+def _split_kernel(x, w, b, block_n: int, block_k: int):
+    """x (..., K) through the ``split_matmul`` kernel, leading dims
+    flattened."""
+    from ..kernels.split_matmul import ops as split_ops
+    y = split_ops.split_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
+                               b, block_n=block_n, block_k=block_k)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def _matmul_split(x, w, b, plan: SplitPlan | None, backend: str = "torch"):
     """Matmul with HO param split: contract in K-chunks sized to the
-    private tier (§4.2.2)."""
+    private tier (§4.2.2).  ``backend`` is the ``split_matmul`` site of a
+    ``KernelPlan``: ``"cuda"`` runs each split the reference makes as one
+    ``split_matmul`` launch (``block_n = N / K`` or ``block_k = C / inC``);
+    a matmul the reference leaves unsplit stays ``x @ w + b``."""
     if plan is None or not plan.param_chunks:
         return x @ w + b
     k_chunks = plan.param_chunks.get("K", 1)
     if k_chunks > 1 and w.shape[1] % k_chunks == 0:
+        if backend == "cuda":
+            return _split_kernel(x, w, b, w.shape[1] // k_chunks, w.shape[0])
         # output-channel split: y_i = W_i x + B_i, joined by concat (Eq. 1)
         ws = torch.chunk(w, k_chunks, dim=1)
         bs = torch.chunk(b, k_chunks, dim=0)
         return torch.cat([x @ wi + bi for wi, bi in zip(ws, bs)], dim=-1)
     c_chunks = plan.param_chunks.get("inC", 1)
     if c_chunks > 1 and w.shape[0] % c_chunks == 0:
+        if backend == "cuda":
+            return _split_kernel(x, w, b, w.shape[1], w.shape[0] // c_chunks)
         xs = torch.chunk(x, c_chunks, dim=-1)
         ws = torch.chunk(w, c_chunks, dim=0)
         acc = b
@@ -175,10 +193,13 @@ def links_to_kernel(node: OpNode) -> bool:
 
 def eval_op(node: OpNode, inputs: list[torch.Tensor],
             params: dict[str, torch.Tensor],
-            linked_backend: str = "torch") -> list[torch.Tensor]:
+            linked_backend: str = "torch",
+            split_backend: str = "torch") -> list[torch.Tensor]:
     """Evaluate one op in NHWC semantics.  ``linked_backend`` is the
     ``linked_matmul`` site of a ``KernelPlan``: ``"cuda"`` lowers eligible
-    linked ``cbra`` ops to the ``cbr_avgpool`` kernel."""
+    linked ``cbra`` ops to the ``cbr_avgpool`` kernel.  ``split_backend``
+    is its ``split_matmul`` site: ``"cuda"`` lowers a matmul's DOS
+    parameter split to the ``split_matmul`` kernel."""
     t = node.op_type
     a = node.attrs
     plan: SplitPlan | None = node.dataflow.get("split_plan")
@@ -219,7 +240,7 @@ def eval_op(node: OpNode, inputs: list[torch.Tensor],
         if not node.params:  # dynamic two-operand form (attention scores)
             return [inputs[0] @ inputs[1]]
         w, b = params[node.params[0]], params[node.params[1]]
-        return [_matmul_split(x, w, b, plan)]
+        return [_matmul_split(x, w, b, plan, split_backend)]
     if t == "add":
         return [inputs[0] + inputs[1]]
     if t == "mul":
@@ -278,8 +299,10 @@ class Engine:
             raise ValueError(f"unknown engine mode {mode!r}")
         self.graph = g
         self.mode = mode
-        #: KernelPlan routing the linked-op lowering; defaults to the
-        #: plain-torch seed plan (``KernelPlan()``).
+        #: KernelPlan routing the linked-op and split-matmul lowerings;
+        #: defaults to the plain-torch seed plan (``KernelPlan()``).  The
+        #: per-op modes (vanilla, ho) link nothing, so only its
+        #: ``split_matmul`` site applies there.
         self.plan = plan if plan is not None else KernelPlan()
         self.graphed = graphed
         self._param_names = sorted({p for n in g.nodes for p in n.params})
@@ -291,7 +314,8 @@ class Engine:
         env: dict[str, torch.Tensor] = dict(zip(g.inputs, inputs))
         for node in g.nodes:
             ins = [env[t] for t in node.inputs]
-            outs = eval_op(node, ins, params, self.plan.linked_matmul)
+            outs = eval_op(node, ins, params, self.plan.linked_matmul,
+                           self.plan.split_matmul)
             env.update(zip(node.outputs, outs))
         return tuple(env[t] for t in g.outputs)
 
@@ -355,7 +379,8 @@ class Engine:
             name: _to_storage(x) for name, x in zip(g.inputs, inputs)}
         for node in g.nodes:
             ins = [_from_storage(env[t]) for t in node.inputs]  # mismatched read
-            outs = eval_op(node, ins, params, "torch")
+            outs = eval_op(node, ins, params, "torch",
+                           self.plan.split_matmul)
             env.update(zip(node.outputs, (_to_storage(o) for o in outs)))
             if sync:
                 torch.cuda.synchronize()  # per-op dispatch boundary
@@ -382,8 +407,9 @@ def build_engine(g: Graph, mode: str = "xenos", device=None, plan=None,
     the full default pipeline.  ``device`` is the planner's
     :class:`~repro_torch.core.dos.DeviceSpec` (None: the H100's).  Returns
     ``(Engine, PassReport)``.  ``plan`` (``KernelPlan`` or None for the
-    seed plan) routes the linked-op lowering — ``select_kernel_plan(
-    {"accelerator": "cuda"})`` routes it to the CUDA kernel."""
+    seed plan) routes the linked-op and split-matmul lowerings —
+    ``select_kernel_plan({"accelerator": "cuda"})`` routes both to the
+    CUDA kernels."""
     from .pipeline import optimize_for_mode
     opt, report = optimize_for_mode(g, mode, device)
     return Engine(opt, mode, plan, graphed), report

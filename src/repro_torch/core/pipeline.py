@@ -652,9 +652,20 @@ register_pass(Pass(
 #:                         gather as an exact one-hot contraction |
 #:                         ``cuda`` the paged flash-decode kernel);
 #:   * ``prefill_chunk`` — chunked prefill attention (``torch`` only);
-#:   * ``linked_matmul`` — the CNN executor's linked 1x1 ``cbra`` op
-#:                         (``torch`` conv+relu+pool | ``cuda`` the
-#:                         ``cbr_avgpool`` kernel);
+#:   * ``linked_matmul`` — operator linking: the CNN executor's linked 1x1
+#:                         ``cbra`` op (``torch`` conv+relu+pool | ``cuda``
+#:                         the ``cbr_avgpool`` kernel) and the served
+#:                         decoder's SwiGLU MLP (``torch`` three matmuls |
+#:                         ``cuda`` the ``linked_mlp`` kernel, h on chip),
+#:                         which the reference's ``models.layers.swiglu``
+#:                         docstring names as the transformer instance of
+#:                         Matmul->Matmul linking and where
+#:                         ``repro.kernels.linked_matmul`` plugs in;
+#:   * ``split_matmul``  — the CNN executor's DOS parameter split of a
+#:                         matmul (``torch`` chunked matmuls | ``cuda`` the
+#:                         ``split_matmul`` kernel).  Port only: the
+#:                         reference has no such site, its split is plain
+#:                         XLA (``repro.core.engine._matmul_split``);
 #:   * ``sampler``       — token sampling (``reference`` two-sort |
 #:                         ``fused`` one-sort | ``cuda`` sort-free
 #:                         ``fused_mask`` kernel).
@@ -666,6 +677,7 @@ KERNEL_SITE_BACKENDS: dict[str, tuple[str, ...]] = {
     "decode_paged": ("gather", "fold", "cuda"),
     "prefill_chunk": ("torch",),
     "linked_matmul": ("torch", "cuda"),
+    "split_matmul": ("torch", "cuda"),
     "sampler": ("reference", "fused", "cuda"),
 }
 
@@ -682,6 +694,7 @@ class KernelPlan:
     decode_paged: str = "gather"
     prefill_chunk: str = "torch"
     linked_matmul: str = "torch"
+    split_matmul: str = "torch"
     sampler: str = "reference"
 
     def __post_init__(self):
@@ -737,8 +750,9 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
     """Decide the per-site backends.  Returns ``(plan, decision detail)``.
 
     ``accelerator == "cuda"`` (the engine's device type) routes dense and
-    paged decode attention, the linked ``cbra`` op and the sampler to the
-    hand-written CUDA kernels, the way the reference routes ``tpu`` to Pallas; a host keeps
+    paged decode attention, the linked ``cbra`` op and SwiGLU MLP, the
+    DOS-split matmul and the sampler to the hand-written CUDA kernels, the
+    way the reference routes ``tpu`` to Pallas; a host keeps
     plain-torch attention, the gather/fold roofline choice and the
     one-sort ``fused`` sampler.  The reference's measured-timings
     override comes with the autotuner that measures them."""
@@ -753,6 +767,7 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
         decode_paged="cuda" if cuda else paged_default,
         prefill_chunk="torch",
         linked_matmul="cuda" if cuda else "torch",
+        split_matmul="cuda" if cuda else "torch",
         sampler="cuda" if cuda else "fused",
     )
     return plan, detail
@@ -774,7 +789,7 @@ register_pass(Pass(
     fn=_kernel_select_fn,
     description="Kernel routing: accelerator + roofline cost model -> "
                 "per-site KernelPlan (decode attention, linked matmul, "
-                "sampler)",
+                "split matmul, sampler)",
 ))
 
 

@@ -37,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: one shared library per CUDA source
 SOURCES: tuple[str, ...] = ("decode_attention", "fused_sampler",
-                            "linked_cbr_pool")
+                            "linked_cbr_pool", "linked_mlp", "split_matmul")
 
 NVCC_FLAGS: tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,7 +45,8 @@ NVCC_FLAGS: tuple[str, ...] = (
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"gqa_decode": 0, "gqa_decode_paged": 0,
-                            "fused_mask": 0, "cbr_avgpool": 0}
+                            "fused_mask": 0, "cbr_avgpool": 0,
+                            "linked_mlp": 0, "split_matmul": 0}
 
 #: kernel name -> launches recorded into CUDA graphs under capture
 RECORDED: dict[str, int] = dict.fromkeys(LAUNCHES, 0)

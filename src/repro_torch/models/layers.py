@@ -114,8 +114,18 @@ def swiglu_specs(d: int, ff: int) -> dict[str, ParamSpec]:
     }
 
 
-def swiglu(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """(silu(x@gate) * (x@up)) @ down."""
+def swiglu(p: dict[str, torch.Tensor], x: torch.Tensor,
+           backend: str = "torch") -> torch.Tensor:
+    """(silu(x@gate) * (x@up)) @ down: the transformer instance of the
+    paper's Matmul->Matmul operator linking.  ``backend`` is the
+    ``linked_matmul`` site of a ``KernelPlan``: ``"torch"`` runs the three
+    matmuls, ``"cuda"`` the ``linked_mlp`` kernel, which keeps the hidden
+    activation on chip (its plain version on CPU tensors)."""
+    if backend == "cuda":
+        from ..kernels.linked_matmul import ops as linked_ops
+        return linked_ops.linked_mlp(x, p["gate"].to(x.dtype),
+                                     p["up"].to(x.dtype),
+                                     p["down"].to(x.dtype))
     h = F.silu(x @ p["gate"].to(x.dtype)) * (x @ p["up"].to(x.dtype))
     return h @ p["down"].to(x.dtype)
 

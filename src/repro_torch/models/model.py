@@ -45,7 +45,8 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         #: per-site backend routing; the default is the plain-torch seed
-        #: path.  serve_step accepts a per-call override.
+        #: path.  prefill_step, prefill_chunk and serve_step accept a
+        #: per-call override.
         self.kernel_plan = kernel_plan if kernel_plan is not None \
             else KernelPlan()
         self.dtype = _DTYPES[cfg.dtype]
@@ -104,7 +105,8 @@ class Model:
     def forward(self, params, batch):
         """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
         x = self._embed(params, batch["tokens"])
-        x = T.decoder_stack(self._layers(params), x, cfg=self.cfg)
+        x = T.decoder_stack(self._layers(params), x, cfg=self.cfg,
+                            mlp_backend=self.kernel_plan.linked_matmul)
         return self._head(params, x), torch.zeros((), device=x.device)
 
     # ---------------------------------------------------------------- serving
@@ -135,18 +137,20 @@ class Model:
     def _is_paged(caches) -> bool:
         return isinstance(caches.kv, A.PagedKVCache)
 
-    def _block(self, lp, h, attn):
+    def _block(self, lp, h, attn, mlp_backend: str):
         """Residual attention then residual SwiGLU for one layer."""
         h = h + attn(lp["attn"], rms_norm(h, lp["norm1"]))
-        return h + swiglu(lp["mlp"], rms_norm(h, lp["norm2"]))
+        return h + swiglu(lp["mlp"], rms_norm(h, lp["norm2"]), mlp_backend)
 
-    def prefill_step(self, params, batch, max_len: int = 0):
+    def prefill_step(self, params, batch, max_len: int = 0, plan=None):
         """Run the prompt -> (last-position logits (B, V), fresh caches).
 
         ``max_len`` sizes the cache for the decode horizon.
         ``batch["lengths"]`` (B,) makes this a right-padded multi-sequence
-        prefill: per-row logits come from position ``lengths[b]-1``."""
+        prefill: per-row logits come from position ``lengths[b]-1``.
+        ``plan`` overrides ``self.kernel_plan`` for this call."""
         cfg = self.cfg
+        plan = plan if plan is not None else self.kernel_plan
         tokens = batch["tokens"].to(self.device)
         lengths = batch.get("lengths")
         if lengths is not None:
@@ -157,7 +161,8 @@ class Model:
         for lp, c in zip(self._layers(params),
                          T.layer_views(caches, cfg.n_layers)):
             x = self._block(lp, x, lambda p, h, c=c: A.prefill_into_cache(
-                p, h, c.kv, cfg=cfg, lengths=lengths)[0])
+                p, h, c.kv, cfg=cfg, lengths=lengths)[0],
+                plan.linked_matmul)
         if lengths is None:
             x = x[:, -1:]
         else:
@@ -165,14 +170,17 @@ class Model:
             x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[2]))
         return self._head(params, x)[:, 0], caches
 
-    def prefill_chunk(self, params, caches, tokens, offsets, n_new):
+    def prefill_chunk(self, params, caches, tokens, offsets, n_new,
+                      plan=None):
         """Advance a chunked prefill by up to C tokens per row, in place.
 
         tokens: (B, C) right-padded; offsets: (B,) tokens already
         prefilled; n_new: (B,) valid tokens (0 = bystander, untouched).
         Returns (logits at each row's last valid chunk position (B, V),
-        caches).  B is the full slot batch."""
+        caches).  B is the full slot batch.  ``plan`` overrides
+        ``self.kernel_plan`` for this call."""
         cfg = self.cfg
+        plan = plan if plan is not None else self.kernel_plan
         tokens = tokens.to(self.device)
         offsets = offsets.to(self.device, torch.int32)
         n_new = n_new.to(self.device, torch.int32)
@@ -183,7 +191,8 @@ class Model:
         for lp, c in zip(self._layers(params),
                          T.layer_views(caches, cfg.n_layers)):
             x = self._block(lp, x, lambda p, h, c=c: fn(
-                p, h, c.kv, cfg=cfg, offsets=offsets, n_new=n_new)[0])
+                p, h, c.kv, cfg=cfg, offsets=offsets, n_new=n_new)[0],
+                plan.linked_matmul)
         idx = (n_new - 1).clamp(0, C - 1).long()
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[2]))
         return self._head(params, x)[:, 0], caches
@@ -201,7 +210,8 @@ class Model:
         x, _ = T.decoder_stack_decode(
             self._layers(params), x, T.layer_views(caches, cfg.n_layers),
             cfg=cfg, dense_backend=plan.decode_dense,
-            paged_backend=plan.decode_paged, live=live)
+            paged_backend=plan.decode_paged, mlp_backend=plan.linked_matmul,
+            live=live)
         return self._head(params, x)[:, 0], caches
 
     def reset_cache_rows(self, caches, rows):

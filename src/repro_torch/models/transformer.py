@@ -71,17 +71,18 @@ def layer_views(stacked, n_layers: int) -> list:
     return [view(stacked, i) for i in range(n_layers)]
 
 
-def decoder_layer(p, x, *, cfg):
-    """x: (B, S, d) -> (B, S, d)."""
+def decoder_layer(p, x, *, cfg, mlp_backend: str = "torch"):
+    """x: (B, S, d) -> (B, S, d).  ``mlp_backend``: the ``linked_matmul``
+    site (see :func:`~.layers.swiglu`)."""
     x = x + A.attention_block(p["attn"], rms_norm(x, p["norm1"]), cfg=cfg)
-    return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]))
+    return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]), mlp_backend)
 
 
-def decoder_stack(layers: list, x, *, cfg):
+def decoder_stack(layers: list, x, *, cfg, mlp_backend: str = "torch"):
     """``layers``: per-layer param views (see :func:`layer_views`).  The
     dense family has no auxiliary loss."""
     for lp in layers:
-        x = decoder_layer(lp, x, cfg=cfg)
+        x = decoder_layer(lp, x, cfg=cfg, mlp_backend=mlp_backend)
     return x
 
 
@@ -107,7 +108,8 @@ def init_paged_layer_cache(cfg, batch: int, pool_blocks: int,
 
 def decoder_layer_decode(p, x, cache: LayerCache, *, cfg,
                          dense_backend: str = "torch",
-                         paged_backend: str = "gather", live=None):
+                         paged_backend: str = "gather",
+                         mlp_backend: str = "torch", live=None):
     """One-token decode through one layer, updating ``cache`` in place.
     x: (B, 1, d)."""
     att, _ = A.attention_decode_block(p["attn"], rms_norm(x, p["norm1"]),
@@ -115,15 +117,17 @@ def decoder_layer_decode(p, x, cache: LayerCache, *, cfg,
                                       dense_backend=dense_backend,
                                       paged_backend=paged_backend, live=live)
     x = x + att
-    return x + swiglu(p["mlp"], rms_norm(x, p["norm2"])), cache
+    return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]), mlp_backend), cache
 
 
 def decoder_stack_decode(layers: list, x, caches: list, *, cfg,
                          dense_backend: str = "torch",
-                         paged_backend: str = "gather", live=None):
+                         paged_backend: str = "gather",
+                         mlp_backend: str = "torch", live=None):
     """``layers``/``caches``: per-layer views; caches update in place."""
     for lp, cache in zip(layers, caches):
         x, _ = decoder_layer_decode(lp, x, cache, cfg=cfg,
                                     dense_backend=dense_backend,
-                                    paged_backend=paged_backend, live=live)
+                                    paged_backend=paged_backend,
+                                    mlp_backend=mlp_backend, live=live)
     return x, caches

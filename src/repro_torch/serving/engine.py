@@ -66,6 +66,8 @@ def settle_ticks(prompt_len: int, chunk: int) -> int:
 def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
     """The serving steps as eager callables, cached **on the model** per
     ``(max_len, plan)`` — the counterpart of the reference's jit cache.
+    Decode, one-shot and chunked prefill all run under ``plan`` (its
+    ``linked_matmul`` site routes every layer's SwiGLU MLP).
     The plan's ``sampler`` site picks the sampling lowering:
     ``"reference"`` (two-sort ``sample_tokens``, its own dispatch after
     decode) or ``"fused"`` / ``"cuda"`` (the fused sampler — one-sort
@@ -98,8 +100,9 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
 
         cache[key] = {
             "serve": serve,
-            "prefill": lambda p, b: model.prefill_step(p, b, max_len=max_len),
-            "chunk": model.prefill_chunk,
+            "prefill": lambda p, b: model.prefill_step(p, b, max_len=max_len,
+                                                       plan=plan),
+            "chunk": functools.partial(model.prefill_chunk, plan=plan),
             "reset": model.reset_cache_rows,
             "sample": sample,
             "serve_sample": serve_sample,

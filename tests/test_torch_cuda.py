@@ -14,6 +14,8 @@ from repro_torch import kernels
 from repro_torch.kernels.decode_attention import ops as t_da
 from repro_torch.kernels.fused_sampler import ops as t_fs
 from repro_torch.kernels.linked_cbr_pool import ops as t_cb
+from repro_torch.kernels.linked_matmul import ops as t_lm
+from repro_torch.kernels.split_matmul import ops as t_sm
 
 
 @pytest.fixture
@@ -226,3 +228,218 @@ def test_cnn_engine_graph_sees_swapped_weights(card):
     halved = graphed(params, x)[0].clone()
     assert not torch.equal(halved, swapped)
     assert torch.equal(halved, eager(params, x)[0])
+
+
+def _graphed(fn):
+    """Capture ``fn()`` into a CUDA graph (after a side-stream warm-up);
+    returns (graph, its static output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _mlp(card, M, d, ff, dtype):
+    """x ~ N(0, 1), weights at the model's fan-in scale, in ``dtype``."""
+    rnd = lambda *s: torch.randn(s, generator=card, device="cuda")
+    return (rnd(M, d).to(dtype), (rnd(d, ff) / d ** 0.5).to(dtype),
+            (rnd(d, ff) / d ** 0.5).to(dtype),
+            (rnd(ff, d) / ff ** 0.5).to(dtype))
+
+
+#: linked_mlp: element-wise, by input type (bf16: h and y rounded)
+MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=2e-2, atol=1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,M,d,ff", [
+    ("bfloat16", 8, 2048, 6144), ("bfloat16", 256, 2048, 6144),
+    ("bfloat16", 1, 2048, 6144), ("float32", 64, 512, 1024),
+    ("float32", 37, 50, 130), ("bfloat16", 13, 2047, 129),
+    ("float32", 8, 6000, 70), ("bfloat16", 1, 1, 1),
+    ("bfloat16", 5, 136, 200), ("float32", 37, 64, 136),
+    ("bfloat16", 37, 256, 208), ("float32", 1100, 256, 512)])
+def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
+    """The serving shapes (decode M = 8, prefill M = 8 x 32, M = 1), fp32,
+    ragged M, d and ff with 16-byte loads where rows are aligned (a last
+    ff block of 8 or 16 columns) and scalar loads where not, a d wide
+    enough to shrink the row tile, and more row tiles than SMs (one ff
+    split: each CTA walks all of ff); two launches give the same bits (no
+    atomics)."""
+    dt = getattr(torch, dtype)
+    x, wg, wu, wd = _mlp(card, M, d, ff, dt)
+    kernels.reset_launches()
+    got = t_lm.linked_mlp(x, wg, wu, wd)
+    again = t_lm.linked_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linked_mlp"] == 2
+    assert got.dtype == dt and got.shape == (M, d)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(),
+                               t_lm.linked_mlp_plain(x, wg, wu, wd).float(),
+                               **MLP_TOL[dtype])
+    batched = t_lm.linked_mlp(x[None], wg, wu, wd)
+    assert batched.shape == (1, M, d) and torch.equal(batched[0], got)
+
+
+#: batched prefill's shape, bf16: the kernel's worst error from the
+#: fp64-summed MLP at most this many times the plain version's
+MLP_ORDER_FACTOR = 2.0
+
+
+def _mlp_fp64(x, wg, wu, wd):
+    """Sums in fp64; h and y rounded to x's dtype as in the plain version."""
+    x64, g64, u64, d64 = (a.double() for a in (x, wg, wu, wd))
+    h = (torch.nn.functional.silu(x64 @ g64) * (x64 @ u64)).to(x.dtype)
+    return (h.double() @ d64).to(x.dtype)
+
+
+def _mlp_err(got, ref):
+    tol = MLP_TOL["bfloat16"]
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
+            ).max().item()
+
+
+@pytest.mark.cuda
+def test_linked_mlp_batched_prefill_within_order_noise(card):
+    """Batched prefill pads 8 admitted prompts to the longest (544
+    tokens): M = 4352 in bf16, where two correct fp32 summation orders,
+    each rounding h to bf16, can land a few ulps apart.  The kernel's
+    worst error from the fp64-summed MLP stays within MLP_ORDER_FACTOR
+    times the plain version's, and leaving out one up-projection term
+    fails that test."""
+    x, wg, wu, wd = _mlp(card, 8 * 544, 2048, 6144, torch.bfloat16)
+    ref = _mlp_fp64(x, wg, wu, wd)
+    e_plain = _mlp_err(t_lm.linked_mlp_plain(x, wg, wu, wd), ref)
+    assert _mlp_err(t_lm.linked_mlp(x, wg, wu, wd), ref) \
+        <= MLP_ORDER_FACTOR * e_plain
+    x[:, -1] = 0
+    assert _mlp_err(t_lm.linked_mlp(x, wg, wu, wd), ref) \
+        > MLP_ORDER_FACTOR * e_plain
+
+
+@pytest.mark.cuda
+def test_linked_mlp_replays_in_a_cuda_graph(card):
+    """Captured with its workspace from the graph's pool, replayed on new
+    inputs written in place: each replay equals an eager launch."""
+    x, wg, wu, wd = _mlp(card, 8, 512, 1536, torch.bfloat16)
+    graph, out = _graphed(lambda: t_lm.linked_mlp(x, wg, wu, wd))
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=card, device="cuda"))
+        graph.replay()
+        assert torch.equal(out, t_lm.linked_mlp(x, wg, wu, wd))
+
+
+@pytest.mark.cuda
+def test_linked_mlp_rejects_what_it_does_not_take(card):
+    x, wg, wu, wd = _mlp(card, 4, 64, 96, torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_lm.linked_mlp(x.half(), wg.half(), wu.half(), wd.half())
+    with pytest.raises(ValueError, match="share"):
+        t_lm.linked_mlp(x, wg.bfloat16(), wu, wd)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_lm.linked_mlp(x, wg, wu, wd.t().contiguous().t())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        t_lm.linked_mlp(x, wg.cpu(), wu, wd)
+    with pytest.raises(ValueError, match="want"):
+        t_lm.linked_mlp(x, wg, wu, wd[:, :10])
+    wide = _mlp(card, 1, 30000, 8, torch.float32)
+    with pytest.raises(ValueError, match="does not fit"):
+        t_lm.linked_mlp(*wide)
+
+
+#: split_matmul: element-wise, IEEE fp32 both sides
+SPLIT_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bn,bk", [
+    (128, 768, 3072, 1024, 768), (128, 3072, 768, 256, 3072),
+    (128, 768, 3072, 3072, 192), (33, 70, 100, 30, 27), (1, 5, 3, 1, 2),
+    (200, 64, 65, 65, 64), (512, 200, 2048, 2048, 64),
+    (600, 70, 1000, 333, 27)])
+def test_split_matmul_kernel_matches_plain(card, M, K, N, bn, bk):
+    """bert_s's two DSP-plan FFN tiles (seq 128, d 768), an inC split,
+    ragged shapes and tiles, on both block shapes (32 x 32 for small
+    grids, 64 x 64 where those fill the SMs)."""
+    x = torch.randn((M, K), generator=card, device="cuda")
+    w = torch.randn((K, N), generator=card, device="cuda") / K ** 0.5
+    b = torch.randn((N,), generator=card, device="cuda")
+    kernels.reset_launches()
+    got = t_sm.split_matmul(x, w, b, block_n=bn, block_k=bk)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["split_matmul"] == 1
+    torch.testing.assert_close(
+        got, t_sm.split_matmul_plain(x, w, b, bn, bk), **SPLIT_TOL)
+
+
+@pytest.mark.cuda
+def test_split_matmul_replays_in_a_cuda_graph(card):
+    x = torch.randn((64, 96), generator=card, device="cuda")
+    w = torch.randn((96, 48), generator=card, device="cuda")
+    b = torch.randn((48,), generator=card, device="cuda")
+    graph, out = _graphed(lambda: t_sm.split_matmul(x, w, b, block_n=16,
+                                                    block_k=32))
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=card, device="cuda"))
+        graph.replay()
+        assert torch.equal(out, t_sm.split_matmul(x, w, b, block_n=16,
+                                                  block_k=32))
+
+
+@pytest.mark.cuda
+def test_split_matmul_rejects_what_it_does_not_take(card):
+    x = torch.randn((4, 8), generator=card, device="cuda")
+    w = torch.randn((8, 6), generator=card, device="cuda")
+    b = torch.zeros((6,), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        t_sm.split_matmul(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                          block_n=3, block_k=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_sm.split_matmul(x, w.t().contiguous().t(), b, block_n=3,
+                          block_k=8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        t_sm.split_matmul(x, w, b.cpu(), block_n=3, block_k=8)
+
+
+@pytest.mark.cuda
+def test_cnn_engine_routes_dsp_split_of_bert_s(card):
+    """bert_s(d=768) under the DSP spec: the routed ho and xenos engines
+    launch split_matmul 4 times per inference (graphed xenos too) and
+    equal the torch plan to 2e-5; lstm(d=512) launches none."""
+    from repro_torch.configs import cnn_zoo
+    from repro_torch.core import build_engine, init_params, pipeline
+    from repro_torch.core.dos import DeviceSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
+    dsp = DeviceSpec.tms320c6678()
+    g = cnn_zoo.bert_s(seq=64, d=768, n_layers=2)
+    params = init_params(g, seed=0)
+    x = torch.randn(g.tensors[g.inputs[0]].shape, generator=card,
+                    device="cuda")
+    for mode, graphed in (("ho", False), ("xenos", False), ("xenos", True)):
+        plain, _ = build_engine(g, mode, device=dsp, graphed=False)
+        routed, _ = build_engine(g, mode, device=dsp, plan=plan,
+                                 graphed=graphed)
+        want = plain(params, x)[0].clone()
+        routed(params, x)
+        kernels.reset_launches()
+        for _ in range(2):
+            got = routed(params, x)[0]
+        assert kernels.LAUNCHES["split_matmul"] == 8, (mode, graphed)
+        torch.testing.assert_close(got, want, **SPLIT_TOL)
+    g = cnn_zoo.lstm(d=512)
+    params = init_params(g, seed=0)
+    ins = [torch.randn(g.tensors[n].shape, generator=card, device="cuda")
+           for n in g.inputs]
+    routed, _ = build_engine(g, "ho", device=dsp, plan=plan)
+    kernels.reset_launches()
+    routed(params, *ins)
+    assert kernels.LAUNCHES["split_matmul"] == 0
