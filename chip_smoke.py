@@ -11,10 +11,14 @@ Phases (any failure exits non-zero before the result line):
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes (slots 8, max_len 2048, qwen3-1.7b's 16 q / 8 kv heads of 128,
    vocab 151,936), in bf16 and fp32, with ragged W, -1 table entries,
-   length-0 rows, k <= 0, T = 0, p = 1 and ties; decode element by
-   element (|kernel - plain| <= atol + rtol |plain|), the mask by equal
-   support outside the nucleus-boundary tokens and equal survivor values;
-   time kernel, plain version and the library yardstick with CUDA events;
+   length-0 rows, k <= 0, T = 0, p = 1 and ties; decode also at lengths
+   on each boundary of the kernel's live-span split (and one slot either
+   side), in dense rings that start late, wrap, or hold only the last
+   slot; decode element by element (|kernel - plain| <= atol + rtol
+   |plain|), the mask by equal support outside the nucleus-boundary
+   tokens and equal survivor values; time kernel, plain version and the
+   library yardstick with CUDA events, and print each decode kernel's
+   share of its bound;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -22,6 +26,8 @@ Phases (any failure exits non-zero before the result line):
    request must complete with in-vocabulary tokens and each kernel's
    launch counter must rise during the runs that route through it
    (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and decode);
+   each run's decode-attention kernel must launch once per layer of every
+   decode tick, and its device ms per tick is printed from the profiler;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth: greedy streams
    must match wherever the plain path's top-1/top-2 logit margin exceeds
@@ -202,6 +208,29 @@ def decode_inputs(torch, dtype, W, lengths, gen, ring=False):
     return q, k, v, valid
 
 
+def split_edges(torch, ops):
+    """The main shape's split count S and, in batches of SLOTS rows, the
+    lengths where the kernel's pieces change: each split boundary of a
+    full row, S, 16 S, 32 S and 64 S (pieces of one slot, half a 32-slot
+    tile, one tile, two tiles) and W, each with one slot either side."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, S = ops.decode_grid(SLOTS, K, H // K, MAX_LEN, sms)
+    edges = {ops.split_range(0, MAX_LEN, S, s)[0] for s in range(1, S)}
+    edges |= {S, 16 * S, 32 * S, 64 * S, MAX_LEN}
+    ls = sorted({min(MAX_LEN, max(0, e + d)) for e in edges
+                 for d in (-1, 0, 1)})
+    ls += [560] * (-len(ls) % SLOTS)
+    return S, [ls[i:i + SLOTS] for i in range(0, len(ls), SLOTS)]
+
+
+def late_rings(torch, starts):
+    """Dense ring masks whose first valid slot is late: a 560-slot window
+    from each start (cut at W)."""
+    pos = torch.arange(MAX_LEN, device=DEV)[None, :]
+    lo = torch.tensor(starts, device=DEV)[:, None]
+    return (pos >= lo) & (pos < lo + 560)
+
+
 def check_dense(torch, ops, gen, report):
     lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
     worst = {}
@@ -211,6 +240,35 @@ def check_dense(torch, ops, gen, report):
             q, k, v, valid = decode_inputs(torch, dtype, W, ls, gen, ring)
             name = str(dtype).split(".")[-1]
             err = check_close(f"gqa_decode {name} W={W} ring={ring}",
+                              ops.gqa_decode(q, k, v, valid),
+                              ops.gqa_decode_plain(q, k, v, valid), name)
+            worst[name] = max(worst.get(name, 0.0), err)
+    # the live-span split: lengths on its boundaries, windows starting
+    # there, and rings whose only valid slot is the last, that wrap, or
+    # that start late
+    S, batches = split_edges(torch, ops)
+    special = torch.zeros((SLOTS, MAX_LEN), dtype=torch.bool, device=DEV)
+    special[0, MAX_LEN - 1] = True
+    special[1, :50] = True
+    special[1, MAX_LEN - 100:] = True
+    special[2, 1500:] = True
+    special[3, 1000:1560] = True
+    special[4, 0] = True
+    special[6, 777:1337] = True
+    special[7, 1] = True
+    print(f"gqa_decode: {S} splits a row at the main shape; boundary "
+          f"lengths {[x for b in batches for x in b]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        cases = [(f"prefix {ls}", ls, None) for ls in batches]
+        cases += [(f"late window from {ls}", ls, late_rings(torch, ls))
+                  for ls in batches]
+        cases += [("last-only / wrapped / late / first-only rings", [0] * 8,
+                   special)]
+        for label, ls, mask in cases:
+            q, k, v, valid = decode_inputs(torch, dtype, MAX_LEN, ls, gen)
+            valid = valid if mask is None else mask
+            err = check_close(f"gqa_decode {name} {label}",
                               ops.gqa_decode(q, k, v, valid),
                               ops.gqa_decode_plain(q, k, v, valid), name)
             worst[name] = max(worst.get(name, 0.0), err)
@@ -232,7 +290,20 @@ def check_dense(torch, ops, gen, report):
                              for s in sets]),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in sets]),
+        "splits": S,
     }
+    print_share(report["gqa_decode"])
+
+
+def print_share(row) -> None:
+    """A kernel's time beside its bound, its share of the bound and the
+    library call's time."""
+    lib = row["library_ms"]
+    print(f"{row['name']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+          f"ms ({row['bound_by']}), share of bound "
+          f"{row['bound_ms'] / row['ms']:.3f}; plain {row['plain_ms']:.4f} "
+          f"ms; library "
+          f"{'null' if lib is None else f'{lib:.4f} ms'}")
 
 
 def paged_inputs(torch, dtype, bs, lengths, gen):
@@ -262,6 +333,16 @@ def check_paged(torch, ops, gen, bs, report):
             f"gqa_decode_paged {name} bs={bs}",
             ops.gqa_decode_paged(q, kp, vp, bt, ln),
             ops.gqa_decode_paged_plain(q, kp, vp, bt, ln), name)
+    # lengths on the live-span split's boundaries
+    S, batches = split_edges(torch, ops)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for ls in batches:
+            q, kp, vp, bt, ln = paged_inputs(torch, dtype, bs, ls, gen)
+            worst[name] = max(worst[name], check_close(
+                f"gqa_decode_paged {name} bs={bs} lengths {ls}",
+                ops.gqa_decode_paged(q, kp, vp, bt, ln),
+                ops.gqa_decode_paged_plain(q, kp, vp, bt, ln), name))
     ls = [560, 512, 600, 540, 580, 530, 590, 520]
     sets = [paged_inputs(torch, torch.bfloat16, bs, ls, gen)
             for _ in range(ROTATE)]
@@ -283,8 +364,9 @@ def check_paged(torch, ops, gen, bs, report):
                              for s in sets]),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in views]),
-        "block_size": bs,
+        "block_size": bs, "splits": S,
     }
+    print_share(report["gqa_decode_paged"])
 
 
 def check_fused_mask(torch, ops, gen, report):
@@ -662,10 +744,14 @@ def profile_window(torch, prof, ticks: int) -> dict:
         rows.append((us, e.key, e.count))
     total = sum(r[0] for r in rows)
     rows.sort(reverse=True)
+    dec = [(us, n) for us, key, n in rows if "decode_kernel" in key]
     return {"device_ms_per_tick": total / 1e3 / ticks if total else None,
             "top_kernels": [{"name": k[:80], "ms_per_tick": us / 1e3 / ticks,
                              "calls_per_tick": n / ticks}
-                            for us, k, n in rows[:8]]}
+                            for us, k, n in rows[:8]],
+            "decode_attention": {
+                "ms_per_tick": sum(us for us, _ in dec) / 1e3 / ticks,
+                "calls_per_tick": sum(n for _, n in dec) / ticks}}
 
 
 def serve_phase(torch, kernels, serve, engine, args, label,
@@ -725,6 +811,9 @@ def serve_phase(torch, kernels, serve, engine, args, label,
         for k in profiled["top_kernels"]:
             print(f"    {k['ms_per_tick']:.3f} ms/tick "
                   f"{k['calls_per_tick']:.0f} calls/tick  {k['name']}")
+        da = profiled["decode_attention"]
+        print(f"  decode attention kernel: {da['ms_per_tick']:.4f} ms/tick, "
+              f"{da['calls_per_tick']:.1f} calls/tick")
     return {"decode_tokens_per_s": tps, "mean_decode_ms": dec["mean_s"] * 1e3,
             "decode_steps": dec["calls"], "wall_s": wall, "ticks": tick,
             "stages": stats["stages"], "launches": launches,
@@ -1026,6 +1115,14 @@ def main() -> int:
         for name in names:
             if runs[label]["launches"].get(name, 0) <= 0:
                 fail(f"{label}: kernel {name} was never launched")
+        # one decode-attention launch per layer of every decode tick
+        want = cfg.n_layers * runs[label]["decode_steps"]
+        got = runs[label]["launches"][names[0]]
+        print(f"{label}: {names[0]} launched {got} times over "
+              f"{runs[label]['decode_steps']} decode ticks")
+        if got != want:
+            fail(f"{label}: {names[0]} launched {got} times, want "
+                 f"{cfg.n_layers} per decode tick ({want})")
     result["serve"] = runs
     linked_mlp_path_shapes(torch, lm_ops, gen, runs, chunk, report)
     del params

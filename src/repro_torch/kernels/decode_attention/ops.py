@@ -3,9 +3,18 @@
 ``gqa_decode`` (dense ring-buffer cache) and ``gqa_decode_paged`` (block
 pool) take the reference's shapes and return ``(B, H, D)`` in ``q``'s
 dtype.  For CUDA tensors they launch ``csrc/decode_attention.cu`` on the
-current stream; for CPU tensors they run the plain version below, the
-same masked softmax computed in one shot in fp32 (the Pallas kernel's
-arithmetic).  Nothing on the CUDA path falls back to the plain version.
+current stream, one kernel per call; for CPU tensors they run the plain
+version below, the same masked softmax computed in one shot in fp32 (the
+Pallas kernel's arithmetic).  Nothing on the CUDA path falls back to the
+plain version.
+
+The launch reads no length on the host and never synchronizes: the grid
+follows the shapes and the card's SM count (:func:`decode_grid`), and each
+CTA finds its row's live span on the device and takes its piece of it
+(:func:`split_range`).  The splits meet in a scratch buffer whose atomic
+tickets start at zero and which the kernel leaves at zero (:func:`_scratch`),
+so a launch can be captured into a CUDA graph and replayed after the
+lengths or the mask change in place.
 """
 from __future__ import annotations
 
@@ -18,8 +27,13 @@ from .. import check_launch, count_launch, library
 
 NEG_INF = -1e30
 
-#: split W until about four CTAs sit on each of the H100's 132 SMs
-_TARGET_CTAS = 4 * 132
+#: CTAs a row's splits put on each SM, in one wave (the launch bounds let 4
+#: sit there; 2 measured faster: fewer prologues and merges, PERF.md)
+CTAS_PER_SM = 2
+#: the kernel's most splits of a row (kMaxSplits in the source)
+MAX_SPLITS = 32
+#: the least a split of a whole row holds, in slots (half a bf16 D=128 tile)
+MIN_SPLIT_SLOTS = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,20 +72,73 @@ def gqa_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
                             paged_view(v_pool, block_tables), valid)
 
 
-def _splits(ctas: int, W: int) -> tuple[int, int]:
-    """(n_split, split_len) so that every split holds at least one slot."""
-    n = max(1, min(-(-_TARGET_CTAS // max(ctas, 1)), -(-W // 32)))
-    split_len = -(-W // n)
-    return -(-W // split_len), split_len
+def decode_grid(B: int, K: int, G: int, W: int, sms: int
+                ) -> tuple[int, int]:
+    """``(GT, S)``: query heads per CTA (2 when G is even, else 1) and
+    splits per row.  The grid is ``B*K*G/GT`` units of ``S`` CTAs: as many
+    splits as one wave of ``CTAS_PER_SM`` CTAs on each of the ``sms`` SMs
+    holds, at most ``MAX_SPLITS`` and at most one per ``MIN_SPLIT_SLOTS``
+    slots of ``W``, at least one.  Shapes alone decide it: no length."""
+    gt = 2 if G % 2 == 0 else 1
+    units = B * K * (G // gt)
+    s = min(CTAS_PER_SM * sms // units, -(-W // MIN_SPLIT_SLOTS), MAX_SPLITS)
+    return gt, max(1, s)
+
+
+def split_range(lo: int, hi: int, S: int, s: int) -> tuple[int, int]:
+    """Split ``s`` of ``S`` of a row's live span ``[lo, hi)``: the
+    kernel's partition (the formula in ``csrc/decode_attention.cu``)."""
+    n = hi - lo
+    return lo + s * n // S, lo + (s + 1) * n // S
 
 
 def _entry():
     fn = library("decode_attention").repro_gqa_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+_SMS: dict[int, int] = {}
+#: (device index, stream, B, H, D, GT, S) -> the scratch of eager launches
+#: of that layout on that stream.  One buffer per layout: its tickets are
+#: never anything but tickets, so they stay zero between calls.
+_SCRATCH: dict[tuple[int, ...], torch.Tensor] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _scratch(device: torch.device, stream: int, B: int, H: int, D: int,
+             gt: int, S: int) -> torch.Tensor:
+    """A scratch with zero tickets for a launch of this layout.
+
+    Eager launches on one stream run in order and share one buffer per
+    layout, zeroed when it is made.  A launch being captured into a CUDA
+    graph gets a buffer of its own from the graph's pool, which the graph
+    zeroes before the kernel at every replay: a buffer made inside one
+    capture is zeroed only by that graph, and an eager one may be in use
+    on its stream while a graph replays."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    key = (device.index, stream, B, H, D, gt, S)
+    buf = None if capturing else _SCRATCH.get(key)
+    if buf is None:
+        fn = library("decode_attention").repro_gqa_decode_scratch_bytes
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_size_t
+        buf = torch.zeros(fn(B, H, D, gt, S), dtype=torch.uint8,
+                          device=device)
+        if not capturing:
+            _SCRATCH[key] = buf
+    return buf
 
 
 def _check_common(q, k, v, kernel):
@@ -100,21 +167,17 @@ def _check_common(q, k, v, kernel):
 
 def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel):
     B, H, K, D = q.shape[0], q.shape[1], k.shape[2], q.shape[2]
-    n_split, split_len = _splits(B * K, W)
-    out = torch.empty_like(q)
-    part_acc = torch.empty((B, H, n_split, D), dtype=torch.float32,
-                           device=q.device)
-    part_m = torch.empty((B, H, n_split), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
+    gt, n_split = decode_grid(B, K, H // K, W, _sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch = _scratch(q.device, stream, B, H, D, gt, n_split)
+    out = torch.empty_like(q)
     err = _entry()(
         int(paged), _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), valid.data_ptr() if valid is not None else None,
         tables.data_ptr() if tables is not None else None,
         lengths.data_ptr() if lengths is not None else None,
-        out.data_ptr(), part_acc.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), B, H, K, D, W, n_split, split_len, bs, M, stream)
+        out.data_ptr(), scratch.data_ptr(), scratch.numel(), B, H, K, D, W,
+        gt, n_split, bs, M, stream)
     check_launch(err, kernel)
     count_launch(kernel)
     return out
@@ -127,7 +190,7 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         return gqa_decode_plain(q, k_cache, v_cache, valid)
     B, H, K, D = _check_common(q, k_cache, v_cache, "gqa_decode")
     W = k_cache.shape[1]
-    if k_cache.shape[0] != B or valid.shape != (B, W) \
+    if k_cache.shape[0] != B or W < 1 or valid.shape != (B, W) \
             or valid.dtype != torch.bool or valid.device != q.device \
             or not valid.is_contiguous():
         raise ValueError("gqa_decode: want k/v (B,W,K,D) and a contiguous "
@@ -149,6 +212,9 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                       lengths)
     B, H, K, D = _check_common(q, k_pool, v_pool, "gqa_decode_paged")
     M = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if M < 1:
+        raise ValueError("gqa_decode_paged: block_tables must be (B, M) "
+                         f"with M >= 1, got {tuple(block_tables.shape)}")
     for name, t, shape in (("block_tables", block_tables, (B, M)),
                            ("lengths", lengths, (B,))):
         if t.shape != shape or t.dtype != torch.int32 \

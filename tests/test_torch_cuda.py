@@ -57,6 +57,258 @@ def test_decode_kernels_match_plain(card, dtype, D, G):
     torch.testing.assert_close(got, want, **TOL[dtype])
 
 
+def _rnd(card, dt, *shape):
+    return torch.randn(shape, generator=card, device="cuda").to(dt)
+
+
+def _pool_case(card, dt, lengths, M, bs, K, G, D):
+    """q, pools of B*M blocks in a shuffled order, block tables that are
+    -1 past each row's length, and the lengths (int32)."""
+    B = len(lengths)
+    kp, vp = _rnd(card, dt, B * M, bs, K, D), _rnd(card, dt, B * M, bs, K, D)
+    perm = torch.randperm(B * M, generator=card, device="cuda").reshape(B, M)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    start = torch.arange(M, device="cuda")[None, :] * bs
+    bt = torch.where(start < ln[:, None], perm, -1).to(torch.int32)
+    return _rnd(card, dt, B, K * G, D), kp, vp, bt.contiguous(), ln
+
+
+def _check_dense(card, dtype, valid, K, G, D):
+    dt = getattr(torch, dtype)
+    B, W = valid.shape
+    q = _rnd(card, dt, B, K * G, D)
+    k, v = _rnd(card, dt, B, W, K, D), _rnd(card, dt, B, W, K, D)
+    torch.testing.assert_close(t_da.gqa_decode(q, k, v, valid).float(),
+                               t_da.gqa_decode_plain(q, k, v, valid).float(),
+                               **TOL[dtype])
+
+
+def _check_paged(card, dtype, lengths, M, bs, K, G, D):
+    args = _pool_case(card, getattr(torch, dtype), lengths, M, bs, K, G, D)
+    torch.testing.assert_close(t_da.gqa_decode_paged(*args).float(),
+                               t_da.gqa_decode_paged_plain(*args).float(),
+                               **TOL[dtype])
+
+
+def _prefix(lengths, W):
+    ln = torch.tensor(lengths, device="cuda")
+    return torch.arange(W, device="cuda")[None, :] < ln[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernels_at_every_length(card, dtype):
+    """Every length from 0 to W, eight rows a call: dense prefixes of a
+    300-slot ring, paged rows of a 19 x 16-slot table."""
+    K, G, D, W = 2, 2, 64, 300
+    for a in range(0, W + 1, 8):
+        ls = [min(x, W) for x in range(a, a + 8)]
+        _check_dense(card, dtype, _prefix(ls, W), K, G, D)
+    M, bs = 19, 16
+    for a in range(0, M * bs + 1, 8):
+        ls = [min(x, M * bs) for x in range(a, a + 8)]
+        _check_paged(card, dtype, ls, M, bs, K, G, D)
+
+
+def _main_edges():
+    """The main shape's split count and the lengths where its pieces
+    change: each split boundary of a full row, S, 16 S, 32 S and 64 S
+    (pieces of one slot, half a 32-slot tile, one tile, two tiles) and
+    W."""
+    B, K, G, W = 8, 8, 2, 2048
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, S = t_da.decode_grid(B, K, G, W, sms)
+    edges = {t_da.split_range(0, W, S, s)[0] for s in range(1, S)}
+    edges |= {S, 16 * S, 32 * S, 64 * S, W}
+    return S, sorted({min(W, max(0, e + d)) for e in edges
+                      for d in (-1, 0, 1)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernels_on_split_boundaries(card, dtype):
+    """At the main shape (8 rows, W 2048, 8 kv heads, G 2, D 128, bs 32):
+    lengths on each split boundary and one slot either side of it, as
+    dense prefixes, as dense windows that start there (lo > 0) and as
+    paged rows."""
+    W, K, G, D, bs = 2048, 8, 2, 128, 32
+    _, lengths = _main_edges()
+    lengths = lengths + [560] * (-len(lengths) % 8)
+    for a in range(0, len(lengths), 8):
+        ls = lengths[a:a + 8]
+        _check_dense(card, dtype, _prefix(ls, W), K, G, D)
+        pos = torch.arange(W, device="cuda")[None, :]
+        lo = torch.tensor(ls, device="cuda")[:, None]
+        late = (pos >= lo) & (pos < lo + 560)
+        _check_dense(card, dtype, late, K, G, D)
+        _check_paged(card, dtype, ls, W // bs, bs, K, G, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_dense_late_and_wrapped_rings(card, dtype):
+    """Ring masks: a late window, one reaching the last slot, a wrapped
+    window (a hole in the middle of the span), only the last slot, only
+    the first, a scattered half and no valid slot."""
+    W = 2048
+    valid = torch.zeros(8, W, dtype=torch.bool, device="cuda")
+    valid[0, 1500:] = True
+    valid[1, 1000:1560] = True
+    valid[2, :50] = True
+    valid[2, W - 100:] = True
+    valid[3, W - 1] = True
+    valid[4, 0] = True
+    valid[5] = torch.rand(W, generator=card, device="cuda") < 0.5
+    valid[7, 777:1337] = True
+    _check_dense(card, dtype, valid, 8, 2, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+def test_decode_kernels_across_group_and_head_sizes(card, dtype, D, G):
+    """G query heads per kv head, head_dim D: dense (a random mask, a late
+    window, an empty row; ragged W) and paged at block sizes 16 and 32."""
+    W, K = 300, 2
+    valid = torch.rand((4, W), generator=card, device="cuda") < 0.5
+    valid[1] = False
+    valid[2] = False
+    valid[2, 200:290] = True
+    _check_dense(card, dtype, valid, K, G, D)
+    for bs in (16, 32):
+        M = -(-W // bs)
+        _check_paged(card, dtype, [W // 3, 0, M * bs, 1], M, bs, K, G, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 24])
+def test_decode_kernels_on_long_rows(card, bs):
+    """Rows longer than the main path's: a paged table of more than 128
+    blocks, a block size that is not a power of two, and a 4800-slot dense
+    ring (a longer mask row in shared memory)."""
+    W = 4800
+    ls = [0, 1, 777, 2049, 3000, W - 1, W, 4500]
+    _check_paged(card, "float32", ls, W // bs, bs, 2, 2, 128)
+    valid = _prefix(ls, W)
+    valid[1, 4000:4100] = True
+    _check_dense(card, "float32", valid, 2, 2, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernels_repeat_bit_for_bit(card, dtype):
+    """The splits merge in a fixed order: two calls give the same bits."""
+    dt = getattr(torch, dtype)
+    ls = [560, 512, 600, 0, 2048, 1, 530, 777]
+    valid = _prefix(ls, 2048)
+    q = _rnd(card, dt, 8, 16, 128)
+    k, v = _rnd(card, dt, 8, 2048, 8, 128), _rnd(card, dt, 8, 2048, 8, 128)
+    assert torch.equal(t_da.gqa_decode(q, k, v, valid),
+                       t_da.gqa_decode(q, k, v, valid))
+    args = _pool_case(card, dt, ls, 64, 32, 8, 2, 128)
+    assert torch.equal(t_da.gqa_decode_paged(*args),
+                       t_da.gqa_decode_paged(*args))
+
+
+@pytest.mark.cuda
+def test_decode_kernels_interleave_layouts_on_one_stream(card):
+    """Calls of different grids (B, H, D, S) in turn on one stream: each
+    layout's tickets stay its own, so every call still agrees."""
+    for _ in range(2):
+        for ls, K, G, D in (([560] * 8, 8, 2, 128), ([5, 300, 0], 2, 3, 32),
+                            ([100, 1], 1, 8, 64), ([2048] * 8, 8, 2, 128)):
+            W = max(max(ls), 1)
+            _check_dense(card, "float32", _prefix(ls, W), K, G, D)
+            _check_paged(card, "float32", ls, -(-W // 16), 16, K, G, D)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_replay_in_a_cuda_graph(card):
+    """Captured once, replayed after ``valid`` / ``lengths`` and the block
+    tables change in place: each replay follows the new values (it equals
+    an eager launch and the plain version)."""
+    dt = torch.bfloat16
+    valid = _prefix([560] * 8, 2048)
+    q = _rnd(card, dt, 8, 16, 128)
+    k, v = _rnd(card, dt, 8, 2048, 8, 128), _rnd(card, dt, 8, 2048, 8, 128)
+    graph, out = _graphed(lambda: t_da.gqa_decode(q, k, v, valid))
+    q2, kp, vp, bt, ln = _pool_case(card, dt, [560] * 8, 64, 32, 8, 2, 128)
+    pgraph, pout = _graphed(lambda: t_da.gqa_decode_paged(q2, kp, vp, bt, ln))
+    for ls in ([1, 2048, 0, 33, 600, 1999, 17, 560], [0] * 8,
+               [2048] * 8):
+        valid.copy_(_prefix(ls, 2048))
+        graph.replay()
+        assert torch.equal(out, t_da.gqa_decode(q, k, v, valid))
+        torch.testing.assert_close(
+            out.float(), t_da.gqa_decode_plain(q, k, v, valid).float(),
+            **TOL["bfloat16"])
+        new = _pool_case(card, dt, ls, 64, 32, 8, 2, 128)
+        bt.copy_(new[3])
+        ln.copy_(new[4])
+        pgraph.replay()
+        assert torch.equal(pout, t_da.gqa_decode_paged(q2, kp, vp, bt, ln))
+        torch.testing.assert_close(
+            pout.float(),
+            t_da.gqa_decode_paged_plain(q2, kp, vp, bt, ln).float(),
+            **TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_decode_graphs_of_one_layout_replay_in_any_order(card):
+    """A dense and a paged graph of the same layout, the second replayed
+    first: each capture zeroes a scratch of its own (none is shared with
+    the other graph or with eager launches), so every replay agrees."""
+    dt = torch.bfloat16
+    ls = [560, 512, 600, 0, 2048, 1, 530, 777]
+    valid = _prefix(ls, 2048)
+    q = _rnd(card, dt, 8, 16, 128)
+    k, v = _rnd(card, dt, 8, 2048, 8, 128), _rnd(card, dt, 8, 2048, 8, 128)
+    pargs = _pool_case(card, dt, ls, 64, 32, 8, 2, 128)
+    eager = t_da.gqa_decode(q, k, v, valid)
+    peager = t_da.gqa_decode_paged(*pargs)
+    graph, out = _graphed(lambda: t_da.gqa_decode(q, k, v, valid))
+    pgraph, pout = _graphed(lambda: t_da.gqa_decode_paged(*pargs))
+    for buf in t_da._SCRATCH.values():   # nonzero tickets outside the graphs
+        buf.fill_(1)
+    for g, o, want in ((pgraph, pout, peager), (graph, out, eager),
+                       (pgraph, pout, peager), (graph, out, eager)):
+        o.zero_()
+        g.replay()
+        assert torch.equal(o, want)
+    for buf in t_da._SCRATCH.values():
+        buf.zero_()
+    assert torch.equal(t_da.gqa_decode(q, k, v, valid), eager)
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_launch_one_kernel_and_never_sync(card):
+    """One kernel per call and no host synchronization (sync debug mode
+    raises on one)."""
+    from torch.autograd import DeviceType
+    dt = torch.bfloat16
+    valid = _prefix([560] * 8, 2048)
+    q = _rnd(card, dt, 8, 16, 128)
+    k, v = _rnd(card, dt, 8, 2048, 8, 128), _rnd(card, dt, 8, 2048, 8, 128)
+    pargs = _pool_case(card, dt, [560] * 8, 64, 32, 8, 2, 128)
+    t_da.gqa_decode(q, k, v, valid)           # scratch made outside
+    t_da.gqa_decode_paged(*pargs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t_da.gqa_decode(q, k, v, valid)
+            t_da.gqa_decode_paged(*pargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    launched = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    assert sum(n for _, n in launched) == 2, launched
+    assert all("decode_kernel" in name for name, _ in launched), launched
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("V", [17, 1000, 151936])
 def test_fused_mask_kernel_matches_plain(card, V):
