@@ -25,9 +25,11 @@ Phases (any failure exits non-zero before the result line):
    once with paged KV sampled (T 0.8, top-k 50, top-p 0.95).  Every
    request must complete with in-vocabulary tokens and each kernel's
    launch counter must rise during the runs that route through it
-   (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and decode);
-   each run's decode-attention kernel must launch once per layer of every
-   decode tick, and its device ms per tick is printed from the profiler;
+   (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and decode;
+   every prefill launch must go through its tensor-core kernel, counted
+   as ``linked_mlp_tc``); each run's decode-attention kernel must launch
+   once per layer of every decode tick, and its device ms per tick is
+   printed from the profiler;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth: greedy streams
    must match wherever the plain path's top-1/top-2 logit margin exceeds
@@ -57,16 +59,21 @@ times the kernel, its plain version and the unlinked form (``addmm``,
 ``linked_mlp`` against ``linked_mlp_plain`` (bf16 1e-3 / 2e-2, fp32
 2e-5 / 2e-5) at the serving shapes, decode (8, 2048, 6144) and prefill
 (8 x the engine's chunk, 2048, 6144), and at fp32, ragged and M = 1
-shapes; at batched prefill's shape (8 x the longest prompt, 2048, 6144)
-bf16, the kernel and its plain version each against the fp64-summed MLP
+shapes, printing the plan (kernel, tile, cluster, ff splits) of each;
+at batched prefill's shape (8 x the longest prompt, 2048, 6144)
+bf16, which must take the tensor-core kernel, the kernel and its plain
+version each against the fp64-summed MLP
 (the kernel's worst error within ``MLP_ORDER_FACTOR`` times the plain
 version's; two planted faults must fail that test); timing the kernel,
 its plain version and the unlinked three-matmul form (after phase 3
 also at each chunked-prefill shape the serving runs reached: the chunk
 the scheduler replanned to); and
 ``split_matmul`` against ``split_matmul_plain`` (fp32, 2e-5 / 2e-5) at
-bert_s's two plan tiles, an inC split and a ragged case, timing the
-kernel, its plain version and ``torch.addmm``.
+bert_s's two plan tiles, inC splits (one with a cluster split inside
+each of its K tiles), M = 1 and ragged cases, twice each (the same
+bits), timing the kernel, its plain version and ``torch.addmm``.  Phase
+1 prints the registers and spills ``nvcc -Xptxas -v`` reports for the
+two GEMM kernels' instantiations.
 
 The line before last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of everything measured goes to
@@ -109,13 +116,18 @@ SPLIT_TOL = dict(rtol=2e-5, atol=2e-5)
 #: qwen3-1.7b's MLP widths (configs/qwen3_1_7b.py)
 D_MODEL, D_FF = 2048, 6144
 #: split_matmul cases, (M, K, N, block_n, block_k): bert_s at seq 128,
-#: d 768 under the DSP spec (its FFN matmuls split three ways), an inC
-#: split, and ragged cases on both of the kernel's block shapes
+#: d 768 under the DSP spec (its FFN matmuls split three ways), inC
+#: splits, the second with each of its 3 K tiles split again over a
+#: cluster (SPLIT_CLUSTERED), M = 1, and ragged cases (4-byte copies)
 SPLIT_CASES = {"ffn1": (128, 768, 3072, 1024, 768),
                "ffn2": (128, 3072, 768, 256, 3072),
                "inC": (128, 768, 3072, 3072, 256),
+               "inC_cluster": (128, 3072, 768, 256, 1024),
+               "m1": (1, 768, 3072, 1024, 768),
                "ragged": (33, 70, 100, 30, 27),
                "ragged_wide": (600, 70, 1000, 333, 27)}
+#: the SPLIT_CASES whose plan must split every K tile over a cluster
+SPLIT_CLUSTERED = ("inC_cluster",)
 #: the reference's engine tolerance between modes (fp32 conv reassociation)
 ENGINE_TOL = dict(rtol=3e-4, atol=3e-5)
 #: cbr_avgpool shapes, (N,H,W,C) and OC: the Figure-5 example and the two
@@ -171,6 +183,46 @@ def check_close(label: str, got, want, dtype: str,
     if not worst <= 1.0:
         fail(f"{label} disagrees with its plain version")
     return err.max().item()
+
+
+#: kernels whose registers and spills phase 1 prints, by the pattern of
+#: their mangled names: the tensor-core linked_mlp and split_matmul (rows
+#: a CTA, k halves, cluster size, 16-byte copies)
+PTXAS_KERNELS = {
+    r"linked_mlp_tcE": "linked_mlp_tc",
+    r"split_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
+        "split_matmul_kernel<BM={},KH={},CL={},VEC={}>"}
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel named in PTXAS_KERNELS,
+    from an ``nvcc -Xptxas -v`` log; printed one line a kernel."""
+    import re
+    out, name, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            for pat, fmt in PTXAS_KERNELS.items():
+                k = re.search(pat, m.group(1))
+                if k:
+                    name = fmt.format(*k.groups())
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = {"registers": int(m.group(1)),
+                         "spill_stores": spill[0] if spill else 0,
+                         "spill_loads": spill[1] if spill else 0}
+            print(f"ptxas {name}: {m.group(1)} registers, spill stores "
+                  f"{out[name]['spill_stores']} B, loads "
+                  f"{out[name]['spill_loads']} B")
+            name = spill = None
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -522,6 +574,16 @@ def mlp_err(got, ref, tol) -> float:
             ).max().item()
 
 
+def mlp_plan(torch, ops, args):
+    """The plan ``linked_mlp`` picks for ``args`` on this card."""
+    x, wg = args[0], args[1]
+    return ops.mlp_plan(
+        x.shape[0], x.shape[1], wg.shape[1], x.dtype,
+        all(a.data_ptr() % 16 == 0 for a in args),
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        slots=ops.cluster_slots(x.device))
+
+
 def time_mlp_case(torch, ops, gen, label, args, row):
     """The kernel's, plain and unlinked times at ``args``' shape, rotating
     over two weight sets (151 MB at the served widths, past the 50 MB L2:
@@ -533,7 +595,7 @@ def time_mlp_case(torch, ops, gen, label, args, row):
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     r = row["per_shape"].setdefault(label, {})
     r.update({
-        "shape": [M, d, ff],
+        "shape": [M, d, ff], "plan": mlp_plan(torch, ops, args)._asdict(),
         "ms": cuda_ms([lambda a=a: ops.linked_mlp(*a) for a in sets]),
         "plain_ms": cuda_ms([lambda a=a: ops.linked_mlp_plain(*a)
                              for a in sets]),
@@ -552,6 +614,8 @@ def linked_mlp_case(torch, ops, gen, label, shape, row, timed):
     M, d, ff, dt = shape
     name = str(dt).split(".")[-1]
     args = mlp_inputs(torch, M, d, ff, dt, gen)
+    plan = mlp_plan(torch, ops, args)
+    print(f"linked_mlp {label}: plan {plan._asdict()}")
     got = ops.linked_mlp(*args)
     if not torch.equal(got, ops.linked_mlp(*args)):
         fail(f"linked_mlp {label}: two launches gave different bits")
@@ -586,6 +650,10 @@ def linked_mlp_batched(torch, ops, gen, row):
     worst = {"kernel": 0.0, "plain": 0.0, "ratio": 0.0}
     for i in range(3):
         args = mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen)
+        plan = mlp_plan(torch, ops, args)
+        if plan.path != "tc":
+            fail(f"linked_mlp batched_prefill: planned {plan}, want the "
+                 "tensor-core kernel")
         got = ops.linked_mlp(*args)
         if not torch.equal(got, ops.linked_mlp(*args)):
             fail("linked_mlp batched_prefill: two launches gave different "
@@ -671,21 +739,32 @@ def linked_mlp_path_shapes(torch, ops, gen, runs, chunk, report):
 
 def check_split_matmul(torch, ops, gen, report):
     worst, per_shape = 0.0, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, (M, K, N, bn, bk) in SPLIT_CASES.items():
         x = torch.randn((M, K), generator=gen, device=DEV)
         w = torch.randn((K, N), generator=gen, device=DEV) / K ** 0.5
         b = torch.randn((N,), generator=gen, device=DEV)
+        plan = ops.split_plan(M, N, K, bn, bk, sms)
+        print(f"split_matmul {label}: plan {plan._asdict()}, "
+              f"{-(-K // bk)} K tiles, 16-byte copies "
+              f"{ops.vector_copies(x, w, bn, bk)}")
+        if label in SPLIT_CLUSTERED and not (plan.cl > 1 and K > bk):
+            fail(f"split_matmul {label}: want a cluster split inside each "
+                 f"of several K tiles, planned {plan}")
+        got = ops.split_matmul(x, w, b, block_n=bn, block_k=bk)
+        if not torch.equal(got, ops.split_matmul(x, w, b, block_n=bn,
+                                                 block_k=bk)):
+            fail(f"split_matmul {label}: two launches gave different bits")
         worst = max(worst, check_close(
             f"split_matmul {label} ({M},{K})@({K},{N}) block_n {bn} "
-            f"block_k {bk}", ops.split_matmul(x, w, b, block_n=bn,
-                                               block_k=bk),
-            ops.split_matmul_plain(x, w, b, bn, bk), "float32", SPLIT_TOL))
+            f"block_k {bk}", got, ops.split_matmul_plain(x, w, b, bn, bk),
+            "float32", SPLIT_TOL))
         if label not in ("ffn1", "ffn2"):
             continue
         nbytes = 4 * (M * K + K * N + N + M * N)
         b_ms, b_by = bound_ms(nbytes, 2 * M * K * N + M * N, "float32")
         per_shape[label] = {
-            "shape": [M, K, N, bn, bk],
+            "shape": [M, K, N, bn, bk], "plan": plan._asdict(),
             "ms": cuda_ms([lambda: ops.split_matmul(x, w, b, block_n=bn,
                                                     block_k=bk)]),
             "plain_ms": cuda_ms([lambda: ops.split_matmul_plain(
@@ -1067,6 +1146,8 @@ def main() -> int:
     for name, path in libs.items():
         log = path.with_suffix(".log").read_text()
         (out_dir / f"nvcc_{name}.log").write_text(log)
+        if name in ("linked_mlp", "split_matmul"):
+            result.setdefault("ptxas", {}).update(ptxas_report(log))
 
     cfg = get_config("qwen3-1.7b")
     model = Model(cfg, device=DEV)
@@ -1108,10 +1189,26 @@ def main() -> int:
                                      paged_args, "paged_sampled"),
     }
     del dense_engine, paged_engine
-    need = {"dense_greedy": ("gqa_decode", "fused_mask", "linked_mlp"),
+    need = {"dense_greedy": ("gqa_decode", "fused_mask", "linked_mlp",
+                             "linked_mlp_tc"),
             "paged_sampled": ("gqa_decode_paged", "fused_mask",
-                              "linked_mlp")}
+                              "linked_mlp", "linked_mlp_tc")}
+    # every prefill launch of linked_mlp (M = slots x chunk, or the padded
+    # admission group) goes through the tensor-core kernel; decode (M =
+    # slots) through the kernel the planner picks for it
+    decode_tc = mlp_plan(torch, lm_ops, mlp_inputs(
+        torch, SLOTS, D_MODEL, D_FF, torch.bfloat16, gen)).path == "tc"
     for label, names in need.items():
+        ln = runs[label]["launches"]
+        decode_mlp = cfg.n_layers * runs[label]["decode_steps"]
+        want_tc = ln["linked_mlp"] - (0 if decode_tc else decode_mlp)
+        print(f"{label}: linked_mlp {ln['linked_mlp']} launches, "
+              f"linked_mlp_tc {ln['linked_mlp_tc']} (prefill "
+              f"{ln['linked_mlp'] - decode_mlp}, decode {decode_mlp} on "
+              f"{'tc' if decode_tc else 'ffma'})")
+        if ln["linked_mlp_tc"] != want_tc or want_tc <= 0:
+            fail(f"{label}: linked_mlp_tc launched {ln['linked_mlp_tc']} "
+                 f"times, want every prefill launch ({want_tc})")
         for name in names:
             if runs[label]["launches"].get(name, 0) <= 0:
                 fail(f"{label}: kernel {name} was never launched")

@@ -14,24 +14,63 @@
 // h.astype(x.dtype)); the down-projection accumulates in fp32 and y is
 // cast to x's type once, at the end.  (The Pallas kernel accumulates y in
 // the output block's type, so in bf16 it rounds every ff block's partial
-// sum; the port does not.)  IEEE fp32 FFMA throughout (bf16 products are
-// exact in fp32), no TF32.
+// sum; the port does not.)  bf16 products are exact in fp32, so the
+// tensor cores' fp32 accumulation keeps this arithmetic; no TF32.
 //
-// What bounds it on the H100: at the serving shapes it is the weights.
-// Decode, M = 8, d 2048, ff 6144, bf16: 3 * 2048 * 6144 * 2 B = 75.5 MB
-// of weights against 0.60 GFLOP: ~22.5 us at 3.35 TB/s (bytes).  Prefill,
-// M = 8 * 32 = 256: the same bytes against 19.3 GFLOP, ~19.5 us at the
-// bf16 tensor-core peak, so still the bytes; on the fp32 FFMA pipes this
-// kernel uses (67 TFLOP/s) the same work takes ~0.29 ms.
+// What bounds it on the H100: decode, M = 8, d 2048, ff 6144, bf16: 3 *
+// 2048 * 6144 * 2 B = 75.5 MB of weights against 0.60 GFLOP: ~22.5 us at
+// 3.35 TB/s (bytes).  Batched prefill, M = 8 x 544 = 4352: 329 GFLOP,
+// ~0.33 ms at the bf16 tensor-core peak (operations); on the fp32 FFMA
+// pipes (67 TFLOP/s) the same work takes 4.9 ms.
 //
-// What the design does about it: the operator linking itself.  The
-// hidden activation h (M x ff) never reaches device memory: each thread
-// block computes one (BM rows) x (64 ff columns) block of h on chip and
-// consumes it there, and reads every weight byte once per M tile.
-//   * Grid: (M tiles of BM <= 8 rows) x (S splits of ff).  S fills the
-//     132 SMs (at decode M = 8 is one M tile, so the CTAs come from the ff
-//     split).  CTAs that share an ff split are adjacent in the grid, so
-//     they read the same weights through L2 together.
+// Two kernels, chosen per call by ops.py's planner (``mlp_plan``), which
+// also picks every grid size from the shapes, the device's SM count and
+// the clusters of the tensor-core kernel it runs at once.
+// Both keep the operator linking: the hidden activation h (M x ff) is
+// produced and consumed on chip and never written to device memory.
+//
+// linked_mlp_tc (bf16, d and ff multiples of 8, 16-byte aligned tensors,
+// d <= 2048): the tensor cores, through wgmma (bf16 in, fp32 out), both
+// operands read from shared memory by descriptor.
+//   * Grid: (C CTAs, a cluster splitting d) x (M tiles of 64 rows) x (S
+//     splits of ff).  Cluster rank c owns y's columns [256 c, 256 c + 256)
+//     and keeps that 64 x 256 fp32 block in registers (two warpgroups,
+//     64 x 128 each) over the whole ff walk.  (A 128-row tile over 16
+//     ranks of 128 columns spilled and timed slower: PERF.md.)
+//   * The split's ff blocks (64 columns) are dealt to the cluster's CTAs
+//     round robin.  In a round each CTA computes [g | u] for its block
+//     (64 x 128, K = d; warpgroup 0 g, warpgroup 1 u, which it hands over
+//     through shared memory) and forms h = silu(g) * u, rounded to bf16,
+//     in its own shared memory; after a cluster barrier every CTA reads
+//     the round's h blocks through distributed shared memory, two buffers
+//     deep (block j + 1 loads while block j multiplies), and adds h_blk @
+//     Wd[blk, its columns] into its y block, in block order.  So each
+//     weight byte is read once per M tile, and h stays in shared memory
+//     (two buffers of the CTA's own, so one cluster barrier a round).
+//   * x, Wg, Wu (64 x 64 tiles) and Wd (64 x 256, as four 64 x 64 blocks)
+//     stream through a 4-stage ring of 32 KB stages filled by 16-byte
+//     cp.async copies, zero-filled past M, d and ff; each thread's copy
+//     addresses are fixed for the walk.  Every tile is in the 128-byte
+//     swizzle's canonical layout (see desc).  One block barrier a 64-deep
+//     step.  (An mma.sync + ldmatrix version was slower at every prefill
+//     shape and faster at decode, where it skipped the m16 tiles past M:
+//     PERF.md.)
+//   * The tensor core sums each 64-deep step from zero; IEEE fp32 adds
+//     fold the step into the accumulators.
+//   * S = 1 (as many M tiles as clusters a wave): y is cast and stored
+//     directly.  S > 1 (decode, chunked prefill): each split writes its
+//     partial y into an (S, M, d) fp32 workspace and linked_mlp_reduce
+//     sums the S partials in split order.  No atomics: two launches give
+//     the same bits.
+//
+// linked_mlp_partial (fp32, and bf16 shapes the tensor-core kernel does
+// not take): the FFMA kernel.  Each thread block computes one (BM <= 8
+// rows) x (64 ff columns) block of h on chip and consumes it there, and
+// reads every weight byte once per M tile.
+//   * Grid: (M tiles of BM rows) x (S splits of ff).  S fills the SMs (at
+//     decode M = 8 is one M tile, so the CTAs come from the ff split).
+//     CTAs that share an ff split are adjacent in the grid, so they read
+//     the same weights through L2 together.
 //   * Each CTA keeps its x tile (fp32, k-major, so one k reads the BM rows
 //     as float4 broadcasts) and an fp32 partial y (BM x d) in shared
 //     memory: 128 KB at BM = 8, d = 2048, above the 48 KB default, so
@@ -48,24 +87,25 @@
 //   * A lane issues the loads of 8 weight rows before it multiplies any:
 //     with one load in flight the serving shapes were latency-bound at
 //     ~0.1 ms per 64-column block (H100 SXM, 700 W).
-//   * Each CTA writes its partial y into an (S, M, d) fp32 workspace that
-//     the wrapper allocates; a second kernel sums the S partials in split
-//     order and casts.  No atomics: a token stream does not change from
-//     run to run.
+//   * Each CTA writes its partial y into the (S, M, d) fp32 workspace;
+//     linked_mlp_reduce sums the S partials in split order and casts.
 // Ragged M, d and ff are masked (rows past M, columns past d or ff are
-// zero).  The launch allocates nothing and never synchronizes, so it can
-// be captured into a CUDA graph.
+// zero).  The launches allocate nothing and never synchronize, so they
+// can be captured into a CUDA graph.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <stddef.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBF = 64;                 // ff columns per block
-constexpr int kSMs = 132;               // H100 SXM streaming multiprocessors
 constexpr int kMaxSmem = 227 * 1024;    // per-block opt-in shared memory
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -329,35 +369,11 @@ linked_mlp_reduce(const float* __restrict__ part, T* __restrict__ out,
   out[i] = from_float<T>(acc);
 }
 
-// How a call runs: bm rows per M tile (the largest of 8, 4, 2, 1 whose
-// shared memory fits at this d; rows past M are masked), v elements a
-// lane (16-byte loads where every weight row is 16-byte aligned, else 2),
-// and S ff splits that fill the SMs, at most one per ff block.  S == 0:
-// not even one row fits.
-struct Plan {
-  int bm, v, S;
-};
-
-Plan make_plan(int dtype, int M, int d, int ff, const void* wg,
-               const void* wu, const void* wd) {
-  Plan p{0, 2, 0};
-  for (int bm = 8; bm >= 1 && p.bm == 0; bm /= 2)
-    if (smem_bytes(bm, d) <= static_cast<size_t>(kMaxSmem)) p.bm = bm;
-  if (p.bm == 0) return p;
-  const int vec = dtype == 0 ? 4 : 8;       // 16 bytes of the type
-  const size_t addr = reinterpret_cast<size_t>(wg) |
-                      reinterpret_cast<size_t>(wu) |
-                      reinterpret_cast<size_t>(wd);
-  if (d % vec == 0 && ff % vec == 0 && (addr & 15) == 0) p.v = vec;
-  const int m_tiles = (M + p.bm - 1) / p.bm;
-  const int n_blocks = (ff + kBF - 1) / kBF;
-  p.S = max(1, min(n_blocks, kSMs / m_tiles));
-  return p;
-}
-
+// The FFMA kernel's smem_bytes(bm, d) must fit; v must be 16 / sizeof(T)
+// (16-byte loads: d and ff multiples of it, weights 16-byte aligned) or 2.
 template <typename T, int BM, int V>
-cudaError_t launch(const Plan& p, const T* x, const T* wg, const T* wu,
-                   const T* wd, float* part, int M, int d, int ff,
+cudaError_t launch(const T* x, const T* wg, const T* wu, const T* wd,
+                   float* part, int M, int d, int ff, int S,
                    cudaStream_t stream) {
   static bool attr_set = false;    // once per instantiation: max opt-in
   if (!attr_set) {
@@ -368,75 +384,539 @@ cudaError_t launch(const Plan& p, const T* x, const T* wg, const T* wu,
     attr_set = true;
   }
   linked_mlp_partial<T, BM, V>
-      <<<dim3((M + BM - 1) / BM, p.S), kThreads, smem_bytes(BM, d),
-         stream>>>(x, wg, wu, wd, part, M, d, ff, (ff + kBF - 1) / kBF,
-                   p.S);
+      <<<dim3((M + BM - 1) / BM, S), kThreads, smem_bytes(BM, d), stream>>>(
+          x, wg, wu, wd, part, M, d, ff, (ff + kBF - 1) / kBF, S);
   return cudaGetLastError();
 }
 
 template <typename T, int V>
-cudaError_t launch_bm(const Plan& p, const T* x, const T* wg, const T* wu,
-                      const T* wd, float* part, int M, int d, int ff,
+cudaError_t launch_bm(int bm, const T* x, const T* wg, const T* wu,
+                      const T* wd, float* part, int M, int d, int ff, int S,
                       cudaStream_t st) {
-  switch (p.bm) {
-    case 8: return launch<T, 8, V>(p, x, wg, wu, wd, part, M, d, ff, st);
-    case 4: return launch<T, 4, V>(p, x, wg, wu, wd, part, M, d, ff, st);
-    case 2: return launch<T, 2, V>(p, x, wg, wu, wd, part, M, d, ff, st);
-    case 1: return launch<T, 1, V>(p, x, wg, wu, wd, part, M, d, ff, st);
+  switch (bm) {
+    case 8: return launch<T, 8, V>(x, wg, wu, wd, part, M, d, ff, S, st);
+    case 4: return launch<T, 4, V>(x, wg, wu, wd, part, M, d, ff, S, st);
+    case 2: return launch<T, 2, V>(x, wg, wu, wd, part, M, d, ff, S, st);
+    case 1: return launch<T, 1, V>(x, wg, wu, wd, part, M, d, ff, S, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_t(const Plan& p, const void* x, const void* wg,
+cudaError_t reduce(const float* part, void* out, size_t n, int S,
+                   cudaStream_t stream) {
+  linked_mlp_reduce<T><<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                         kThreads, 0, stream>>>(part, static_cast<T*>(out), n,
+                                                S);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_t(int bm, int v, const void* x, const void* wg,
                      const void* wu, const void* wd, void* part, void* out,
-                     int M, int d, int ff, cudaStream_t stream) {
+                     int M, int d, int ff, int S, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(wg);
   const T* up = static_cast<const T*>(wu);
   const T* dp = static_cast<const T*>(wd);
   float* pp = static_cast<float*>(part);
   constexpr int kVec = 16 / sizeof(T);
+  const size_t addr = reinterpret_cast<size_t>(wg) |
+                      reinterpret_cast<size_t>(wu) |
+                      reinterpret_cast<size_t>(wd);
+  if (v == kVec && (d % kVec || ff % kVec || (addr & 15)))
+    return cudaErrorInvalidValue;
   const cudaError_t err =
-      p.v == kVec
-          ? launch_bm<T, kVec>(p, xp, gp, up, dp, pp, M, d, ff, stream)
-          : launch_bm<T, 2>(p, xp, gp, up, dp, pp, M, d, ff, stream);
+      v == kVec ? launch_bm<T, kVec>(bm, xp, gp, up, dp, pp, M, d, ff, S,
+                                     stream)
+      : v == 2  ? launch_bm<T, 2>(bm, xp, gp, up, dp, pp, M, d, ff, S, stream)
+                : cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  const size_t n = static_cast<size_t>(M) * d;
-  linked_mlp_reduce<T><<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                         kThreads, 0, stream>>>(pp, static_cast<T*>(out), n,
-                                                p.S);
-  return cudaGetLastError();
+  return reduce<T>(pp, out, static_cast<size_t>(M) * d, S, stream);
 }
+
+// ---------------------------------------------------------------------------
+// linked_mlp_tc: bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;       // 2 warpgroups
+constexpr int kBF = 64;             // ff columns of a block
+constexpr int kBK = 64;             // d (k) per up-projection step
+constexpr int kStages = 4;
+constexpr int kStage = 64 * 256;    // bf16 elements of a ring stage (32 KB)
+
+// Tiles: 64 rows an M tile; a cluster rank owns 256 columns of y.
+// Warpgroup 0 computes g, warpgroup 1 u (64 x 64 each) in the
+// up-projection; warpgroup w holds y columns 128 w .. 128 w + 127 of the
+// rank's slice.
+constexpr int kBM = 64;
+constexpr int kDS = 256;
+constexpr int kMaxCluster = 8;              // portable cluster size
+constexpr int kH = kBM * kBF;               // bf16 elements of an h block
+static_assert((kBM + 2 * kBK) * kBF <= kStage && kBF * kDS <= kStage,
+              "a ring stage holds either step's tiles");
+// ring, own h (two buffers), the streamed h blocks (two buffers), u on
+// its way to warpgroup 0 (fp32), and slack to align the base to 1024
+// bytes (the 128-byte swizzle's period)
+constexpr size_t kSmemBytes =
+    sizeof(bf16) * (static_cast<size_t>(kStages) * kStage + 4 * kH) +
+    sizeof(float) * kBM * kBF + 1024;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled (nothing read)
+// when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, 128-byte swizzle.  Every tile here is laid out in
+// that swizzle's canonical form: rows of 128 bytes (64 bf16), 16-byte
+// chunk c of row r stored at chunk c ^ (r & 7), 8-row groups 1024 bytes
+// apart (the stride offset).  A (x, h) is K-major: a 16-deep k slice
+// starts 32 bytes further.  B (Wg, Wu, Wd; N contiguous) is MN-major
+// (transposed): a k slice starts 16 rows (2048 bytes) further, and
+// 64-column blocks of a wider B lie 8192 bytes apart (the leading
+// offset).
+__device__ __forceinline__ uint64_t desc(unsigned addr, unsigned lbo,
+                                         unsigned sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+// wgmma.fence before the first MMA of a step; commit and wait for the
+// step's group; a fence from the generic proxy (cp.async, st.shared) to
+// the async proxy (wgmma's operand reads) before a step's barrier
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator uses across the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d (64 x N fp32, the warpgroup's fragments) = A @ B (scale_d = 0) or +=
+// A @ B, bf16 in; A K-major, B MN-major
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Where the copies are: round r, phase 0 (up-projection step i of the
+// CTA's own block) or 1 (down-projection of the round's block i).
+struct Cursor {
+  int r, ph, i;
+};
+
+// x (M,d), wg/wu (d,ff), wd (ff,d) bf16; part (S,M,d) fp32 (S > 1) or out
+// (M,d) bf16 (S == 1).  gridDim = (C, M tiles, S), cluster (C, 1, 1).
+__global__ void __launch_bounds__(kThreads, 1)
+linked_mlp_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
+              const bf16* __restrict__ wu, const bf16* __restrict__ wd,
+              float* __restrict__ part, bf16* __restrict__ out, int M, int d,
+              int ff, int S) {
+  constexpr int kKS = kBK / 16;               // k16 slices a step
+  static_assert(kBF == kBK, "up and down steps are both 64 deep");
+  extern __shared__ __align__(1024) unsigned char tc_smem_raw[];
+  unsigned char* tc_smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(tc_smem_raw) + 1023) & ~size_t(1023));
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  bf16* hbuf = ring + kStages * kStage;       // [2][64][64]: own h
+  bf16* hall = hbuf + 2 * kH;                 // [2][64][64]: the round's
+  float* ex = reinterpret_cast<float*>(hall + 2 * kH);   // [32][128]: u
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(blockIdx.x);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wgi = warp >> 2, w4 = warp & 3, tg = tid & 127;
+  const int m0 = blockIdx.y * kBM;
+  const int s = blockIdx.z;
+  const int col0 = rank * kDS;
+  const int nb = (ff + kBF - 1) / kBF;
+  const int jb0 = static_cast<int>(static_cast<long long>(s) * nb / S);
+  const int jb1 = static_cast<int>(static_cast<long long>(s + 1) * nb / S);
+  const int R = (jb1 - jb0 + C - 1) / C;       // rounds
+  const int n_up = (d + kBK - 1) / kBK;        // up steps of a block
+
+  // the next valid step at or after c (c.r == R: none left)
+  auto settle = [&](Cursor& c) {
+    while (c.r < R) {
+      const int base = jb0 + c.r * C;
+      if (c.ph == 0) {
+        if (base + rank < jb1 && c.i < n_up) return;
+        c.ph = 1;
+        c.i = 0;
+      }
+      if (c.i < C && base + c.i < jb1) return;
+      ++c.r;
+      c.ph = 0;
+      c.i = 0;
+    }
+  };
+  // Each thread's copies keep their shared-memory offsets and row bases
+  // for the whole walk; a step moves only k0 or the ff block.  16-byte
+  // chunks, swizzled: chunk ch of tile row r lands at chunk ch ^ (r & 7).
+  // x and Wg/Wu tiles (rows of 64): rows xr + 32 i, chunk xc.
+  const int xr = tid >> 3, xc = tid & 7;
+  const int sw_off = xr * 64 + ((xc ^ (xr & 7)) << 3);
+  const int x_rows = max(0, min(kBM / 32, (M - m0 - xr + 31) / 32));
+  const bf16* xb = x + (static_cast<size_t>(m0 + xr) * d + xc * 8);
+  const size_t x_step = static_cast<size_t>(32) * d;
+  const size_t w_row = static_cast<size_t>(xr) * ff + xc * 8;
+  const size_t w_step = static_cast<size_t>(32) * ff;
+  // Wd tiles (64 x kDS as kDS / 64 blocks of 64 columns, 8 KB apart):
+  // rows dr + kDRows i, chunk dc (block dc / 8)
+  constexpr int kCh = kDS / 8, kDRows = kThreads / kCh;
+  const int dr = tid / kCh, dc = tid % kCh;
+  const int d_sm = (dc >> 3) * 4096 + dr * 64 + (((dc & 7) ^ (dr & 7)) << 3);
+  const bool d_col = col0 + dc * 8 < d;
+  const size_t d_row = static_cast<size_t>(dr) * d + col0 + dc * 8;
+  const size_t d_step = static_cast<size_t>(kDRows) * d;
+  // c's tiles into ring slot `slot`; zero-filled past M, d and ff
+  auto issue = [&](const Cursor& c, int slot) {
+    bf16* st = ring + slot * kStage;
+    const int base = jb0 + c.r * C;
+    if (c.ph == 0) {
+      const int f0 = (base + rank) * kBF, k0 = c.i * kBK;
+      const bool kx = k0 + xc * 8 < d;
+#pragma unroll
+      for (int i = 0; i < kBM / 32; ++i) {
+        const bool ok = kx && i < x_rows;
+        cp_async16(st + sw_off + i * 32 * kBK, ok ? xb + i * x_step + k0 : x,
+                   ok);
+      }
+      bf16* sg = st + kBM * kBK;
+      const bool fw = f0 + xc * 8 < ff;
+      const size_t wo = w_row + static_cast<size_t>(k0) * ff + f0;
+#pragma unroll
+      for (int i = 0; i < kBK / 32; ++i) {
+        const bool ok = fw && k0 + xr + 32 * i < d;
+        const size_t src = wo + i * w_step;
+        cp_async16(sg + sw_off + i * 32 * kBF, ok ? wg + src : wg, ok);
+        cp_async16(sg + kBK * kBF + sw_off + i * 32 * kBF,
+                   ok ? wu + src : wu, ok);
+      }
+    } else {
+      const int f0 = (base + c.i) * kBF;
+      const size_t dof = d_row + static_cast<size_t>(f0) * d;
+#pragma unroll
+      for (int i = 0; i < kBF / kDRows; ++i) {
+        const bool ok = d_col && f0 + dr + kDRows * i < ff;
+        cp_async16(st + d_sm + i * kDRows * 64,
+                   ok ? wd + dof + i * d_step : wd, ok);
+      }
+    }
+  };
+
+  Cursor prod{0, 0, 0};
+  settle(prod);
+  auto issue_next = [&](int slot) {
+    if (prod.r < R) {
+      issue(prod, slot);
+      ++prod.i;
+      settle(prod);
+    }
+    cp_async_commit();               // empty groups keep the count aligned
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue_next(i);
+  int slot = 0;
+  // wait for the consumer's next step; refill the slot the last one freed
+  auto next_step = [&]() {
+    cp_async_wait<kStages - 2>();
+    fence_async_smem();
+    __syncthreads();
+    issue_next((slot + kStages - 1) % kStages);
+  };
+
+  // y: warpgroup wgi holds columns 128 wgi .. of the rank's slice
+  float yacc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) yacc[e] = 0.f;
+
+  // one h block of rank j's own buffer `hb` through distributed shared
+  // memory: this thread's chunks, loaded now and stored later
+  constexpr int kHC = kH / 8 / kThreads;       // 16-byte chunks a thread
+  auto h_load = [&](const bf16* hb, int j, uint4 (&v)[kHC]) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(cluster.map_shared_rank(hb, j));
+#pragma unroll
+    for (int u = 0; u < kHC; ++u) v[u] = src[u * kThreads + tid];
+  };
+  auto h_store = [&](bf16* dst, const uint4 (&v)[kHC]) {
+#pragma unroll
+    for (int u = 0; u < kHC; ++u)
+      reinterpret_cast<uint4*>(dst)[u * kThreads + tid] = v[u];
+  };
+
+  for (int r = 0; r < R; ++r) {
+    const int base = jb0 + r * C;
+    bf16* hown = hbuf + (r & 1) * kH;
+    if (base + rank < jb1) {
+      // warpgroup 0: g = x @ Wg, warpgroup 1: u = x @ Wu (64 x 64 each)
+      float uacc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) uacc[e] = 0.f;
+      for (int i = 0; i < n_up; ++i) {
+        next_step();
+        const unsigned st = smem_u32(ring + slot * kStage);
+        const unsigned wb = st + 2 * kBM * kBK + wgi * 2 * kBK * kBF;
+        // the tensor core sums the step's 64 k from zero; IEEE adds fold
+        // the step into uacc.  Chaining uacc through the tensor core over
+        // all of d kept its own accumulation throughout, whose error from
+        // the fp64 sum measured up to 2.2x the plain version's (H100 SXM,
+        // 700 W).
+        float t[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) t[e] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < kKS; ++ks)
+          wgmma_n64(t, desc(st + ks * 32, 0, 1024),
+                    desc(wb + ks * 2048, 8192, 1024), ks);
+        wg_commit();
+        wg_wait0();
+        reg_fence(t);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) uacc[e] += t[e];
+        slot = (slot + 1) % kStages;
+      }
+      // u to warpgroup 0 through shared memory, then h = silu(g) * u,
+      // rounded to bf16, into this round's own buffer
+      if (wgi == 1)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) ex[e * 128 + tg] = uacc[e];
+      __syncthreads();
+      if (wgi == 0)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = 16 * w4 + (lane >> 2) + 8 * half;
+            const int e = 4 * j + 2 * half;
+            const float g0 = uacc[e], g1 = uacc[e + 1];
+            const float h0 = g0 / (1.f + expf(-g0)) * ex[e * 128 + tg];
+            const float h1 = g1 / (1.f + expf(-g1)) * ex[(e + 1) * 128 + tg];
+            *reinterpret_cast<__nv_bfloat162*>(
+                hown + row * kBF + ((j ^ (row & 7)) << 3) + 2 * (lane & 3)) =
+                __floats2bfloat162_rn(h0, h1);
+          }
+    }
+    // every rank's h of this round is written (release / acquire)
+    cluster.sync();
+    // y[:, col0 ..] += h_j @ Wd[block j, col0 ..], j in rank order; h_j
+    // comes through distributed shared memory into hall[j & 1], block j+1
+    // loaded while block j multiplies.  Each step's proxy fence and block
+    // barrier order the stores before the next step's wgmma reads them.
+    const int nblk = min(C, jb1 - base);
+    {
+      uint4 v[kHC];
+      h_load(hown, 0, v);
+      h_store(hall, v);
+    }
+    for (int j = 0; j < nblk; ++j) {
+      next_step();
+      uint4 v[kHC];
+      const bool more = j + 1 < nblk;
+      if (more) h_load(hown, j + 1, v);
+      {
+        // this warpgroup's two 64-column blocks of the Wd tile
+        const unsigned st = smem_u32(ring + slot * kStage) + wgi * 16384;
+        const unsigned ha = smem_u32(hall + (j & 1) * kH);
+        float t[64];
+#pragma unroll
+        for (int e = 0; e < 64; ++e) t[e] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < kKS; ++ks)
+          wgmma_n128(t, desc(ha + ks * 32, 0, 1024),
+                     desc(st + ks * 2048, 8192, 1024), ks);
+        wg_commit();
+        wg_wait0();
+        reg_fence(t);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) yacc[e] += t[e];
+      }
+      if (more) h_store(hall + ((j + 1) & 1) * kH, v);
+      slot = (slot + 1) % kStages;
+    }
+  }
+  cp_async_wait<0>();
+  cluster.sync();        // no CTA leaves while another reads its h
+
+  // y block: cast and store (S == 1) or this split's fp32 partial
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int gm = m0 + 16 * w4 + (lane >> 2) + 8 * half;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int gc = col0 + 128 * wgi + 8 * j + 2 * (lane & 3);
+      if (gc >= d) continue;
+      const float v0 = yacc[4 * j + 2 * half];
+      const float v1 = yacc[4 * j + 2 * half + 1];
+      if (S == 1)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<size_t>(gm) * d + gc) =
+            __floats2bfloat162_rn(v0, v1);
+      else
+        *reinterpret_cast<float2*>(
+            part + (static_cast<size_t>(s) * M + gm) * d + gc) =
+            make_float2(v0, v1);
+    }
+  }
+}
+
+// Launch configuration of an (M, C, S) call; numAttrs 1 (the cluster).
+struct Config {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  Config(int M, int C, int S, cudaStream_t stream) {
+    cfg.gridDim = dim3(C, (M + kBM - 1) / kBM, S);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+cudaError_t prepare() {
+  static bool attr_set = false;     // once: max opt-in shared memory
+  if (attr_set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      linked_mlp_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess) attr_set = true;
+  return err;
+}
+
+cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu,
+                   const bf16* wd, float* part, bf16* out, int M, int d,
+                   int ff, int C, int S, cudaStream_t stream) {
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  Config c(M, C, S, stream);
+  err = cudaLaunchKernelEx(&c.cfg, linked_mlp_tc, x, wg, wu, wd, part, out,
+                           M, d, ff, S);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return reduce<bf16>(part, out, static_cast<size_t>(M) * d, S, stream);
+}
+
+// clusters of C CTAs the current device runs at once; -1 on error
+int max_clusters(int C) {
+  if (prepare() != cudaSuccess) return -1;
+  Config c(kBM, C, 1, nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, linked_mlp_tc, &c.cfg) !=
+      cudaSuccess)
+    return -1;
+  return n;
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// The ff splits S of an (M, d, ff) call with these weights: the wrapper
-// sizes the (S, M, d) fp32 workspace with it.  0: d is too wide for even
-// one row's shared memory.  dtype: 0 = float32, 1 = bfloat16.
-extern "C" int repro_linked_mlp_splits(int dtype, int M, int d, int ff,
-                                       const void* wg, const void* wu,
-                                       const void* wd) {
-  return make_plan(dtype, M, d, ff, wg, wu, wd).S;
-}
-
-// x (M,d), wg/wu (d,ff), wd (ff,d), out (M,d): contiguous, one type on one
-// device; part: an (S, M, d) fp32 workspace, S from
-// repro_linked_mlp_splits.  Returns the cudaError_t of the launches (0 on
-// success).
+// The FFMA kernel: x (M,d), wg/wu (d,ff), wd (ff,d), out (M,d): contiguous,
+// one type on one device (dtype 0 = float32, 1 = bfloat16); part: an (S,
+// M, d) fp32 workspace.  bm (8, 4, 2 or 1) rows an M tile, v elements a
+// lane loads, S ff splits (1 <= S <= ceil(ff / 64)): ops.py's planner.
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_linked_mlp(int dtype, const void* x, const void* wg,
                                 const void* wu, const void* wd, void* part,
-                                void* out, int M, int d, int ff, int S,
-                                void* stream) {
-  const Plan p = make_plan(dtype, M, d, ff, wg, wu, wd);
-  if (M <= 0 || d <= 0 || ff <= 0 || p.S <= 0 || p.S != S ||
-      (dtype != 0 && dtype != 1))
+                                void* out, int M, int d, int ff, int bm,
+                                int v, int S, void* stream) {
+  if (M <= 0 || d <= 0 || ff <= 0 || S < 1 || S > (ff + kBF - 1) / kBF ||
+      (dtype != 0 && dtype != 1) ||
+      smem_bytes(bm, d) > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0
-          ? launch_t<float>(p, x, wg, wu, wd, part, out, M, d, ff, st)
-          : launch_t<__nv_bfloat16>(p, x, wg, wu, wd, part, out, M, d, ff,
-                                    st);
+          ? launch_t<float>(bm, v, x, wg, wu, wd, part, out, M, d, ff, S, st)
+          : launch_t<__nv_bfloat16>(bm, v, x, wg, wu, wd, part, out, M, d, ff,
+                                    S, st);
   return static_cast<int>(err);
+}
+
+// The tensor-core kernel: bf16 x (M,d), wg/wu (d,ff), wd (ff,d), out
+// (M,d), contiguous and 16-byte aligned on one device, d and ff multiples
+// of 8; cl = ceil(d / 256) <= 8 CTAs a cluster; S ff splits (1 <= S <=
+// ceil(ff / 64)); part: an (S, M, d) fp32 workspace when S > 1 (unused,
+// may be null, when S == 1).  Returns the cudaError_t of the launches.
+extern "C" int repro_linked_mlp_tc(const void* x, const void* wg,
+                                   const void* wu, const void* wd, void* part,
+                                   void* out, int M, int d, int ff, int cl,
+                                   int S, void* stream) {
+  const size_t addr = reinterpret_cast<size_t>(x) |
+                      reinterpret_cast<size_t>(wg) |
+                      reinterpret_cast<size_t>(wu) |
+                      reinterpret_cast<size_t>(wd);
+  if (M <= 0 || d <= 0 || ff <= 0 || d % 8 || ff % 8 || (addr & 15) ||
+      cl != (d + tc::kDS - 1) / tc::kDS || cl > tc::kMaxCluster || S < 1 ||
+      S > (ff + tc::kBF - 1) / tc::kBF || (S > 1 && part == nullptr) ||
+      (M + tc::kBM - 1) / tc::kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using tc::bf16;
+  return static_cast<int>(tc::launch(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+      static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
+      static_cast<float*>(part), static_cast<bf16*>(out), M, d, ff, cl, S,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Clusters of cl CTAs of the tensor-core kernel that the current device
+// runs at once (cudaOccupancyMaxActiveClusters); -1 on error.
+extern "C" int repro_linked_mlp_tc_clusters(int cl) {
+  if (cl < 1 || cl > tc::kMaxCluster) return -1;
+  return tc::max_clusters(cl);
 }

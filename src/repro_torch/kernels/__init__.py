@@ -46,7 +46,8 @@ NVCC_FLAGS: tuple[str, ...] = (
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"gqa_decode": 0, "gqa_decode_paged": 0,
                             "fused_mask": 0, "cbr_avgpool": 0,
-                            "linked_mlp": 0, "split_matmul": 0}
+                            "linked_mlp": 0, "linked_mlp_tc": 0,
+                            "split_matmul": 0}
 
 #: kernel name -> launches recorded into CUDA graphs under capture
 RECORDED: dict[str, int] = dict.fromkeys(LAUNCHES, 0)

@@ -1,4 +1,5 @@
-"""Linked SwiGLU MLP: the CUDA kernel's wrapper and its plain version.
+"""Linked SwiGLU MLP: the CUDA kernels' wrapper, their planner and their
+plain version.
 
 ``linked_mlp(x, wg, wu, wd)`` computes ``(silu(x @ wg) * (x @ wu)) @ wd``
 for x (..., d), wg and wu (d, ff), wd (ff, d), with the Pallas body's
@@ -7,14 +8,19 @@ h is rounded to x's dtype before the down-projection, and the
 down-projection accumulates in fp32 and is cast to x's dtype once.  (The
 Pallas kernel accumulates y in the output block's dtype, rounding every
 ff block's partial sum in bf16; the port accumulates in fp32.)  For CUDA
-tensors it launches ``csrc/linked_mlp.cu`` on the current stream, which
-keeps h on chip; for CPU tensors it runs :func:`linked_mlp_plain`.
-Nothing on the CUDA path falls back to the plain version, and ragged M,
-d and ff are masked in the kernel.
+tensors it launches one of the two kernels of ``csrc/linked_mlp.cu`` on
+the current stream, both of which keep h on chip: the tensor-core kernel
+(``tc``) for the bf16 shapes it takes, the FFMA kernel (``ffma``) for the
+rest; :func:`mlp_plan` chooses, from the shapes alone, and sizes the
+grid.  For CPU tensors it runs :func:`linked_mlp_plain`.  Nothing on the
+CUDA path falls back to the plain version, and ragged M, d and ff are
+masked in the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +28,26 @@ import torch.nn.functional as F
 from .. import check_launch, count_launch, library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the tensor-core kernel: rows an M tile, ff columns a block, y columns a
+#: cluster rank owns, and the largest (portable) cluster
+TC_BM, TC_BF, TC_DS, TC_MAX_CLUSTER = 64, 64, 256, 8
+#: the FFMA kernel: ff columns a block, warps a CTA, opt-in shared memory
+FFMA_BF, FFMA_WARPS, MAX_SMEM = 64, 8, 227 * 1024
+
+
+class MlpPlan(NamedTuple):
+    """How one call runs.  ``path``: "tc" or "ffma".  ``bm``: rows an M
+    tile.  ``cl``: CTAs a cluster, splitting d (tc; 1 for ffma).  ``S``:
+    splits of ff.  ``v``: elements an FFMA lane loads at once (16 bytes or
+    2; 8 for tc).  ``workspace``: fp32 elements of the (S, M, d) partial-y
+    workspace (0: y is stored directly)."""
+    path: str
+    bm: int
+    cl: int
+    S: int
+    v: int
+    workspace: int
 
 
 def linked_mlp_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -33,23 +59,142 @@ def linked_mlp_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return (h.float() @ wd.float()).to(x.dtype)
 
 
+def ffma_smem_bytes(bm: int, d: int) -> int:
+    """The FFMA kernel's shared memory: x tile and partial y (bm x d each),
+    the warps' partial g/u blocks and the h block, all fp32."""
+    return 4 * (2 * bm * d + FFMA_WARPS * bm * FFMA_BF + FFMA_BF * bm)
+
+
+def tc_takes(dtype: torch.dtype, d: int, ff: int, aligned: bool) -> bool:
+    """Whether the tensor-core kernel takes these shapes: bf16, d and ff
+    multiples of 8 (16-byte rows), 16-byte aligned tensors, and d split
+    over a cluster of at most TC_MAX_CLUSTER ranks of TC_DS columns."""
+    return (dtype == torch.bfloat16 and d % 8 == 0 and ff % 8 == 0
+            and aligned and -(-d // TC_DS) <= TC_MAX_CLUSTER)
+
+
+def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
+             sms: int, path: str | None = None,
+             slots: Callable[[int], int] | None = None
+             ) -> MlpPlan | None:
+    """Choose the kernel and its grid for an (M, d, ff) call.
+
+    ``aligned``: all four tensors 16-byte aligned.  ``sms``: the device's
+    SM count.  ``slots(cl)``: clusters of cl CTAs of the tensor-core
+    kernel the device runs at once (default sms // cl - 1: one CTA an SM,
+    and a cluster lives in one GPC; the occupancy calculator gives 15
+    clusters of 8 on a 132-SM H100).
+    ``path`` forces a kernel ("tc" raises where it does not take the
+    shapes); by default bf16 calls that the tensor-core kernel takes go to
+    it (decode too: it timed faster there than the FFMA kernel), the rest
+    to the FFMA kernel.
+    Returns None where the FFMA kernel cannot fit one row of d.
+
+    tc: TC_BM-row tiles; cl = ceil(d / TC_DS) CTAs a cluster.  S = 1
+    where the M tiles fill a wave of clusters (y is stored directly, no
+    workspace); else S, the ff splits, is the fewest that minimise waves
+    x rounds, where waves = ceil(M tiles x S / clusters a wave) and
+    rounds = ceil(ff blocks a split / cl).
+    ffma: the tallest row tile of 8, 4, 2, 1 whose shared memory fits,
+    and S splits filling the SMs; its partials always go through the
+    workspace.  S never exceeds the ff blocks."""
+    n_blocks = -(-ff // TC_BF)
+    tc_ok = tc_takes(dtype, d, ff, aligned)
+    if path is None:
+        path = "tc" if tc_ok else "ffma"
+    if path == "tc":
+        if not tc_ok:
+            raise ValueError(f"linked_mlp: the tensor-core kernel does not "
+                             f"take d={d}, ff={ff}, {dtype}, aligned="
+                             f"{aligned}")
+        cl = -(-d // TC_DS)
+        wave = max(1, slots(cl) if slots is not None else sms // cl - 1)
+        m_tiles = -(-M // TC_BM)
+        S = 1 if m_tiles >= wave else min(
+            range(1, n_blocks + 1), key=lambda S: (
+                -(-m_tiles * S // wave) * -(-(-(-n_blocks // S)) // cl), S))
+        return MlpPlan("tc", TC_BM, cl, S, 8, S * M * d if S > 1 else 0)
+    if path != "ffma":
+        raise ValueError(f"linked_mlp: unknown path {path!r}")
+    bm = next((b for b in (8, 4, 2, 1)
+               if ffma_smem_bytes(b, d) <= MAX_SMEM), 0)
+    if bm == 0:
+        return None
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    v = vec if aligned and d % vec == 0 and ff % vec == 0 else 2
+    S = max(1, min(n_blocks, sms // -(-M // bm)))
+    return MlpPlan("ffma", bm, 1, S, v, S * M * d)
+
+
+def split_blocks(n_blocks: int, S: int, s: int) -> tuple[int, int]:
+    """The ff blocks ``[jb0, jb1)`` that split ``s`` of ``S`` walks: both
+    kernels' formula.  The tensor-core kernel deals them to its cluster
+    round robin: block jb goes to rank (jb - jb0) % cl in round
+    (jb - jb0) // cl."""
+    return s * n_blocks // S, (s + 1) * n_blocks // S
+
+
 def _lib():
     lib = library("linked_mlp")
     if lib.repro_linked_mlp.argtypes is None:
         lib.repro_linked_mlp.argtypes = [ctypes.c_int] + \
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.repro_linked_mlp.restype = ctypes.c_int
-        lib.repro_linked_mlp_splits.argtypes = [ctypes.c_int] * 4 + \
-            [ctypes.c_void_p] * 3
-        lib.repro_linked_mlp_splits.restype = ctypes.c_int
+        lib.repro_linked_mlp_tc.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.repro_linked_mlp_tc.restype = ctypes.c_int
+        lib.repro_linked_mlp_tc_clusters.argtypes = [ctypes.c_int]
+        lib.repro_linked_mlp_tc_clusters.restype = ctypes.c_int
     return lib
 
 
+_SMS: dict[int, int] = {}
+_SLOTS: dict[tuple[int, int], int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def cluster_slots(device: torch.device) -> Callable[[int], int]:
+    """``slots(cl)`` for ``device``: clusters of cl CTAs of the tensor-core
+    kernel it runs at once, from the CUDA occupancy calculator (cached)."""
+    def slots(cl: int) -> int:
+        key = (device.index, cl)
+        n = _SLOTS.get(key)
+        if n is None:
+            with torch.cuda.device(device):
+                n = _lib().repro_linked_mlp_tc_clusters(cl)
+            if n <= 0:
+                raise RuntimeError(f"linked_mlp: clusters of {cl} CTAs of "
+                                   "the tensor-core kernel do not fit this "
+                                   "device")
+            _SLOTS[key] = n
+        return n
+    return slots
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_plan(index: int, M: int, d: int, ff: int, dtype: torch.dtype,
+                 aligned: bool) -> MlpPlan | None:
+    """:func:`mlp_plan` on CUDA device ``index``, once per shape, so that
+    its search does not run again in every layer of every tick."""
+    device = torch.device("cuda", index)
+    return mlp_plan(M, d, ff, dtype, aligned, _sm_count(device),
+                    slots=cluster_slots(device))
+
+
 def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-               wd: torch.Tensor) -> torch.Tensor:
+               wd: torch.Tensor, *, plan: MlpPlan | None = None
+               ) -> torch.Tensor:
     """x (..., d); wg/wu (d, ff); wd (ff, d) -> (..., d) in x's dtype.  On
     CUDA all four must be contiguous, of one dtype (float32 or bfloat16),
-    on one device."""
+    on one device.  ``plan`` overrides :func:`mlp_plan`'s choice (for
+    tests and timing)."""
     if not x.is_cuda:
         return linked_mlp_plain(x, wg, wu, wd)
     tensors = (x, wg, wu, wd)
@@ -74,18 +219,28 @@ def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     M = x.numel() // d if d > 0 else 0
     if M == 0 or d == 0 or ff == 0:
         return out.zero_()
-    lib = _lib()
-    code = _DTYPE_CODE[x.dtype]
-    S = lib.repro_linked_mlp_splits(code, M, d, ff, wg.data_ptr(),
-                                    wu.data_ptr(), wd.data_ptr())
-    if S <= 0:
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if plan is None:
+        plan = _device_plan(x.device.index, M, d, ff, x.dtype, aligned)
+    if plan is None:
         raise ValueError(f"linked_mlp: d = {d} does not fit one row's x tile "
                          "and partial y in shared memory")
-    part = torch.empty((S, M, d), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.workspace,), dtype=torch.float32,
+                       device=x.device) if plan.workspace else None
+    part_ptr = part.data_ptr() if part is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.repro_linked_mlp(
-        code, x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-        part.data_ptr(), out.data_ptr(), M, d, ff, S, stream)
+    lib = _lib()
+    if plan.path == "tc":
+        err = lib.repro_linked_mlp_tc(
+            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            part_ptr, out.data_ptr(), M, d, ff, plan.cl, plan.S, stream)
+    else:
+        err = lib.repro_linked_mlp(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), part_ptr, out.data_ptr(), M, d, ff, plan.bm,
+            plan.v, plan.S, stream)
     check_launch(err, "linked_mlp")
     count_launch("linked_mlp")
+    if plan.path == "tc":
+        count_launch("linked_mlp_tc")
     return out

@@ -504,6 +504,16 @@ def _mlp(card, M, d, ff, dtype):
             (rnd(ff, d) / ff ** 0.5).to(dtype))
 
 
+def _plan(x, wg, wu, wd):
+    """The plan the wrapper picks for these tensors on this card."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, wg, wu, wd))
+    return t_lm.mlp_plan(x.numel() // x.shape[-1], x.shape[-1],
+                         wg.shape[1], x.dtype, aligned,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count,
+                         slots=t_lm.cluster_slots(x.device))
+
+
 #: linked_mlp: element-wise, by input type (bf16: h and y rounded)
 MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
            "bfloat16": dict(rtol=2e-2, atol=1e-3)}
@@ -531,6 +541,8 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     again = t_lm.linked_mlp(x, wg, wu, wd)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["linked_mlp"] == 2
+    assert kernels.LAUNCHES["linked_mlp_tc"] == \
+        (2 if _plan(x, wg, wu, wd).path == "tc" else 0)
     assert got.dtype == dt and got.shape == (M, d)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(),
@@ -538,6 +550,64 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
                                **MLP_TOL[dtype])
     batched = t_lm.linked_mlp(x[None], wg, wu, wd)
     assert batched.shape == (1, M, d) and torch.equal(batched[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d,ff", [
+    (15, 2048, 6144), (16, 2048, 6144), (17, 2048, 6144),
+    (63, 2048, 6144), (64, 2048, 6144), (65, 2048, 6144),
+    (129, 2048, 6144), (8, 2048, 6144), (200, 2048, 320),
+    (70, 136, 200), (300, 1000, 520), (17, 8, 8), (129, 2040, 1032),
+    (4352, 2048, 1032)])
+def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
+    """The tensor-core kernel on either side of its 16-row m16 tiles, its
+    64-row M tiles and its 64-column ff blocks; d and ff multiples of 8
+    but not of 64 (a partial last slice of y, a last ff block of 8
+    columns); S > 1 (partials through the workspace) and S = 1 (y stored
+    directly, M = 4352); a cluster dealt fewer ff blocks than it has
+    CTAs (ff 320: 5 blocks over 8 ranks).  The planner sends each of
+    these to the tensor-core kernel; two launches give the same bits.
+    Element-wise against the plain version up to 1024 rows; past that, as
+    for batched prefill, two correct fp32 summation orders that each round
+    h to bf16 can land a few ulps apart, so the kernel's worst error from
+    the fp64-summed MLP is held within MLP_ORDER_FACTOR times the plain
+    version's."""
+    x, wg, wu, wd = _mlp(card, M, d, ff, torch.bfloat16)
+    plan = _plan(x, wg, wu, wd)
+    assert plan.path == "tc"
+    if (M, ff) == (200, 320):
+        assert -(-ff // 64) < plan.cl
+    if M == 4352:
+        assert plan.S == 1
+    kernels.reset_launches()
+    got = t_lm.linked_mlp(x, wg, wu, wd)
+    again = t_lm.linked_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linked_mlp"] == 2
+    assert kernels.LAUNCHES["linked_mlp_tc"] == 2
+    assert torch.equal(got, again)
+    plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
+    if M <= 1024:
+        torch.testing.assert_close(got.float(), plain.float(),
+                                   **MLP_TOL["bfloat16"])
+    else:
+        ref = _mlp_fp64(x, wg, wu, wd)
+        assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * _mlp_err(plain, ref)
+
+
+@pytest.mark.cuda
+def test_linked_mlp_tc_splits_ff_where_the_m_tiles_do_not_fill(card):
+    """Both sides of the split: few M tiles take S > 1 ff splits and a
+    workspace, as many M tiles as clusters a wave take S = 1."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = t_lm.cluster_slots(torch.device("cuda", 0))
+    few = t_lm.mlp_plan(256, 2048, 6144, torch.bfloat16, True, sms,
+                        slots=slots)
+    many = t_lm.mlp_plan(4352, 2048, 6144, torch.bfloat16, True, sms,
+                         slots=slots)
+    assert few.path == many.path == "tc"
+    assert few.S > 1 and few.workspace == few.S * 256 * 2048
+    assert many.S == 1 and many.workspace == 0
 
 
 #: batched prefill's shape, bf16: the kernel's worst error from the
@@ -570,23 +640,35 @@ def test_linked_mlp_batched_prefill_within_order_noise(card):
     x, wg, wu, wd = _mlp(card, 8 * 544, 2048, 6144, torch.bfloat16)
     ref = _mlp_fp64(x, wg, wu, wd)
     e_plain = _mlp_err(t_lm.linked_mlp_plain(x, wg, wu, wd), ref)
-    assert _mlp_err(t_lm.linked_mlp(x, wg, wu, wd), ref) \
-        <= MLP_ORDER_FACTOR * e_plain
+    kernels.reset_launches()
+    got = t_lm.linked_mlp(x, wg, wu, wd)
+    assert kernels.LAUNCHES["linked_mlp_tc"] == 1
+    assert torch.equal(got, t_lm.linked_mlp(x, wg, wu, wd))
+    assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * e_plain
     x[:, -1] = 0
     assert _mlp_err(t_lm.linked_mlp(x, wg, wu, wd), ref) \
         > MLP_ORDER_FACTOR * e_plain
 
 
 @pytest.mark.cuda
-def test_linked_mlp_replays_in_a_cuda_graph(card):
+@pytest.mark.parametrize("dtype,path,one_split", [
+    ("float32", "ffma", False), ("bfloat16", "tc", False),
+    ("bfloat16", "tc", True)])
+def test_linked_mlp_replays_in_a_cuda_graph(card, dtype, path, one_split):
     """Captured with its workspace from the graph's pool, replayed on new
-    inputs written in place: each replay equals an eager launch."""
-    x, wg, wu, wd = _mlp(card, 8, 512, 1536, torch.bfloat16)
-    graph, out = _graphed(lambda: t_lm.linked_mlp(x, wg, wu, wd))
+    inputs written in place: each replay equals an eager launch (the FFMA
+    kernel, the tensor-core kernel with the planner's S > 1 and with S =
+    1)."""
+    x, wg, wu, wd = _mlp(card, 8, 512, 1536, getattr(torch, dtype))
+    plan = _plan(x, wg, wu, wd)
+    assert plan.path == path and plan.S > 1
+    if one_split:
+        plan = plan._replace(S=1, workspace=0)
+    graph, out = _graphed(lambda: t_lm.linked_mlp(x, wg, wu, wd, plan=plan))
     for _ in range(3):
         x.copy_(torch.randn(x.shape, generator=card, device="cuda"))
         graph.replay()
-        assert torch.equal(out, t_lm.linked_mlp(x, wg, wu, wd))
+        assert torch.equal(out, t_lm.linked_mlp(x, wg, wu, wd, plan=plan))
 
 
 @pytest.mark.cuda
@@ -616,11 +698,12 @@ SPLIT_TOL = dict(rtol=2e-5, atol=2e-5)
     (128, 768, 3072, 1024, 768), (128, 3072, 768, 256, 3072),
     (128, 768, 3072, 3072, 192), (33, 70, 100, 30, 27), (1, 5, 3, 1, 2),
     (200, 64, 65, 65, 64), (512, 200, 2048, 2048, 64),
-    (600, 70, 1000, 333, 27)])
+    (600, 70, 1000, 333, 27), (128, 768, 3072, 3072, 256),
+    (1, 768, 3072, 1024, 768), (1, 3072, 768, 256, 3072)])
 def test_split_matmul_kernel_matches_plain(card, M, K, N, bn, bk):
-    """bert_s's two DSP-plan FFN tiles (seq 128, d 768), an inC split,
-    ragged shapes and tiles, on both block shapes (32 x 32 for small
-    grids, 64 x 64 where those fill the SMs)."""
+    """bert_s's two DSP-plan FFN tiles (seq 128, d 768), inC splits (the
+    plan's K tiles, each split again over a cluster), M = 1, ragged shapes
+    and tiles with 4-byte copies."""
     x = torch.randn((M, K), generator=card, device="cuda")
     w = torch.randn((K, N), generator=card, device="cuda") / K ** 0.5
     b = torch.randn((N,), generator=card, device="cuda")
@@ -632,18 +715,52 @@ def test_split_matmul_kernel_matches_plain(card, M, K, N, bn, bk):
         got, t_sm.split_matmul_plain(x, w, b, bn, bk), **SPLIT_TOL)
 
 
+def _split_plan(M, K, N, bn, bk):
+    return t_sm.split_plan(M, N, K, bn, bk, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+
+
 @pytest.mark.cuda
-def test_split_matmul_replays_in_a_cuda_graph(card):
-    x = torch.randn((64, 96), generator=card, device="cuda")
-    w = torch.randn((96, 48), generator=card, device="cuda")
-    b = torch.randn((48,), generator=card, device="cuda")
-    graph, out = _graphed(lambda: t_sm.split_matmul(x, w, b, block_n=16,
-                                                    block_k=32))
+def test_split_matmul_plans_split_each_k_tile_over_a_cluster(card):
+    """The inC plan (3 K tiles of 256) and M = 1 both take a cluster."""
+    inc = _split_plan(128, 768, 3072, 3072, 256)
+    assert inc.cl > 1 and -(-768 // 256) == 3
+    assert _split_plan(1, 768, 3072, 1024, 768).cl > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bn,bk", [
+    (128, 768, 3072, 1024, 768), (128, 3072, 768, 256, 3072),
+    (128, 768, 3072, 3072, 256), (1, 768, 3072, 1024, 768),
+    (600, 70, 1000, 333, 27)])
+def test_split_matmul_repeats_bit_for_bit(card, M, K, N, bn, bk):
+    """No atomics: two launches on the same inputs give the same bits,
+    cluster reductions included."""
+    x = torch.randn((M, K), generator=card, device="cuda")
+    w = torch.randn((K, N), generator=card, device="cuda") / K ** 0.5
+    b = torch.randn((N,), generator=card, device="cuda")
+    got = t_sm.split_matmul(x, w, b, block_n=bn, block_k=bk)
+    assert torch.equal(got, t_sm.split_matmul(x, w, b, block_n=bn,
+                                              block_k=bk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bn,bk", [(64, 96, 48, 16, 32),
+                                         (128, 768, 3072, 1024, 768)])
+def test_split_matmul_replays_in_a_cuda_graph(card, M, K, N, bn, bk):
+    """A plan without and one with a cluster split, replayed on new
+    inputs written in place: each replay equals an eager launch."""
+    x = torch.randn((M, K), generator=card, device="cuda")
+    w = torch.randn((K, N), generator=card, device="cuda")
+    b = torch.randn((N,), generator=card, device="cuda")
+    assert (_split_plan(M, K, N, bn, bk).cl > 1) == (M == 128)
+    graph, out = _graphed(lambda: t_sm.split_matmul(x, w, b, block_n=bn,
+                                                    block_k=bk))
     for _ in range(3):
         x.copy_(torch.randn(x.shape, generator=card, device="cuda"))
         graph.replay()
-        assert torch.equal(out, t_sm.split_matmul(x, w, b, block_n=16,
-                                                  block_k=32))
+        assert torch.equal(out, t_sm.split_matmul(x, w, b, block_n=bn,
+                                                  block_k=bk))
 
 
 @pytest.mark.cuda
