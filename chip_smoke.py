@@ -16,9 +16,11 @@ Phases (any failure exits non-zero before the result line):
    side), in dense rings that start late, wrap, or hold only the last
    slot; decode element by element (|kernel - plain| <= atol + rtol
    |plain|), the mask by equal support outside the nucleus-boundary
-   tokens and equal survivor values; time kernel, plain version and the
-   library yardstick with CUDA events, and print each decode kernel's
-   share of its bound;
+   tokens and equal survivor values, twice (the same bits), at the
+   served, greedy and top-p-only policies too; time kernel, plain
+   version and the library yardstick with CUDA events, and print each
+   decode kernel's share of its bound and ``fused_mask``'s at each of
+   the three policies, beside the plan ``mask_plan`` picks;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -28,8 +30,9 @@ Phases (any failure exits non-zero before the result line):
    (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and decode;
    every prefill launch must go through its tensor-core kernel, counted
    as ``linked_mlp_tc``); each run's decode-attention kernel must launch
-   once per layer of every decode tick, and its device ms per tick is
-   printed from the profiler;
+   once per layer of every decode tick, and ``fused_mask`` once per
+   sampled tick (each dispatch of the engine's samplers); its device ms
+   per tick is printed from the profiler;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth: greedy streams
    must match wherever the plain path's top-1/top-2 logit margin exceeds
@@ -52,10 +55,12 @@ Phases (any failure exits non-zero before the result line):
    the device busy share of xenos.
 
 Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
-by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32) at the
-Figure-5 and Table-4 shapes and at odd H and W, C = 3, OC = 10, N = 2, and
+by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32), twice (the
+same bits), at the Figure-5 and Table-4 shapes and at odd H and W, C = 3,
+OC = 10, N = 2, printing the plan ``cbra_plan`` picks for each, and
 times the kernel, its plain version and the unlinked form (``addmm``,
-``relu_``, ``avg_pool2d`` over the materialized pre-pool map);
+``relu_``, ``avg_pool2d`` over the materialized pre-pool map), printing
+at t4_8x8 whether the kernel beats either (a finding, not a gate);
 ``linked_mlp`` against ``linked_mlp_plain`` (bf16 1e-3 / 2e-2, fp32
 2e-5 / 2e-5) at the serving shapes, decode (8, 2048, 6144) and prefill
 (8 x the engine's chunk, 2048, 6144), and at fp32, ragged and M = 1
@@ -73,7 +78,8 @@ bert_s's two plan tiles, inC splits (one with a cluster split inside
 each of its K tiles), M = 1 and ragged cases, twice each (the same
 bits), timing the kernel, its plain version and ``torch.addmm``.  Phase
 1 prints the registers and spills ``nvcc -Xptxas -v`` reports for the
-two GEMM kernels' instantiations.
+instantiations of the two GEMM kernels, ``fused_mask`` and
+``cbr_avgpool``.
 
 The line before last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of everything measured goes to
@@ -186,17 +192,26 @@ def check_close(label: str, got, want, dtype: str,
 
 
 #: kernels whose registers and spills phase 1 prints, by the pattern of
-#: their mangled names: the tensor-core linked_mlp and split_matmul (rows
-#: a CTA, k halves, cluster size, 16-byte copies)
+#: their mangled names: the tensor-core linked_mlp, split_matmul (rows a
+#: CTA, k halves, cluster size, 16-byte copies), fused_mask (cluster
+#: size, 16-byte copies) and cbr_avgpool (thread columns and rows, k
+#: parts, squares a thread, cluster size, 16-byte copies)
 PTXAS_KERNELS = {
     r"linked_mlp_tcE": "linked_mlp_tc",
     r"split_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
-        "split_matmul_kernel<BM={},KH={},CL={},VEC={}>"}
+        "split_matmul_kernel<BM={},KH={},CL={},VEC={}>",
+    r"fused_mask_kernelILi(\d+)ELb(\d)E": "fused_mask_kernel<CL={},VEC={}>",
+    r"cbr_avgpool_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
+        "cbr_avgpool_kernel<TXN={},TYN={},KH={},TSQ={},CL={},VEC={}>"}
+#: the sources whose kernels those are
+PTXAS_SOURCES = ("linked_mlp", "split_matmul", "fused_sampler",
+                 "linked_cbr_pool")
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of each kernel named in PTXAS_KERNELS,
-    from an ``nvcc -Xptxas -v`` log; printed one line a kernel."""
+    """Registers, stack frame and spill bytes of each kernel named in
+    PTXAS_KERNELS, from an ``nvcc -Xptxas -v`` log; printed one line a
+    kernel."""
     import re
     out, name, spill = {}, None, None
     for line in log.splitlines():
@@ -208,19 +223,18 @@ def ptxas_report(log: str) -> dict:
                 if k:
                     name = fmt.format(*k.groups())
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spill = (int(m.group(1)), int(m.group(2)))
+            spill = tuple(int(g) for g in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out[name] = {"registers": int(m.group(1)),
-                         "spill_stores": spill[0] if spill else 0,
-                         "spill_loads": spill[1] if spill else 0}
-            print(f"ptxas {name}: {m.group(1)} registers, spill stores "
-                  f"{out[name]['spill_stores']} B, loads "
-                  f"{out[name]['spill_loads']} B")
+            stack, stores, loads = spill or (0, 0, 0)
+            out[name] = {"registers": int(m.group(1)), "stack": stack,
+                         "spill_stores": stores, "spill_loads": loads}
+            print(f"ptxas {name}: {m.group(1)} registers, stack {stack} B, "
+                  f"spill stores {stores} B, loads {loads} B")
             name = spill = None
     return out
 
@@ -421,14 +435,34 @@ def check_paged(torch, ops, gen, bs, report):
     print_share(report["gqa_decode_paged"])
 
 
+#: fused_mask's timed policies (T, top_k, top_p): the paged run's served
+#: policy, the greedy run's (no filter: one read, one write) and top-p
+#: alone (no top-k: the kernel's radix select over masses)
+MASK_POLICIES = {"served": (0.8, 50, 0.95), "greedy": (0.0, 0, 1.0),
+                 "top_p": (0.8, 0, 0.9)}
+
+
+def mask_policy(torch, t, k, p, B=SLOTS):
+    return (torch.full((B,), t, device=DEV),
+            torch.full((B,), k, dtype=torch.int32, device=DEV),
+            torch.full((B,), p, device=DEV))
+
+
 def check_fused_mask(torch, ops, gen, report):
     B, V = SLOTS, VOCAB
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    solo = ops.solo_clusters(torch.device(DEV))
+    plan = ops.mask_plan(B, V, sms, solo=solo)
+    print(f"fused_mask ({B},{V}): plan {plan._asdict()} (clusters held one "
+          "CTA an SM: " + ", ".join(f"{cl}: {solo(cl)}"
+                                    for cl in ops.CL_CHOICES)
+          + "), 16-byte copies for the served slice")
     cases = {
         "mixed": ([0.0, 0.8, 0.8, 1.3, 0.0, 0.5, 0.8, 1.0],
                   [0, 50, 1, V, 50, 0, 1000, -3],
                   [1.0, 0.95, 1.0, 0.5, 0.95, 0.9, 1.0, 0.3]),
-        "main_sampled": ([0.8] * B, [50] * B, [0.95] * B),
-        "main_greedy": ([0.0] * B, [0] * B, [1.0] * B),
+        **{f"main_{k}": tuple([v] * B for v in pol)
+           for k, pol in MASK_POLICIES.items()},
     }
     logits = torch.randn((B, V + 128), generator=gen, device=DEV) * 3.0
     tied = torch.round(logits * 2) / 2          # exact ties everywhere
@@ -440,9 +474,13 @@ def check_fused_mask(torch, ops, gen, report):
             kk = torch.tensor(k, dtype=torch.int32, device=DEV)
             pp = torch.tensor(p, device=DEV)
             got = ops.fused_mask(rows, tt, kk, pp)
+            if not torch.equal(got, ops.fused_mask(rows, tt, kk, pp)):
+                fail(f"fused_mask {label}/{rows_name}: two launches gave "
+                     "different bits")
             want = ops.fused_mask_plain(rows, tt, kk, pp)
-            # the kernel's documented departures (fp64 nucleus masses,
-            # p >= 1 keeps every top-k survivor) touch only these tokens
+            # the kernel's documented departures (exact sums of fp64
+            # nucleus masses, p >= 1 keeps every top-k survivor) touch
+            # only these tokens
             free = ops.nucleus_boundary(rows, tt, kk, pp)
             differ = torch.isinf(got) != torch.isinf(want)
             both = ~torch.isinf(got) & ~torch.isinf(want)
@@ -459,22 +497,30 @@ def check_fused_mask(torch, ops, gen, report):
                 fail(f"fused_mask {label}/{rows_name} disagrees with its "
                      "plain version")
             worst = max(worst, err)
-    tt = torch.full((B,), 0.8, device=DEV)
-    kk = torch.full((B,), 50, dtype=torch.int32, device=DEV)
-    pp = torch.full((B,), 0.95, device=DEV)
     rows = logits[:, :V]
     b_ms, b_by = bound_ms(2 * B * V * 4 + B * 12, B * V, "float32")
+    per_policy = {}
+    for label, pol in MASK_POLICIES.items():
+        args = mask_policy(torch, *pol)
+        # one input set: served logits come straight from the LM head and
+        # are still in L2
+        r = per_policy[label] = {
+            "policy": list(pol),
+            "ms": cuda_ms([lambda: ops.fused_mask(rows, *args)]),
+            "plain_ms": cuda_ms([lambda: ops.fused_mask_plain(rows, *args)],
+                                iters=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"fused_mask {label} (T, k, p) = {pol}: {r['ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), share of bound "
+              f"{b_ms / r['ms']:.3f}; plain {r['plain_ms']:.4f} ms")
+    head = per_policy["served"]
     report["fused_mask"] = {
         "name": "fused_mask", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_sampler.cu",
         "replaces": "src/repro/kernels/fused_sampler/fused_sampler.py:79",
-        "max_abs_err": worst,
-        # one input set: served logits come straight from the LM head
-        # and are still in L2
-        "ms": cuda_ms([lambda: ops.fused_mask(rows, tt, kk, pp)]),
-        "plain_ms": cuda_ms([lambda: ops.fused_mask_plain(rows, tt, kk, pp)],
-                            iters=5, warmup=1),
+        "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "plan": plan._asdict(), "per_policy": per_policy,
     }
 
 
@@ -490,21 +536,29 @@ def unlinked_cbra(x, w, b):
 
 
 def check_cbr_avgpool(torch, ops, gen, report):
-    # odd H and W, C = 3, OC = 10, N = 2; then one case per launch shape
-    # (narrow, C over clusters of 8 and 4; wide with scalar stores)
+    # odd H and W, C = 3, OC = 10, N = 2 (4-byte copies); small maps with
+    # C = 256 and C = 100 (a last step of 4 channels); a wide map with OC
+    # off multiples of 4
     cases = dict(CBRA_SHAPES, odd=((2, 7, 9, 3), 10),
-                 cluster8=((1, 4, 4, 256), 64), cluster4=((1, 6, 6, 100), 40),
+                 c256=((1, 4, 4, 256), 64), c100=((1, 6, 6, 100), 40),
                  wide_odd_oc=((1, 100, 98, 24), 45))
     worst, per_shape = 0.0, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, (shape, oc) in cases.items():
         C = shape[-1]
         x = torch.randn(shape, generator=gen, device=DEV)
         w = torch.randn((C, oc), generator=gen, device=DEV) / C ** 0.5
         b = torch.randn((oc,), generator=gen, device=DEV) * 0.1
+        plan = ops.cbra_plan(*shape, oc, sms)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w))
+        print(f"cbr_avgpool {label}: plan {plan._asdict()}, 16-byte copies "
+              f"{ops.cbra_vector_copies(C, oc, aligned)}")
         want = ops.cbr_avgpool_plain(x, w, b)
-        err = check_close(f"cbr_avgpool {label} {shape}@({C},{oc})",
-                          ops.cbr_avgpool(x, w, b), want, "float32",
-                          CBRA_TOL)
+        got = ops.cbr_avgpool(x, w, b)
+        if not torch.equal(got, ops.cbr_avgpool(x, w, b)):
+            fail(f"cbr_avgpool {label}: two launches gave different bits")
+        err = check_close(f"cbr_avgpool {label} {shape}@({C},{oc})", got,
+                          want, "float32", CBRA_TOL)
         worst = max(worst, err)
         if label not in CBRA_SHAPES:
             continue
@@ -517,15 +571,21 @@ def check_cbr_avgpool(torch, ops, gen, report):
         flops = 2 * M * C * oc + 3 * M * oc    # matmul; bias, relu, pool
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
         per_shape[label] = {
-            "shape": [*shape, oc],
+            "shape": [*shape, oc], "plan": plan._asdict(),
             "ms": cuda_ms([lambda: ops.cbr_avgpool(x, w, b)]),
             "plain_ms": cuda_ms([lambda: ops.cbr_avgpool_plain(x, w, b)]),
             "unlinked_ms": cuda_ms([lambda: unlinked_cbra(x, w, b)]),
             "bound_ms": b_ms, "bound_by": b_by}
         r = per_shape[label]
         print(f"cbr_avgpool {label}: {r['ms']:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
+              f"{b_ms:.4f} ms ({b_by}), share of bound "
+              f"{b_ms / r['ms']:.3f}; plain {r['plain_ms']:.4f} ms, "
               f"unlinked {r['unlinked_ms']:.4f} ms")
+    # a finding, not a gate: the kernel may stay slower than either
+    r = per_shape["t4_8x8"]
+    print(f"cbr_avgpool t4_8x8: beats its plain version "
+          f"{r['ms'] < r['plain_ms']}, beats the unlinked form "
+          f"{r['ms'] < r['unlinked_ms']}")
     head = per_shape["t4_224"]
     report["cbr_avgpool"] = {
         "name": "cbr_avgpool", "route": "cuda",
@@ -841,6 +901,19 @@ def serve_phase(torch, kernels, serve, engine, args, label,
     model = engine.model
     reqs = serve.make_requests(args, model.cfg.vocab)
     ragged_prompts(reqs, model.cfg.vocab, seed=1 + len(label))
+    # each dispatch of the engine's samplers (a decode tick's, or a prefill
+    # tick's that finished a prompt and is not all greedy) is a sampled
+    # tick: it must launch fused_mask once
+    sampled = {"ticks": 0}
+
+    def counted(fn):
+        def call(*a, **kw):
+            sampled["ticks"] += 1
+            return fn(*a, **kw)
+        return call
+    engine._sample_step = counted(engine._sample_step)
+    if engine._serve_sample is not None:
+        engine._serve_sample = counted(engine._serve_sample)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -895,6 +968,7 @@ def serve_phase(torch, kernels, serve, engine, args, label,
               f"{da['calls_per_tick']:.1f} calls/tick")
     return {"decode_tokens_per_s": tps, "mean_decode_ms": dec["mean_s"] * 1e3,
             "decode_steps": dec["calls"], "wall_s": wall, "ticks": tick,
+            "sampled_ticks": sampled["ticks"],
             "stages": stats["stages"], "launches": launches,
             "kernel_plan": stats["kernel_plan"], "plan": stats["plan"],
             "profile": profiled}
@@ -1146,7 +1220,7 @@ def main() -> int:
     for name, path in libs.items():
         log = path.with_suffix(".log").read_text()
         (out_dir / f"nvcc_{name}.log").write_text(log)
-        if name in ("linked_mlp", "split_matmul"):
+        if name in PTXAS_SOURCES:
             result.setdefault("ptxas", {}).update(ptxas_report(log))
 
     cfg = get_config("qwen3-1.7b")
@@ -1212,6 +1286,13 @@ def main() -> int:
         for name in names:
             if runs[label]["launches"].get(name, 0) <= 0:
                 fail(f"{label}: kernel {name} was never launched")
+        # one fused_mask launch per sampled tick
+        got, want = ln["fused_mask"], runs[label]["sampled_ticks"]
+        print(f"{label}: fused_mask launched {got} times over {want} "
+              "sampled ticks")
+        if got != want:
+            fail(f"{label}: fused_mask launched {got} times, want one per "
+                 f"sampled tick ({want})")
         # one decode-attention launch per layer of every decode tick
         want = cfg.n_layers * runs[label]["decode_steps"]
         got = runs[label]["launches"][names[0]]

@@ -18,35 +18,50 @@
 // The unlinked form (conv, then pool) also writes and reads the pre-pool
 // map (45 MB at the second shape); linking removes that traffic.
 //
-// What the design does about it: one thread block owns one output row
-// pair (input rows 2*ho and 2*ho+1) of one image, a tile of 2*SQ input
-// columns (SQ pooled columns) and a tile of 32 output channels.  It loops
-// over C in shared-memory tiles of 32 channels and accumulates the
-// 2 x 2*SQ x 32 pre-pool block in fp32 registers: each thread holds one
-// 2x2 pooling square for 4 output channels (16 accumulators, one float4 of
-// w per channel).  The epilogue adds the bias, applies the ReLU and
-// averages each square in registers, so the pre-pool map never reaches
-// device memory (Figure 4's zigzag write order, on chip).  IEEE fp32 FFMA,
-// no TF32: the engine holds the routed path to the plain one at 2e-5.
-//
-// Launch shapes, picked on the host:
-//   * SQ = 16: wide maps (the 224x224 shape: 5488 blocks, one C tile each
-//     at C = 24);
-//   * SQ = 4, KS = 4 warps per block: small maps, where row pairs x OC
-//     tiles alone do not fill 132 SMs (the 8x8 shape: 4 row pairs x 32 OC
-//     tiles = 128 blocks, 32 C tiles each).  Each warp accumulates a
-//     quarter of every C tile (summed through shared memory before the
-//     epilogue), and each thread loads its share of the next C tile into
-//     registers before it multiplies the current one.  C is also split
-//     over a thread block cluster of CL = 2..8 blocks (Hopper): block z of
-//     the cluster takes C tiles z, z + CL, ...; the cluster's rank 0 sums
-//     the partial pre-pool blocks through distributed shared memory, so
-//     they never reach device memory either (the 8x8 shape: CL = 8, 1024
-//     blocks of 4 C tiles).
-// Both hold at most 64 registers (__launch_bounds__(128, 8)), so 8 blocks
-// sit on an SM.  Masks cover every edge: columns past 2*(W/2), channels
-// past C (C = 3 or C = 24 leave most of a tile zero), output channels past
-// OC, and pooled columns past W/2.  N > 1 is a grid dimension.
+// What the design does about it: a register-tiled fp32 GEMM whose rows are
+// 2x2 pooling squares, so the pool is an epilogue on registers.
+//   * A pooled output q = (n, ho, wo) is a square of four pre-pool pixels.
+//     A CTA computes BSQ = TSQ TYN consecutive squares (flattened over n,
+//     ho, wo, so any map fills whole tiles) x BN = 8 TXN output channels;
+//     each thread TSQ squares x 8 channels (TSQ = 2: 64 fp32 accumulators,
+//     both squares' four corners), channels 4 tx .. 4 tx + 3 and
+//     BN/2 + 4 tx .. + 3.  Per 4 channels of C it reads its 4 TSQ pixels
+//     and 4 rows of w as float4 (16 shared loads for 256 FFMA at TSQ = 2).
+//   * x and w stream through a ring of 1-3 stages of 32 channels filled by
+//     cp.async (16-byte copies where C and OC are multiples of 4 and x, w
+//     are 16-byte aligned, else 4-byte copies); squares past the map,
+//     channels past C and output channels past OC are zero-filled.  A step
+//     multiplies only the channels it holds, rounded up to 4: C = 24 is one
+//     24-deep step, not a 32-channel tile a quarter zeros, and its w tile
+//     is copied once.  The x tile is corner-major (row c BSQ + s is corner
+//     c of square s) with rows of 36 floats, so a warp's float4 loads hit
+//     distinct banks; each CTA tabulates its tiles' pixel indices once.
+//   * CTAs with no split below walk square tiles bx, bx + gridDim.x, ...
+//     (up to kWalkMax; the planner spreads the tiles over the CTAs the SMs
+//     hold at once), so the ring's next tile is in flight while this one
+//     is multiplied and pooled.
+//   * KH = 2 or 4 splits each step's channels between parts of the CTA's
+//     threads (more warps where a CTA is alone on its SM); the parts'
+//     partials are summed in shared memory, part 0 first, then 1, 2, 3.
+//     Three CTA shapes (TXN, TYN, KH, TSQ) are built: mid (8, 16, 1, 2)
+//     for big maps, small (4, 8, 2, 2) and tiny (4, 8, 4, 1) for small
+//     ones.
+//   * Small maps split C over a thread block cluster (gridDim.z = CL, up to
+//     16): rank r takes steps [r S / CL, (r + 1) S / CL) of the S = C / 32
+//     steps; every rank then reduces its share of the tile's outputs over
+//     the ranks' partial pre-pool blocks, in rank order, through
+//     distributed shared memory, so the pre-pool block never reaches device
+//     memory (Figure 4's zigzag write order, on chip).
+//   * The epilogue adds the bias, applies the ReLU and averages each
+//     square: in registers where neither split is on, else from the
+//     reduced block.  IEEE fp32 FFMA, no TF32: the engine holds the routed
+//     path to the plain one at 2e-5.
+//   * The Python planner (kernels/linked_cbr_pool/ops.py, ``cbra_plan``)
+//     picks the CTA shape (TXN, TYN, KH, TSQ), CL, the CTAs along the
+//     square tiles and the ring depth from the shapes and the SM count, and
+//     passes them in.
+// No atomics: two launches give the same bits.  The launch allocates
+// nothing and never synchronizes, so it can be captured into a CUDA graph.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -56,213 +71,425 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCT = 32;             // input channels per shared-memory tile
-constexpr int kOCT = 32;            // output channels per block
-constexpr int kOCV = 4;             // output channels per thread (one float4)
-constexpr int kOCG = kOCT / kOCV;   // thread columns across the OC tile
-constexpr int kSMs = 132;           // H100 SXM streaming multiprocessors
-constexpr int kMaxCluster = 8;      // portable thread block cluster size
+constexpr int kBK = 32;          // channels of C a step
+constexpr int kXS = kBK + 4;     // x tile row stride (floats): spreads banks
+constexpr int kTN = 8;           // output channels a thread
+constexpr int kWalkMax = 8;      // square tiles a walking CTA may take
 
-template <int SQ, int KS, int CL>
-__global__ void __launch_bounds__(SQ * kOCG * KS, 8)
+template <int TXN, int TYN, int KH, int TSQ>
+struct Tile {
+  static constexpr int kBN = kTN * TXN;          // output channels a CTA
+  static constexpr int kBSQ = TSQ * TYN;         // squares a CTA
+  static constexpr int kPix = 4 * kBSQ;          // pre-pool pixels a CTA
+  static constexpr int kGroup = TXN * TYN;       // threads of one k part
+  static constexpr int kThreads = KH * kGroup;
+  // ops.py's cbra_ctas_per_sm: 3 CTAs an SM at 128 threads, 6 at 64
+  static constexpr int kMinBlocks = kThreads >= 128 ? 3 : 6;
+  static constexpr int kXStage = kPix * kXS;     // floats
+  static constexpr int kStage = kXStage + kBK * kBN;
+  static constexpr int kRed = 4 * kBSQ * kBN;    // one partial block
+  static constexpr size_t smem_bytes(int stages, bool reduce) {
+    const int ring = stages * kStage;
+    return sizeof(float) *
+           static_cast<size_t>(reduce && kRed > ring ? kRed : ring);
+  }
+};
+
+// 16 bytes (VEC) or 4 bytes global -> shared, bypassing registers;
+// src_bytes 0 zero-fills
+template <bool VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float pool4(float a, float b, float c, float d,
+                                       float bias) {
+  return 0.25f * (fmaxf(a + bias, 0.f) + fmaxf(b + bias, 0.f) +
+                  fmaxf(c + bias, 0.f) + fmaxf(d + bias, 0.f));
+}
+
+template <int TXN, int TYN, int KH, int TSQ, int CL, bool VEC>
+__global__ void __launch_bounds__(Tile<TXN, TYN, KH, TSQ>::kThreads,
+                                  Tile<TXN, TYN, KH, TSQ>::kMinBlocks)
 cbr_avgpool_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, float* __restrict__ out,
-                   int H, int W, int C, int OC, int Ho, int Wo,
-                   int col_tiles) {
-  constexpr int kThreads = SQ * kOCG * KS;
-  constexpr int kGroup = SQ * kOCG;   // threads per C slice
-  constexpr int kPix = 4 * SQ;        // pre-pool pixels: 2 rows x 2*SQ cols
-  constexpr int kXS = kCT + 1;        // padded pixel row: no bank conflicts
-  constexpr int kCS = kCT / KS;       // channels of a tile per slice
-  constexpr int kXL = kPix * kCT / kThreads;   // x tile loads per thread
-  constexpr int kWL = kCT * kOCT / kThreads;   // w tile loads per thread
-  // narrow tiles walk many C tiles each: they prefetch the next one;
-  // wide tiles (often one C tile) spend no registers on it
-  constexpr bool kPrefetch = SQ == 4;
-  static_assert(kPix * kCT % kThreads == 0 && kCT * kOCT % kThreads == 0,
-                "tiles must split evenly over the threads");
-
-  __shared__ float xs[kPix * kXS];
-  __shared__ __align__(16) float ws[kCT * kOCT];
-  // partial pre-pool blocks: slot s > 0 holds C slice s for the in-block
-  // sum, slot 0 this block's total for the cluster's rank 0
-  __shared__ float red[KS > 1 || CL > 1 ? KS * kGroup * 16 : 1];
+                   int H, int W, int C, int OC, int Ho, int Wo, int Q,
+                   int stages) {
+  using T = Tile<TXN, TYN, KH, TSQ>;
+  constexpr int kBSQ = T::kBSQ, kBN = T::kBN, kThreads = T::kThreads;
+  // CTAs without a split keep bias, ReLU and pool in registers and may
+  // walk several square tiles
+  constexpr bool kWalk = KH == 1 && CL == 1;
+  extern __shared__ __align__(16) float smem[];
+  // pixel index (n H + h) W + w of row p of tile j, -1 past Q
+  __shared__ int pix[(kWalk ? kWalkMax : 1) * T::kPix];
 
   const int tid = threadIdx.x;
-  const int slice = tid / kGroup;
-  const int lane = tid % kGroup;
-  const int og = lane % kOCG;         // float4 column of the OC tile
-  const int sq = lane / kOCG;         // pooling square within the tile
+  const int kh = tid / T::kGroup;
+  const int tg = tid % T::kGroup;
+  const int tx = tg % TXN;
+  const int ty = tg / TXN;
+  const int oc0 = blockIdx.y * kBN;
+  const int rank = CL > 1 ? static_cast<int>(blockIdx.z) : 0;
 
-  const int tile = blockIdx.x;        // (n * Ho + ho) * col_tiles + ct
-  const int ct = tile % col_tiles;
-  const int row = tile / col_tiles;   // n * Ho + ho
-  const int ho = row % Ho;
-  const int n = row / Ho;
-  const int oc0 = blockIdx.y * kOCT;
-  const int col0 = 2 * SQ * ct;       // first input column of the tile
-  const int cols = min(2 * SQ, 2 * Wo - col0);
-  const size_t row_base = (static_cast<size_t>(n) * H + 2 * ho) * W;
-
-  float acc[4][kOCV];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int j = 0; j < kOCV; ++j) acc[p][j] = 0.f;
-
-  // the four pixels of this thread's square: (row 0 | row 1) x (2sq | 2sq+1)
-  const float* x0 = xs + (2 * sq) * kXS;
-  const float* x1 = x0 + kXS;
-  const float* x2 = x0 + 2 * SQ * kXS;
-  const float* x3 = x2 + kXS;
-  auto mac = [&]() {
-#pragma unroll
-    for (int cc = 0; cc < kCS; ++cc) {
-      const int c = slice * kCS + cc;
-      const float4 wv =
-          *reinterpret_cast<const float4*>(ws + c * kOCT + og * kOCV);
-      const float xv[4] = {x0[c], x1[c], x2[c], x3[c]};
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        acc[p][0] = fmaf(xv[p], wv.x, acc[p][0]);
-        acc[p][1] = fmaf(xv[p], wv.y, acc[p][1]);
-        acc[p][2] = fmaf(xv[p], wv.z, acc[p][2]);
-        acc[p][3] = fmaf(xv[p], wv.w, acc[p][3]);
-      }
-    }
+  // this rank's steps [s0, s1) of ceil(C / kBK) (ops.py's ``cbra_steps``)
+  const int steps = (C + kBK - 1) / kBK;
+  const int s0 = rank * steps / CL, s1 = (rank + 1) * steps / CL;
+  const int n_steps = s1 - s0;
+  // this CTA's square tiles blockIdx.x + j gridDim.x (one where a split
+  // is on: the grid then holds every tile); work item i is step
+  // s0 + i % n_steps of tile j = i / n_steps
+  const int sq_tiles = (Q + kBSQ - 1) / kBSQ;
+  const int n_tiles =
+      kWalk ? (sq_tiles - static_cast<int>(blockIdx.x) +
+               static_cast<int>(gridDim.x) - 1) / static_cast<int>(gridDim.x)
+            : 1;
+  const int n_items = n_tiles * n_steps;
+  auto tile_q0 = [&](int j) {
+    return (static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x)) *
+           kBSQ;
   };
-
-  const int c_first = (CL > 1 ? static_cast<int>(blockIdx.z) : 0) * kCT;
-  // x tile element e: pixel p = e / kCT (input row 2*ho + p / (2*SQ),
-  // column col0 + p % (2*SQ)), channel e % kCT; w tile element e: channel
-  // e / kOCT, output channel e % kOCT.  Masked elements are zero.
-  auto x_at = [&](int c0, int e) {
-    const int p = e / kCT, c = e % kCT;
-    const int r = p / (2 * SQ), j = p % (2 * SQ);
-    return (j < cols && c0 + c < C)
-        ? x[(row_base + static_cast<size_t>(r) * W + col0 + j) * C + c0 + c]
-        : 0.f;
-  };
-  auto w_at = [&](int c0, int e) {
-    const int c = e / kOCT, o = e % kOCT;
-    return (c0 + c < C && oc0 + o < OC)
-        ? w[static_cast<size_t>(c0 + c) * OC + oc0 + o] : 0.f;
-  };
-  if constexpr (kPrefetch) {
-    // the next tile's loads are in flight while this one is multiplied
-    float xr[kXL], wr[kWL];
-    auto fetch = [&](int c0) {
-#pragma unroll
-      for (int i = 0; i < kXL; ++i) xr[i] = x_at(c0, tid + i * kThreads);
-#pragma unroll
-      for (int i = 0; i < kWL; ++i) wr[i] = w_at(c0, tid + i * kThreads);
-    };
-    if (c_first < C) fetch(c_first);
-    for (int c0 = c_first; c0 < C; c0 += CL * kCT) {
-      __syncthreads();                // the last tile is no longer read
-#pragma unroll
-      for (int i = 0; i < kXL; ++i) {
-        const int e = tid + i * kThreads;
-        xs[(e / kCT) * kXS + e % kCT] = xr[i];
-      }
-#pragma unroll
-      for (int i = 0; i < kWL; ++i) ws[tid + i * kThreads] = wr[i];
-      __syncthreads();
-      if (c0 + CL * kCT < C) fetch(c0 + CL * kCT);
-      mac();
+  // the table: row p = c BSQ + s of a tile is corner c (dy = c / 2,
+  // dx = c % 2) of its square s
+  for (int e = tid; e < n_tiles * T::kPix; e += kThreads) {
+    const int p = e % T::kPix;
+    const int c = p / kBSQ, q = tile_q0(e / T::kPix) + p % kBSQ;
+    int idx = -1;
+    if (q < Q) {
+      const int n = q / (Ho * Wo), r = q % (Ho * Wo);
+      const int ho = r / Wo, wo = r % Wo;
+      idx = (n * H + 2 * ho + (c >> 1)) * W + 2 * wo + (c & 1);
     }
-  } else {
-    // loaded straight into shared memory: staging the tile in registers
-    // made the wide variant 3.2x slower under the 64-register cap (at
-    // (1,224,224,24)@(24,224), H100 SXM at 700 W)
-    for (int c0 = c_first; c0 < C; c0 += CL * kCT) {
-      __syncthreads();
-      for (int e = tid; e < kPix * kCT; e += kThreads)
-        xs[(e / kCT) * kXS + e % kCT] = x_at(c0, e);
-      for (int e = tid; e < kCT * kOCT; e += kThreads) ws[e] = w_at(c0, e);
-      __syncthreads();
-      mac();
-    }
+    pix[e] = idx;
   }
+  __syncthreads();
 
-  if constexpr (KS > 1) {
-    // sum the C slices' partial blocks into slice 0
-    if (slice > 0) {
-      float* dst = red + (slice * kGroup + lane) * 16;
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int j = 0; j < kOCV; ++j) dst[p * kOCV + j] = acc[p][j];
+  // a single step of C has one w tile: copied once, into slot 0
+  const bool w_once = n_steps == 1;
+  auto x_slot = [&](int slot) { return smem + slot * T::kStage; };
+  auto w_slot = [&](int slot) {
+    return smem + (w_once ? 0 : slot) * T::kStage + T::kXStage;
+  };
+
+  // work item `item` into ring slot `slot`: only its step's kc channels
+  // (rounded up to 4, the rest zero) are copied, since only those are
+  // multiplied
+  auto issue = [&](int item, int slot) {
+    float* xs = x_slot(slot);
+    float* ws = w_slot(slot);
+    const int* tp = pix + (item / n_steps) * T::kPix;
+    const int k0 = (s0 + item % n_steps) * kBK;
+    const int kc = min(kBK, C - k0);
+    const bool copy_w = !w_once || item == 0;
+    if constexpr (VEC) {              // C % 4 == 0: kc too
+      for (int e = tid; e < T::kPix * (kBK / 4); e += kThreads) {
+        const int p = e / (kBK / 4), kk = (e % (kBK / 4)) * 4;
+        if (kk >= kc) continue;
+        const int idx = tp[p];
+        cp_async<true>(xs + p * kXS + kk,
+                       idx >= 0 ? x + static_cast<size_t>(idx) * C + k0 + kk
+                                : x,
+                       idx >= 0 ? 16 : 0);
+      }
+      if (copy_w)
+        for (int e = tid; e < kBK * (kBN / 4); e += kThreads) {
+          const int kk = e / (kBN / 4), nn = (e % (kBN / 4)) * 4;
+          if (kk >= kc) continue;
+          const bool ok = oc0 + nn < OC;
+          cp_async<true>(ws + kk * kBN + nn,
+                         ok ? w + static_cast<size_t>(k0 + kk) * OC + oc0 + nn
+                            : w,
+                         ok ? 16 : 0);
+        }
+    } else {
+      const int kc4 = (kc + 3) & ~3;
+      for (int e = tid; e < T::kPix * kBK; e += kThreads) {
+        const int p = e / kBK, kk = e % kBK;
+        if (kk >= kc4) continue;
+        const int idx = tp[p];
+        const bool ok = idx >= 0 && kk < kc;
+        cp_async<false>(xs + p * kXS + kk,
+                        ok ? x + static_cast<size_t>(idx) * C + k0 + kk : x,
+                        ok ? 4 : 0);
+      }
+      if (copy_w)
+        for (int e = tid; e < kBK * kBN; e += kThreads) {
+          const int kk = e / kBN, nn = e % kBN;
+          if (kk >= kc4) continue;
+          const bool ok = kk < kc && oc0 + nn < OC;
+          cp_async<false>(ws + kk * kBN + nn,
+                          ok ? w + static_cast<size_t>(k0 + kk) * OC + oc0 +
+                                   nn
+                             : w,
+                          ok ? 4 : 0);
+        }
     }
+  };
+
+  // acc[j][c][m]: square ty + j TYN, corner c, channel m (m < 4: 4 tx + m;
+  // m >= 4: BN/2 + 4 tx + m - 4)
+  float acc[TSQ][4][kTN];
+  auto zero = [&]() {
+#pragma unroll
+    for (int j = 0; j < TSQ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int m = 0; m < kTN; ++m) acc[j][c][m] = 0.f;
+  };
+  zero();
+
+  auto mac = [&](int slot, int kc4) {
+    const float* xs = x_slot(slot);
+    const float* ws = w_slot(slot);
+    constexpr int kPart = kBK / KH;
+#pragma unroll
+    for (int k4 = 0; k4 < kPart; k4 += 4) {
+      const int kk = kh * kPart + k4;
+      if (kk >= kc4) break;
+      float4 a[TSQ][4];
+#pragma unroll
+      for (int j = 0; j < TSQ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          a[j][c] = *reinterpret_cast<const float4*>(
+              xs + (c * kBSQ + ty + j * TYN) * kXS + kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* wr = ws + (kk + i) * kBN + 4 * tx;
+        const float4 w0 = *reinterpret_cast<const float4*>(wr);
+        const float4 w1 = *reinterpret_cast<const float4*>(wr + kBN / 2);
+        const float wv[kTN] = {w0.x, w0.y, w0.z, w0.w,
+                               w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int j = 0; j < TSQ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float av = comp(a[j][c], i);
+#pragma unroll
+            for (int m = 0; m < kTN; ++m)
+              acc[j][c][m] = fmaf(av, wv[m], acc[j][c][m]);
+          }
+      }
+    }
+  };
+
+  // epilogue in registers (no split): bias, ReLU and the 2x2 average of
+  // the tile at q0, then the accumulators start again; the bias of this
+  // CTA's channels is read once
+  float bias[kTN];
+#pragma unroll
+  for (int m = 0; m < kTN; ++m) {
+    const int ch = oc0 + (m / 4) * (kBN / 2) + 4 * tx + m % 4;
+    bias[m] = kWalk && ch < OC ? b[ch] : 0.f;
+  }
+  auto store_tile = [&](int q0) {
+#pragma unroll
+    for (int j = 0; j < TSQ; ++j) {
+      const int q = q0 + ty + j * TYN;
+      if (q >= Q) continue;
+      float* o = out + static_cast<size_t>(q) * OC;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ch = oc0 + h * (kBN / 2) + 4 * tx;
+        float v[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int mm = 4 * h + m;
+          v[m] = pool4(acc[j][0][mm], acc[j][1][mm], acc[j][2][mm],
+                       acc[j][3][mm], bias[mm]);
+        }
+        if (VEC && ch + 3 < OC) {
+          *reinterpret_cast<float4*>(o + ch) = make_float4(v[0], v[1], v[2],
+                                                           v[3]);
+        } else {
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            if (ch + m < OC) o[ch + m] = v[m];
+        }
+      }
+    }
+    zero();
+  };
+
+  // the ring: `stages` slots (1 to 3) of work items, one block barrier an
+  // item; the next tile's copies are in flight while this one is
+  // multiplied and stored
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < n_items) issue(i, i);
+    cp_async_commit();
+  }
+  int i = 0, slot = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    for (int s = s0; s < s1; ++s, ++i) {
+      if (stages == 1) {
+        issue(i, 0);
+        cp_async_commit();
+      }
+      if (stages == 3)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();      // item i landed; the slot of item i - 1 is free
+      if (stages > 1) {
+        const int nx = i + stages - 1;
+        if (nx < n_items) issue(nx, nx % stages);
+        cp_async_commit();  // empty groups keep the count aligned
+      }
+      const int kc = min(kBK, C - s * kBK);
+      mac(slot, (kc + 3) & ~3);
+      if (stages == 1) __syncthreads();
+      slot = slot + 1 == stages ? 0 : slot + 1;
+    }
+    if constexpr (kWalk) store_tile(tile_q0(j));
+  }
+  cp_async_wait<0>();
+
+  if constexpr (!kWalk) {
+    const int q0 = tile_q0(0);
+    // the partial pre-pool block through shared memory (the ring is free):
+    // red[(c BSQ + s) BN + ch], corner c of square s, channel ch
     __syncthreads();
-    if (slice == 0) {
+    float* red = smem;
+    auto slot4 = [&](int j, int c, int h) {
+      return reinterpret_cast<float4*>(
+          red + (c * kBSQ + ty + j * TYN) * kBN + h * (kBN / 2) + 4 * tx);
+    };
+    // the k parts' products added to part 0's, part 1 first
+    for (int part = 1; part < KH; ++part) {
+      if (kh == part)
 #pragma unroll
-      for (int s = 1; s < KS; ++s) {
-        const float* src = red + (s * kGroup + lane) * 16;
+        for (int j = 0; j < TSQ; ++j)
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
+          for (int c = 0; c < 4; ++c)
 #pragma unroll
-          for (int j = 0; j < kOCV; ++j) acc[p][j] += src[p * kOCV + j];
+            for (int h = 0; h < 2; ++h)
+              *slot4(j, c, h) =
+                  make_float4(acc[j][c][4 * h], acc[j][c][4 * h + 1],
+                              acc[j][c][4 * h + 2], acc[j][c][4 * h + 3]);
+      __syncthreads();
+      if (kh == 0)
+#pragma unroll
+        for (int j = 0; j < TSQ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 t = *slot4(j, c, h);
+              acc[j][c][4 * h] += t.x;
+              acc[j][c][4 * h + 1] += t.y;
+              acc[j][c][4 * h + 2] += t.z;
+              acc[j][c][4 * h + 3] += t.w;
+            }
+      __syncthreads();
+    }
+    if (kh == 0)                      // this CTA's block (its own slots)
+#pragma unroll
+      for (int j = 0; j < TSQ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *slot4(j, c, h) =
+                make_float4(acc[j][c][4 * h], acc[j][c][4 * h + 1],
+                            acc[j][c][4 * h + 2], acc[j][c][4 * h + 3]);
+    if constexpr (CL > 1)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+    // rank r reduces groups [r G / CL, (r + 1) G / CL) of the tile's G
+    // float4 groups of outputs over the ranks' blocks, in rank order
+    constexpr int kGroups = kBSQ * kBN / 4;
+    const int g0 = rank * kGroups / CL, g1 = (rank + 1) * kGroups / CL;
+    for (int g = g0 + tid; g < g1; g += kThreads) {
+      const int s = g / (kBN / 4), ch = (g % (kBN / 4)) * 4;
+      float4 v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int r = 0; r < CL; ++r) {
+        const float* src = red;
+        if constexpr (CL > 1) src = cg::this_cluster().map_shared_rank(red, r);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              src + (c * kBSQ + s) * kBN + ch);
+          v[c].x += t.x;
+          v[c].y += t.y;
+          v[c].z += t.z;
+          v[c].w += t.w;
+        }
+      }
+      const int q = q0 + s;
+      if (q >= Q) continue;
+      float* o = out + static_cast<size_t>(q) * OC + oc0 + ch;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int oc = oc0 + ch + m;
+        if (oc < OC)
+          o[m] = pool4(comp(v[0], m), comp(v[1], m), comp(v[2], m),
+                       comp(v[3], m), b[oc]);
       }
     }
-  }
-
-  if constexpr (CL > 1) {
-    // sum the cluster's partial blocks in rank 0, through distributed
-    // shared memory; every thread of every block reaches both barriers
-    cg::cluster_group cluster = cg::this_cluster();
-    if (slice == 0) {
-      float* dst = red + lane * 16;
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int j = 0; j < kOCV; ++j) dst[p * kOCV + j] = acc[p][j];
-    }
-    cluster.sync();
-    const bool leader = cluster.block_rank() == 0;
-    if (leader && slice == 0) {
-      for (int r = 1; r < CL; ++r) {
-        const float* src = cluster.map_shared_rank(red, r) + lane * 16;
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int j = 0; j < kOCV; ++j) acc[p][j] += src[p * kOCV + j];
-      }
-    }
-    cluster.sync();                   // keep every block's slot 0 alive
-    if (!leader) return;
-  }
-  if (slice != 0) return;
-
-  // epilogue: bias, ReLU, and the 2x2 average, all in registers
-  const int wo = ct * SQ + sq;
-  if (wo >= Wo) return;
-  float* o = out + ((static_cast<size_t>(n) * Ho + ho) * Wo + wo) * OC;
-#pragma unroll
-  for (int j = 0; j < kOCV; ++j) {
-    const int oc = oc0 + og * kOCV + j;
-    if (oc >= OC) continue;
-    const float bias = b[oc];
-    const float s = fmaxf(acc[0][j] + bias, 0.f) + fmaxf(acc[1][j] + bias, 0.f)
-                    + fmaxf(acc[2][j] + bias, 0.f)
-                    + fmaxf(acc[3][j] + bias, 0.f);
-    o[oc] = 0.25f * s;
+    if constexpr (CL > 1)
+      cg::this_cluster().sync();      // no block exits while it is read
   }
 }
 
-template <int SQ, int KS, int CL>
-cudaError_t launch(const float* x, const float* w, const float* b, float* out,
-                   int N, int H, int W, int C, int OC, cudaStream_t stream) {
-  const int Ho = H / 2, Wo = W / 2;
-  const int col_tiles = (Wo + SQ - 1) / SQ;
-  const long long rows = static_cast<long long>(N) * Ho * col_tiles;
-  const int oc_tiles = (OC + kOCT - 1) / kOCT;
-  if (rows > 0x7fffffffLL || oc_tiles > 65535) return cudaErrorInvalidValue;
+// the launch arguments past the template parameters
+struct Args {
+  const float *x, *w, *b;
+  float* out;
+  int N, H, W, C, OC, sq_ctas, stages;
+  cudaStream_t stream;
+};
+
+template <int TXN, int TYN, int KH, int TSQ, int CL, bool VEC>
+cudaError_t run(const Args& a) {
+  using T = Tile<TXN, TYN, KH, TSQ>;
+  auto kern = cbr_avgpool_kernel<TXN, TYN, KH, TSQ, CL, VEC>;
+  constexpr bool kWalk = KH == 1 && CL == 1;
+  static bool attr_set = false;      // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(T::smem_bytes(3, !kWalk)));
+    if (err == cudaSuccess && CL > 8)
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int Ho = a.H / 2, Wo = a.W / 2;
+  const long long Q = static_cast<long long>(a.N) * Ho * Wo;
+  const long long sq_tiles = (Q + T::kBSQ - 1) / T::kBSQ;
+  const int oc_tiles = (a.OC + T::kBN - 1) / T::kBN;
+  if (static_cast<long long>(a.N) * a.H * a.W > 0x7fffffffLL ||
+      oc_tiles > 65535 || a.sq_ctas < 1 || a.sq_ctas > sq_tiles ||
+      (sq_tiles + a.sq_ctas - 1) / a.sq_ctas > (kWalk ? kWalkMax : 1))
+    return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows), oc_tiles, CL);
-  cfg.blockDim = dim3(SQ * kOCG * KS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
+  cfg.gridDim = dim3(static_cast<unsigned>(a.sq_ctas), oc_tiles, CL);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::smem_bytes(a.stages, !kWalk);
+  cfg.stream = a.stream;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
@@ -271,48 +498,64 @@ cudaError_t launch(const float* x, const float* w, const float* b, float* out,
   cfg.attrs = &cluster;
   cfg.numAttrs = CL > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, cbr_avgpool_kernel<SQ, KS, CL>, x, w, b, out, H, W, C, OC, Ho,
-      Wo, col_tiles);
+      &cfg, kern, a.x, a.w, a.b, a.out, a.H, a.W, a.C, a.OC, Ho, Wo,
+      static_cast<int>(Q), a.stages);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int TXN, int TYN, int KH, int TSQ, bool VEC>
+cudaError_t run_cl(int cl, const Args& a) {
+  switch (cl) {
+    case 1: return run<TXN, TYN, KH, TSQ, 1, VEC>(a);
+    case 2: return run<TXN, TYN, KH, TSQ, 2, VEC>(a);
+    case 4: return run<TXN, TYN, KH, TSQ, 4, VEC>(a);
+    case 8: return run<TXN, TYN, KH, TSQ, 8, VEC>(a);
+    case 16: return run<TXN, TYN, KH, TSQ, 16, VEC>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the CTA shapes (TXN, TYN, KH, TSQ) of ops.py's SHAPES: mid (8, 16, 1, 2)
+// walks square tiles without a cluster; small (4, 8, 2, 2) and tiny (4, 8,
+// 4, 1) split k and take clusters of 1-16
+template <bool VEC>
+cudaError_t run_shape(int txn, int tyn, int kh, int tsq, int cl,
+                      const Args& a) {
+  if (txn == 8 && tyn == 16 && kh == 1 && tsq == 2 && cl == 1)
+    return run<8, 16, 1, 2, 1, VEC>(a);
+  if (txn == 4 && tyn == 8 && kh == 2 && tsq == 2)
+    return run_cl<4, 8, 2, 2, VEC>(cl, a);
+  if (txn == 4 && tyn == 8 && kh == 4 && tsq == 1)
+    return run_cl<4, 8, 4, 1, VEC>(cl, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x (N,H,W,C), w (C,OC), b (OC,), out (N,H/2,W/2,OC): contiguous fp32 on
-// one device.  Returns the cudaError_t of the launch
-// (0 on success).
+// one device, N H W < 2^31.  (txn, tyn, kh, tsq): the CTA shape; cl: CTAs a
+// cluster splitting C; sq_ctas: CTAs along the square tiles (every tile
+// where kh or cl splits, else each CTA walks tiles bx, bx + sq_ctas, ...,
+// at most 8); stages: the ring's depth (1 to 3): ops.py's planner.  vec: 1
+// for 16-byte copies (C and OC multiples of 4, x, w and out 16-byte
+// aligned).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_cbr_avgpool(const void* x, const void* w, const void* b,
                                  void* out, int N, int H, int W, int C, int OC,
+                                 int txn, int tyn, int kh, int tsq, int cl,
+                                 int sq_ctas, int stages, int vec,
                                  void* stream) {
-  if (N <= 0 || H < 2 || W < 2 || C <= 0 || OC <= 0)
+  if (N <= 0 || H < 2 || W < 2 || C <= 0 || OC <= 0 || stages < 1 ||
+      stages > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
-  const float* bp = static_cast<const float*>(b);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Ho = H / 2, Wo = W / 2;
-  const long long oc_tiles = (OC + kOCT - 1) / kOCT;
-  const long long wide_blocks =
-      static_cast<long long>(N) * Ho * ((Wo + 15) / 16) * oc_tiles;
-  // wide tiles only where they are mostly full and fill the card twice over
-  if (Wo >= 12 && wide_blocks >= 2 * kSMs)
-    return static_cast<int>(launch<16, 1, 1>(xp, wp, bp, op, N, H, W, C, OC,
-                                             s));
-  // narrow tiles: split C over a cluster until ~4 blocks sit on each SM,
-  // keeping at least one C tile per block
-  const long long blocks =
-      static_cast<long long>(N) * Ho * ((Wo + 3) / 4) * oc_tiles;
-  const int c_tiles = (C + kCT - 1) / kCT;
-  int cl = 1;
-  while (cl < kMaxCluster && blocks * cl < 4 * kSMs && 2 * cl <= c_tiles)
-    cl *= 2;
-  cudaError_t err;
-  switch (cl) {
-    case 8: err = launch<4, 4, 8>(xp, wp, bp, op, N, H, W, C, OC, s); break;
-    case 4: err = launch<4, 4, 4>(xp, wp, bp, op, N, H, W, C, OC, s); break;
-    case 2: err = launch<4, 4, 2>(xp, wp, bp, op, N, H, W, C, OC, s); break;
-    default: err = launch<4, 4, 1>(xp, wp, bp, op, N, H, W, C, OC, s);
-  }
+  if (vec && (C % 4 || OC % 4 ||
+              ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w) |
+                reinterpret_cast<size_t>(out)) & 15)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(w),
+               static_cast<const float*>(b), static_cast<float*>(out),
+               N, H, W, C, OC, sq_ctas, stages,
+               static_cast<cudaStream_t>(stream)};
+  const cudaError_t err = vec ? run_shape<true>(txn, tyn, kh, tsq, cl, a)
+                              : run_shape<false>(txn, tyn, kh, tsq, cl, a);
   return static_cast<int>(err);
 }

@@ -130,6 +130,25 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: the H100's shared memory (sm_90): what one CTA may take (227 KB, past
+#: 48 KB as opted-in dynamic memory), what an SM holds (228 KB), and what
+#: the runtime reserves of it for each resident CTA (1 KB)
+CTA_SMEM_MAX, SM_SMEM, CTA_SMEM_RESERVED = 232448, 233472, 1024
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of CUDA ``device`` (asked once a device):
+    every kernel planner sizes its grid by it."""
+    import torch
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def check_launch(err: int, kernel: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if err:

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from .. import check_launch, count_launch, library
+from .. import check_launch, count_launch, library, sm_count
 
 NEG_INF = -1e30
 
@@ -102,19 +102,10 @@ def _entry():
     return fn
 
 
-_SMS: dict[int, int] = {}
 #: (device index, stream, B, H, D, GT, S) -> the scratch of eager launches
 #: of that layout on that stream.  One buffer per layout: its tickets are
 #: never anything but tickets, so they stay zero between calls.
 _SCRATCH: dict[tuple[int, ...], torch.Tensor] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = _SMS[device.index] = \
-            torch.cuda.get_device_properties(device).multi_processor_count
-    return n
 
 
 def _scratch(device: torch.device, stream: int, B: int, H: int, D: int,
@@ -167,7 +158,7 @@ def _check_common(q, k, v, kernel):
 
 def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel):
     B, H, K, D = q.shape[0], q.shape[1], k.shape[2], q.shape[2]
-    gt, n_split = decode_grid(B, K, H // K, W, _sm_count(q.device))
+    gt, n_split = decode_grid(B, K, H // K, W, sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = _scratch(q.device, stream, B, H, D, gt, n_split)
     out = torch.empty_like(q)

@@ -8,15 +8,16 @@ Two filter backends behind :func:`fused_sample`:
   the permutation that orders the masked probabilities for the nucleus
   cumsum.
 * ``cuda`` — :func:`fused_mask`: for CUDA tensors the sort-free kernel in
-  ``csrc/fused_sampler.cu``, for CPU tensors :func:`fused_mask_plain`,
-  the reference kernel's 32-step key searches written in torch.
+  ``csrc/fused_sampler.cu`` (a cluster of CTAs per row, with the grid
+  :func:`mask_plan` picks), for CPU tensors :func:`fused_mask_plain`, the
+  reference kernel's 32-step key searches written in torch.
 
 The kernel keeps the reference's top-k support exactly but departs from
-it on the nucleus boundary: it sums masses in fp64 (the reference and
-the plain version in fp32) and keeps every top-k survivor at p >= 1
-(the reference's fp32 search cuts tail tokens whose mass vanishes in
-its sum).  Both differences touch only the tokens that
-:func:`nucleus_boundary` marks.
+it on the nucleus boundary: its masses are fp64 exps summed exactly in
+units of 2^-43 (the reference and the plain version sum fp32 exps in
+fp32) and it keeps every top-k survivor at p >= 1 (the reference's fp32
+search cuts tail tokens whose mass vanishes in its sum).  Both
+differences touch only the tokens that :func:`nucleus_boundary` marks.
 
 The draw is shared (``serving.sampling.keyed_draw``) and stays outside
 the kernel, so the backend never touches the PRNG contract.
@@ -24,11 +25,14 @@ the kernel, so the backend never touches the PRNG contract.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
 from ...serving.sampling import keyed_draw
-from .. import check_launch, count_launch, library
+from .. import (CTA_SMEM_MAX, CTA_SMEM_RESERVED, SM_SMEM, check_launch,
+                count_launch, library, sm_count)
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -107,23 +111,133 @@ def nucleus_boundary(rows: torch.Tensor, temperature: torch.Tensor,
     return torch.zeros_like(near).scatter(1, perm, near)
 
 
-def _entry():
-    fn = library("fused_sampler").repro_fused_mask
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+#: CTAs a row's cluster may hold (16 is a non-portable cluster size)
+CL_CHOICES = (1, 2, 4, 8, 16)
+#: the kernel's static shared memory beside its slice (``struct Shared``
+#: in the .cu; ``repro_fused_mask_static_smem`` reports it on the card)
+STATIC_SMEM = 17648
+#: survivors the top-p list takes before the kernel's radix path (<= 512)
+CAP = 256
+#: CTAs of the kernel an SM holds by registers (``__launch_bounds__(512,
+#: 2)``)
+CTAS_PER_SM = 2
+#: the planner's model, in slice elements, fitted to the served policy's
+#: cluster sweep of ``launch/mask_cbra_timing.py`` on an H100 (clusters of
+#: 4, 8 and 16 at B = 1, 8 and 64): a CTA's fixed chain (its rounds'
+#: barriers and merges), what each rank of its cluster adds (every
+#: round's merge reads every rank's bins), and how much longer a wave
+#: takes when its clusters share SMs
+FIXED, PER_RANK, SHARED = 18566, 620, 1.16
+
+
+class MaskPlan(NamedTuple):
+    """How one call runs: ``cl`` CTAs a row (one cluster a row, the grid
+    B x cl), each holding ``chunk`` elements of its row (a multiple of 4)
+    in shared memory; up to ``cap`` top-k survivors the nucleus is cut
+    from a gathered list, past it by a radix select over the masses."""
+    cl: int
+    chunk: int
+    cap: int
+
+
+def mask_slice(V: int, chunk: int, rank: int) -> tuple[int, int]:
+    """Elements ``[lo, hi)`` of a row that cluster rank ``rank`` holds:
+    the kernel's own slice."""
+    lo = min(V, rank * chunk)
+    return lo, min(V, lo + chunk)
+
+
+def mask_smem(chunk: int) -> int:
+    """Shared memory of one CTA: its slice of keys and the static part."""
+    return 4 * chunk + STATIC_SMEM
+
+
+def mask_plan(B: int, V: int, sms: int,
+              solo: Callable[[int], int] | None = None) -> MaskPlan | None:
+    """Pick the cluster from the rows, the row length and the SM count,
+    or None where even 16 CTAs cannot hold a row.
+
+    ``solo(cl)``: clusters of cl CTAs the card holds at once with one CTA
+    an SM (asked from the card; the GPCs' SMs go to whole clusters, so at
+    cl = 16 the H100 holds 7, not 132 // 16); default ``sms // cl``.
+    Model: a CTA takes chunk + FIXED + PER_RANK x cl; an SM holds per_sm
+    CTAs (registers and shared memory), so a wave holds solo x per_sm
+    clusters; a wave of more than solo clusters shares SMs and takes
+    SHARED times as long.  Ties go to the smaller cluster."""
+    best = None
+    for cl in CL_CHOICES:
+        chunk = -(-V // (4 * cl)) * 4
+        smem = mask_smem(chunk)
+        if smem > CTA_SMEM_MAX:
+            continue
+        alone = max(1, solo(cl) if solo is not None else sms // cl)
+        wave = alone * min(CTAS_PER_SM,
+                           SM_SMEM // (smem + CTA_SMEM_RESERVED))
+        cost = -(-B // wave) * (SHARED if min(B, wave) > alone else 1.0) \
+            * (chunk + FIXED + PER_RANK * cl)
+        if best is None or cost < best[0]:
+            best = (cost, MaskPlan(cl, chunk, CAP))
+    return None if best is None else best[1]
+
+
+_SOLO: dict[tuple[int, int], int] = {}
+
+
+def solo_clusters(device: torch.device) -> Callable[[int], int]:
+    """``solo(cl)`` for ``device``: clusters of cl CTAs of the kernel it
+    holds at once with one CTA an SM, from the CUDA occupancy calculator
+    (cached)."""
+    def solo(cl: int) -> int:
+        key = (device.index, cl)
+        n = _SOLO.get(key)
+        if n is None:
+            with torch.cuda.device(device):
+                n = _lib().repro_fused_mask_solo_clusters(cl)
+            if n <= 0:
+                raise RuntimeError(f"fused_mask: clusters of {cl} CTAs do "
+                                   "not fit this device")
+            _SOLO[key] = n
+        return n
+    return solo
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(index: int, B: int, V: int) -> MaskPlan | None:
+    """:func:`mask_plan` on CUDA device ``index``, once per shape."""
+    device = torch.device("cuda", index)
+    return mask_plan(B, V, sm_count(device), solo=solo_clusters(device))
+
+
+def mask_vector_copies(rows: torch.Tensor) -> bool:
+    """Whether the kernel may copy and store 16 bytes at a time: the rows'
+    stride and length multiples of 4 floats, the rows 16-byte aligned."""
+    return (rows.stride(0) % 4 == 0 and rows.shape[1] % 4 == 0
+            and rows.data_ptr() % 16 == 0)
+
+
+def _lib():
+    lib = library("fused_sampler")
+    if lib.repro_fused_mask.argtypes is None:
+        lib.repro_fused_mask.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.repro_fused_mask.restype = ctypes.c_int
+        lib.repro_fused_mask_static_smem.argtypes = []
+        lib.repro_fused_mask_static_smem.restype = ctypes.c_int
+        lib.repro_fused_mask_solo_clusters.argtypes = [ctypes.c_int]
+        lib.repro_fused_mask_solo_clusters.restype = ctypes.c_int
+    return lib
 
 
 def fused_mask(rows: torch.Tensor, temperature: torch.Tensor,
-               top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+               top_k: torch.Tensor, top_p: torch.Tensor, *,
+               plan: MaskPlan | None = None) -> torch.Tensor:
     """The support filter: kernel for CUDA tensors, plain version for CPU
     tensors.  The two agree except on the :func:`nucleus_boundary`
     tokens (see the module docstring).  On CUDA: rows (B,V) fp32 with unit
-    column stride (a row
-    stride past V is allowed, e.g. a slice of padded logits);
-    temperature/top_p (B,) fp32 and top_k (B,) int32, contiguous."""
+    column stride (a row stride past V is allowed, e.g. a slice of padded
+    logits); temperature/top_p (B,) fp32 and top_k (B,) int32,
+    contiguous.  ``plan`` overrides :func:`mask_plan`'s choice (for tests
+    and timing)."""
     if not rows.is_cuda:
         return fused_mask_plain(rows, temperature, top_k, top_p)
     if rows.dim() != 2 or rows.dtype != torch.float32 or rows.stride(1) != 1:
@@ -140,10 +254,18 @@ def fused_mask(rows: torch.Tensor, temperature: torch.Tensor,
                              f"{dt} ({B},) on the rows' device, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device}")
     out = torch.empty((B, V), dtype=torch.float32, device=rows.device)
+    if out.numel() == 0:
+        return out
+    if plan is None:
+        plan = _device_plan(rows.device.index, B, V)
+    if plan is None:
+        raise ValueError(f"fused_mask: a row of {V} does not fit the shared "
+                         f"memory of {CL_CHOICES[-1]} CTAs")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    err = _entry()(rows.data_ptr(), rows.stride(0), temperature.data_ptr(),
-                   top_k.data_ptr(), top_p.data_ptr(), out.data_ptr(), B, V,
-                   stream)
+    err = _lib().repro_fused_mask(
+        rows.data_ptr(), rows.stride(0), temperature.data_ptr(),
+        top_k.data_ptr(), top_p.data_ptr(), out.data_ptr(), B, V, plan.cl,
+        plan.chunk, plan.cap, int(mask_vector_copies(rows)), stream)
     check_launch(err, "fused_mask")
     count_launch("fused_mask")
     return out

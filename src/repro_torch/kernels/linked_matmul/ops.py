@@ -25,15 +25,15 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .. import check_launch, count_launch, library
+from .. import CTA_SMEM_MAX, check_launch, count_launch, library, sm_count
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the tensor-core kernel: rows an M tile, ff columns a block, y columns a
 #: cluster rank owns, and the largest (portable) cluster
 TC_BM, TC_BF, TC_DS, TC_MAX_CLUSTER = 64, 64, 256, 8
-#: the FFMA kernel: ff columns a block, warps a CTA, opt-in shared memory
-FFMA_BF, FFMA_WARPS, MAX_SMEM = 64, 8, 227 * 1024
+#: the FFMA kernel: ff columns a block, warps a CTA
+FFMA_BF, FFMA_WARPS = 64, 8
 
 
 class MlpPlan(NamedTuple):
@@ -117,7 +117,7 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
     if path != "ffma":
         raise ValueError(f"linked_mlp: unknown path {path!r}")
     bm = next((b for b in (8, 4, 2, 1)
-               if ffma_smem_bytes(b, d) <= MAX_SMEM), 0)
+               if ffma_smem_bytes(b, d) <= CTA_SMEM_MAX), 0)
     if bm == 0:
         return None
     vec = 16 // (4 if dtype == torch.float32 else 2)
@@ -148,16 +148,7 @@ def _lib():
     return lib
 
 
-_SMS: dict[int, int] = {}
 _SLOTS: dict[tuple[int, int], int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = _SMS[device.index] = \
-            torch.cuda.get_device_properties(device).multi_processor_count
-    return n
 
 
 def cluster_slots(device: torch.device) -> Callable[[int], int]:
@@ -184,7 +175,7 @@ def _device_plan(index: int, M: int, d: int, ff: int, dtype: torch.dtype,
     """:func:`mlp_plan` on CUDA device ``index``, once per shape, so that
     its search does not run again in every layer of every tick."""
     device = torch.device("cuda", index)
-    return mlp_plan(M, d, ff, dtype, aligned, _sm_count(device),
+    return mlp_plan(M, d, ff, dtype, aligned, sm_count(device),
                     slots=cluster_slots(device))
 
 

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import check_launch, count_launch, library
+from .. import check_launch, count_launch, library, sm_count
 
 #: k a pipeline step of the kernel, and y columns a CTA
 BK, BN = 32, 64
@@ -128,24 +128,13 @@ def _entry():
     return fn
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = _SMS[device.index] = \
-            torch.cuda.get_device_properties(device).multi_processor_count
-    return n
-
-
 @functools.lru_cache(maxsize=1024)
 def _device_plan(index: int, M: int, N: int, K: int, block_n: int,
                  block_k: int) -> SplitPlan:
     """:func:`split_plan` on CUDA device ``index``, once per shape, so that
     its search does not run again on every call."""
     return split_plan(M, N, K, block_n, block_k,
-                      _sm_count(torch.device("cuda", index)))
+                      sm_count(torch.device("cuda", index)))
 
 
 def vector_copies(x: torch.Tensor, w: torch.Tensor, block_n: int,

@@ -11,9 +11,10 @@ call (the wrapper's enqueue, timed while a spin kernel holds the
 stream).  Prints every repeat, then one JSON line with each list and its
 median.
 
-It reaches only ``gqa_decode`` and ``gqa_decode_paged``, so running this
-file with ``PYTHONPATH`` set to another checkout's ``src`` times that
-checkout's kernels.
+It reaches only ``gqa_decode`` and ``gqa_decode_paged`` (and
+``launch/gemm_timing``'s ``device_ms``), so running this file with
+``PYTHONPATH`` set to another checkout's ``src`` times that checkout's
+kernels.
 """
 from __future__ import annotations
 
@@ -28,27 +29,11 @@ import time
 import torch
 
 from repro_torch.kernels.decode_attention import ops
+from repro_torch.launch.gemm_timing import SPIN_CYCLES, device_ms
 
 B, H, K, D, W, BS = 8, 16, 8, 128, 2048, 32
 LENGTHS = [560, 512, 600, 540, 580, 530, 590, 520]
 ROTATE = 6
-SPIN_CYCLES = 200_000_000
-
-
-def device_ms(fns, iters: int = 24, warmup: int = 3) -> float:
-    """Device ms per call, cycling through ``fns``, behind a spin kernel."""
-    for i in range(warmup):
-        fns[i % len(fns)]()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def host_us(fn, iters: int = 500) -> float:
@@ -102,7 +87,7 @@ def main() -> int:
                            ("gqa_decode_paged", ops.gqa_decode_paged, paged)):
         ms, us = [], []
         for r in range(cli.repeats):
-            ms.append(device_ms([lambda s=s: fn(*s) for s in sets]))
+            ms.append(device_ms([lambda s=s: fn(*s) for s in sets], iters=24))
             us.append(host_us(lambda: fn(*sets[0])))
             print(f"{name} repeat {r}: {ms[-1]:.4f} ms device, "
                   f"{us[-1]:.1f} us host per call", flush=True)

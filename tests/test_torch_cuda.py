@@ -6,6 +6,8 @@ on a card machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -309,32 +311,182 @@ def test_decode_wrappers_launch_one_kernel_and_never_sync(card):
     assert all("decode_kernel" in name for name, _ in launched), launched
 
 
+#: fused_mask policies (T, k, p), cycled over a batch's rows: T = 0,
+#: k <= 0, k >= V, k = 1, p = 1, top-p alone and both filters; "V" and
+#: "V2" stand for the row length and half of it
+MASK_POLICIES = [(0.0, 0, 1.0), (0.8, 50, 0.95), (1.3, "V", 0.5),
+                 (0.5, 1, 1.0), (0.0, -3, 0.3), (1.0, 5, 0.7),
+                 (0.8, "V2", 1.0), (2.0, 0, 0.9), (0.8, 1, 0.5),
+                 (0.7, 50, 1.0), (1.1, 0, 0.95)]
+
+
+def _mask_policies(B, V, policies=MASK_POLICIES):
+    """(temperature, top_k, top_p) on the card, policy i % len for row i."""
+    rows = [policies[i % len(policies)] for i in range(B)]
+    k = [V if k == "V" else V // 2 if k == "V2" else k for _, k, _ in rows]
+    return (torch.tensor([t for t, _, _ in rows], device="cuda"),
+            torch.tensor(k, dtype=torch.int32, device="cuda"),
+            torch.tensor([p for _, _, p in rows], device="cuda"))
+
+
+def _mask_rows(seed, B, V, stride=None, tied=False):
+    """(B, V) logits ~ 3 N(0, 1) from numpy, as a slice of (B, stride) rows
+    (a row stride past V, as served); ``tied`` rounds them to halves, so
+    thousands of tokens tie at every value."""
+    rng = np.random.default_rng(seed)
+    full = rng.normal(size=(B, stride or V)).astype(np.float32) * 3
+    if tied:
+        full = np.round(full * 2) / 2
+    return torch.from_numpy(full).cuda()[:, :V]
+
+
+def _check_mask(rows, temps, ks, ps, **kw):
+    """Equal survivor values and equal -inf support except on the tokens
+    ``nucleus_boundary`` marks; returns the kernel's output."""
+    got = t_fs.fused_mask(rows, temps, ks, ps, **kw)
+    want = t_fs.fused_mask_plain(rows, temps, ks, ps)
+    free = t_fs.nucleus_boundary(rows, temps, ks, ps)
+    differ = torch.isinf(got) != torch.isinf(want)
+    assert not (differ & ~free).any()
+    both = ~torch.isinf(got) & ~torch.isinf(want)
+    assert torch.equal(got[both], want[both])
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("V", [17, 1000, 151936])
-def test_fused_mask_kernel_matches_plain(card, V):
+@pytest.mark.parametrize("B,V,stride", [
+    (8, 17, None), (8, 1000, None), (8, 151936, None), (8, 151936, 152064),
+    (8, 151935, 151939), (1, 151936, 152064), (64, 151936, 152064),
+    (3, 1001, 1003)])
+def test_fused_mask_kernel_matches_plain(card, B, V, stride):
     """Equal survivor values and equal -inf support, on heterogeneous
-    policies (T = 0, k <= 0, k >= V, p = 1) and on tied logits, except on
-    the tokens ``nucleus_boundary`` marks: the kernel decides the nucleus
-    in fp64 and keeps every top-k survivor at p >= 1, the plain version
-    (the reference's search) in fp32."""
-    rng = np.random.default_rng(V)
-    B = 8
-    temps = torch.tensor([0.0, 0.8, 1.3, 0.5, 0.0, 1.0, 0.8, 2.0],
-                         device="cuda")
-    ks = torch.tensor([0, 50, V, 1, -3, 5, V // 2, 0], dtype=torch.int32,
-                      device="cuda")
-    ps = torch.tensor([1.0, 0.95, 0.5, 1.0, 0.3, 0.7, 1.0, 0.9],
-                      device="cuda")
-    logits = torch.from_numpy(rng.normal(size=(B, V)).astype(np.float32) * 3)
-    for rows in (logits, torch.round(logits * 2) / 2):
-        rows = rows.cuda()
-        got = t_fs.fused_mask(rows, temps, ks, ps)
-        want = t_fs.fused_mask_plain(rows, temps, ks, ps)
-        free = t_fs.nucleus_boundary(rows, temps, ks, ps)
-        differ = torch.isinf(got) != torch.isinf(want)
-        assert not (differ & ~free).any()
-        both = ~torch.isinf(got) & ~torch.isinf(want)
-        assert torch.equal(got[both], want[both])
+    policies (T = 0, k <= 0, k >= V, k = 1, p = 1, top-p alone) and on
+    tied logits (at k = 50 thousands of survivors: past the top-p list,
+    the kernel's radix path), except on the tokens ``nucleus_boundary``
+    marks: the kernel decides the nucleus on exact sums of fp64 masses
+    and keeps every top-k survivor at p >= 1, the plain version (the
+    reference's search) in fp32.  One row (B = 1), more rows than the
+    card holds clusters at once (B = 64), V off the clusters' 4-element
+    slices (17, 1000, 151935), and row strides past V, 16-byte (152064)
+    and not (151939, 1003)."""
+    temps, ks, ps = _mask_policies(B, V)
+    for tied in (False, True):
+        _check_mask(_mask_rows(V + B, B, V, stride, tied), temps, ks, ps)
+
+
+@pytest.mark.cuda
+def test_fused_mask_both_nucleus_paths_and_every_cluster_agree(card):
+    """The nucleus cut from the gathered top-k list and by the radix select
+    over masses (``cap`` = 0 forces it), and every cluster size that holds
+    the row, give the same bits: the masses are summed exactly."""
+    B, V = 11, 20000
+    temps, ks, ps = _mask_policies(B, V)
+    for tied in (False, True):
+        rows = _mask_rows(7, B, V, V + 4, tied)
+        want = _check_mask(rows, temps, ks, ps)
+        for cl in t_fs.CL_CHOICES:
+            plan = t_fs.MaskPlan(cl, -(-V // (4 * cl)) * 4, t_fs.CAP)
+            for cap in (0, plan.cap, 512):
+                got = t_fs.fused_mask(rows, temps, ks, ps,
+                                      plan=plan._replace(cap=cap))
+                assert torch.equal(got, want), (cl, cap, tied)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1000, 151936])
+def test_fused_mask_repeats_bit_for_bit(card, V):
+    temps, ks, ps = _mask_policies(8, V)
+    for tied in (False, True):
+        rows = _mask_rows(3, 8, V, V + 128, tied)
+        first = t_fs.fused_mask(rows, temps, ks, ps)
+        for _ in range(3):
+            assert torch.equal(t_fs.fused_mask(rows, temps, ks, ps), first)
+
+
+@pytest.mark.cuda
+def test_fused_mask_replays_in_a_cuda_graph(card):
+    """Captured once at the served shape, replayed after the rows and every
+    policy (T, k, p) are written in place: each replay equals an eager
+    launch and holds the plain version's support."""
+    B, V = 8, 151936
+    logits = torch.zeros((B, V + 128), device="cuda")
+    rows = logits[:, :V]
+    temps, ks, ps = _mask_policies(B, V)
+    kernels.reset_launches()
+    graph, out = _graphed(lambda: t_fs.fused_mask(rows, temps, ks, ps))
+    assert kernels.RECORDED["fused_mask"] >= 1
+    policies = [MASK_POLICIES, MASK_POLICIES[::-1],
+                [(0.8, 50, 0.95)] * B, [(0.0, 0, 1.0)] * B]
+    for i, pol in enumerate(policies):
+        logits.copy_(_mask_rows(11 + i, B, V + 128, tied=i == 2))
+        for dst, src in zip((temps, ks, ps), _mask_policies(B, V, pol)):
+            dst.copy_(src)
+        graph.replay()
+        assert torch.equal(out, t_fs.fused_mask(rows, temps, ks, ps))
+        _check_mask(rows, temps, ks, ps)
+
+
+def _graph_node_types(graph) -> list[int]:
+    """The CUgraphNodeType of every node of a captured CUDA graph (made
+    with ``keep_graph=True``), read through the driver API."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+@pytest.mark.cuda
+def test_fused_mask_launches_one_kernel_and_never_syncs(card):
+    """One call enqueues exactly one device operation, a kernel: captured
+    into a CUDA graph, it leaves a single kernel node (node type 0) and
+    the wrapper records one launch.  No host synchronization (sync debug
+    mode raises on one).  At the served shape and at shapes that take the
+    radix path over masses."""
+    for B, V, tied in ((8, 151936, False), (8, 151936, True), (3, 1001, True)):
+        temps, ks, ps = _mask_policies(B, V)
+        rows = _mask_rows(5, B, V, V + 128, tied)
+        t_fs.fused_mask(rows, temps, ks, ps)   # plan and library outside
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t_fs.fused_mask(rows, temps, ks, ps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        kernels.RECORDED["fused_mask"] = 0
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            t_fs.fused_mask(rows, temps, ks, ps)
+        assert _graph_node_types(graph) == [0], (B, V, tied)
+        assert kernels.RECORDED["fused_mask"] == 1, (B, V, tied)
+
+
+@pytest.mark.cuda
+def test_fused_mask_planner_knows_the_kernel(card):
+    """The planner's static shared memory is the kernel's; the card holds
+    every SM's CTA alone (cluster of 1) and at most sms // cl clusters of
+    cl one CTA an SM; a row no cluster can hold is refused."""
+    assert t_fs._lib().repro_fused_mask_static_smem() == t_fs.STATIC_SMEM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    solo = t_fs.solo_clusters(torch.device("cuda", 0))
+    assert solo(1) == sms
+    assert all(1 <= solo(cl) <= sms // cl for cl in t_fs.CL_CHOICES)
+    V = 16 * 60000
+    temps, ks, ps = _mask_policies(1, V)
+    with pytest.raises(ValueError, match="does not fit"):
+        t_fs.fused_mask(torch.zeros((1, V), device="cuda"), temps, ks, ps)
+    with pytest.raises(ValueError, match="unit column stride"):
+        t_fs.fused_mask(torch.zeros((8, 2), device="cuda").t(),
+                        *_mask_policies(2, 8))
 
 
 #: cbr_avgpool: |kernel - plain| <= 2e-5 + 2e-5 |plain|, IEEE fp32 both
@@ -349,9 +501,10 @@ CBRA_TOL = dict(rtol=2e-5, atol=2e-5)
     (1, 4, 4, 256, 64), (1, 6, 6, 100, 40)])
 def test_cbr_avgpool_kernel_matches_plain(card, N, H, W, C, OC):
     """The Figure-5 and Table-4 shapes, odd H and W (floored), C and OC
-    off the 32-tiles (scalar and float4 stores), N > 1, and every launch
-    shape: wide tiles, and narrow tiles with C split over clusters of 1,
-    2, 4 and 8 blocks."""
+    off the tiles and off multiples of 4 (4-byte copies, scalar stores),
+    N > 1, each with the plan ``cbra_plan`` picks (mid CTAs walking square
+    tiles, and the k-split small and tiny ones with C split over
+    clusters)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.randn((N, H, W, C), generator=card, device="cuda")
     w = torch.randn((C, OC), generator=card, device="cuda") / C ** 0.5
@@ -365,6 +518,59 @@ def test_cbr_avgpool_kernel_matches_plain(card, N, H, W, C, OC):
                                **CBRA_TOL)
     conv_layout = t_cb.cbr_avgpool(x, w[None, None], b)
     assert torch.equal(conv_layout, got)
+
+
+def _cbra_case(card, N, H, W, C, OC):
+    x = torch.randn((N, H, W, C), generator=card, device="cuda")
+    w = torch.randn((C, OC), generator=card, device="cuda") / C ** 0.5
+    b = torch.randn((OC,), generator=card, device="cuda") * 0.1
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,OC", [
+    (1, 16, 16, 64, 128), (1, 8, 8, 1024, 1024), (1, 40, 36, 24, 224),
+    (2, 7, 9, 3, 10), (1, 6, 10, 100, 44), (2, 5, 5, 200, 36)])
+def test_cbr_avgpool_every_plan_matches_plain(card, N, H, W, C, OC):
+    """Every plan ``cbra_plans`` lists (each CTA shape, cluster size, ring
+    depth, and square tiles a CTA walks), at the main path's C and OC and
+    off them (C = 3 and OC = 10: 4-byte copies; C = 100:
+    a last step of 4 channels; C = 200: 7 steps over clusters of 1, 2 and
+    4), each against the plain version, twice (the same bits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, b = _cbra_case(card, N, H, W, C, OC)
+    want = t_cb.cbr_avgpool_plain(x, w, b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for plan in t_cb.cbra_plans(N, H, W, C, OC, sms):
+        got = t_cb.cbr_avgpool(x, w, b, plan=plan)
+        torch.testing.assert_close(got, want, **CBRA_TOL, msg=str(plan))
+        assert torch.equal(got, t_cb.cbr_avgpool(x, w, b, plan=plan)), plan
+
+
+@pytest.mark.cuda
+def test_cbr_avgpool_replays_in_a_cuda_graph(card):
+    """Captured at each Table-4 shape's plan, replayed on new x and w
+    written in place: each replay equals an eager launch."""
+    for shape in ((1, 8, 8, 1024, 1024), (1, 224, 224, 24, 224)):
+        x, w, b = _cbra_case(card, *shape)
+        graph, out = _graphed(lambda: t_cb.cbr_avgpool(x, w, b))
+        for i in range(2):
+            x.copy_(torch.randn(x.shape, generator=card, device="cuda"))
+            w.mul_(-0.5)
+            graph.replay()
+            assert torch.equal(out, t_cb.cbr_avgpool(x, w, b)), (shape, i)
+
+
+@pytest.mark.cuda
+def test_cbr_avgpool_unaligned_tensors_take_4_byte_copies(card):
+    """x that starts 4 bytes past a 16-byte boundary: the wrapper must not
+    ask for 16-byte copies."""
+    base = torch.randn((1 + 12 * 12 * 24,), generator=card, device="cuda")
+    x = base[1:].view(1, 12, 12, 24)
+    assert x.data_ptr() % 16 != 0
+    _, w, b = _cbra_case(card, 1, 12, 12, 24, 32)
+    torch.testing.assert_close(t_cb.cbr_avgpool(x, w, b),
+                               t_cb.cbr_avgpool_plain(x, w, b), **CBRA_TOL)
 
 
 @pytest.mark.cuda
