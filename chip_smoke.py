@@ -20,19 +20,43 @@ Phases (any failure exits non-zero before the result line):
    served, greedy and top-p-only policies too; time kernel, plain
    version and the library yardstick with CUDA events, and print each
    decode kernel's share of its bound and ``fused_mask``'s at each of
-   the three policies, beside the plan ``mask_plan`` picks;
+   the three policies, beside the plan ``mask_plan`` picks, and at a
+   verify's rows (8 x K1 for K1 = 5 and 13, the served policy);
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
-   once with paged KV sampled (T 0.8, top-k 50, top-p 0.95).  Every
-   request must complete with in-vocabulary tokens and each kernel's
-   launch counter must rise during the runs that route through it
-   (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and decode;
-   every prefill launch must go through its tensor-core kernel, counted
-   as ``linked_mlp_tc``); each run's decode-attention kernel must launch
-   once per layer of every decode tick, and ``fused_mask`` once per
-   sampled tick (each dispatch of the engine's samplers); its device ms
-   per tick is printed from the profiler;
+   once with paged KV sampled (T 0.8, top-k 50, top-p 0.95), each run
+   graphed (the decode step a CUDA graph) and eager on the same
+   requests, with replanning off (a replan adopts a chunk and prefill
+   mode from timings, which differ between the two), and their token
+   streams equal bit for bit; then the dense run once more, graphed,
+   replanning every 32 ticks as ``launch.serve`` does (it must replan).
+   Every request must complete with in-vocabulary tokens and each
+   kernel's launch counter must rise during the runs that route through
+   it (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and
+   decode; every prefill launch must go through its tensor-core kernel,
+   counted as ``linked_mlp_tc``); each run's decode-attention kernel
+   must launch once per layer of every decode step (K1 times at a verify
+   of width K1), and ``fused_mask`` once per dispatch of the engine's
+   samplers (a replay of a sampling graph included), each graph's
+   warm-ups adding one replay's launches a capture; a graph replay
+   counts the launches its capture recorded.  Step times, sampler
+   dispatches and warm-ups are the engine's own ``stats()``.  Prints the
+   steady decode step (the engine's synchronized step time, the
+   capturing and profiled steps apart), the device ms per tick from the
+   profiler, the busy share (that device time over the steady step),
+   and each graph's capture time and pool;
+3b. speculative decoding at full width, each run beside a spec-off twin
+   with the same requests and seeds, streams equal bit for bit: the
+   paged sampled run with ``spec ngram`` (k 4), a dense greedy run of 8
+   requests with ``spec draft`` (qwen3's reduced config at the full
+   vocabulary, k 12: it meets every verify width from 2 to 13, all its
+   graphs in one pool), and a dense greedy run of 4 requests with the target as
+   its own draft (an oracle: on random weights neither of the others
+   predicts the target); at least one draft accepted and one rejected
+   over the three.  Prints each run's acceptance, verify calls, verify
+   ms by width K1, its graphs' pool and decode tokens/s beside its
+   twin's;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth: greedy streams
    must match wherever the plain path's top-1/top-2 logit margin exceeds
@@ -63,16 +87,16 @@ times the kernel, its plain version and the unlinked form (``addmm``,
 at t4_8x8 whether the kernel beats either (a finding, not a gate);
 ``linked_mlp`` against ``linked_mlp_plain`` (bf16 1e-3 / 2e-2, fp32
 2e-5 / 2e-5) at the serving shapes, decode (8, 2048, 6144) and prefill
-(8 x the engine's chunk, 2048, 6144), and at fp32, ragged and M = 1
+(8 x each chunk a replan may adopt, 8 to 64, 2048, 6144), and at fp32,
+ragged and M = 1
 shapes, printing the plan (kernel, tile, cluster, ff splits) of each;
 at batched prefill's shape (8 x the longest prompt, 2048, 6144)
 bf16, which must take the tensor-core kernel, the kernel and its plain
 version each against the fp64-summed MLP
 (the kernel's worst error within ``MLP_ORDER_FACTOR`` times the plain
 version's; two planted faults must fail that test); timing the kernel,
-its plain version and the unlinked three-matmul form (after phase 3
-also at each chunked-prefill shape the serving runs reached: the chunk
-the scheduler replanned to); and
+its plain version and the unlinked three-matmul form at the served
+shapes; and
 ``split_matmul`` against ``split_matmul_plain`` (fp32, 2e-5 / 2e-5) at
 bert_s's two plan tiles, inC splits (one with a cluster split inside
 each of its K tiles), M = 1 and ragged cases, twice each (the same
@@ -117,6 +141,15 @@ MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 MLP_ORDER_FACTOR = 2.0
 #: the serving runs' prompt lengths, shortest and longest
 PROMPT_LENS = (480, 544)
+#: the oracle-draft run's prompts (its full-width draft feeds them eagerly)
+ORACLE_PROMPT_LENS = (64, 128)
+#: speculative runs: draft length (the n-gram and oracle runs, and the
+#: reduced-draft run's), and the verify widths phase 2 holds fused_mask at
+SPEC_K = 4
+DRAFT_SPEC_K = 12
+VERIFY_K1S = (SPEC_K + 1, DRAFT_SPEC_K + 1)
+#: the replan period of the serving runs with a twin: never (see phase 3)
+PINNED = 10_000
 #: split_matmul: element-wise, IEEE fp32 on both sides
 SPLIT_TOL = dict(rtol=2e-5, atol=2e-5)
 #: qwen3-1.7b's MLP widths (configs/qwen3_1_7b.py)
@@ -513,6 +546,42 @@ def check_fused_mask(torch, ops, gen, report):
         print(f"fused_mask {label} (T, k, p) = {pol}: {r['ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), share of bound "
               f"{b_ms / r['ms']:.3f}; plain {r['plain_ms']:.4f} ms")
+    # speculative verify samples B x K1 rows at once (K1 = spec_k + 1)
+    verify = {}
+    for K1 in VERIFY_K1S:
+        B1 = SLOTS * K1
+        vlogits = torch.randn((B1, V + 128), generator=gen, device=DEV) * 3.0
+        vrows = vlogits[:, :V]
+        args = mask_policy(torch, *MASK_POLICIES["served"], B=B1)
+        got = ops.fused_mask(vrows, *args)
+        if not torch.equal(got, ops.fused_mask(vrows, *args)):
+            fail(f"fused_mask verify rows K1 {K1}: two launches gave "
+                 "different bits")
+        want = ops.fused_mask_plain(vrows, *args)
+        free = ops.nucleus_boundary(vrows, *args)
+        differ = torch.isinf(got) != torch.isinf(want)
+        both = ~torch.isinf(got) & ~torch.isinf(want)
+        err = (got[both] - want[both]).abs().max().item() \
+            if both.any() else 0.0
+        if (differ & ~free).any() or err != 0.0:
+            fail(f"fused_mask at the verify shape K1 {K1} disagrees with "
+                 "its plain version")
+        worst = max(worst, err)
+        vb_ms, vb_by = bound_ms(2 * B1 * V * 4 + B1 * 12, B1 * V, "float32")
+        v = verify[K1] = {
+            "rows": [B1, V], "policy": list(MASK_POLICIES["served"]),
+            "plan": ops.mask_plan(B1, V, sms, solo=solo)._asdict(),
+            "ms": cuda_ms([lambda: ops.fused_mask(vrows, *args)]),
+            "plain_ms": cuda_ms([lambda: ops.fused_mask_plain(vrows, *args)],
+                                iters=3, warmup=1),
+            "bound_ms": vb_ms, "bound_by": vb_by,
+            "boundary_tokens_differing": int(differ.sum())}
+        print(f"fused_mask verify rows K1 {K1} ({B1},{V}) served policy: "
+              f"plan {v['plan']}; supports differ on {int(differ.sum())} "
+              f"nucleus-boundary tokens; {v['ms']:.4f} ms, bound "
+              f"{vb_ms:.4f} ms ({vb_by}), share {vb_ms / v['ms']:.3f}; "
+              f"plain {v['plain_ms']:.4f} ms")
+        del vlogits, got, want, free, differ, both
     head = per_policy["served"]
     report["fused_mask"] = {
         "name": "fused_mask", "route": "cuda",
@@ -520,7 +589,7 @@ def check_fused_mask(torch, ops, gen, report):
         "replaces": "src/repro/kernels/fused_sampler/fused_sampler.py:79",
         "max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "plan": plan._asdict(), "per_policy": per_policy,
+        "plan": plan._asdict(), "per_policy": per_policy, "verify": verify,
     }
 
 
@@ -756,10 +825,10 @@ def linked_mlp_batched(torch, ops, gen, row):
                   row)
 
 
-def check_linked_mlp(torch, ops, gen, chunk, report):
+def check_linked_mlp(torch, ops, gen, chunks, report):
     """The served shapes, decode (slots rows), chunked prefill (slots x
-    the engine's chunk rows) and batched prefill, timed; then fp32,
-    ragged and M = 1."""
+    each chunk in ``chunks``: every chunk ``serve_schedule`` may adopt)
+    and batched prefill, timed; then fp32, ragged and M = 1."""
     bf16, f32 = torch.bfloat16, torch.float32
     row = report["linked_mlp"] = {
         "name": "linked_mlp", "route": "cuda",
@@ -768,8 +837,10 @@ def check_linked_mlp(torch, ops, gen, chunk, report):
         # no single PyTorch call computes it; the unlinked three-matmul
         # form (the served torch backend) is recorded beside it
         "library_ms": None, "per_shape": {}}
-    cases = {"decode": (SLOTS, D_MODEL, D_FF, bf16),
-             f"prefill_c{chunk}": (SLOTS * chunk, D_MODEL, D_FF, bf16),
+    served = {"decode": (SLOTS, D_MODEL, D_FF, bf16),
+              **{f"prefill_c{c}": (SLOTS * c, D_MODEL, D_FF, bf16)
+                 for c in chunks}}
+    cases = {**served,
              "m1": (1, D_MODEL, D_FF, bf16),
              "fp32": (64, 1024, 2048, f32),
              # more row tiles than SMs: one ff split, each CTA walks all
@@ -779,22 +850,13 @@ def check_linked_mlp(torch, ops, gen, chunk, report):
              "ragged_fp32": (13, 2047, 129, f32),
              "ragged_ff_bf16": (5, 136, 200, bf16),
              "ragged_m_bf16": (37, 256, 208, bf16)}
-    for i, (label, shape) in enumerate(cases.items()):
-        linked_mlp_case(torch, ops, gen, label, shape, row, timed=i < 2)
+    for label, shape in cases.items():
+        linked_mlp_case(torch, ops, gen, label, shape, row,
+                        timed=label in served)
     linked_mlp_batched(torch, ops, gen, row)
     head = row["per_shape"]["decode"]
     row.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "unlinked_ms", "shape")})
-
-
-def linked_mlp_path_shapes(torch, ops, gen, runs, chunk, report):
-    """The chunked-prefill shapes the serving runs reached that phase 2
-    did not time: the chunks ``serve_schedule`` replanned to."""
-    chunks = sorted({r["plan"]["chunk"] for r in runs.values()} - {chunk})
-    for c in chunks:
-        linked_mlp_case(torch, ops, gen, f"prefill_c{c}",
-                        (SLOTS * c, D_MODEL, D_FF, torch.bfloat16),
-                        report["linked_mlp"], timed=True)
 
 
 def check_split_matmul(torch, ops, gen, report):
@@ -854,18 +916,18 @@ def check_split_matmul(torch, ops, gen, report):
 def serve_args(serve, **over):
     args = serve.build_parser().parse_args(["--arch", "qwen3-1.7b"])
     values = dict(requests=16, prompt_len=512, max_new=64, slots=SLOTS,
-                  max_len=MAX_LEN, seed=0)
+                  max_len=MAX_LEN, seed=0, replan_every=PINNED)
     values.update(over)
     for k, v in values.items():
         setattr(args, k, v)
     return args
 
 
-def ragged_prompts(reqs, vocab, seed):
+def ragged_prompts(reqs, vocab, seed, lens=PROMPT_LENS):
     import numpy as np
     rng = np.random.default_rng(seed)
     for r in reqs:
-        n = int(rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+        n = int(rng.integers(lens[0], lens[1] + 1))
         r.prompt = rng.integers(0, vocab, size=n).astype(np.int32)
 
 
@@ -893,47 +955,73 @@ def profile_window(torch, prof, ticks: int) -> dict:
                 "calls_per_tick": sum(n for _, n in dec) / ticks}}
 
 
-def serve_phase(torch, kernels, serve, engine, args, label,
-                window=(100, 105)):
+def window_steps(after: dict, before: dict) -> dict:
+    """``steps`` minus ``before``'s, per width (a profiled window's)."""
+    none = {"calls": 0, "total_s": 0.0, "captures": 0, "capture_s": 0.0}
+    return {w: {k: v - before.get(w, none)[k] for k, v in st.items()}
+            for w, st in after.items()}
+
+
+def serve_phase(torch, kernels, serve, engine, args, label, prompt_seed,
+                window=(100, 105), lens=PROMPT_LENS):
     """One full serving run through ``engine`` (built from ``args``), ticks
     driven here so a window of ticks can be profiled; the launch counts
-    cover the run."""
+    cover the run.  The requests (``serve.make_requests``, prompts made
+    ragged from ``prompt_seed``) are the same for every run given the
+    same args and seed, so two runs' streams can be compared.  Step
+    times, sampler dispatches and graph warm-ups are the engine's own
+    (``stats()``, ``engine.steps``); the profiled window's steps are taken
+    out of the steady means."""
     model = engine.model
     reqs = serve.make_requests(args, model.cfg.vocab)
-    ragged_prompts(reqs, model.cfg.vocab, seed=1 + len(label))
-    # each dispatch of the engine's samplers (a decode tick's, or a prefill
-    # tick's that finished a prompt and is not all greedy) is a sampled
-    # tick: it must launch fused_mask once
-    sampled = {"ticks": 0}
-
-    def counted(fn):
-        def call(*a, **kw):
-            sampled["ticks"] += 1
-            return fn(*a, **kw)
-        return call
-    engine._sample_step = counted(engine._sample_step)
-    if engine._serve_sample is not None:
-        engine._serve_sample = counted(engine._serve_sample)
+    ragged_prompts(reqs, model.cfg.vocab, prompt_seed, lens)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
-    tick, prof, profiled = 0, None, None
+    tick, prof, profiled, inside, before = 0, None, None, {}, None
+    # wall ms of the unprofiled ticks by kind (the stages that ran, the
+    # step widths), and the kinds of the profiled ones
+    tick_ms: dict[tuple, list] = {}
+    window_kinds: set = set()
+
+    def close_profile():
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        return profile_window(torch, prof, tick - window[0])
     while engine.scheduler.pending():
         if tick == window[0]:
             torch.cuda.synchronize()
+            before = {w: dict(st) for w, st in engine.steps.items()}
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
+        counts = dict(engine.timer.counts)
+        widths = {w: st["calls"] + st["captures"]
+                  for w, st in engine.steps.items()}
+        t1 = time.perf_counter()
         engine.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        kind = (tuple(sorted(k for k, n in engine.timer.counts.items()
+                             if n != counts.get(k) and k != "replan")),
+                tuple(sorted(w for w, st in engine.steps.items()
+                             if st["calls"] + st["captures"]
+                             != widths.get(w))))
+        if prof is not None:
+            window_kinds.add(kind)
+        else:
+            tick_ms.setdefault(kind, []).append(ms)
         tick += 1
         if prof is not None and tick == window[1]:
-            torch.cuda.synchronize()
-            prof.__exit__(None, None, None)
-            profiled = profile_window(torch, prof, window[1] - window[0])
+            profiled = close_profile()
+            inside = window_steps(engine.steps, before)
             prof = None
+    if prof is not None:
+        profiled = close_profile()
+        inside = window_steps(engine.steps, before)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -945,33 +1033,232 @@ def serve_phase(torch, kernels, serve, engine, args, label,
     tps = stats.get("decode_tokens_per_s", 0.0)
     if not tps > 0:
         fail(f"{label}: decode produced no throughput")
-    dec = stats["stages"]["decode"]
-    print(f"serve {label}: {len(reqs)} requests, "
-          f"{sum(len(r.generated) for r in reqs)} tokens in {wall:.2f} s "
-          f"over {tick} ticks; decode {tps:.1f} tok/s, mean decode step "
-          f"{dec['mean_s'] * 1e3:.2f} ms over {dec['calls']} steps; "
+    stages, steps = stats["stages"], stats["steps"]
+    graphs = stats.get("graphs", {})
+    # steady step ms by width (1 = a decode step, K1 = a verify): the
+    # engine's synchronized step times, less the profiled window's and
+    # the steps that captured a graph
+    outside = window_steps(steps, inside)
+    steady = {w: st["total_s"] / st["calls"] * 1e3
+              for w, st in outside.items() if st["calls"]}
+    capture_ms = {w: st["capture_s"] / st["captures"] * 1e3
+                  for w, st in steps.items() if st["captures"]}
+    # busy share: the profiled ticks' device kernel time over the mean
+    # wall time of the unprofiled ticks of their kind, where the window
+    # holds one kind of tick (a draft model's steps, outside the engine's
+    # step, are in both)
+    busy = None
+    if profiled is not None and profiled["device_ms_per_tick"] \
+            and len(window_kinds) == 1 and window_kinds <= set(tick_ms):
+        wall_ms = tick_ms[next(iter(window_kinds))]
+        busy = profiled["device_ms_per_tick"] / (sum(wall_ms) / len(wall_ms))
+    kind = sorted(window_kinds)
+    warmup: dict = {}
+    for g in graphs.values():
+        for k, n in g["warmup_launches"].items():
+            warmup[k] = warmup.get(k, 0) + n
+    pool = sum(g["pool_bytes"] for g in graphs.values())
+    dec_ms = steady.get(1)
+    print(f"serve {label} ({'graphed' if engine.graphed else 'eager'}): "
+          f"{len(reqs)} requests, {sum(len(r.generated) for r in reqs)} "
+          f"tokens in {wall:.2f} s over {tick} ticks; decode {tps:.1f} "
+          f"tok/s; steady decode step "
+          f"{'none' if dec_ms is None else f'{dec_ms:.2f} ms'}; steady ms "
+          f"by width {steady}; steps by width {steps}; first steps that "
+          f"captured (ms) {capture_ms}; busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'} (profiled "
+          f"tick kinds {kind}); graph pool {pool / 2**20:.1f} MiB; "
           f"launches {launches}")
-    for stage, s in stats["stages"].items():
-        print(f"  stage {stage}: {s['calls']} calls, total "
-              f"{s['total_s']:.3f} s, mean {s['mean_s'] * 1e3:.2f} ms")
+    for stage, st in stages.items():
+        print(f"  stage {stage}: {st['calls']} calls, total "
+              f"{st['total_s']:.3f} s, mean {st['mean_s'] * 1e3:.2f} ms")
+    for name, g in graphs.items():
+        print(f"  graph {name}: {g['captures']} captures, capture "
+              f"{g['capture_s']:.3f} s, pool +{g['pool_bytes'] / 2**20:.1f} "
+              f"MiB, {g['replays']} replays, launches a replay "
+              f"{g['launches']}, warm-ups {g['warmup_launches']}")
     print(f"  kernel plan {stats['kernel_plan']}; final plan {stats['plan']}")
     if profiled is not None:
-        busy = profiled["device_ms_per_tick"]
+        dev_ms = profiled["device_ms_per_tick"]
         print(f"  profiled ticks {window}: device kernel time "
-              f"{'not measured' if busy is None else f'{busy:.2f} ms'} per "
-              "tick; top kernels:")
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.2f} ms'} "
+              "per tick; top kernels:")
         for k in profiled["top_kernels"]:
             print(f"    {k['ms_per_tick']:.3f} ms/tick "
                   f"{k['calls_per_tick']:.0f} calls/tick  {k['name']}")
         da = profiled["decode_attention"]
         print(f"  decode attention kernel: {da['ms_per_tick']:.4f} ms/tick, "
               f"{da['calls_per_tick']:.1f} calls/tick")
-    return {"decode_tokens_per_s": tps, "mean_decode_ms": dec["mean_s"] * 1e3,
-            "decode_steps": dec["calls"], "wall_s": wall, "ticks": tick,
-            "sampled_ticks": sampled["ticks"],
-            "stages": stats["stages"], "launches": launches,
-            "kernel_plan": stats["kernel_plan"], "plan": stats["plan"],
-            "profile": profiled}
+    out = {"graphed": engine.graphed, "decode_tokens_per_s": tps,
+           "mean_decode_ms": dec_ms, "steady_ms": steady,
+           "capture_ms": capture_ms, "steps": steps,
+           # decode-kernel steps: one a decode step, K1 a verify
+           "kernel_steps": sum(w * (st["calls"] + st["captures"])
+                               for w, st in steps.items()),
+           "sampler_calls": stats["sampler_calls"], "warmup": warmup,
+           "pool_bytes": pool, "wall_s": wall, "ticks": tick,
+           "stages": stages, "launches": launches, "graphs": graphs,
+           "kernel_plan": stats["kernel_plan"], "plan": stats["plan"],
+           "profile": profiled, "busy_share": busy,
+           "streams": [list(r.generated) for r in reqs]}
+    if "spec" in stats:
+        out["spec"] = stats["spec"]
+    return out
+
+
+def check_launches(label, run, cfg, decode_tc) -> None:
+    """Every prefill launch of ``linked_mlp`` goes through the tensor-core
+    kernel (decode's through the one the planner picks), the run's
+    decode-attention kernel launches once a layer of every decode step
+    (K1 times a layer at a verify of width K1), and ``fused_mask`` once a
+    sampler dispatch; a graphed run's launches are its replays' plus its
+    graphs' warm-ups, each warm-up the launches of one replay."""
+    ln, warm = run["launches"], run["warmup"]
+    for name, g in run["graphs"].items():
+        want = {k: g["captures"] * n for k, n in g["launches"].items()}
+        if g["warmup_launches"] != want:
+            fail(f"{label}: graph {name}'s warm-ups launched "
+                 f"{g['warmup_launches']}, want one replay's a capture "
+                 f"({want})")
+    attn = "gqa_decode_paged" if "paged" in label else "gqa_decode"
+    decode_mlp = cfg.n_layers * run["kernel_steps"] + warm.get(
+        "linked_mlp", 0)
+    want_tc = ln["linked_mlp"] - (0 if decode_tc else decode_mlp)
+    print(f"{label}: linked_mlp {ln['linked_mlp']} launches, linked_mlp_tc "
+          f"{ln['linked_mlp_tc']} (prefill {ln['linked_mlp'] - decode_mlp}, "
+          f"decode and verify {decode_mlp} on {'tc' if decode_tc else 'ffma'}"
+          f", warm-ups included); {attn} {ln[attn]} over "
+          f"{run['kernel_steps']} decode-kernel steps and warm-ups "
+          f"{warm.get(attn, 0)}; fused_mask {ln['fused_mask']} over "
+          f"{run['sampler_calls']} sampler dispatches and warm-ups "
+          f"{warm.get('fused_mask', 0)}")
+    if ln["linked_mlp_tc"] != want_tc or want_tc <= 0:
+        fail(f"{label}: linked_mlp_tc launched {ln['linked_mlp_tc']} times, "
+             f"want every prefill launch ({want_tc})")
+    for name in (attn, "fused_mask", "linked_mlp", "linked_mlp_tc"):
+        if ln.get(name, 0) <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+    want = run["sampler_calls"] + warm.get("fused_mask", 0)
+    if ln["fused_mask"] != want:
+        fail(f"{label}: fused_mask launched {ln['fused_mask']} times, want "
+             f"one per sampler dispatch and warm-up ({want})")
+    want = cfg.n_layers * run["kernel_steps"] + warm.get(attn, 0)
+    if ln[attn] != want:
+        fail(f"{label}: {attn} launched {ln[attn]} times, want "
+             f"{cfg.n_layers} per decode-kernel step and the warm-ups' "
+             f"({want})")
+
+
+def same_streams(label, run, twin) -> None:
+    if run["streams"] != twin["streams"]:
+        bad = [i for i, (a, b) in enumerate(zip(run["streams"],
+                                                twin["streams"])) if a != b]
+        fail(f"{label}: token streams differ from the twin's (requests "
+             f"{bad})")
+    print(f"{label}: {len(run['streams'])} streams equal the twin's bit for "
+          "bit")
+
+
+def serving_phases(torch, kernels, serve, model, params, paged_args,
+                   decode_tc: bool) -> dict:
+    """Phases 3 and 3b: every serving run, its checks and comparisons."""
+    cfg = model.cfg
+    # phase 3: both served runs graphed, each beside its eager twin (the
+    # same requests); replanning is off in the twins, since a replan
+    # adopts a chunk and prefill mode from timings, which differ between
+    # them.  One more graphed run replans as a served engine does.
+    dense_args = serve_args(serve, kv="dense")
+    runs = {}
+    for label, args, seed in (("dense_greedy", dense_args, 13),
+                              ("paged_sampled", paged_args, 14)):
+        for graphed in (True, False):
+            name = label if graphed else f"{label}_eager"
+            runs[name] = serve_phase(
+                torch, kernels, serve,
+                serve.build_engine(args, model, params, graphed=graphed),
+                args, name, seed)
+            check_launches(name, runs[name], cfg, decode_tc)
+        same_streams(f"{label} graphed vs eager", runs[label],
+                     runs[f"{label}_eager"])
+        g, e = runs[label], runs[f"{label}_eager"]
+        print(f"{label}: decode step eager {e['mean_decode_ms']:.2f} ms "
+              f"(busy {e['busy_share']}), graphed {g['mean_decode_ms']:.2f} "
+              f"ms (busy {g['busy_share']})")
+    replan_args = serve_args(
+        serve, kv="dense",
+        replan_every=serve.build_parser().get_default("replan_every"))
+    label = "dense_greedy_replan"
+    runs[label] = serve_phase(
+        torch, kernels, serve, serve.build_engine(replan_args, model, params),
+        replan_args, label, 13)
+    check_launches(label, runs[label], cfg, decode_tc)
+    replans = runs[label]["stages"].get("replan", {"calls": 0})["calls"]
+    if replans < 1:
+        fail(f"{label}: the engine never replanned")
+    print(f"{label}: {replans} replans, final chunk "
+          f"{runs[label]['plan'].get('chunk')}, prefill mode "
+          f"{runs[label]['plan'].get('prefill_mode')}")
+
+    # phase 3b: speculative decoding at full width, each run beside its
+    # spec-off twin (the same requests and seeds).  On random weights
+    # neither the n-gram lookup nor an unrelated draft model predicts the
+    # target, so the accept path is driven by an oracle draft too: the
+    # target as its own draft (its proposals run the plain-torch plan, so
+    # low-margin steps may still reject), as the reference's own test of
+    # mixed per-request speculation does.  The reduced draft proposes
+    # DRAFT_SPEC_K tokens a tick, so its run meets every verify width
+    # from 2 to DRAFT_SPEC_K + 1 and measures the graphs' shared pool
+    spec_runs = (
+        ("paged_sampled_ngram", dict(vars(paged_args), spec="ngram",
+                                     spec_k=SPEC_K), 14, None,
+         "paged_sampled", (100, 105), PROMPT_LENS),
+        ("dense_greedy_draft", dict(vars(dense_args), spec="draft",
+                                    spec_k=DRAFT_SPEC_K, requests=8), 15,
+         serve.build_draft(cfg, model.device, seed=1), None, (30, 35),
+         PROMPT_LENS),
+        ("dense_greedy_oracle", dict(vars(dense_args), spec="draft",
+                                     spec_k=SPEC_K, requests=4, max_new=32),
+         16, (model, params), None, (8, 11), ORACLE_PROMPT_LENS))
+    for label, values, seed, draft, twin_label, window, lens in spec_runs:
+        args = serve_args(serve, **values)
+        if twin_label is None:      # a spec-off twin of its own
+            twin_label = f"{label}_twin"
+            twin_args = serve_args(serve, **dict(values, spec="off"))
+            runs[twin_label] = serve_phase(
+                torch, kernels, serve,
+                serve.build_engine(twin_args, model, params), twin_args,
+                twin_label, seed, window, lens)
+            check_launches(twin_label, runs[twin_label], cfg, decode_tc)
+        runs[label] = serve_phase(
+            torch, kernels, serve,
+            serve.build_engine(args, model, params, draft=draft), args,
+            label, seed, window, lens)
+        check_launches(label, runs[label], cfg, decode_tc)
+        same_streams(f"{label} vs spec off", runs[label], runs[twin_label])
+        run, sp = runs[label], runs[label]["spec"]
+        twin_tps = runs[twin_label]["decode_tokens_per_s"]
+        print(f"{label}: accept rate {sp['accept_rate']} "
+              f"({sp['drafts_accepted']} of {sp['drafts_proposed']} drafts), "
+              f"{sp['verify_calls']} verify calls; steady verify step ms by "
+              "K1 " + ", ".join(
+                  f"{w}: {ms:.2f} over {run['steps'][w]['calls']}"
+                  for w, ms in sorted(run["steady_ms"].items()) if w > 1)
+              + "; first verify that captured (ms) " + ", ".join(
+                  f"{w}: {ms:.1f}" for w, ms in
+                  sorted(run["capture_ms"].items()) if w > 1)
+              + f"; graphs' pool {run['pool_bytes'] / 2**20:.1f} MiB; decode "
+              f"{run['decode_tokens_per_s']:.1f} tok/s against the spec-off "
+              f"twin's {twin_tps:.1f}")
+        run["twin"] = twin_label
+    accepted = sum(runs[lb]["spec"]["drafts_accepted"]
+                   for lb, *_ in spec_runs)
+    rejected = sum(runs[lb]["spec"]["drafts_proposed"]
+                   - runs[lb]["spec"]["drafts_accepted"]
+                   for lb, *_ in spec_runs)
+    if accepted < 1 or rejected < 1:
+        fail(f"speculative runs: {accepted} drafts accepted and {rejected} "
+             "rejected; want at least one of each")
+    return runs
 
 
 def parity_phase(torch, serve, pipeline, Model, cfg):
@@ -1238,8 +1525,11 @@ def main() -> int:
                             top_p=0.95)
     paged_engine = serve.build_engine(paged_args, model, params)
     bs = paged_engine.pool.cfg.block_size
-    # and its prefill chunk: linked_mlp's prefill shape is (slots x chunk)
-    chunk = paged_engine.scheduler.cfg.chunk
+    # linked_mlp's chunked-prefill shapes are (slots x chunk), at the
+    # engine's chunk and every chunk a replan may adopt
+    if paged_engine.scheduler.cfg.chunk not in pipeline.SERVE_CHUNK_SIZES:
+        fail(f"the engine's chunk {paged_engine.scheduler.cfg.chunk} is not "
+             f"one of {pipeline.SERVE_CHUNK_SIZES}")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     report: dict = {}
@@ -1247,62 +1537,19 @@ def main() -> int:
     check_paged(torch, dec_ops, gen, bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
     check_cbr_avgpool(torch, cb_ops, gen, report)
-    check_linked_mlp(torch, lm_ops, gen, chunk, report)
+    check_linked_mlp(torch, lm_ops, gen, pipeline.SERVE_CHUNK_SIZES, report)
     check_split_matmul(torch, sm_ops, gen, report)
     result["kernels"] = report
     if cli.kernels_only:
         print(json.dumps(result, default=str))
         return 1   # a partial run is never a passing result
 
-    dense_args = serve_args(serve, kv="dense")
-    dense_engine = serve.build_engine(dense_args, model, params)
-    runs = {
-        "dense_greedy": serve_phase(torch, kernels, serve, dense_engine,
-                                    dense_args, "dense_greedy"),
-        "paged_sampled": serve_phase(torch, kernels, serve, paged_engine,
-                                     paged_args, "paged_sampled"),
-    }
-    del dense_engine, paged_engine
-    need = {"dense_greedy": ("gqa_decode", "fused_mask", "linked_mlp",
-                             "linked_mlp_tc"),
-            "paged_sampled": ("gqa_decode_paged", "fused_mask",
-                              "linked_mlp", "linked_mlp_tc")}
-    # every prefill launch of linked_mlp (M = slots x chunk, or the padded
-    # admission group) goes through the tensor-core kernel; decode (M =
-    # slots) through the kernel the planner picks for it
     decode_tc = mlp_plan(torch, lm_ops, mlp_inputs(
         torch, SLOTS, D_MODEL, D_FF, torch.bfloat16, gen)).path == "tc"
-    for label, names in need.items():
-        ln = runs[label]["launches"]
-        decode_mlp = cfg.n_layers * runs[label]["decode_steps"]
-        want_tc = ln["linked_mlp"] - (0 if decode_tc else decode_mlp)
-        print(f"{label}: linked_mlp {ln['linked_mlp']} launches, "
-              f"linked_mlp_tc {ln['linked_mlp_tc']} (prefill "
-              f"{ln['linked_mlp'] - decode_mlp}, decode {decode_mlp} on "
-              f"{'tc' if decode_tc else 'ffma'})")
-        if ln["linked_mlp_tc"] != want_tc or want_tc <= 0:
-            fail(f"{label}: linked_mlp_tc launched {ln['linked_mlp_tc']} "
-                 f"times, want every prefill launch ({want_tc})")
-        for name in names:
-            if runs[label]["launches"].get(name, 0) <= 0:
-                fail(f"{label}: kernel {name} was never launched")
-        # one fused_mask launch per sampled tick
-        got, want = ln["fused_mask"], runs[label]["sampled_ticks"]
-        print(f"{label}: fused_mask launched {got} times over {want} "
-              "sampled ticks")
-        if got != want:
-            fail(f"{label}: fused_mask launched {got} times, want one per "
-                 f"sampled tick ({want})")
-        # one decode-attention launch per layer of every decode tick
-        want = cfg.n_layers * runs[label]["decode_steps"]
-        got = runs[label]["launches"][names[0]]
-        print(f"{label}: {names[0]} launched {got} times over "
-              f"{runs[label]['decode_steps']} decode ticks")
-        if got != want:
-            fail(f"{label}: {names[0]} launched {got} times, want "
-                 f"{cfg.n_layers} per decode tick ({want})")
+    del paged_engine
+    runs = serving_phases(torch, kernels, serve, model, params, paged_args,
+                          decode_tc)
     result["serve"] = runs
-    linked_mlp_path_shapes(torch, lm_ops, gen, runs, chunk, report)
     del params
     torch.cuda.empty_cache()
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)

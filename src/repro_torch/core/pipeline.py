@@ -274,13 +274,15 @@ class PassReport:
 # ---------------------------------------------------------------------------
 
 class _Stage:
-    """One timed enter/exit of a named stage (see StageTimer)."""
+    """One timed enter/exit of a named stage (see StageTimer).  The body
+    may rename it (``name``) before it closes; ``dt`` is its time after."""
 
-    __slots__ = ("_timer", "_name", "_t0")
+    __slots__ = ("_timer", "name", "dt", "_t0")
 
     def __init__(self, timer: "StageTimer", name: str):
         self._timer = timer
-        self._name = name
+        self.name = name
+        self.dt = 0.0
 
     def __enter__(self):
         self._t0 = time.perf_counter()
@@ -290,9 +292,9 @@ class _Stage:
         t = self._timer
         if t.synchronize is not None:
             t.synchronize()
-        dt = time.perf_counter() - self._t0
-        t.totals[self._name] = t.totals.get(self._name, 0.0) + dt
-        t.counts[self._name] = t.counts.get(self._name, 0) + 1
+        self.dt = time.perf_counter() - self._t0
+        t.totals[self.name] = t.totals.get(self.name, 0.0) + self.dt
+        t.counts[self.name] = t.counts.get(self.name, 0) + 1
         return False
 
 
@@ -525,6 +527,37 @@ SERVE_KV_BLOCK_SIZES: tuple[int, ...] = (8, 16, 32)
 #: target prefill-chunk cost, in decode steps
 CHUNK_RATIO = 4.0
 
+#: speculative draft lengths the planner may choose between (0 = off).
+#: A verify step is 1 + the tick's longest draft wide, and a draft may be
+#: cut short (a request's budget, an n-gram miss), so an engine meets
+#: every width from 2 to k + 1: on the card one captured graph each, all
+#: drawing on one memory pool (``serving/graphs.py``)
+SERVE_SPEC_KS: tuple[int, ...] = (0, 2, 4, 6, 8, 12, 16)
+
+#: modeled marginal cost of one extra verify position, in decode-step
+#: units (the reference's constant)
+SPEC_VERIFY_OVERHEAD = 0.5
+
+
+def _plan_spec_k(accept_rate: float) -> int:
+    """The draft length from the observed acceptance rate, as the
+    reference plans it: over ``k`` drafts each accepted i.i.d. with
+    probability ``p`` a verify commits ``E(k) = (1 - p^(k+1)) / (1 - p)``
+    tokens at a modeled cost of ``1 + SPEC_VERIFY_OVERHEAD * k`` decode
+    steps; the ``k`` in :data:`SERVE_SPEC_KS` with the best ratio wins,
+    and 0 (speculation off) when nothing beats plain decode.
+    ``accept_rate < 0`` (no drafts verified yet) starts mid-range."""
+    if accept_rate < 0:
+        return 4
+    p = min(max(accept_rate, 0.0), 0.999)
+    best_k, best_score = 0, 1.0
+    for k in SERVE_SPEC_KS:
+        expected = (1.0 - p ** (k + 1)) / (1.0 - p)
+        score = expected / (1.0 + SPEC_VERIFY_OVERHEAD * k)
+        if score > best_score + 1e-9:
+            best_k, best_score = k, score
+    return best_k
+
 
 def _plan_kv_pool(slots: int, max_len: int, chunk: int,
                   avg_prompt: float) -> dict[str, Any]:
@@ -564,10 +597,12 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     The reference pass's options and plan fields for full-attention KV
     that the port's engine sets (``slots``, ``max_len``,
     ``decode_step_s``, ``prefill_token_s``, ``avg_prompt_len``,
-    ``can_chunk``, ``replan_every``, ``kv``, ``kernel_plan``); the
-    sliding, mixed, constant-state, speculative and mesh options follow
-    with the paths that set them (ROADMAP queue 1 items 5, 7 and 8).  On
-    a CUDA engine the two timings are synchronized step times (see
+    ``can_chunk``, ``replan_every``, ``kv``, ``kernel_plan``), and
+    ``spec`` / ``spec_accept_rate``: a speculative engine's plan gains
+    ``spec_k`` (:func:`_plan_spec_k`; rate -1 = no drafts verified yet).
+    The sliding, mixed, constant-state and mesh options follow with the
+    paths that set them (ROADMAP queue 1 items 7 and 8).  On a CUDA
+    engine the two timings are synchronized step times (see
     :class:`StageTimer`)."""
     o = ctx.options
     slots = int(o.get("slots", 4))
@@ -623,6 +658,12 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     kplan = o.get("kernel_plan")
     if kplan:
         plan["kernel_plan"] = dict(kplan)
+    spec = str(o.get("spec", "off"))
+    if spec != "off":
+        rate = float(o.get("spec_accept_rate", -1.0))
+        plan["spec"] = spec
+        plan["spec_k"] = _plan_spec_k(rate)
+        plan["spec_accept_rate"] = rate
     out = g.clone()
     for node in out.nodes:
         node.dataflow["serve_plan"] = dict(plan)

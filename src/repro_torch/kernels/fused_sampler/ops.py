@@ -315,13 +315,17 @@ def fused_sample(logits, seeds, steps, temperature, top_k, top_p, *,
 def fused_sample_grid(logits, seeds, steps, temperature, top_k, top_p, *,
                       vocab: int, backend: str = "torch") -> torch.Tensor:
     """Speculative-verify sampling: ``(B, K1, V) -> (B, K1)`` tokens keyed
-    ``(seeds[b], steps[b] + i)`` per position."""
+    ``(seeds[b], steps[b] + i)`` per position.  The per-row policy is
+    repeated by ``expand`` (no host synchronization: a CUDA graph
+    captures it)."""
     B, K1 = logits.shape[0], logits.shape[1]
     grid_steps = steps.to(torch.int64)[:, None] + torch.arange(
         K1, device=steps.device)[None, :]
+
+    def rep(t):
+        return t[:, None].expand(B, K1).reshape(-1)
     toks = fused_sample(
         logits.reshape(B * K1, logits.shape[2]),
-        seeds.repeat_interleave(K1), grid_steps.reshape(-1),
-        temperature.repeat_interleave(K1), top_k.repeat_interleave(K1),
-        top_p.repeat_interleave(K1), vocab=vocab, backend=backend)
+        rep(seeds), grid_steps.reshape(-1), rep(temperature), rep(top_k),
+        rep(top_p), vocab=vocab, backend=backend)
     return toks.reshape(B, K1)

@@ -7,17 +7,24 @@ batching on one device (the card by default).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --reduced --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --device cpu --spec ngram --spec-k 4
+
 The same flags as ``python -m repro.launch.serve``, plus ``--device``.
 Weights are random, drawn on the device from ``--seed``
-(``Model.init``).  Throughput counts the tokens requests actually
-emitted.  Exits nonzero when a request did not complete or the batched
-decode loop produced no throughput.  Flags for paths this slice does
-not port (``--sliding-window``, ``--spec``, ``--mesh-shards`` > 1,
-``--replicas`` > 1) raise ``NotImplementedError``.
+(``Model.init``); ``--spec draft`` drafts with the arch's reduced config
+(at the target's vocabulary, weights from ``--seed`` + 1).  The decode
+and verify steps run as CUDA graphs on the card (``ServingEngine``'s
+``graphed``).  Throughput counts the tokens requests actually emitted.
+Exits nonzero when a request did not complete or the batched decode
+loop produced no throughput.  Flags for paths this slice does not port
+(``--sliding-window``, ``--mesh-shards`` > 1, ``--replicas`` > 1) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -27,6 +34,7 @@ import torch
 from ..configs.base import get_config
 from ..models.model import Model
 from ..serving import Request, SamplingParams, ServingEngine, settle_ticks
+from ..serving.speculative import SpecParams
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-block-size", type=int, default=None)
     ap.add_argument("--kv-pool-blocks", type=int, default=None)
     ap.add_argument("--spec", default="off", choices=["off", "ngram", "draft"])
+    ap.add_argument("--spec-k", type=int, default=None)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -59,16 +68,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_engine(args, model=None, params=None,
-                 kernel_plan=None) -> ServingEngine:
+def build_draft(cfg, device, seed: int):
+    """``--spec draft``'s proposer: the arch's reduced config at the
+    target's vocabulary (its embedding is indexed by the target's
+    tokens), random weights from ``seed``."""
+    draft = Model(dataclasses.replace(cfg.reduced(), vocab=cfg.vocab),
+                  device=device)
+    gen = torch.Generator(device=draft.device).manual_seed(seed)
+    return draft, draft.init(gen)
+
+
+def build_engine(args, model=None, params=None, kernel_plan=None,
+                 graphed: bool = True, draft=None) -> ServingEngine:
     """The engine the flags describe (``model``/``params`` may be given
-    to share weights across engines; ``kernel_plan`` pins the routing,
-    None lets ``kernel_select`` choose)."""
+    to share weights across engines, ``draft`` a ``(model, params)``
+    proposer for ``--spec draft``; ``kernel_plan`` pins the routing,
+    None lets ``kernel_select`` choose; ``graphed=False`` runs the
+    per-tick steps eagerly, for timing and parity)."""
     if args.sliding_window is not None:
         raise NotImplementedError(
             "--sliding-window is ported by ROADMAP queue 1 item 7")
-    if args.spec != "off":
-        raise NotImplementedError("--spec is ported by ROADMAP queue 1 item 5")
     if args.mesh_shards > 1 or args.replicas > 1:
         raise NotImplementedError(
             "--mesh-shards/--replicas are ported by ROADMAP queue 1 item 8")
@@ -83,13 +102,20 @@ def build_engine(args, model=None, params=None,
     prefill_mode = args.prefill_mode
     if args.kv == "paged" and prefill_mode is None:
         prefill_mode = "chunked"  # the only mode a block pool can execute
+    spec_kw = {}
+    if args.spec != "off":
+        spec_kw["spec"] = SpecParams(mode=args.spec, k=args.spec_k)
+        if args.spec == "draft":
+            if draft is None:
+                draft = build_draft(model.cfg, model.device, args.seed + 1)
+            spec_kw["draft_model"], spec_kw["draft_params"] = draft
     return ServingEngine(model, params, slots=args.slots,
                          max_len=args.max_len, chunk=args.chunk,
                          eos_id=args.eos_id, prefill_mode=prefill_mode,
                          replan_every=args.replan_every, kv=args.kv,
                          kv_block_size=args.kv_block_size,
                          kv_pool_blocks=args.kv_pool_blocks,
-                         kernel_plan=kernel_plan)
+                         kernel_plan=kernel_plan, graphed=graphed, **spec_kw)
 
 
 def make_requests(args, vocab: int) -> list[Request]:
@@ -150,6 +176,23 @@ def main(argv=None) -> int:
     print(f"plan: {stats['plan']} (prefill_mode={stats['prefill_mode']}, "
           f"kv={stats['kv']})")
     print(f"kernel plan: {stats['kernel_plan']}")
+    if "spec" in stats:
+        sp = stats["spec"]
+        # emissions and draft traffic are different currencies: report
+        # them side by side, never summed
+        print(f"spec: mode={sp['mode']} k={sp['k']} — "
+              f"{total_tokens} tokens emitted, "
+              f"{sp['drafts_proposed']} drafts proposed "
+              f"({sp['drafts_proposed'] / dt:.1f} drafts/s), "
+              f"{sp['drafts_accepted']} accepted "
+              f"(accept ratio {sp['accept_rate']:.2f}), "
+              f"{sp['spec_tokens']} tokens via {sp['verify_calls']} "
+              f"verify dispatches")
+    for name, g in (stats.get("graphs", {}) if dev.type == "cuda"
+                    else {}).items():
+        print(f"  graph {name}: {g['captures']} captures "
+              f"({g['capture_s']:.2f} s, pool +{g['pool_bytes'] / 2**20:.0f}"
+              f" MiB), {g['replays']} replays")
     if "kv_pool" in stats:
         kp = stats["kv_pool"]
         print(f"kv pool: {kp['pool_blocks']} x {kp['block_size']}-token "

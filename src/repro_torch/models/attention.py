@@ -250,6 +250,32 @@ def init_paged_kv_cache(batch: int, pool_blocks: int, block_size: int,
     )
 
 
+def rollback_kv_cache(cache: KVCache, keep_len: torch.Tensor,
+                      rows: torch.Tensor) -> KVCache:
+    """Rewind slot rows ((B,) bool) to ``keep_len`` ((B,) int) context
+    tokens, in place: ring entries at absolute positions >= keep_len are
+    invalidated and the write pointer moves back, undoing the
+    rejected-suffix writes of a speculative verify (stale K/V payloads
+    are dead once no position points at them).  Leaves may carry a
+    leading layer axis."""
+    m = rows[:, None] & (cache.positions >= keep_len[:, None])
+    cache.positions.copy_(torch.where(m, -1, cache.positions))
+    cache.length.copy_(torch.where(rows, keep_len.to(torch.int32),
+                                   cache.length))
+    return cache
+
+
+def rollback_paged_kv_cache(cache: PagedKVCache, keep_len: torch.Tensor,
+                            rows: torch.Tensor) -> PagedKVCache:
+    """Paged rewind, in place, is pure metadata: truncate ``length`` and
+    the rejected positions cease to exist (attention masks by length;
+    the host-side pool may then free strandable tail blocks,
+    ``KVBlockPool.truncate``)."""
+    cache.length.copy_(torch.where(rows, keep_len.to(torch.int32),
+                                   cache.length))
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # The attention block (projections + rope + cache handling)
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.models.model.Model`` for the dense
 full-attention family: ``param_specs``, ``init``, ``forward``,
-``prefill_step``, ``prefill_chunk``, ``serve_step``, ``init_caches``,
-``init_paged_caches`` and ``reset_cache_rows``.  The parameter tree is
+``prefill_step``, ``prefill_chunk``, ``serve_step``, ``verify_step``,
+``init_caches``, ``init_paged_caches``, ``reset_cache_rows`` and
+``rollback_cache_rows``.  The parameter tree is
 the reference's (same nested dict, names, shapes and stacked leading
 layer axis), so ``repro_torch.convert`` carries reference weights over
 leaf for leaf.
@@ -18,8 +19,7 @@ Differences of idiom, not of result:
 * the model lives on one ``device`` (default ``"cuda"``); asking for
   CUDA without a card raises.
 
-Training (``loss_fn``, ``train_step``) is ROADMAP queue 1 item 10, and
-speculative verify/rollback item 5.
+Training (``loss_fn``, ``train_step``) is ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -29,10 +29,11 @@ import torch
 
 from .. import resolve_device
 from . import attention as A
+from . import cache_family as CF
 from . import transformer as T
 from .layers import (embed_lookup, embed_specs, init_params, param_count,
                      rms_norm, rms_norm_spec, stack_layer_specs, swiglu,
-                     tree_map, unembed)
+                     tree_leaves, tree_map, unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -82,15 +83,18 @@ class Model:
                         params)
 
     def _layers(self, params) -> list:
-        """Per-layer views of the stacked params, memoized per tree."""
+        """Per-layer views of the stacked params, memoized per tree and
+        made again when any stacked leaf was replaced."""
         stacked = params["layers"]
+        leaves = tree_leaves(stacked)
         hit = self._views.get(id(stacked))
-        if hit is not None and hit[0] is stacked:
+        if hit is not None and len(hit[0]) == len(leaves) \
+                and all(a is b for a, b in zip(hit[0], leaves)):
             return hit[1]
         views = T.layer_views(stacked, self.cfg.n_layers)
         if len(self._views) >= 2:
             self._views.pop(next(iter(self._views)))
-        self._views[id(stacked)] = (stacked, views)
+        self._views[id(stacked)] = (leaves, views)
         return views
 
     def _head(self, params, x):
@@ -213,6 +217,66 @@ class Model:
             paged_backend=plan.decode_paged, mlp_backend=plan.linked_matmul,
             live=live)
         return self._head(params, x)[:, 0], caches
+
+    def verify_step(self, params, caches, tokens, n_new, live=None,
+                    plan=None):
+        """Speculative verify: score ``K1`` positions per row, in place.
+        tokens: (B, K1) = per row ``[pending, draft_1..draft_k]``
+        right-padded; n_new: (B,) valid positions (0 = bystander row).
+        Returns (logits (B, K1, V), caches with all n_new[b] tokens
+        written — the engine rolls rejected suffixes back afterwards).
+
+        A loop of K1 exact decode steps (:meth:`serve_step`), step ``i``
+        with the live mask ``live & (i < n_new)`` computed on the device,
+        so position ``i``'s logits are bit-identical to ``serve_step``
+        after feeding the first ``i`` tokens; with K1 == 1 this is the
+        decode step.  Chunked-prefill attention is not reused: its
+        batched contraction runs in another order."""
+        cfg = self.cfg
+        if not CF.supports_spec(cfg):
+            raise NotImplementedError(
+                "speculative verify needs a uniform full-attention stack "
+                "(rollback rewinds the cache by position), not "
+                f"{CF.family_label(cfg)}")
+        tokens = tokens.to(self.device)
+        n_new = n_new.to(self.device, torch.int32)
+        base_live = n_new > 0
+        if live is not None:
+            base_live = base_live & live.to(self.device, torch.bool)
+        logits = [self.serve_step(params, caches, tokens[:, i:i + 1],
+                                  live=base_live & (i < n_new),
+                                  plan=plan)[0]
+                  for i in range(tokens.shape[1])]
+        return torch.stack(logits, dim=1), caches
+
+    def rollback_cache_rows(self, caches, keep_len, rows):
+        """Rewind slot rows ((B,) bool) to ``keep_len`` ((B,) int)
+        context tokens, in place — the speculative rejection path.
+        Dense: ring entries past keep_len are invalidated and the write
+        pointer moves back; paged: a length truncation (the host-side
+        pool frees strandable tail blocks separately)."""
+        if type(caches) is tuple:
+            raise NotImplementedError(
+                "heterogeneous per-layer caches have no rollback path; "
+                "supports_spec gates speculative decoding off for "
+                "layer-pattern stacks")
+        kv = caches.kv
+        if not hasattr(kv, "length") or getattr(caches, "ssm", ()) != ():
+            raise NotImplementedError(
+                f"{self.cfg.family} caches carry recurrent state that "
+                "cannot be rewound; speculative decoding needs an "
+                "attention-only family")
+        if hasattr(kv, "block_tables") and hasattr(kv, "positions"):
+            raise NotImplementedError(
+                "sliding-window ring caches cannot roll back: positions "
+                "past the window were evicted by the wraparound write")
+        keep_len = keep_len.to(self.device, torch.int32)
+        rows = rows.to(self.device, torch.bool)
+        if isinstance(kv, A.PagedKVCache):
+            A.rollback_paged_kv_cache(kv, keep_len, rows)
+        else:
+            A.rollback_kv_cache(kv, keep_len, rows)
+        return caches
 
     def reset_cache_rows(self, caches, rows):
         """Mark slot rows ``rows`` ((B,) bool) empty for refill, in place:

@@ -11,18 +11,31 @@ refcounted shared prefixes (``kv="paged"``).
 
 Every hot-path dispatch routes through a :class:`KernelPlan`: by default
 the ``kernel_select`` pass picks per site — the hand-written CUDA
-kernels on a CUDA engine, plain torch on the host.  Under a ``cuda``
-sampler plan the decode step and the fused sampler run back to back on
-the stream, with the tokens' copy to the host the only synchronization.
-The reference's jitted entries become a per-model table of eager
-callables (:func:`_serving_calls`).
+kernels on a CUDA engine, plain torch on the host.  The reference's
+jitted entries become a per-model table of step bodies
+(:func:`_serving_calls`).  With ``graphed=True`` (the default) the
+entries that run every decode tick — ``serve`` (reference sampler),
+``serve_sample`` (decode, ``fused_mask`` and the draw: tokens out) and
+``verify`` (per draft width; with the grid sampler under a fused plan)
+— run as per-engine CUDA graphs (``serving.graphs``) over static input
+buffers, with the result's copy to pinned host memory the tick's only
+synchronization; on a CPU engine the same staged bodies run eagerly.
+``graphed=False`` calls the bodies directly with fresh tensors (the
+eager path that tests and timings compare against).  Prefill, admission
+and rollback stay eager.
+
+Speculative decoding (``spec``, ``draft_model``; ``serving.speculative``)
+proposes drafts per decode slot, scores them in one verify step and
+commits the longest prefix the target's keyed samples agree with,
+rolling the caches back over the rest: the emitted streams are the
+spec-off engine's, bit for bit.
 
 Stage times come from a :class:`StageTimer` that synchronizes the card
 before a stage closes, so ``serve_schedule`` plans from step times.
 
-Not in this slice: speculative decoding (ROADMAP queue 1 item 5), mesh
-sharding and replicas (item 8), layer-pattern / sliding / SSM stacks
-(item 7) — asking for them raises ``NotImplementedError``.
+Not in this slice: mesh sharding and replicas (ROADMAP queue 1 item 8),
+layer-pattern / sliding / SSM stacks (item 7) — asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,9 +49,15 @@ import torch
 from ..core.pipeline import KernelPlan, StageTimer
 from ..kernels.fused_sampler import ops as fused_ops
 from ..models import cache_family as CF
+from .graphs import StaticInputs, StepGraphs, tensor_key
 from .kv_pool import KVBlockPool, PoolConfig
-from .sampling import SamplingParams, sample_tokens
+from .sampling import SamplingParams, sample_token_grid, sample_tokens
 from .scheduler import Scheduler, SchedulerConfig, TickPlan, serve_plan_graph
+from .speculative import (SPEC_OFF, DraftModelProposer, NGramProposer,
+                          SpecParams, SpecStats)
+
+#: the sampling policy's static buffers, in ``_sampling_arrays`` order
+_POLICY = ("seeds", "steps", "temps", "ks", "ps")
 
 
 @dataclasses.dataclass
@@ -50,8 +69,8 @@ class Request:
     sampling: SamplingParams | None = None
     #: higher admits first and may preempt strictly-lower DECODE slots
     priority: int = 0
-    #: speculative decoding is not ported yet: must stay None
-    spec: object | None = None
+    #: per-request speculative-decoding policy; None = the engine's default
+    spec: SpecParams | None = None
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -64,15 +83,18 @@ def settle_ticks(prompt_len: int, chunk: int) -> int:
 
 
 def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
-    """The serving steps as eager callables, cached **on the model** per
-    ``(max_len, plan)`` — the counterpart of the reference's jit cache.
-    Decode, one-shot and chunked prefill all run under ``plan`` (its
-    ``linked_matmul`` site routes every layer's SwiGLU MLP).
+    """The serving step bodies, cached **on the model** per ``(max_len,
+    plan)`` — the counterpart of the reference's jit cache; an engine
+    calls them directly (eager) or captures ``serve``, ``serve_sample``,
+    ``verify`` and ``verify_sample`` as CUDA graphs (``serving.graphs``).
+    Decode, verify, one-shot and chunked prefill all run under ``plan``
+    (its ``linked_matmul`` site routes every layer's SwiGLU MLP).
     The plan's ``sampler`` site picks the sampling lowering:
-    ``"reference"`` (two-sort ``sample_tokens``, its own dispatch after
-    decode) or ``"fused"`` / ``"cuda"`` (the fused sampler — one-sort
-    torch or the ``fused_mask`` kernel — plus ``serve_sample``, decode
-    and sampling back to back)."""
+    ``"reference"`` (two-sort ``sample_tokens`` / ``sample_token_grid``,
+    their own dispatch after the step) or ``"fused"`` / ``"cuda"`` (the
+    fused sampler — one-sort torch or the ``fused_mask`` kernel — plus
+    ``serve_sample`` and ``verify_sample``, step and sampling in one
+    body)."""
     cache = getattr(model, "_serving_call_cache", None)
     if cache is None:
         cache = {}
@@ -84,19 +106,27 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
         def serve(p, c, t, live):
             return model.serve_step(p, c, t, live=live, plan=plan)
 
+        def verify(p, c, t, n_new):
+            return model.verify_step(p, c, t, n_new, plan=plan)
+
         if plan.sampler == "reference":
             sample = functools.partial(sample_tokens, vocab=vocab)
-            serve_sample = None
+            sample_grid = functools.partial(sample_token_grid, vocab=vocab)
+            serve_sample = verify_sample = None
         else:
             backend = "cuda" if plan.sampler == "cuda" else "torch"
             sample = functools.partial(fused_ops.fused_sample, vocab=vocab,
                                        backend=backend)
+            sample_grid = functools.partial(fused_ops.fused_sample_grid,
+                                            vocab=vocab, backend=backend)
 
             def serve_sample(p, c, t, live, seeds, steps, temps, ks, ps):
                 logits, c = serve(p, c, t, live)
-                return fused_ops.fused_sample(
-                    logits, seeds, steps, temps, ks, ps, vocab=vocab,
-                    backend=backend), c
+                return sample(logits, seeds, steps, temps, ks, ps), c
+
+            def verify_sample(p, c, t, n_new, seeds, steps, temps, ks, ps):
+                logits, c = verify(p, c, t, n_new)
+                return sample_grid(logits, seeds, steps, temps, ks, ps), c
 
         cache[key] = {
             "serve": serve,
@@ -106,6 +136,10 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
             "reset": model.reset_cache_rows,
             "sample": sample,
             "serve_sample": serve_sample,
+            "verify": verify,
+            "verify_sample": verify_sample,
+            "rollback": model.rollback_cache_rows,
+            "sample_grid": sample_grid,
         }
     return cache[key]
 
@@ -117,12 +151,11 @@ class ServingEngine:
                  kv_block_size: int | None = None,
                  kv_pool_blocks: int | None = None,
                  kernel_plan: KernelPlan | None = None,
-                 spec=None, draft_model=None, mesh=None):
+                 spec: SpecParams | None = None, spec_k_max: int = 16,
+                 draft_model=None, draft_params=None,
+                 graphed: bool = True, mesh=None):
         if kv not in ("dense", "paged"):
             raise ValueError(f"unknown kv mode {kv!r}; have dense|paged")
-        if spec is not None or draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding is ported by ROADMAP queue 1 item 5")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is ported by ROADMAP queue 1 item 8")
@@ -143,6 +176,27 @@ class ServingEngine:
         self.tokens_out = 0        # every generated token (prefill + decode)
         self._decode_tokens = 0    # decode-loop tokens only (throughput)
         self._prefill_tokens = 0   # prompt tokens pushed through prefill
+        #: speculative policy for requests that carry no SpecParams of
+        #: their own; SPEC_OFF = plain one-token-per-tick decode
+        self.default_spec = spec if spec is not None else SPEC_OFF
+        self._spec_k_max = int(spec_k_max)
+        self.spec_stats = SpecStats()
+        self._ngram = NGramProposer()
+        self._draft: DraftModelProposer | None = None
+        if draft_model is not None:
+            if draft_model.cfg.vocab != model.cfg.vocab:
+                # the draft's embedding is indexed by the target's tokens
+                raise ValueError(
+                    f"the draft model's vocab ({draft_model.cfg.vocab}) "
+                    f"must be the target's ({model.cfg.vocab})")
+            self._draft = DraftModelProposer(
+                draft_model, draft_params, slots=slots, max_len=max_len)
+        if self.default_spec.mode == "draft" and self._draft is None:
+            raise ValueError(
+                "spec mode 'draft' needs a draft_model (a reduced config "
+                "from repro_torch.configs — see ModelConfig.reduced())")
+        if self.default_spec.mode != "off":
+            self._check_spec_model(model.cfg)
 
         cfg = model.cfg
         auto_mode = prefill_mode is None
@@ -161,6 +215,9 @@ class ServingEngine:
                 cfg.vocab))
         self.scheduler.eos_id = None if eos_id < 0 else eos_id
         self.scheduler.chunk_supported = CF.supports_chunked_prefill(cfg)
+        # replans feed the observed acceptance rate through serve_schedule
+        # and adopt its planned spec_k (requests with k=None use it)
+        self.scheduler.spec_mode = self.default_spec.mode
         # a pinned mode stays pinned; an auto dense engine lets
         # serve_schedule switch batched<->chunked from observed stats
         self.scheduler.adopt_prefill_mode = auto_mode and kv != "paged"
@@ -182,6 +239,37 @@ class ServingEngine:
         self._reset_rows = calls["reset"]
         self._sample_step = calls["sample"]
         self._serve_sample = calls["serve_sample"]
+        self._verify = calls["verify"]
+        self._verify_sample = calls["verify_sample"]
+        self._rollback = calls["rollback"]
+        self._sample_grid_step = calls["sample_grid"]
+        #: run the per-tick steps staged (captured as CUDA graphs on the
+        #: card, eagerly on the host) instead of calling them directly
+        self.graphed = graphed
+        self.graphs = StepGraphs()
+        self._static = StaticInputs(self.device)
+        #: decode (width 1) and verify (width K1) steps by width: steady
+        #: calls and seconds, and the steps that captured a graph
+        self.steps: dict[int, dict] = {}
+        #: dispatches of a sampler (its eager calls and the replays of a
+        #: graph that samples): each launches the fused sampler once
+        #: under a fused plan
+        self.sampler_calls = 0
+
+    @staticmethod
+    def _check_spec_model(cfg, rid: int | None = None) -> None:
+        """Speculative decoding rewinds the KV cache by position, which
+        only a full-attention family supports.  With ``rid`` the error
+        names the offending request (the per-request ``submit()``
+        path)."""
+        if not CF.supports_spec(cfg):
+            who = f"request {rid}: " if rid is not None else ""
+            raise ValueError(
+                f"{who}speculative decoding needs a full-attention family, "
+                f"not {cfg.family}"
+                + (" with a sliding window" if cfg.sliding_window else "")
+                + " (rollback across an evicted window block or recurrent "
+                "state is undefined)")
 
     def _resolve_kernel_plan(self, kernel_plan) -> KernelPlan:
         """``None`` runs the ``kernel_select`` pass (the decision lands in
@@ -278,10 +366,23 @@ class ServingEngine:
 
     # -- public API -----------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.spec is not None:
-            raise NotImplementedError(
-                f"request {req.rid}: speculative decoding is ported by "
-                "ROADMAP queue 1 item 5")
+        rspec = req.spec if req.spec is not None else self.default_spec
+        if rspec.mode != "off":
+            self._check_spec_model(self.model.cfg, rid=req.rid)
+            if rspec.mode == "draft" and self._draft is None:
+                raise ValueError(
+                    f"request {req.rid} wants spec mode 'draft' but the "
+                    "engine holds no draft model")
+            if self.pool is None \
+                    and len(req.prompt) + req.max_new_tokens > self.max_len:
+                # rollback rewinds the dense ring by absolute position,
+                # which a wrapped ring has overwritten
+                raise ValueError(
+                    f"request {req.rid}: prompt ({len(req.prompt)}) + "
+                    f"max_new_tokens ({req.max_new_tokens}) exceeds the "
+                    f"{self.max_len}-token horizon; a speculative request "
+                    "cannot wrap the dense KV ring (its rollback rewinds "
+                    "by position)")
         if self.pool is not None \
                 and len(req.prompt) + req.max_new_tokens > self.max_len:
             raise ValueError(
@@ -303,9 +404,34 @@ class ServingEngine:
             with self.timer.stage("prefill_chunk"):
                 produced += self._prefill_chunks(plan)
         if plan.decode_slots:
-            with self.timer.stage("decode"):
-                produced += self._decode(plan)
+            drafts = self._plan_drafts(plan)
+            if drafts:
+                produced += self._timed_step(
+                    "verify", 1 + max(len(d) for d in drafts.values()),
+                    self._decode_verify, plan, drafts)
+            else:
+                # no slot drafted this tick: the plain one-token decode
+                # dispatch, exactly as a spec=off engine would run it
+                produced += self._timed_step("decode", 1, self._decode, plan)
         self._maybe_replan()
+        return produced
+
+    def _timed_step(self, stage: str, width: int, fn, *args) -> int:
+        """Run a decode (width 1) or verify (width K1) step under stage
+        ``stage``, or ``<stage>_capture`` when it captured a CUDA graph (a
+        one-off, kept out of the steady means the replan reads), and file
+        its time in ``self.steps`` by width."""
+        captures = self.graphs.captures
+        with self.timer.stage(stage) as st:
+            produced = fn(*args)
+            captured = self.graphs.captures != captures \
+                and self.device.type == "cuda"
+            if captured:
+                st.name = f"{stage}_capture"
+        w = self.steps.setdefault(width, {"calls": 0, "total_s": 0.0,
+                                          "captures": 0, "capture_s": 0.0})
+        w["captures" if captured else "calls"] += 1
+        w["capture_s" if captured else "total_s"] += st.dt
         return produced
 
     def run(self, max_steps: int = 10_000) -> None:
@@ -397,6 +523,144 @@ class ServingEngine:
             self.scheduler.note_prefilled(a.sreq, a.n_new, first)
         return produced
 
+    # -- speculative decode ---------------------------------------------------
+    def _resolve_spec(self, sreq) -> tuple[SpecParams, int]:
+        """A request's effective spec policy (its own SpecParams, or the
+        engine default) and draft length."""
+        sp = sreq.req.spec if sreq.req.spec is not None else self.default_spec
+        return sp, self._spec_k(sp)
+
+    def _spec_k(self, sp: SpecParams) -> int:
+        """The draft length under ``sp`` (0 when off): ``k=None`` takes
+        the serve_schedule-planned ``spec_k`` (4 before any plan), capped
+        at ``spec_k_max``."""
+        if sp.mode == "off":
+            return 0
+        k = sp.k
+        if k is None:
+            k = self.scheduler.cfg.spec_k
+            if k is None:
+                k = 4
+        return min(int(k), self._spec_k_max)
+
+    def _plan_drafts(self, plan: TickPlan) -> dict[int, np.ndarray]:
+        """Draft tokens per decode slot (empty: the tick runs the plain
+        decode step).  A row drafts at most ``remaining - 1`` tokens (the
+        verify's bonus token then lands exactly on the budget) and at most
+        ``max_len - 1 - L`` (every write stays inside the horizon)."""
+        out: dict[int, np.ndarray] = {}
+        draft_rows: list[tuple[int, int, np.ndarray, int]] = []
+        for slot in plan.decode_slots:
+            sreq = self.scheduler.active[slot]
+            sp, k = self._resolve_spec(sreq)
+            if k <= 0:
+                continue
+            req = sreq.req
+            remaining = req.max_new_tokens - len(req.generated)
+            cache_len = len(req.prompt) + len(req.generated) - 1
+            k = min(k, remaining - 1, self.max_len - 1 - cache_len)
+            if k <= 0:
+                continue
+            context = np.concatenate(
+                [np.asarray(req.prompt, np.int64),
+                 np.asarray(req.generated, np.int64)])
+            if sp.mode == "ngram":
+                d = self._ngram.propose(context, k, sp)
+                if len(d):
+                    out[slot] = d
+            else:
+                draft_rows.append((slot, req.rid, context, k))
+        if draft_rows:
+            for slot, d in self._draft.propose(draft_rows).items():
+                if len(d):
+                    out[slot] = d
+        return out
+
+    def _decode_verify(self, plan: TickPlan, drafts: dict[int, np.ndarray]
+                       ) -> int:
+        """One verify step for the whole decode set: each drafting row
+        scores ``[pending, d_1..d_k]``, the others ride along with one
+        position.  Commit the longest prefix whose drafts match the
+        target's keyed samples plus the token at the first mismatch; roll
+        the rejected suffix's writes back, so the caches end as a plain
+        decode history would leave them."""
+        B = self.slots
+        K1 = 1 + max(len(d) for d in drafts.values())
+        toks = np.zeros((B, K1), np.int64)
+        n_new = np.zeros((B,), np.int32)
+        rows: list = [None] * B
+        pre_len = np.zeros((B,), np.int64)
+        for slot in plan.decode_slots:
+            sreq = self.scheduler.active[slot]
+            rows[slot] = sreq
+            d = drafts.get(slot)
+            toks[slot, 0] = self._last_tokens[slot, 0]
+            if d is not None:
+                toks[slot, 1:1 + len(d)] = d
+            n_new[slot] = 1 + (len(d) if d is not None else 0)
+            # context tokens cached before this tick: prompt + emitted - 1
+            # (the newest emitted token is still pending, never written)
+            pre_len[slot] = (len(sreq.req.prompt)
+                             + len(sreq.req.generated) - 1)
+        if self.graphed:
+            targets = self._verify_staged(toks, n_new, rows)
+        else:
+            logits, self.caches = self._verify(
+                self.params, self.caches, torch.from_numpy(toks),
+                torch.from_numpy(n_new))
+            targets = self._sample_grid(logits, rows)
+        self.spec_stats.verify_calls += 1
+        self.spec_stats.verify_positions += int(n_new.sum())
+
+        produced = 0
+        keep_len = np.zeros((B,), np.int32)
+        rollback = np.zeros((B,), bool)
+        for slot in plan.decode_slots:
+            sreq = rows[slot]
+            d = drafts.get(slot, np.zeros((0,), np.int32))
+            n = 1 + len(d)
+            commits = 0
+            for i in range(n):
+                t = int(targets[slot, i])
+                self.tokens_out += 1
+                self._decode_tokens += 1
+                self._last_tokens[slot, 0] = t
+                self.scheduler.note_decoded(slot, t)
+                commits += 1
+                produced += 1
+                if sreq.req.done:
+                    break           # EOS/budget retired mid-commit
+                if i < len(d) and int(d[i]) != t:
+                    break           # first rejected draft: t is the bonus
+            self.spec_stats.drafts_proposed += len(d)
+            self.spec_stats.drafts_accepted += commits - 1
+            self.spec_stats.spec_tokens += commits
+            if commits < n:
+                keep_len[slot] = pre_len[slot] + commits
+                rollback[slot] = True
+        if rollback.any():
+            self._rollback(self.caches, torch.from_numpy(keep_len),
+                           torch.from_numpy(rollback))
+        if self.pool is not None:
+            self._spec_truncate_leases(plan, rows)
+        return produced
+
+    def _spec_truncate_leases(self, plan: TickPlan, rows: list) -> None:
+        """Paged rollback, pool side: a decoding request never needs
+        blocks past ``prompt + max_new - 1`` context tokens, so
+        strandable tail blocks go back to the pool and the block-table
+        row (written in place) forgets them."""
+        bt = self.caches.kv.block_tables
+        for slot in plan.decode_slots:
+            sreq = rows[slot]
+            rid = sreq.req.rid
+            if sreq.req.done or not self.pool.holds(rid):
+                continue
+            needed = len(sreq.req.prompt) + sreq.req.max_new_tokens - 1
+            if self.pool.truncate(rid, needed):
+                bt[:, slot] = torch.from_numpy(
+                    self.pool.block_table(rid)).to(self.device)
+
     # -- decode ---------------------------------------------------------------
     def _decode(self, plan: TickPlan) -> int:
         live = np.zeros((self.slots,), bool)
@@ -404,17 +668,21 @@ class ServingEngine:
         for slot in plan.decode_slots:
             live[slot] = True
             rows[slot] = self.scheduler.active[slot]
-        tokens = torch.from_numpy(self._last_tokens)
-        if self._serve_sample is not None:
+        if self.graphed:
+            toks = self._decode_staged(live, rows)
+        elif self._serve_sample is not None:
             # fused plan: decode then the fused sampler, back to back on
             # the stream; the copy of the tokens is the one sync
+            self.sampler_calls += 1
             toks, self.caches = self._serve_sample(
-                self.params, self.caches, tokens, torch.from_numpy(live),
+                self.params, self.caches,
+                torch.from_numpy(self._last_tokens), torch.from_numpy(live),
                 *self._sampling_tensors(rows))
             toks = toks.cpu().numpy()
         else:
             logits, self.caches = self._serve(
-                self.params, self.caches, tokens, torch.from_numpy(live))
+                self.params, self.caches,
+                torch.from_numpy(self._last_tokens), torch.from_numpy(live))
             toks = self._sample(logits, rows)
         for slot in plan.decode_slots:
             t = int(toks[slot])
@@ -423,6 +691,57 @@ class ServingEngine:
             self._last_tokens[slot, 0] = t
             self.scheduler.note_decoded(slot, t)
         return len(plan.decode_slots)
+
+    # -- staged steps (CUDA graphs on the card) -------------------------------
+    def _graph_key(self, inputs: dict) -> tuple:
+        """What a captured step reads at fixed addresses: the parameters,
+        the caches and the static inputs, plus the slots, KV layout and
+        kernel plan it was built for."""
+        return (self.slots, self.kv, self.kernel_plan, tensor_key(self.params),
+                tensor_key(self.caches), tensor_key(inputs))
+
+    def _staged(self, names: tuple[str, str], step, step_sample,
+                inputs: dict, idle: str, rows, sample) -> np.ndarray:
+        """Run a per-tick step through its graph: ``step`` under the
+        reference sampler (logits out, then ``sample``'s own dispatch),
+        else ``step_sample`` (tokens out, read back here).  ``names`` are
+        the two graphs' entry names; the warm-up before a capture zeroes
+        input ``idle`` (the step then writes no cache row).  The bodies
+        take the engine's params and caches, then the inputs in order."""
+        if step_sample is None:
+            logits = self.graphs.run(
+                names[0], lambda **ins: step(self.params, self.caches,
+                                             *ins.values())[0],
+                inputs, self._graph_key(inputs), (idle,))
+            return sample(logits, rows)
+        for name, a in zip(_POLICY, self._sampling_arrays(rows)):
+            inputs[name] = self._static.put(name, a)
+        self.sampler_calls += 1
+        return self._static.read(self.graphs.run(
+            names[1], lambda **ins: step_sample(self.params, self.caches,
+                                                *ins.values())[0],
+            inputs, self._graph_key(inputs), (idle,)))
+
+    def _decode_staged(self, live: np.ndarray, rows) -> np.ndarray:
+        """The decode step through ``serve`` / ``serve_sample``."""
+        st = self._static
+        return self._staged(
+            ("serve", "serve_sample"), self._serve, self._serve_sample,
+            {"tokens": st.put("tokens", self._last_tokens),
+             "live": st.put("live", live)}, "live", rows, self._sample)
+
+    def _verify_staged(self, toks: np.ndarray, n_new: np.ndarray,
+                       rows) -> np.ndarray:
+        """The verify step through ``verify/<K1>`` /
+        ``verify_sample/<K1>``: one graph per draft width K1."""
+        st = self._static
+        K1 = toks.shape[1]
+        return self._staged(
+            (f"verify/{K1}", f"verify_sample/{K1}"), self._verify,
+            self._verify_sample,
+            {"tokens": st.put(f"tokens/{K1}", toks),
+             "n_new": st.put("n_new", n_new)}, "n_new", rows,
+            self._sample_grid)
 
     # -- sampling -------------------------------------------------------------
     def _sampling_arrays(self, rows):
@@ -453,25 +772,43 @@ class ServingEngine:
     def _sample(self, logits: torch.Tensor, rows) -> np.ndarray:
         """One batched sampling dispatch over (B, V) logits (the prefill
         paths, and decode under the reference-sampler plan)."""
+        return self._draw(self._sample_step, logits, rows)
+
+    def _sample_grid(self, logits: torch.Tensor, rows) -> np.ndarray:
+        """Verify-tick sampling over (B, K1, V) logits: position ``i`` of
+        row ``b`` uses key ``(seed_b, emitted_b + i)``, the key a plain
+        decode step would use emitting that token."""
+        return self._draw(self._sample_grid_step, logits, rows)
+
+    def _draw(self, sampler, logits: torch.Tensor, rows) -> np.ndarray:
         temps = self._sampling_arrays(rows)[2]
         if not temps.any():
             # all-greedy batch: plain argmax, skip the sampler
             toks = torch.argmax(logits[..., :self.model.cfg.vocab], dim=-1)
             return toks.cpu().numpy()
-        return self._sample_step(
-            logits, *self._sampling_tensors(rows)).cpu().numpy()
+        self.sampler_calls += 1
+        return sampler(logits, *self._sampling_tensors(rows)).cpu().numpy()
 
     # -- re-planning / stats --------------------------------------------------
     def _maybe_replan(self) -> None:
-        decode = self.timer.totals.get("decode", 0.0)
-        decode_calls = self.timer.counts.get("decode", 0)
+        # verify steps are the spec engine's decode steps: fold them in
+        # so a mostly-speculative workload still produces decode stats
+        decode = (self.timer.totals.get("decode", 0.0)
+                  + self.timer.totals.get("verify", 0.0))
+        decode_calls = (self.timer.counts.get("decode", 0)
+                        + self.timer.counts.get("verify", 0))
         prefill_s = (self.timer.totals.get("prefill_chunk", 0.0)
                      + self.timer.totals.get("admit", 0.0))
+        accept = None
+        if self.default_spec.mode != "off" \
+                and self.spec_stats.drafts_proposed:
+            accept = self.spec_stats.accept_rate
         t0 = time.perf_counter()
         plan = self.scheduler.maybe_replan(
             decode_step_s=decode / decode_calls if decode_calls else 0.0,
             prefill_token_s=prefill_s / self._prefill_tokens
-            if self._prefill_tokens else 0.0)
+            if self._prefill_tokens else 0.0,
+            accept_rate=accept)
         if plan is not None:
             dt = time.perf_counter() - t0
             self.timer.totals["replan"] = \
@@ -480,14 +817,25 @@ class ServingEngine:
                 self.timer.counts.get("replan", 0) + 1
 
     def stats(self) -> dict:
-        """Per-stage timing + throughput + the scheduler's plan."""
+        """Per-stage timing + throughput + the scheduler's plan; the
+        decode and verify steps by width (``steps``: steady calls and
+        time, and the steps that captured a graph); the sampler's
+        dispatches (``sampler_calls``: eager calls and sampling-graph
+        replays); with ``graphed``, each step graph's captures, replays,
+        capture time, pool bytes, the launches one replay adds and those
+        its warm-ups launched."""
         out = {"stages": self.timer.as_dict(), "tokens_out": self.tokens_out,
                "prefill_tokens": self._prefill_tokens,
                "plan": dict(self.scheduler.last_plan),
                "scheduler": self.scheduler.state_counts(),
                "prefill_mode": self.scheduler.cfg.prefill_mode,
                "kv": self.kv, "device": str(self.device),
-               "kernel_plan": self.kernel_plan.as_dict()}
+               "kernel_plan": self.kernel_plan.as_dict(),
+               "graphed": self.graphed,
+               "steps": {w: dict(v) for w, v in sorted(self.steps.items())},
+               "sampler_calls": self.sampler_calls}
+        if self.graphs.counts:
+            out["graphs"] = {k: dict(v) for k, v in self.graphs.counts.items()}
         if self._kernel_report is not None:
             out["kernel_report"] = self._kernel_report.as_dict()
         if self.pool is not None:
@@ -497,7 +845,16 @@ class ServingEngine:
         if rep is not None:
             out["plan_report"] = rep.as_dict()
             out["plan_cache_hit"] = rep.cache_hit
-        decode_s = out["stages"].get("decode", {"total_s": 0.0})["total_s"]
+        if self.default_spec.mode != "off":
+            out["spec"] = {"mode": self.default_spec.mode,
+                           "k": self._spec_k(self.default_spec),
+                           **self.spec_stats.as_dict()}
+        # decode throughput counts committed tokens over the decode +
+        # verify time (the steps that captured a graph included) —
+        # rejected draft positions are never emissions
+        decode_s = sum(out["stages"].get(s, {"total_s": 0.0})["total_s"]
+                       for s in ("decode", "verify", "decode_capture",
+                                 "verify_capture"))
         if decode_s > 0:
             out["decode_tokens_per_s"] = self._decode_tokens / decode_s
         return out

@@ -151,3 +151,26 @@ def sample_tokens(logits, seeds, steps, temperature, top_k, top_p, *,
     x = torch.where(probs >= thresh, x, -torch.inf)
     sampled = keyed_draw(x, seeds, steps)
     return torch.where(temperature <= 0, greedy_tok, sampled).to(torch.int32)
+
+
+def sample_token_grid(logits, seeds, steps, temperature, top_k, top_p, *,
+                      vocab: int) -> torch.Tensor:
+    """Speculative-verify sampling: ``(B, K1, V) -> (B, K1)`` tokens.
+
+    Row ``b``, position ``i`` samples with key ``(seeds[b], steps[b] +
+    i)``: the key the non-speculative engine would use once its first
+    ``i`` tokens were emitted, so a token sampled at a verify position
+    equals the one a plain decode step would have sampled."""
+    B, K1 = logits.shape[0], logits.shape[1]
+    seeds, steps, temperature, top_k, top_p = _policy(
+        logits, seeds, steps, temperature, top_k, top_p)
+    grid_steps = steps.to(torch.int64)[:, None] + torch.arange(
+        K1, device=logits.device)[None, :]
+
+    def rep(t):
+        return t[:, None].expand(B, K1).reshape(-1)
+    toks = sample_tokens(
+        logits.reshape(B * K1, logits.shape[2]), rep(seeds),
+        grid_steps.reshape(-1), rep(temperature), rep(top_k), rep(top_p),
+        vocab=vocab)
+    return toks.reshape(B, K1)

@@ -1,9 +1,9 @@
 """Request scheduler for the continuous-batching serving engine.
 
 The PyTorch port's copy of ``repro.serving.scheduler`` (host-side
-Python, ported verbatim but for its imports and for the speculative,
-sliding-window, mixed-stack, recurrent-state and mesh fields it forwards
-to ``serve_schedule``, which come with those paths).
+Python, ported verbatim but for its imports and for the sliding-window,
+mixed-stack, recurrent-state and mesh fields it forwards to
+``serve_schedule``, which come with those paths).
 
 The engine (``serving.engine``) executes arrays; this module decides
 *what* to execute each tick.  It owns the request lifecycle
@@ -123,6 +123,10 @@ class SchedulerConfig:
     admit: int | None = None
     #: per-tick preemption cap; replaced by the plan's ``preempt``.
     preempt: int = 1
+    #: planned speculative draft length for requests whose SpecParams leave
+    #: ``k = None``; set by the serve_schedule plan from the observed
+    #: acceptance rate (0 = speculation planned off).  None = no plan yet.
+    spec_k: int | None = None
 
 
 def _quantize(x: float) -> float:
@@ -159,6 +163,10 @@ class Scheduler:
         #: carries the routing it was planned under; the dict is fixed at
         #: engine construction, so replans still hit the optimize() cache.
         self.kernel_plan: dict[str, str] | None = None
+        #: speculative-decoding mode the engine runs ("off"|"ngram"|"draft")
+        #: — forwarded to the serve_schedule pass so replans plan ``spec_k``
+        #: from the observed acceptance rate.
+        self.spec_mode = "off"
         #: paged-KV hooks, set by the engine when it runs a block pool:
         #: ``kv_gate(sreq, victim=None)`` — may this request be admitted
         #: given free blocks (counting the victim's, when preempting)?;
@@ -372,12 +380,15 @@ class Scheduler:
 
     # -- re-planning through the pass manager ---------------------------------
     def maybe_replan(self, decode_step_s: float, prefill_token_s: float,
-                     device=None) -> dict[str, Any] | None:
+                     device=None,
+                     accept_rate: float | None = None) -> dict[str, Any] | None:
         """Every ``replan_every`` ticks: run the ``serve_schedule`` pass over
         the proxy graph with quantized observed timings and adopt its plan —
         chunk budget, admission width, preemption bound, replan period, and
-        (unless pinned) the batched-vs-chunked prefill mode.  Returns the
-        plan on replan ticks, None otherwise."""
+        (unless pinned) the batched-vs-chunked prefill mode.  A speculative
+        engine also feeds its observed draft ``accept_rate`` (None = no
+        drafts verified yet) and adopts the planned ``spec_k``.  Returns
+        the plan on replan ticks, None otherwise."""
         if self.plan_graph is None or self._ticks % self.cfg.replan_every:
             return None
         from repro_torch.core import pipeline  # serving depends on core
@@ -397,6 +408,12 @@ class Scheduler:
             options["kv"] = self.kv_mode
         if self.kernel_plan:
             options["kernel_plan"] = dict(sorted(self.kernel_plan.items()))
+        if self.spec_mode != "off":
+            options["spec"] = self.spec_mode
+            # -1 = no verified drafts yet: the pass starts optimistic and
+            # the first real rate takes over at the next replan
+            options["spec_accept_rate"] = (
+                _quantize(accept_rate) if accept_rate is not None else -1.0)
         _, report = pipeline.optimize(self.plan_graph, device,
                                       passes=("serve_schedule",),
                                       options=options)
@@ -413,6 +430,8 @@ class Scheduler:
                                max(self.cfg.slots - 1, 0))
         self.cfg.replan_every = max(1, int(plan.get("replan_every",
                                                     self.cfg.replan_every)))
+        if "spec_k" in plan:
+            self.cfg.spec_k = int(plan["spec_k"])
         self.last_plan = plan
         self.last_report = report
         return plan

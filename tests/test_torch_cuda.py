@@ -1018,3 +1018,281 @@ def test_cnn_engine_routes_dsp_split_of_bert_s(card):
     kernels.reset_launches()
     routed(params, *ins)
     assert kernels.LAUNCHES["split_matmul"] == 0
+
+
+# -- the serving step as CUDA graphs -------------------------------------------
+
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_BLOCK = 4, 64, 8, 8
+
+
+def _serve_model():
+    """Reduced qwen3-1.7b in bf16 on the card (head_dim 64): every routed
+    site has its kernel (decode attention, ``linked_mlp_tc``,
+    ``fused_mask``)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="bfloat16")
+    model = Model(cfg, device="cuda")
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+def _serve_trace(seed, sampled, vocab):
+    """(gap, prompt, max_new, priority, sampling) per request."""
+    from repro_torch.serving import SamplingParams
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, 16)
+    out = []
+    for rid in range(7):
+        n = int(rng.integers(3, 24))
+        prompt = np.concatenate([shared, rng.integers(0, vocab, 4)]) \
+            if rng.random() < 0.4 else rng.integers(0, vocab, n)
+        max_new = int(rng.integers(1, 14))
+        sp = SamplingParams(temperature=float(rng.uniform(0.5, 1.2)),
+                            top_k=int(rng.choice([0, 8, 50])),
+                            top_p=float(rng.choice([1.0, 0.9])),
+                            seed=seed * 100 + rid) if sampled else None
+        out.append((int(rng.integers(0, 4)), prompt.astype(np.int32),
+                    max_new, 1 if rng.random() < 0.25 else 0, sp))
+    return out
+
+
+def _serve_trace_run(model, params, trace, kv, graphed, spec=None,
+                     replan_every=10_000):
+    """The trace through a fresh engine.  A replanning engine plans from
+    fixed timings (a 10 ms decode step, 0.1 ms a prefill token), so two
+    engines adopt the same plans whatever their own timings."""
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(model, params, slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, chunk=SERVE_CHUNK,
+                        prefill_mode="chunked", replan_every=replan_every,
+                        kv=kv,
+                        kv_block_size=SERVE_BLOCK if kv == "paged" else None,
+                        graphed=graphed, spec=spec, spec_k_max=4)
+    replan = eng.scheduler.maybe_replan
+    eng.scheduler.maybe_replan = lambda decode_step_s, prefill_token_s, \
+        **kw: replan(0.01, 1e-4, **kw)
+    reqs = []
+    for rid, (gap, prompt, max_new, prio, sp) in enumerate(trace):
+        for _ in range(gap):
+            eng.step()
+        req = Request(rid=rid, prompt=prompt.copy(), max_new_tokens=max_new,
+                      priority=prio, sampling=sp)
+        eng.submit(req)
+        reqs.append(req)
+    eng.run()
+    assert all(r.done for r in reqs)
+    return [list(r.generated) for r in reqs], eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("spec", [None, "ngram"])
+def test_graphed_engine_matches_eager(card, kv, sampled, spec):
+    """The engine's CUDA graphs (``serve_sample``, ``verify_sample/K1``)
+    emit the eager engine's streams bit for bit, with the same
+    speculative counters; every decode tick replays (none falls back)."""
+    from repro_torch.serving.speculative import SpecParams
+    model, params = _serve_model()
+    trace = _serve_trace(3 + sampled, sampled, model.cfg.vocab)
+    sp = SpecParams(mode="ngram", k=4, min_ngram=1) if spec else None
+    eager, e_eng = _serve_trace_run(model, params, trace, kv, False, sp)
+    graphed, g_eng = _serve_trace_run(model, params, trace, kv, True, sp)
+    assert graphed == eager
+    assert g_eng.spec_stats == e_eng.spec_stats
+    stats = g_eng.stats()
+    counts, steps = stats["graphs"], stats["steps"]
+    assert counts["serve_sample"]["replays"] == \
+        steps[1]["calls"] + steps[1]["captures"]
+    assert sum(c["replays"] for n, c in counts.items()
+               if n.startswith("verify")) == g_eng.spec_stats.verify_calls
+    if spec:
+        assert g_eng.spec_stats.verify_calls > 0
+    # the warm-up before each capture runs the step once: its launches
+    n = model.cfg.n_layers
+    attn = "gqa_decode" if kv == "dense" else "gqa_decode_paged"
+    for name, c in counts.items():
+        width = 1 if name == "serve_sample" else int(name.split("/")[1])
+        assert c["launches"][attn] == n * width, name
+        assert c["warmup_launches"][attn] == c["captures"] * n * width, name
+        assert c["warmup_launches"]["fused_mask"] == c["captures"], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_graphed_engine_replans_like_eager(card, kv):
+    """A graphed engine that replans (the chunk moves from 8 to 64, the
+    draft length follows the observed acceptance) emits the eager
+    engine's streams bit for bit given the same plans; a replan replaces
+    no tensor a graph reads, so the decode step is captured once."""
+    from repro_torch.serving.speculative import SpecParams
+    model, params = _serve_model()
+    trace = _serve_trace(7, True, model.cfg.vocab)
+    sp = SpecParams(mode="ngram", k=None, min_ngram=1)
+    eager, e_eng = _serve_trace_run(model, params, trace, kv, False, sp,
+                                    replan_every=4)
+    graphed, g_eng = _serve_trace_run(model, params, trace, kv, True, sp,
+                                      replan_every=4)
+    assert graphed == eager
+    assert g_eng.spec_stats == e_eng.spec_stats
+    assert g_eng.timer.counts["replan"] == e_eng.timer.counts["replan"] > 0
+    assert g_eng.scheduler.cfg.chunk == e_eng.scheduler.cfg.chunk == 64
+    assert g_eng.stats()["graphs"]["serve_sample"]["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_graphs_of_an_engine_share_one_pool(card):
+    """Verify graphs captured into one pool (widest first) add less
+    memory together than the same graphs in private pools: a graph's
+    temporaries reuse what an earlier capture freed."""
+    from repro_torch.core import pipeline
+    from repro_torch.serving.graphs import StepGraph, StepGraphs
+    model, params = _serve_model()
+    params = model.cast_params(params)
+    plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
+    caches = model.init_caches(SERVE_SLOTS, SERVE_MAX_LEN)
+    n_new = torch.zeros((SERVE_SLOTS,), dtype=torch.int32, device="cuda")
+
+    def body(tokens, n_new):
+        return model.verify_step(params, caches, tokens, n_new, plan=plan)[0]
+
+    def inputs(k1):
+        return {"tokens": torch.zeros((SERVE_SLOTS, k1), dtype=torch.long,
+                                      device="cuda"), "n_new": n_new}
+    widths = (5, 4, 3, 2)
+    private = []
+    for k1 in widths:
+        g = StepGraph(body, inputs(k1), k1, idle=("n_new",),
+                      stream=torch.cuda.Stream())
+        private.append(g.pool_bytes)
+        del g
+    shared = StepGraphs()
+    for k1 in widths:
+        shared.run(f"verify/{k1}", body, inputs(k1), k1, idle=("n_new",))
+    pooled = [shared.counts[f"verify/{k1}"]["pool_bytes"] for k1 in widths]
+    assert shared.captures == len(widths)
+    assert sum(pooled) < sum(private), (pooled, private)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_graphed_verify_matches_eager_verify(card, kv):
+    """``verify_step`` captured once and replayed on restored caches
+    equals an eager verify bit for bit, logits and caches, at every
+    replay (the decode kernels' tickets start at zero each time)."""
+    from repro_torch.core import pipeline
+    from repro_torch.serving.graphs import StepGraph
+    model, params = _serve_model()
+    params = model.cast_params(params)
+    plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
+    B, W, bs = SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BLOCK
+    rng = np.random.default_rng(0)
+    if kv == "paged":
+        M = W // bs
+        caches = model.init_paged_caches(B, pool_blocks=B * M, block_size=bs,
+                                         max_blocks=M)
+        caches.kv.block_tables.copy_(torch.arange(
+            B * M, dtype=torch.int32, device="cuda").reshape(B, M).expand_as(
+                caches.kv.block_tables))
+    else:
+        caches = model.init_caches(B, W)
+    lens = torch.tensor([9, 20, 3, 14], dtype=torch.int32)
+    prompt = torch.from_numpy(rng.integers(0, model.cfg.vocab, (B, 20)))
+    model.prefill_chunk(params, caches, prompt, torch.zeros_like(lens),
+                        lens, plan=plan)
+    snapshot = [t.clone() for t in caches.kv]
+    tokens = torch.zeros((B, 5), dtype=torch.long, device="cuda")
+    n_new = torch.zeros((B,), dtype=torch.int32, device="cuda")
+
+    def body(tokens, n_new):
+        return model.verify_step(params, caches, tokens, n_new, plan=plan)[0]
+    graph = StepGraph(body, {"tokens": tokens, "n_new": n_new}, "k",
+                      idle=("n_new",), stream=torch.cuda.Stream())
+    assert graph.graph is not None
+    assert graph.launches["gqa_decode" if kv == "dense"
+                          else "gqa_decode_paged"] == 5 * model.cfg.n_layers
+    for i in range(4):
+        tokens.copy_(torch.from_numpy(rng.integers(0, model.cfg.vocab,
+                                                   (B, 5))))
+        n_new.copy_(torch.tensor([5, 1 + i, 0, 3]))
+        for t, s in zip(caches.kv, snapshot):
+            t.copy_(s)
+        got = graph.replay().clone()
+        after = [t.clone() for t in caches.kv]
+        for t, s in zip(caches.kv, snapshot):
+            t.copy_(s)
+        want = model.verify_step(params, caches, tokens, n_new, plan=plan)[0]
+        assert torch.equal(got, want), i
+        for a, b in zip(after, caches.kv):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_graph_replay_never_syncs_and_counts_launches(card):
+    """Staging the inputs, replaying the decode graph and starting the
+    tokens' copy to pinned memory run with no host synchronization (sync
+    debug mode raises on one); N replays add N times the launches the
+    capture recorded."""
+    from repro_torch.serving import Request, RequestState
+    from repro_torch.serving.engine import _POLICY
+    model, params = _serve_model()
+    trace = _serve_trace(5, True, model.cfg.vocab)
+    _, eng = _serve_trace_run(model, params, trace, "paged", True)
+    graph = eng.graphs._graphs["serve_sample"]
+    n = model.cfg.n_layers
+    assert (graph.launches["gqa_decode_paged"], graph.launches["linked_mlp"],
+            graph.launches["fused_mask"]) == (n, n, 1)
+    eng.submit(Request(rid=99, prompt=np.arange(9, dtype=np.int32),
+                       max_new_tokens=30))
+    rows = [None] * SERVE_SLOTS
+    while not any(rows):
+        eng.step()
+        rows = [s if s is not None and s.state is RequestState.DECODE
+                else None for s in eng.scheduler.active]
+    st = eng._static
+    live = np.array([r is not None for r in rows])
+    host = torch.empty((SERVE_SLOTS,), dtype=torch.int32, pin_memory=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st.put("tokens", eng._last_tokens)
+            st.put("live", live)
+            for name, a in zip(_POLICY, eng._sampling_arrays(rows)):
+                st.put(name, a)
+            out = graph.replay()
+            host.copy_(out, non_blocking=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for name, count in kernels.LAUNCHES.items():
+        assert count == 3 * graph.launches.get(name, 0), name
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(card, monkeypatch):
+    """A body that fails while it is being captured makes the engine's
+    step raise; nothing falls back to eager."""
+    from repro_torch.serving import Request
+    model, params = _serve_model()
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(model, params, slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, chunk=SERVE_CHUNK,
+                        prefill_mode="chunked", replan_every=10_000)
+    real = eng._serve_sample
+
+    def failing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("planted capture failure")
+        return real(*args)
+    eng._serve_sample = failing
+    eng.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                       max_new_tokens=4))
+    with pytest.raises(RuntimeError, match="planted capture failure"):
+        for _ in range(10):
+            eng.step()
+    assert eng.graphs.counts == {}

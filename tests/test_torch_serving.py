@@ -25,6 +25,7 @@ from repro_torch.core import pipeline as port_pipeline
 from repro_torch.models.model import Model
 from repro_torch.serving import Request, ServingEngine, kv_pool as port_pool
 from repro_torch.serving import scheduler as port_sched
+from repro_torch.serving.speculative import SpecParams
 from test_serving_fuzz import BLOCK, CFG, CHUNK, MAX_LEN, SLOTS, make_trace
 
 POOL_TESTS = sorted(n for n, f in vars(ref_pool_tests).items()
@@ -150,8 +151,8 @@ def test_engine_matches_reference_engine(engines_pair, seed, kv):
 
 def test_engine_routes_and_reports(engines_pair):
     """The host engine routes through kernel_select (plain torch attention,
-    the fused sampler), reports its stages, and rejects what this slice
-    does not port."""
+    the fused sampler), reports its stages, checks its speculative
+    arguments, and rejects what this slice does not port."""
     *_, tm, tp = engines_pair
     eng = ServingEngine(tm, tp, slots=SLOTS, max_len=MAX_LEN, chunk=CHUNK,
                         kv="paged", kv_block_size=BLOCK)
@@ -160,8 +161,8 @@ def test_engine_routes_and_reports(engines_pair):
     assert stats["kernel_plan"]["decode_dense"] == "torch"
     assert any(p["name"] == "kernel_select"
                for p in stats["kernel_report"]["passes"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ServingEngine(tm, tp, spec=object())
+    with pytest.raises(ValueError, match="draft_model"):
+        ServingEngine(tm, tp, spec=SpecParams(mode="draft"))
     with pytest.raises(NotImplementedError, match="item 8"):
         ServingEngine(tm, tp, mesh=object())
 
