@@ -21,7 +21,14 @@ Phases (any failure exits non-zero before the result line):
    version and the library yardstick with CUDA events, and print each
    decode kernel's share of its bound and ``fused_mask``'s at each of
    the three policies, beside the plan ``mask_plan`` picks, and at a
-   verify's rows (8 x K1 for K1 = 5 and 13, the served policy);
+   verify's rows (8 x K1 for K1 = 5 and 13, the served policy); and at
+   gemma3-1b's shapes: both decode kernels at head_dim 256 (q (8, 4,
+   256)) over a sliding layer's 512-slot ring (wrapped spans starting
+   mid-row) and a global layer's 2048-slot horizon, dense and paged
+   (the mixed pool's block size and 16), one row at the D = 256 split
+   cap, timed beside SDPA; ``fused_mask`` at (8, 262144), served and
+   greedy; ``linked_mlp_tc`` at d 1152, ff 6912 (a cluster of 5), M = 8
+   and 256, beside the unlinked form;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -51,16 +58,34 @@ Phases (any failure exits non-zero before the result line):
    paged sampled run with ``spec ngram`` (k 4), a dense greedy run of 8
    requests with ``spec draft`` (qwen3's reduced config at the full
    vocabulary, k 12: it meets every verify width from 2 to 13, all its
-   graphs in one pool), and a dense greedy run of 4 requests with the target as
-   its own draft (an oracle: on random weights neither of the others
-   predicts the target); at least one draft accepted and one rejected
+   graphs in one pool), and a dense greedy run of 4 requests with the
+   target as its own draft (an oracle: on random weights neither of the
+   others predicts the target); the two draft-model runs are not
+   profiled (their drafts run eagerly inside the window, and profiling
+   them cost ~60 s); at least one draft accepted and one rejected
    over the three.  Prints each run's acceptance, verify calls, verify
    ms by width K1, its graphs' pool and decode tokens/s beside its
    twin's;
+3c. the attention cache families at full width: gemma3-1b (26 layers
+   ``SSSSSG``, window 512, RoPE theta 10k / 1M; random weights, seed 0,
+   bf16) serving 16 requests of 600-1100-token prompts (past the
+   window: every sliding ring wraps in prefill) and 64 new tokens, dense
+   KV greedy and the mixed pool sampled (T 0.8, top-k 50, top-p 0.95),
+   each graphed beside its eager twin, streams equal bit for bit; a
+   decode tick launches ``gqa_decode`` 26 times (dense) or 22 times plus
+   ``gqa_decode_paged`` 4 times (mixed), ``linked_mlp_tc`` 26 times and
+   ``fused_mask`` once; every request holds a classic and a ring lease,
+   the ring lease window / block size blocks whatever its context; then
+   qwen3-1.7b with a 512-token window, 8 requests, ring-paged beside
+   dense KV, greedy, streams equal bit for bit.  Prints each run's
+   steady step, busy share, profiled kernels and KV bytes beside the
+   dense full-attention KV;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
-   site) on the same weights and prompts at reduced depth: greedy streams
-   must match wherever the plain path's top-1/top-2 logit margin exceeds
-   the bf16 tolerance;
+   site) on the same weights and prompts at reduced depth (qwen3 at 2
+   layers; gemma3 at 6, five sliding and one global, 600-token
+   prompts): greedy streams must match wherever the plain path's
+   top-1/top-2 logit margin (its engine's computation replayed for one
+   request) exceeds the bf16 tolerance;
 5. the paper's CNN path: the zoo's MobileNet (224, width 1.0, 1000
    classes) and ResNet18 (224, width 64, 1000 classes) at the zoo's depth,
    the Figure-5 graph, both Table-4 CBRA graphs, and the zoo's
@@ -181,6 +206,15 @@ SPIN_CYCLES = 200_000_000
 ROTATE = 6
 #: where the checks run (the card; a rehearsal on the host may change it)
 DEV = "cuda"
+#: gemma3-1b (configs/gemma3_1b.py): 4 q / 1 kv heads of 256, d 1152, ff
+#: 6912, vocab 262,144, a 512-token window on its sliding layers
+G3_H, G3_K, G3_D, G3_WINDOW = 4, 1, 256, 512
+G3_D_MODEL, G3_D_FF, G3_VOCAB = 1152, 6912, 262144
+#: phase 3c's prompts: past the window, so every sliding ring wraps in
+#: prefill
+G3_PROMPT_LENS = (600, 1100)
+#: phase 3c's profiled decode ticks (the first wave's decode)
+G3_WINDOW_TICKS = (40, 45)
 
 
 def fail(msg: str) -> None:
@@ -313,7 +347,7 @@ def split_edges(torch, ops):
     full row, S, 16 S, 32 S and 64 S (pieces of one slot, half a 32-slot
     tile, one tile, two tiles) and W, each with one slot either side."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, S = ops.decode_grid(SLOTS, K, H // K, MAX_LEN, sms)
+    _, S = ops.decode_grid(SLOTS, K, H // K, MAX_LEN, sms, D)
     edges = {ops.split_range(0, MAX_LEN, S, s)[0] for s in range(1, S)}
     edges |= {S, 16 * S, 32 * S, 64 * S, MAX_LEN}
     ls = sorted({min(MAX_LEN, max(0, e + d)) for e in edges
@@ -392,6 +426,129 @@ def check_dense(torch, ops, gen, report):
         "splits": S,
     }
     print_share(report["gqa_decode"])
+
+
+def g3_decode_case(torch, dtype, W, spans, gen):
+    """gemma3's decode shape over a W-slot dense ring: q (8, 4, 256), k/v
+    (8, W, 1, 256); row b's live span is ``spans[b] = (start, n)`` slots
+    from ``start``, wrapping past the ring's end (a ring whose span starts
+    mid-row)."""
+    B = len(spans)
+    q = torch.randn((B, G3_H, G3_D), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((B, W, G3_K, G3_D), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((B, W, G3_K, G3_D), generator=gen, device=DEV).to(dtype)
+    pos = torch.arange(W, device=DEV)[None, :]
+    start = torch.tensor([a for a, _ in spans], device=DEV)[:, None]
+    n = torch.tensor([c for _, c in spans], device=DEV)[:, None]
+    return q, k, v, ((pos - start) % W) < n
+
+
+def g3_paged_case(torch, dtype, W, bs, lengths, gen):
+    """The same rows as paged: a shuffled pool of 8 x W / bs blocks."""
+    B, M = len(lengths), W // bs
+    kp = torch.randn((B * M, bs, G3_K, G3_D), generator=gen,
+                     device=DEV).to(dtype)
+    vp = torch.randn((B * M, bs, G3_K, G3_D), generator=gen,
+                     device=DEV).to(dtype)
+    q = torch.randn((B, G3_H, G3_D), generator=gen, device=DEV).to(dtype)
+    perm = torch.randperm(B * M, generator=gen, device=DEV).reshape(B, M)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    first = torch.arange(M, device=DEV)[None, :] * bs
+    bt = torch.where(first < ln[:, None], perm, -1).to(torch.int32)
+    return q, kp, vp, bt.contiguous(), ln
+
+
+def check_decode_gemma3(torch, ops, gen, bs, report):
+    """Both decode kernels at head_dim 256 (gemma3's 4 q / 1 kv heads):
+    a sliding layer's 512-slot ring (full, wrapped with its span starting
+    mid-row, short, empty) and a global layer's 2048-slot horizon, dense
+    and paged at the mixed pool's block size ``bs`` and at 16, element by
+    element, fp32 and bf16; then timed at the served shapes (bf16, rows of
+    ~560 live slots of a 2048 horizon and full 512-slot windows) beside
+    SDPA (``enable_gqa``; the gathered view for paged) and the bytes
+    bound.  Rows go under ``gemma3`` in the two decode kernels' rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    spans = {512: [(137, 512), (0, 512), (509, 3), (300, 200), (1, 1),
+                   (0, 0), (64, 500), (400, 512)],
+             MAX_LEN: [(0, 600), (1500, 560), (0, 0), (0, 2048), (2047, 1),
+                       (1000, 1100), (777, 1337), (5, 530)]}
+    worst = {"gqa_decode": {}, "gqa_decode_paged": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for W, sp in spans.items():
+            gt, S = ops.decode_grid(SLOTS, G3_K, G3_H // G3_K, W, sms, G3_D)
+            q, k, v, valid = g3_decode_case(torch, dtype, W, sp, gen)
+            err = check_close(
+                f"gqa_decode gemma3 {name} W={W} wrapped spans (GT {gt}, "
+                f"{S} splits)", ops.gqa_decode(q, k, v, valid),
+                ops.gqa_decode_plain(q, k, v, valid), name)
+            w = worst["gqa_decode"]
+            w[name] = max(w.get(name, 0.0), err)
+            lengths = [min(n, W) for _, n in sp]
+            for b in sorted({bs, 16}):
+                args = g3_paged_case(torch, dtype, W, b, lengths, gen)
+                err = check_close(
+                    f"gqa_decode_paged gemma3 {name} W={W} bs={b}",
+                    ops.gqa_decode_paged(*args),
+                    ops.gqa_decode_paged_plain(*args), name)
+                w = worst["gqa_decode_paged"]
+                w[name] = max(w.get(name, 0.0), err)
+    # B = 1: a row at the D = 256 split cap, the merge filling the ring
+    gt, S = ops.decode_grid(1, G3_K, G3_H // G3_K, MAX_LEN, sms, G3_D)
+    if S != ops.max_splits(G3_D, gt):
+        fail(f"gqa_decode gemma3 B=1: {S} splits, want the cap "
+             f"{ops.max_splits(G3_D, gt)}")
+    q, k, v, valid = g3_decode_case(torch, torch.bfloat16, MAX_LEN,
+                                    [(100, 1900)], gen)
+    check_close(f"gqa_decode gemma3 B=1 at the {S}-split cap",
+                ops.gqa_decode(q, k, v, valid),
+                ops.gqa_decode_plain(q, k, v, valid), "bfloat16")
+    # timing at the served shapes
+    timed = {"sliding_w512": (512, [(s, 512) for s in
+                                    (137, 0, 300, 480, 64, 7, 211, 400)]),
+             "global_w2048": (MAX_LEN, [(0, n) for n in
+                                        (560, 512, 600, 540, 580, 530, 590,
+                                         520)])}
+    for label, (W, sp) in timed.items():
+        rows = sum(n for _, n in sp)
+        sets = [g3_decode_case(torch, torch.bfloat16, W, sp, gen)
+                for _ in range(ROTATE)]
+        nbytes = (2 * rows * G3_K * G3_D * 2 + 2 * SLOTS * G3_H * G3_D * 2
+                  + SLOTS * W)
+        b_ms, b_by = bound_ms(nbytes, 4 * rows * G3_H * G3_D, "bfloat16")
+        row = {"shape": [SLOTS, G3_H, G3_D, W], "dtype": "bfloat16",
+               "splits": ops.decode_grid(SLOTS, G3_K, G3_H // G3_K, W, sms,
+                                         G3_D)[1],
+               "ms": cuda_ms([lambda s=s: ops.gqa_decode(*s) for s in sets]),
+               "plain_ms": cuda_ms([lambda s=s: ops.gqa_decode_plain(*s)
+                                    for s in sets]),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in sets])}
+        report["gqa_decode"].setdefault("gemma3", {})[label] = row
+        print_share({"name": f"gqa_decode gemma3 {label}", **row})
+        lengths = [n for _, n in sp]
+        psets = [g3_paged_case(torch, torch.bfloat16, W, bs, lengths, gen)
+                 for _ in range(ROTATE)]
+        views = [(q, ops.paged_view(kp, bt), ops.paged_view(vp, bt),
+                  torch.arange(W, device=DEV)[None, :] < ln[:, None])
+                 for q, kp, vp, bt, ln in psets]
+        nbytes = (2 * rows * G3_K * G3_D * 2 + 2 * SLOTS * G3_H * G3_D * 2
+                  + psets[0][3].numel() * 4 + SLOTS * 4)
+        b_ms, b_by = bound_ms(nbytes, 4 * rows * G3_H * G3_D, "bfloat16")
+        prow = {"shape": [SLOTS, G3_H, G3_D, W], "dtype": "bfloat16",
+                "block_size": bs,
+                "ms": cuda_ms([lambda s=s: ops.gqa_decode_paged(*s)
+                               for s in psets]),
+                "plain_ms": cuda_ms([lambda s=s: ops.gqa_decode_paged_plain(
+                    *s) for s in psets]),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in views])}
+        report["gqa_decode_paged"].setdefault("gemma3", {})[label] = prow
+        print_share({"name": f"gqa_decode_paged gemma3 {label}", **prow})
+    for kernel, w in worst.items():
+        report[kernel]["gemma3_max_abs_err"] = w
+        report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"],
+                                            w["bfloat16"])
 
 
 def print_share(row) -> None:
@@ -591,6 +748,49 @@ def check_fused_mask(torch, ops, gen, report):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "plan": plan._asdict(), "per_policy": per_policy, "verify": verify,
     }
+
+
+def check_fused_mask_gemma3(torch, ops, gen, report):
+    """``fused_mask`` at gemma3's rows, (8, 262144): the widest yet.  The
+    served policy (T 0.8, top-k 50, top-p 0.95) and the greedy one, held
+    against the plain version as at qwen3's rows (equal survivors, equal
+    supports off the nucleus boundary, two launches the same bits) and
+    timed beside the bytes bound; under ``gemma3`` in the row."""
+    B, V = SLOTS, G3_VOCAB
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    solo = ops.solo_clusters(torch.device(DEV))
+    logits = torch.randn((B, V + 256), generator=gen, device=DEV) * 3.0
+    rows = logits[:, :V]                    # a strided slice, as served
+    b_ms, b_by = bound_ms(2 * B * V * 4 + B * 12, B * V, "float32")
+    out = {"rows": [B, V], "plan": ops.mask_plan(B, V, sms,
+                                                 solo=solo)._asdict()}
+    for label in ("served", "greedy"):
+        args = mask_policy(torch, *MASK_POLICIES[label])
+        got = ops.fused_mask(rows, *args)
+        if not torch.equal(got, ops.fused_mask(rows, *args)):
+            fail(f"fused_mask gemma3 {label}: two launches gave different "
+                 "bits")
+        want = ops.fused_mask_plain(rows, *args)
+        free = ops.nucleus_boundary(rows, *args)
+        differ = torch.isinf(got) != torch.isinf(want)
+        both = ~torch.isinf(got) & ~torch.isinf(want)
+        err = (got[both] - want[both]).abs().max().item() \
+            if both.any() else 0.0
+        if (differ & ~free).any() or err != 0.0:
+            fail(f"fused_mask gemma3 ({B},{V}) {label} disagrees with its "
+                 "plain version")
+        r = out[label] = {
+            "policy": list(MASK_POLICIES[label]),
+            "ms": cuda_ms([lambda: ops.fused_mask(rows, *args)]),
+            "plain_ms": cuda_ms([lambda: ops.fused_mask_plain(rows, *args)],
+                                iters=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "boundary_tokens_differing": int(differ.sum())}
+        print(f"fused_mask gemma3 ({B},{V}) {label}: plan {out['plan']}; "
+              f"supports differ on {int(differ.sum())} nucleus-boundary "
+              f"tokens; {r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"share {b_ms / r['ms']:.3f}; plain {r['plain_ms']:.4f} ms")
+    report["fused_mask"]["gemma3"] = out
 
 
 def unlinked_cbra(x, w, b):
@@ -850,9 +1050,19 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
              "ragged_fp32": (13, 2047, 129, f32),
              "ragged_ff_bf16": (5, 136, 200, bf16),
              "ragged_m_bf16": (37, 256, 208, bf16)}
-    for label, shape in cases.items():
+    # gemma3-1b's MLP: d 1152 is no multiple of the 256 columns a cluster
+    # rank owns (a cluster of 5, the last rank 128 columns), ff 6912 is
+    # 108 blocks; decode (slots rows) and a 32-token chunk of the slots
+    gemma3 = {"gemma3_decode": (SLOTS, G3_D_MODEL, G3_D_FF, bf16),
+              "gemma3_prefill_c32": (SLOTS * 32, G3_D_MODEL, G3_D_FF, bf16)}
+    for label, shape in {**cases, **gemma3}.items():
         linked_mlp_case(torch, ops, gen, label, shape, row,
-                        timed=label in served)
+                        timed=label in served or label in gemma3)
+    for label, (M, d, ff, dt) in gemma3.items():
+        plan = row["per_shape"][label]["plan"]
+        if plan["path"] != "tc" or plan["cl"] != -(-d // ops.TC_DS):
+            fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
+                 f"kernel on a cluster of {-(-d // ops.TC_DS)}")
     linked_mlp_batched(torch, ops, gen, row)
     head = row["per_shape"]["decode"]
     row.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -963,7 +1173,7 @@ def window_steps(after: dict, before: dict) -> dict:
 
 
 def serve_phase(torch, kernels, serve, engine, args, label, prompt_seed,
-                window=(100, 105), lens=PROMPT_LENS):
+                window=(100, 105), lens=PROMPT_LENS, on_tick=None):
     """One full serving run through ``engine`` (built from ``args``), ticks
     driven here so a window of ticks can be profiled; the launch counts
     cover the run.  The requests (``serve.make_requests``, prompts made
@@ -971,7 +1181,8 @@ def serve_phase(torch, kernels, serve, engine, args, label, prompt_seed,
     same args and seed, so two runs' streams can be compared.  Step
     times, sampler dispatches and graph warm-ups are the engine's own
     (``stats()``, ``engine.steps``); the profiled window's steps are taken
-    out of the steady means."""
+    out of the steady means (``window`` None: no profiled ticks, no busy
+    share).  ``on_tick(engine)`` runs after every tick."""
     model = engine.model
     reqs = serve.make_requests(args, model.cfg.vocab)
     ragged_prompts(reqs, model.cfg.vocab, prompt_seed, lens)
@@ -991,7 +1202,7 @@ def serve_phase(torch, kernels, serve, engine, args, label, prompt_seed,
         prof.__exit__(None, None, None)
         return profile_window(torch, prof, tick - window[0])
     while engine.scheduler.pending():
-        if tick == window[0]:
+        if window is not None and tick == window[0]:
             torch.cuda.synchronize()
             before = {w: dict(st) for w, st in engine.steps.items()}
             prof = torch.profiler.profile(activities=[
@@ -1014,6 +1225,8 @@ def serve_phase(torch, kernels, serve, engine, args, label, prompt_seed,
             window_kinds.add(kind)
         else:
             tick_ms.setdefault(kind, []).append(ms)
+        if on_tick is not None:
+            on_tick(engine)
         tick += 1
         if prof is not None and tick == window[1]:
             profiled = close_profile()
@@ -1106,12 +1319,24 @@ def serve_phase(torch, kernels, serve, engine, args, label, prompt_seed,
     return out
 
 
-def check_launches(label, run, cfg, decode_tc) -> None:
+def decode_kernels(model, kv: str) -> dict:
+    """Launches of each decode-attention kernel a decode step: dense KV
+    and a sliding layer (a dense ring, or the ring pool's gathered view)
+    launch ``gqa_decode``, a paged full-attention layer
+    ``gqa_decode_paged``."""
+    n = model.cfg.n_layers
+    sliding = sum(f.kv == "sliding" for f in model.families)
+    if kv == "dense":
+        return {"gqa_decode": n, "gqa_decode_paged": 0}
+    return {"gqa_decode": sliding, "gqa_decode_paged": n - sliding}
+
+
+def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
     """Every prefill launch of ``linked_mlp`` goes through the tensor-core
-    kernel (decode's through the one the planner picks), the run's
-    decode-attention kernel launches once a layer of every decode step
-    (K1 times a layer at a verify of width K1), and ``fused_mask`` once a
-    sampler dispatch; a graphed run's launches are its replays' plus its
+    kernel (decode's through the one the planner picks), each
+    decode-attention kernel launches ``attn[kernel]`` times every decode
+    step (K1 times that at a verify of width K1), and ``fused_mask`` once
+    a sampler dispatch; a graphed run's launches are its replays' plus its
     graphs' warm-ups, each warm-up the launches of one replay."""
     ln, warm = run["launches"], run["warmup"]
     for name, g in run["graphs"].items():
@@ -1120,33 +1345,35 @@ def check_launches(label, run, cfg, decode_tc) -> None:
             fail(f"{label}: graph {name}'s warm-ups launched "
                  f"{g['warmup_launches']}, want one replay's a capture "
                  f"({want})")
-    attn = "gqa_decode_paged" if "paged" in label else "gqa_decode"
     decode_mlp = cfg.n_layers * run["kernel_steps"] + warm.get(
         "linked_mlp", 0)
     want_tc = ln["linked_mlp"] - (0 if decode_tc else decode_mlp)
     print(f"{label}: linked_mlp {ln['linked_mlp']} launches, linked_mlp_tc "
           f"{ln['linked_mlp_tc']} (prefill {ln['linked_mlp'] - decode_mlp}, "
           f"decode and verify {decode_mlp} on {'tc' if decode_tc else 'ffma'}"
-          f", warm-ups included); {attn} {ln[attn]} over "
-          f"{run['kernel_steps']} decode-kernel steps and warm-ups "
-          f"{warm.get(attn, 0)}; fused_mask {ln['fused_mask']} over "
+          f", warm-ups included); " + "; ".join(
+              f"{k} {ln[k]} ({n} a step) over {run['kernel_steps']} "
+              f"decode-kernel steps and warm-ups {warm.get(k, 0)}"
+              for k, n in attn.items())
+          + f"; fused_mask {ln['fused_mask']} over "
           f"{run['sampler_calls']} sampler dispatches and warm-ups "
           f"{warm.get('fused_mask', 0)}")
     if ln["linked_mlp_tc"] != want_tc or want_tc <= 0:
         fail(f"{label}: linked_mlp_tc launched {ln['linked_mlp_tc']} times, "
              f"want every prefill launch ({want_tc})")
-    for name in (attn, "fused_mask", "linked_mlp", "linked_mlp_tc"):
+    for name in [k for k, n in attn.items() if n] + [
+            "fused_mask", "linked_mlp", "linked_mlp_tc"]:
         if ln.get(name, 0) <= 0:
             fail(f"{label}: kernel {name} was never launched")
     want = run["sampler_calls"] + warm.get("fused_mask", 0)
     if ln["fused_mask"] != want:
         fail(f"{label}: fused_mask launched {ln['fused_mask']} times, want "
              f"one per sampler dispatch and warm-up ({want})")
-    want = cfg.n_layers * run["kernel_steps"] + warm.get(attn, 0)
-    if ln[attn] != want:
-        fail(f"{label}: {attn} launched {ln[attn]} times, want "
-             f"{cfg.n_layers} per decode-kernel step and the warm-ups' "
-             f"({want})")
+    for k, n in attn.items():
+        want = n * run["kernel_steps"] + warm.get(k, 0)
+        if ln[k] != want:
+            fail(f"{label}: {k} launched {ln[k]} times, want {n} per "
+                 f"decode-kernel step and the warm-ups' ({want})")
 
 
 def same_streams(label, run, twin) -> None:
@@ -1177,7 +1404,8 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
                 torch, kernels, serve,
                 serve.build_engine(args, model, params, graphed=graphed),
                 args, name, seed)
-            check_launches(name, runs[name], cfg, decode_tc)
+            check_launches(name, runs[name], cfg, decode_tc,
+                           decode_kernels(model, args.kv))
         same_streams(f"{label} graphed vs eager", runs[label],
                      runs[f"{label}_eager"])
         g, e = runs[label], runs[f"{label}_eager"]
@@ -1191,7 +1419,8 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
     runs[label] = serve_phase(
         torch, kernels, serve, serve.build_engine(replan_args, model, params),
         replan_args, label, 13)
-    check_launches(label, runs[label], cfg, decode_tc)
+    check_launches(label, runs[label], cfg, decode_tc,
+                   decode_kernels(model, "dense"))
     replans = runs[label]["stages"].get("replan", {"calls": 0})["calls"]
     if replans < 1:
         fail(f"{label}: the engine never replanned")
@@ -1214,11 +1443,11 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
          "paged_sampled", (100, 105), PROMPT_LENS),
         ("dense_greedy_draft", dict(vars(dense_args), spec="draft",
                                     spec_k=DRAFT_SPEC_K, requests=8), 15,
-         serve.build_draft(cfg, model.device, seed=1), None, (30, 35),
+         serve.build_draft(cfg, model.device, seed=1), None, None,
          PROMPT_LENS),
         ("dense_greedy_oracle", dict(vars(dense_args), spec="draft",
                                      spec_k=SPEC_K, requests=4, max_new=32),
-         16, (model, params), None, (8, 11), ORACLE_PROMPT_LENS))
+         16, (model, params), None, None, ORACLE_PROMPT_LENS))
     for label, values, seed, draft, twin_label, window, lens in spec_runs:
         args = serve_args(serve, **values)
         if twin_label is None:      # a spec-off twin of its own
@@ -1228,12 +1457,14 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
                 torch, kernels, serve,
                 serve.build_engine(twin_args, model, params), twin_args,
                 twin_label, seed, window, lens)
-            check_launches(twin_label, runs[twin_label], cfg, decode_tc)
+            check_launches(twin_label, runs[twin_label], cfg, decode_tc,
+                           decode_kernels(model, twin_args.kv))
         runs[label] = serve_phase(
             torch, kernels, serve,
             serve.build_engine(args, model, params, draft=draft), args,
             label, seed, window, lens)
-        check_launches(label, runs[label], cfg, decode_tc)
+        check_launches(label, runs[label], cfg, decode_tc,
+                       decode_kernels(model, args.kv))
         same_streams(f"{label} vs spec off", runs[label], runs[twin_label])
         run, sp = runs[label], runs[label]["spec"]
         twin_tps = runs[twin_label]["decode_tokens_per_s"]
@@ -1261,14 +1492,139 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
     return runs
 
 
-def parity_phase(torch, serve, pipeline, Model, cfg):
+def kv_bytes(engine) -> dict:
+    """The KV bytes an engine's caches hold (every layer's K and V, a
+    pool's write sink included), by cache kind, beside the dense
+    full-attention KV of the same slots, horizon and heads."""
+    caches = engine.caches
+    out: dict = {}
+    for c in (caches if type(caches) is tuple else (caches,)):
+        kind = type(c.kv).__name__
+        out[kind] = out.get(kind, 0) + sum(
+            t.numel() * t.element_size() for t in (c.kv.k, c.kv.v))
+    cfg = engine.model.cfg
+    out["dense_full_equivalent"] = (
+        2 * cfg.n_layers * engine.slots * engine.max_len * cfg.n_kv_heads
+        * cfg.resolved_head_dim * engine.model.dtype.itemsize)
+    return out
+
+
+def lease_check(state: dict):
+    """``serve_phase``'s ``on_tick`` for a mixed-pool engine: every
+    request holds a classic lease and a ring lease, and every ring lease
+    is window / block size blocks whatever the request's context; keeps
+    the most leases held at once and the longest context a ring lease
+    served."""
+    def check(engine):
+        pool = engine.pool
+        want = pool.window // pool.ring.cfg.block_size
+        if set(pool.classic.leases) != set(pool.ring.leases):
+            fail("mixed pool: the classic and ring leases differ")
+        for rid, lease in pool.ring.leases.items():
+            if len(lease.blocks) != want:
+                fail(f"mixed pool: rid {rid}'s ring lease holds "
+                     f"{len(lease.blocks)} blocks, want {want}")
+        live = {s.req.rid: len(s.req.prompt) + len(s.req.generated)
+                for s in engine.scheduler.active if s is not None}
+        state["most_leases"] = max(state.get("most_leases", 0),
+                                   len(pool.ring.leases))
+        state["longest_context"] = max(
+            [state.get("longest_context", 0)]
+            + [n for rid, n in live.items() if rid in pool.ring.leases])
+        state["ring_blocks_a_lease"] = want
+    return check
+
+
+def cache_family_phase(torch, kernels, serve, Model, gemma3, qwen,
+                       g3_paged_args) -> dict:
+    """Phase 3c: gemma3-1b at full width, dense greedy and mixed-paged
+    sampled, each graphed beside its eager twin (the same requests,
+    replanning off), prompts past the window so every ring wraps; then
+    qwen3-1.7b with a 512-token window, ring-paged beside dense, greedy."""
+    model, params = gemma3
+    runs, leases = {}, {}
+    dense_args = serve_args(serve, kv="dense")
+    for label, args, seed in (("gemma3_dense_greedy", dense_args, 17),
+                              ("gemma3_paged_sampled", g3_paged_args, 18)):
+        for graphed in (True, False):
+            name = label if graphed else f"{label}_eager"
+            engine = serve.build_engine(args, model, params, graphed=graphed)
+            hook = None
+            if args.kv == "paged":
+                hook = lease_check(leases.setdefault(name, {}))
+            runs[name] = serve_phase(
+                torch, kernels, serve, engine, args, name, seed,
+                window=G3_WINDOW_TICKS, lens=G3_PROMPT_LENS, on_tick=hook)
+            runs[name]["kv_bytes"] = kv_bytes(engine)
+            runs[name]["kv_window"] = engine.stats().get("kv_window")
+            del engine
+            check_launches(name, runs[name], model.cfg, True,
+                           decode_kernels(model, args.kv))
+            print(f"{name}: KV bytes {runs[name]['kv_bytes']}"
+                  + (f"; leases {leases[name]}" if name in leases else ""))
+        same_streams(f"{label} graphed vs eager", runs[label],
+                     runs[f"{label}_eager"])
+        g, e = runs[label], runs[f"{label}_eager"]
+        print(f"{label}: decode step eager {e['mean_decode_ms']:.2f} ms "
+              f"(busy {e['busy_share']}), graphed {g['mean_decode_ms']:.2f} "
+              f"ms (busy {g['busy_share']})")
+    for name, st in leases.items():
+        runs[name]["leases"] = st
+        if st.get("longest_context", 0) <= G3_WINDOW:
+            fail(f"{name}: no ring lease served a context past the window")
+    qmodel, qparams = qwen
+    swa = Model(dataclasses.replace(
+        qmodel.cfg, name=f"{qmodel.cfg.name}-swa{G3_WINDOW}",
+        sliding_window=G3_WINDOW), device=DEV)
+    for kv in ("dense", "paged"):
+        name = f"qwen3_swa{G3_WINDOW}_{kv}_greedy"
+        args = serve_args(serve, kv=kv, requests=8)
+        engine = serve.build_engine(args, swa, qparams)
+        runs[name] = serve_phase(torch, kernels, serve, engine, args, name,
+                                 19, window=None, lens=G3_PROMPT_LENS)
+        runs[name]["kv_bytes"] = kv_bytes(engine)
+        runs[name]["kv_window"] = engine.stats().get("kv_window")
+        del engine
+        check_launches(name, runs[name], swa.cfg, True,
+                       decode_kernels(swa, kv))
+        print(f"{name}: KV bytes {runs[name]['kv_bytes']}")
+    same_streams(f"qwen3-swa{G3_WINDOW} ring vs dense sliding",
+                 runs[f"qwen3_swa{G3_WINDOW}_paged_greedy"],
+                 runs[f"qwen3_swa{G3_WINDOW}_dense_greedy"])
+    return runs
+
+
+def plain_logits(torch, model, params, prompt, generated, chunk: int,
+                 max_len: int):
+    """The plain plan's logits at each emitted step of one request, the
+    way its engine computes them: the prompt in ``chunk``-token chunks
+    from position 0, then one decode step a generated token."""
+    caches = model.init_caches(1, max_len)
+    for start in range(0, len(prompt), chunk):
+        n = min(chunk, len(prompt) - start)
+        toks = torch.zeros((1, chunk), dtype=torch.long)
+        toks[0, :n] = torch.as_tensor(prompt[start:start + n])
+        logits, caches = model.prefill_chunk(
+            params, caches, toks, torch.tensor([start], dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32))
+    out = [logits[0]]
+    for t in generated[:-1]:
+        logits, caches = model.serve_step(
+            params, caches, torch.tensor([[t]], device=DEV))
+        out.append(logits[0])
+    return torch.stack(out)[:, :model.cfg.vocab].float()
+
+
+def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
+                 prompt_len: int = 64, max_len: int = 256):
     """Routed cuda plan vs plain-backend plan, reduced depth, greedy."""
-    small = dataclasses.replace(cfg, n_layers=2)
+    small = dataclasses.replace(cfg, n_layers=n_layers)
     # the plain-torch plan at every site; the model's own plan, so the
-    # margin logits of model.forward come from it too
+    # margin logits come from it too
     plain = pipeline.KernelPlan(decode_dense="torch", decode_paged="gather",
-                                prefill_chunk="torch", linked_matmul="torch",
-                                split_matmul="torch", sampler="fused")
+                                decode_ring="gather", prefill_chunk="torch",
+                                linked_matmul="torch", split_matmul="torch",
+                                sampler="fused")
     model = Model(small, kernel_plan=plain, device=DEV)
     params = model.cast_params(model.init(
         torch.Generator(device=DEV).manual_seed(1)))
@@ -1276,8 +1632,8 @@ def parity_phase(torch, serve, pipeline, Model, cfg):
     for kv in ("dense", "paged"):
         streams = {}
         for name, plan in (("plain", plain), ("routed", None)):
-            args = serve_args(serve, requests=4, prompt_len=64, max_new=24,
-                              max_len=256, kv=kv)
+            args = serve_args(serve, requests=4, prompt_len=prompt_len,
+                              max_new=24, max_len=max_len, kv=kv)
             engine = serve.build_engine(args, model, params,
                                         kernel_plan=plan)
             reqs = serve.make_requests(args, small.vocab)
@@ -1286,27 +1642,29 @@ def parity_phase(torch, serve, pipeline, Model, cfg):
                              [r.prompt for r in reqs], engine.kernel_plan)
         routed = streams["routed"][2]
         if routed.decode_dense != "cuda" or routed.sampler != "cuda" \
-                or routed.linked_matmul != "cuda":
+                or routed.linked_matmul != "cuda" \
+                or (kv == "paged" and routed.decode_paged != "cuda"):
             fail(f"parity {kv}: the routed plan did not route to cuda")
         compared = diverged = 0
         for a, b, prompt in zip(streams["plain"][0], streams["routed"][0],
                                 streams["plain"][1]):
-            seq = torch.tensor([list(prompt) + a], device=DEV)
-            logits, _ = model.forward(params, {"tokens": seq})
-            logits = logits[0, len(prompt) - 1:, :small.vocab].float()
+            logits = plain_logits(torch, model, params, prompt, a,
+                                  args.chunk, max_len)
             for t, (x, y) in enumerate(zip(a, b)):
                 top = torch.topk(logits[t], 2).values
                 margin = (top[0] - top[1]).item()
                 tol = TOL["bfloat16"]["rtol"] * max(1.0, abs(top[0].item()))
                 if x != y:
                     if margin > tol:
-                        fail(f"parity {kv}: streams differ at step {t} where "
-                             f"the plain margin {margin:.4f} > tol {tol:.4f}")
+                        fail(f"parity {small.name} {kv}: streams differ at "
+                             f"step {t} where the plain margin "
+                             f"{margin:.4f} > tol {tol:.4f}")
                     diverged += 1
                     break
                 compared += 1
-        print(f"parity {kv}: {compared} tokens compared, {diverged} streams "
-              "diverged at a low-margin step, routed plan "
+        print(f"parity {small.name} ({n_layers} layers, prompts "
+              f"{prompt_len}) {kv}: {compared} tokens compared, {diverged} "
+              "streams diverged at a low-margin step, routed plan "
               f"{streams['routed'][2].as_dict()}")
         out[kv] = {"compared": compared, "diverged_low_margin": diverged}
     return out
@@ -1530,12 +1888,36 @@ def main() -> int:
     if paged_engine.scheduler.cfg.chunk not in pipeline.SERVE_CHUNK_SIZES:
         fail(f"the engine's chunk {paged_engine.scheduler.cfg.chunk} is not "
              f"one of {pipeline.SERVE_CHUNK_SIZES}")
+    g3cfg = get_config("gemma3-1b")
+    g3_model = Model(g3cfg, device=DEV)
+    t0 = time.perf_counter()
+    g3_params = g3_model.cast_params(g3_model.init(
+        torch.Generator(device=DEV).manual_seed(0)))
+    torch.cuda.synchronize()
+    print(f"gemma3-1b full width ({g3cfg.n_layers} layers "
+          f"{g3cfg.layer_pattern} at window {g3cfg.sliding_window}, d "
+          f"{g3cfg.d_model}, {g3cfg.n_heads} q / {g3cfg.n_kv_heads} kv heads "
+          f"of {g3cfg.resolved_head_dim}, vocab {g3cfg.vocab}): "
+          f"{g3_model.param_count() / 1e9:.3f} B params initialized in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # phase 3c's mixed-pool engine: its block size is the one the decode
+    # kernels are held at gemma3's shapes
+    g3_paged_args = serve_args(serve, kv="paged", temperature=0.8, top_k=50,
+                               top_p=0.95)
+    g3_engine = serve.build_engine(g3_paged_args, g3_model, g3_params)
+    g3_bs = g3_engine.pool.cfg.block_size
+    print(f"gemma3 mixed pool: {g3_engine.pool.stats()['classic']} classic, "
+          f"{g3_engine.pool.stats()['ring']} ring, window "
+          f"{g3_engine.pool.window}")
+    del g3_engine
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     report: dict = {}
     check_dense(torch, dec_ops, gen, report)
     check_paged(torch, dec_ops, gen, bs, report)
+    check_decode_gemma3(torch, dec_ops, gen, g3_bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
+    check_fused_mask_gemma3(torch, fs_ops, gen, report)
     check_cbr_avgpool(torch, cb_ops, gen, report)
     check_linked_mlp(torch, lm_ops, gen, pipeline.SERVE_CHUNK_SIZES, report)
     check_split_matmul(torch, sm_ops, gen, report)
@@ -1549,10 +1931,18 @@ def main() -> int:
     del paged_engine
     runs = serving_phases(torch, kernels, serve, model, params, paged_args,
                           decode_tc)
+    runs.update(cache_family_phase(torch, kernels, serve, Model,
+                                   (g3_model, g3_params), (model, params),
+                                   g3_paged_args))
     result["serve"] = runs
-    del params
+    del params, g3_params
     torch.cuda.empty_cache()
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
+    # gemma3 at six layers (five sliding, one global), prompts past the
+    # window
+    result["parity_gemma3"] = parity_phase(
+        torch, serve, pipeline, Model, g3cfg, n_layers=6, prompt_len=600,
+        max_len=1024)
     torch.cuda.empty_cache()
 
     plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})

@@ -336,7 +336,7 @@ class Engine:
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = dict(kernels.RECORDED)
-        with torch.cuda.graph(graph):
+        with kernels.graph_capture(graph):
             static_out = self._forward(params, static_in)
         recorded = {k: kernels.RECORDED[k] - before[k]
                     for k in kernels.RECORDED}

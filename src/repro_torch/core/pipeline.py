@@ -560,23 +560,36 @@ def _plan_spec_k(accept_rate: float) -> int:
 
 
 def _plan_kv_pool(slots: int, max_len: int, chunk: int,
-                  avg_prompt: float) -> dict[str, Any]:
-    """Size the paged KV pool from the prompt-length distribution (same
-    rules as the reference for full-attention KV: the largest candidate
-    block dividing the horizon that does not exceed half the average
-    prompt; a dense-equivalent pool without stats, twice the average
-    prompt per request with them)."""
+                  avg_prompt: float, window: int = 0,
+                  mixed: bool = False) -> dict[str, Any]:
+    """Size the paged KV pool from the prompt-length distribution, by the
+    reference's rules: the largest candidate block dividing the horizon
+    that does not exceed half the average prompt; a dense-equivalent pool
+    without stats, twice the average prompt per request with them.
+
+    ``window`` (a sliding family's, 0 = full attention): a ring pool's
+    horizon is the window, and its leases are window-sized whatever the
+    prompts, so the pool is ``slots`` full windows.  ``mixed`` (sliding
+    and global layers): the main geometry is the global layers' classic
+    pool (horizon ``max_len``) and ``kv_ring_blocks`` the sliding layers'
+    ring capacity; the one block size tiles both spans."""
+    w = min(window, max_len) if window else 0
+    horizon = max_len if mixed else (w or max_len)
     fallback = False
-    divisors = [b for b in SERVE_KV_BLOCK_SIZES if max_len % b == 0]
+    divisors = [b for b in SERVE_KV_BLOCK_SIZES if horizon % b == 0
+                and (not mixed or w % b == 0)]
     if not divisors:
         fallback = True
-        divisors = [next(b for b in (4, 2, 1) if max_len % b == 0)]
+        divisors = [next(b for b in (4, 2, 1)
+                         if horizon % b == 0 and (not mixed or w % b == 0))]
     target = avg_prompt / 2 if avg_prompt > 0 else float(chunk)
     fitting = [b for b in divisors if b <= max(target, divisors[0])]
     bs = max(fitting) if fitting else divisors[0]
-    per_seq = -(-max_len // bs)
-    if avg_prompt > 0:
-        modeled = -(-int(min(max_len, 2 * avg_prompt)) // bs)
+    per_seq = -(-horizon // bs)
+    if window and not mixed:
+        pool_blocks = slots * per_seq
+    elif avg_prompt > 0:
+        modeled = -(-int(min(horizon, 2 * avg_prompt)) // bs)
         pool_blocks = max(per_seq, slots * modeled)
     else:
         pool_blocks = slots * per_seq
@@ -588,6 +601,11 @@ def _plan_kv_pool(slots: int, max_len: int, chunk: int,
     }
     if fallback:
         out["kv_block_fallback"] = True
+    if mixed:
+        out["kv_window"] = w
+        out["kv_ring_blocks"] = slots * (w // bs)
+    elif window:
+        out["kv_window"] = horizon
     return out
 
 
@@ -600,9 +618,12 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     ``can_chunk``, ``replan_every``, ``kv``, ``kernel_plan``), and
     ``spec`` / ``spec_accept_rate``: a speculative engine's plan gains
     ``spec_k`` (:func:`_plan_spec_k`; rate -1 = no drafts verified yet).
-    The sliding, mixed, constant-state and mesh options follow with the
-    paths that set them (ROADMAP queue 1 items 7 and 8).  On a CUDA
-    engine the two timings are synchronized step times (see
+    ``sliding_window`` (a sliding family's window, 0 = none) and
+    ``kv_mixed`` (sliding and global layers) set ``kv_growth`` to
+    ``"window"`` / ``"mixed"`` and a paged plan's ring geometry
+    (:func:`_plan_kv_pool`).  The constant-state and mesh options follow
+    with the paths that set them (ROADMAP queue 1 items 7b and 8).  On a
+    CUDA engine the two timings are synchronized step times (see
     :class:`StageTimer`)."""
     o = ctx.options
     slots = int(o.get("slots", 4))
@@ -611,6 +632,8 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     prefill_tok_s = float(o.get("prefill_token_s", 0.0))
     avg_prompt = float(o.get("avg_prompt_len", 0.0))
     can_chunk = bool(o.get("can_chunk", True))
+    window = int(o.get("sliding_window", 0))
+    mixed = bool(o.get("kv_mixed", False))
 
     if decode_s > 0.0 and prefill_tok_s > 0.0:
         budget_tokens = CHUNK_RATIO * decode_s / prefill_tok_s
@@ -650,11 +673,15 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
                         else max(1, int(o.get("replan_every", 32)) // 2),
         "modeled_chunk_cost_steps": round(chunk * prefill_tok_s / decode_s, 2)
                                     if decode_s > 0 else None,
-        "kv_growth": "linear",
+        # how per-request KV grows with context: O(seq) full attention,
+        # O(window) sliding, and a mixed stack linear with the global
+        # layers' slope only
+        "kv_growth": "mixed" if mixed else "window" if window else "linear",
     }
     if kv == "paged":
         plan["kv"] = kv
-        plan.update(_plan_kv_pool(slots, max_len, chunk, avg_prompt))
+        plan.update(_plan_kv_pool(slots, max_len, chunk, avg_prompt, window,
+                                  mixed))
     kplan = o.get("kernel_plan")
     if kplan:
         plan["kernel_plan"] = dict(kplan)
@@ -707,15 +734,21 @@ register_pass(Pass(
 #:                         ``split_matmul`` kernel).  Port only: the
 #:                         reference has no such site, its split is plain
 #:                         XLA (``repro.core.engine._matmul_split``);
+#:   * ``decode_ring``   — wraparound ring-paged decode attention of a
+#:                         sliding layer (``gather`` only, as in the
+#:                         reference: the ring table gathered into a
+#:                         ring-slot-order view, attended through the
+#:                         ``decode_dense`` site, its kernel on a card);
 #:   * ``sampler``       — token sampling (``reference`` two-sort |
 #:                         ``fused`` one-sort | ``cuda`` sort-free
 #:                         ``fused_mask`` kernel).
 #:
-#: The reference's ``decode_ring`` and ``ssm_scan`` sites come with the
-#: path that runs them (ROADMAP queue 1 item 7).
+#: The reference's ``ssm_scan`` site comes with the path that runs it
+#: (ROADMAP queue 1 item 7b).
 KERNEL_SITE_BACKENDS: dict[str, tuple[str, ...]] = {
     "decode_dense": ("torch", "cuda"),
     "decode_paged": ("gather", "fold", "cuda"),
+    "decode_ring": ("gather",),
     "prefill_chunk": ("torch",),
     "linked_matmul": ("torch", "cuda"),
     "split_matmul": ("torch", "cuda"),
@@ -733,6 +766,7 @@ class KernelPlan:
 
     decode_dense: str = "torch"
     decode_paged: str = "gather"
+    decode_ring: str = "gather"
     prefill_chunk: str = "torch"
     linked_matmul: str = "torch"
     split_matmul: str = "torch"
@@ -806,6 +840,7 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
     plan = KernelPlan(
         decode_dense="cuda" if cuda else "torch",
         decode_paged="cuda" if cuda else paged_default,
+        decode_ring="gather",
         prefill_chunk="torch",
         linked_matmul="cuda" if cuda else "torch",
         split_matmul="cuda" if cuda else "torch",

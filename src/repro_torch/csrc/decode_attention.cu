@@ -24,8 +24,11 @@
 //     GT = 2 query heads (1 for odd G), split s).  A kv head's slot row is
 //     D*2 = 256 B, eight full 32-byte sectors; q and the accumulators of
 //     the GT heads stay in registers.  The grid depends on shapes alone:
-//     units = B*K*G/GT, S = min(2 * SMs / units, ceil(W / 16), 32) (the
+//     units = B*K*G/GT, S = min(2 * SMs / units, ceil(W / 16), cap) (the
 //     wrapper's decode_grid): one wave, so a CUDA graph replays the launch.
+//     The cap is max_splits(D, GT) = min(32, kRingBytes / (GT*D*4)): the
+//     last CTA merges the S pieces' accumulators in the ring's 48 KB, so
+//     D = 256 at GT = 2 takes at most 24 splits (32 everywhere else).
 //   * Live span, found on the device.  Paged: [0, lengths[b]).  Dense: the
 //     CTA reads its row of the (B, W) mask with one 16-byte load a thread
 //     (W = 2048 is one load each), keeps it in shared memory and reduces the
@@ -38,8 +41,10 @@
 //     and differ in length by at most one slot, so every CTA has work
 //     whatever the lengths.  tests/test_torch_decode_split.py holds a
 //     mirror of this formula.
-//   * Ring: K and V tiles of TS slots (8 KB each: TS = 32 at bf16 D = 128)
-//     in a 3-stage shared-memory ring filled by cp.async 16-byte copies
+//   * Ring: K and V tiles of TS slots (8 KB each: TS = 32 at bf16 D = 128,
+//     16 at bf16 D = 256, 8 at fp32 D = 256, whose 1 KB rows take a warp
+//     two copy steps each) in a 3-stage shared-memory ring filled by
+//     cp.async 16-byte copies
 //     (L2 only) with commit groups: tiles s+1 and s+2 are in flight while
 //     tile s is computed.  Each warp copies and computes only its own rows
 //     of a tile, so the loop has no CTA barrier.  No K/V copy waits on a
@@ -51,7 +56,9 @@
 //     rows give mma nothing to fill, and the reference's P.V is fp32.  A
 //     slot is LPS = D / DPL lanes (DPL = 16 bf16 / 8 fp32 dims a lane, two
 //     16-byte chunks, conflict-free at D = 128) and a lane group takes two
-//     slots a tile; scores reduce over log2(LPS) shuffles.  q carries
+//     slots a tile; scores reduce over log2(LPS) shuffles.  A lane holds
+//     DPL dims whatever D is, so D = 256 only widens the lane group (LPS 16
+//     bf16, 32 fp32) and costs no registers.  q carries
 //     log2(e) / sqrt(D), so weights are exp2f of the score; a group keeps
 //     its reference max until a score passes it by 8 (log2 units), so the
 //     accumulators are rescaled rarely, not every slot.  The groups merge
@@ -88,6 +95,13 @@ constexpr int kMaxGT = 2;
 constexpr float kRescale = 8.f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
+
+// the most splits of a row: the last CTA's merge holds S x GT x D fp32
+// accumulators in the ring (decode_attention/ops.py's max_splits)
+__host__ __device__ constexpr int max_splits(int D, int GT) {
+  return kRingBytes / (GT * D * 4) < kMaxSplits ? kRingBytes / (GT * D * 4)
+                                                : kMaxSplits;
+}
 
 __device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
   f[0] = __uint_as_float(r.x);
@@ -160,12 +174,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TS = GROUPS * SPG;            // slots a tile
   constexpr int ROW_BYTES = D * sizeof(T);
   constexpr int ROW_CHUNKS = ROW_BYTES / 16;  // = 2 * LPS
-  constexpr int RPC = 32 / ROW_CHUNKS;        // rows one copy step covers
-  constexpr int COPIES = WSLOTS / RPC;        // copy steps a tile, K and V
+  // a copy step of a warp covers RPC rows (rows of at most 32 chunks) or a
+  // row takes CPL steps (fp32 D = 256: 64 chunks, 2 steps)
+  constexpr int RPC = ROW_CHUNKS <= 32 ? 32 / ROW_CHUNKS : 1;
+  constexpr int CPL = ROW_CHUNKS <= 32 ? 1 : ROW_CHUNKS / 32;
+  constexpr int COPIES = WSLOTS * CPL / RPC;  // copy steps a tile, K and V
   static_assert(TS * ROW_BYTES == kTileBytes, "a tile is 8 KB");
   static_assert(LPS >= 1 && LPS <= 32 && (LPS & (LPS - 1)) == 0, "LPS");
   static_assert(kThreads / 32 * GT * D * 4 <= kRingBytes, "warp merge fits");
-  static_assert(kMaxSplits * kMaxGT * D * 4 <= kRingBytes,
+  static_assert(max_splits(D, GT) >= 1 &&
+                    max_splits(D, GT) * GT * D * 4 <= kRingBytes,
                 "split merge fits the ring");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -281,7 +299,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     unsigned char* st = smem + (tile % kStages) * 2 * kTileBytes;
 #pragma unroll
     for (int c = 0; c < COPIES; ++c) {
-      const int r = wrow + lane / ROW_CHUNKS + c * RPC;
+      const int r = wrow + lane / ROW_CHUNKS + (c / CPL) * RPC;
+      const int part = (c % CPL) * 32;  // the row's chunks past the first 32
       const int t = t0 + tile * TS + r;
       bool use = t < t1;
       size_t row = 0;
@@ -295,9 +314,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       const size_t off = use ? row * KD : 0;
-      unsigned char* dst = st + r * ROW_BYTES + (lane % ROW_CHUNKS) * 16;
-      cp_async16(dst, kb + off, use);
-      cp_async16(dst + kTileBytes, vb + off, use);
+      unsigned char* dst =
+          st + r * ROW_BYTES + (lane % ROW_CHUNKS + part) * 16;
+      cp_async16(dst, kb + off + part * EPC, use);
+      cp_async16(dst + kTileBytes, vb + off + part * EPC, use);
     }
   };
 #pragma unroll
@@ -577,6 +597,10 @@ cudaError_t launch_t(int D, int GT, const void* q, const void* k,
       return launch_d<T, 128, PAGED>(GT, q, k, v, valid, tables, lengths,
                                      out, scratch, units, K, G, W, S, bs, M,
                                      stream);
+    case 256:
+      return launch_d<T, 256, PAGED>(GT, q, k, v, valid, tables, lengths,
+                                     out, scratch, units, K, G, W, S, bs, M,
+                                     stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -587,8 +611,8 @@ cudaError_t launch_t(int D, int GT, const void* q, const void* k,
 // Plain C entry point.  dtype: 0 = float32, 1 = bfloat16.  paged = 0 reads
 // k/v as (B, W, K, D) caches masked by valid (B, W) bool; paged = 1 reads
 // them as (P, bs, K, D) pools through tables (B, M) and lengths (B,),
-// W = M * bs.  GT query heads per CTA (1 or 2, dividing H / K), n_split
-// pieces per row (1..32).  scratch: scratch_bytes bytes laid out as above,
+// W = M * bs.  D is 32, 64, 128 or 256.  GT query heads per CTA (1 or 2,
+// dividing H / K), n_split pieces per row (1..max_splits(D, GT)).  scratch: scratch_bytes bytes laid out as above,
 // its tickets zero; the kernel leaves them zero.  Returns the launch's
 // cudaError_t.
 extern "C" size_t repro_gqa_decode_scratch_bytes(int B, int H, int D, int GT,
@@ -607,7 +631,7 @@ extern "C" int repro_gqa_decode(int paged, int dtype, const void* q,
                                 int M, void* stream) {
   if (B <= 0 || K <= 0 || H % K != 0 || W <= 0 || bs <= 0 ||
       (GT != 1 && GT != kMaxGT) || (H / K) % GT != 0 || n_split <= 0 ||
-      n_split > kMaxSplits ||
+      D <= 0 || n_split > max_splits(D, GT) ||
       static_cast<size_t>(scratch_size) <
           repro_gqa_decode_scratch_bytes(B, H, D, GT, n_split))
     return static_cast<int>(cudaErrorInvalidValue);

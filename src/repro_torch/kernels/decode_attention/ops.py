@@ -32,6 +32,11 @@ NEG_INF = -1e30
 CTAS_PER_SM = 2
 #: the kernel's most splits of a row (kMaxSplits in the source)
 MAX_SPLITS = 32
+#: the kernel's shared-memory ring (kRingBytes): 3 stages of 8 KB K and V
+#: tiles, where the last CTA of a row merges its splits' accumulators
+RING_BYTES = 3 * 2 * 8192
+#: the head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)
 #: the least a split of a whole row holds, in slots (half a bf16 D=128 tile)
 MIN_SPLIT_SLOTS = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,16 +77,26 @@ def gqa_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
                             paged_view(v_pool, block_tables), valid)
 
 
-def decode_grid(B: int, K: int, G: int, W: int, sms: int
+def max_splits(D: int, gt: int) -> int:
+    """The most splits a row of head dim ``D`` may take at ``gt`` query
+    heads a CTA: the last CTA merges ``S x gt x D`` fp32 accumulators in
+    the kernel's ring (``max_splits`` in the source), so 24 at D = 256
+    and gt = 2, else ``MAX_SPLITS``."""
+    return min(MAX_SPLITS, RING_BYTES // (gt * D * 4))
+
+
+def decode_grid(B: int, K: int, G: int, W: int, sms: int, D: int
                 ) -> tuple[int, int]:
     """``(GT, S)``: query heads per CTA (2 when G is even, else 1) and
     splits per row.  The grid is ``B*K*G/GT`` units of ``S`` CTAs: as many
     splits as one wave of ``CTAS_PER_SM`` CTAs on each of the ``sms`` SMs
-    holds, at most ``MAX_SPLITS`` and at most one per ``MIN_SPLIT_SLOTS``
-    slots of ``W``, at least one.  Shapes alone decide it: no length."""
+    holds, at most :func:`max_splits` of ``(D, GT)`` and at most one per
+    ``MIN_SPLIT_SLOTS`` slots of ``W``, at least one.  Shapes alone
+    decide it: no length."""
     gt = 2 if G % 2 == 0 else 1
     units = B * K * (G // gt)
-    s = min(CTAS_PER_SM * sms // units, -(-W // MIN_SPLIT_SLOTS), MAX_SPLITS)
+    s = min(CTAS_PER_SM * sms // units, -(-W // MIN_SPLIT_SLOTS),
+            max_splits(D, gt))
     return gt, max(1, s)
 
 
@@ -146,9 +161,10 @@ def _check_common(q, k, v, kernel):
                          f"{tuple(v.shape)}")
     B, H, D = q.shape
     K = k.shape[2]
-    if D not in (32, 64, 128) or k.shape[3] != D or H % K:
-        raise ValueError(f"{kernel}: head_dim must be 32/64/128 and H a "
-                         f"multiple of K; got H={H} K={K} D={D}")
+    if D not in HEAD_DIMS or k.shape[3] != D or H % K:
+        raise ValueError(f"{kernel}: head_dim must be one of {HEAD_DIMS} "
+                         f"(the kernel's instantiations) and H a multiple of "
+                         f"K; got H={H} K={K} D={D}")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kernel}: tensors must be contiguous and "
@@ -158,7 +174,7 @@ def _check_common(q, k, v, kernel):
 
 def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel):
     B, H, K, D = q.shape[0], q.shape[1], k.shape[2], q.shape[2]
-    gt, n_split = decode_grid(B, K, H // K, W, sm_count(q.device))
+    gt, n_split = decode_grid(B, K, H // K, W, sm_count(q.device), D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = _scratch(q.device, stream, B, H, D, gt, n_split)
     out = torch.empty_like(q)

@@ -10,15 +10,25 @@ batching on one device (the card by default).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --reduced --device cpu --spec ngram --spec-k 4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --reduced --device cpu --kv paged
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --sliding-window 32 --kv paged --device cpu
+
 The same flags as ``python -m repro.launch.serve``, plus ``--device``.
 Weights are random, drawn on the device from ``--seed``
 (``Model.init``); ``--spec draft`` drafts with the arch's reduced config
 (at the target's vocabulary, weights from ``--seed`` + 1).  The decode
 and verify steps run as CUDA graphs on the card (``ServingEngine``'s
 ``graphed``).  Throughput counts the tokens requests actually emitted.
-Exits nonzero when a request did not complete or the batched decode
-loop produced no throughput.  Flags for paths this slice does not port
-(``--sliding-window``, ``--mesh-shards`` > 1, ``--replicas`` > 1) raise
+``--sliding-window W`` serves the arch with a W-token sliding window
+(named ``<arch>-swa<W>``, as the reference names it): per-request KV
+stays O(W), and with ``--kv paged`` the pool runs window-sized ring
+tables; a layer-pattern arch (gemma3-1b) runs its own windows, paged
+through a ``MixedKVPool``.  Exits nonzero when a request did not complete
+or the batched decode loop produced no throughput.  Flags for paths this
+slice does not port (``--mesh-shards`` > 1, ``--replicas`` > 1) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -42,7 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--sliding-window", type=int, default=None)
+    ap.add_argument("--sliding-window", type=int, default=None,
+                    help="serve the arch with this sliding-attention "
+                         "window (tokens): per-request KV stays O(window); "
+                         "with --kv paged the pool runs window-sized ring "
+                         "block tables")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=12)
@@ -68,6 +82,21 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def build_config(args):
+    """The arch's config, reduced and with ``--sliding-window`` applied
+    (renamed ``<arch>-swa<W>``, as the reference does)."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.sliding_window is not None:
+        if args.sliding_window <= 0:
+            raise SystemExit("--sliding-window must be positive")
+        cfg = dataclasses.replace(
+            cfg, name=f"{cfg.name}-swa{args.sliding_window}",
+            sliding_window=args.sliding_window)
+    return cfg
+
+
 def build_draft(cfg, device, seed: int):
     """``--spec draft``'s proposer: the arch's reduced config at the
     target's vocabulary (its embedding is indexed by the target's
@@ -85,17 +114,11 @@ def build_engine(args, model=None, params=None, kernel_plan=None,
     proposer for ``--spec draft``; ``kernel_plan`` pins the routing,
     None lets ``kernel_select`` choose; ``graphed=False`` runs the
     per-tick steps eagerly, for timing and parity)."""
-    if args.sliding_window is not None:
-        raise NotImplementedError(
-            "--sliding-window is ported by ROADMAP queue 1 item 7")
     if args.mesh_shards > 1 or args.replicas > 1:
         raise NotImplementedError(
             "--mesh-shards/--replicas are ported by ROADMAP queue 1 item 8")
     if model is None:
-        cfg = get_config(args.arch)
-        if args.reduced:
-            cfg = cfg.reduced()
-        model = Model(cfg, device=args.device)
+        model = Model(build_config(args), device=args.device)
     if params is None:
         gen = torch.Generator(device=model.device).manual_seed(args.seed)
         params = model.init(gen)
@@ -195,10 +218,14 @@ def main(argv=None) -> int:
               f" MiB), {g['replays']} replays")
     if "kv_pool" in stats:
         kp = stats["kv_pool"]
-        print(f"kv pool: {kp['pool_blocks']} x {kp['block_size']}-token "
-              f"blocks, {kp['registered_prefixes']} cached prefixes, "
+        kind = kp.get("kind", "ring" if "kv_window" in stats else "classic")
+        print(f"kv pool ({kind}): {kp['pool_blocks']} x "
+              f"{kp['block_size']}-token blocks, "
+              f"{kp['registered_prefixes']} cached prefixes, "
               f"{kp['prefill_tokens_saved']} prefill tokens saved, "
-              f"{kp['gated_requests']} requests block-gated")
+              f"{kp['gated_requests']} requests block-gated"
+              + (f", window {stats['kv_window']}" if "kv_window" in stats
+                 else ""))
     for stage, s in stats["stages"].items():
         print(f"  stage {stage}: {s['calls']} calls, "
               f"mean {s['mean_s'] * 1e3:.2f} ms")

@@ -1,16 +1,29 @@
-"""Attention for the dense full-attention decoder: GQA + RoPE + qk-norm
-and its caches, in PyTorch.
+"""Attention for the dense decoder: GQA + RoPE + qk-norm + sliding
+window and its caches, in PyTorch.
 
-The counterpart of ``repro.models.attention`` for full attention.  Three
-execution paths, as in the reference:
+The counterpart of ``repro.models.attention`` for full and sliding-window
+attention.  Three execution paths, as in the reference:
 
   * ``full_attention`` — materialized masked scores; the prefill path
     (plain torch, as the reference leaves it to XLA);
   * chunked prefill against a cache (``prefill_chunk_into_cache`` and its
-    paged variant) — chunk queries over the whole cache view;
+    paged and ring-paged variants) — chunk queries over the whole cache
+    view;
   * ``decode_attention`` / ``decode_attention_paged`` — one query token
     over a cache, routed per ``KernelPlan`` site to plain torch or the
     hand-written CUDA flash-decode kernels.
+
+Three cache layouts: the dense ring (:class:`KVCache`, ``W`` = the cache
+width: the horizon for a full layer, the window for a sliding one), the
+block-paged pool (:class:`PagedKVCache`, full layers) and the
+wraparound ring pool (:class:`PagedRingKVCache`, sliding layers).  A
+sliding layer attends the positions ``> pos - window``; the ring pool's
+gathered view is in ring-slot order, the dense ring's layout, so its
+decode and chunk attends are the dense ones (``decode_ring`` site:
+``"gather"``; the ``decode_dense`` site's kernel attends the view).
+``window`` and ``rope_theta`` arguments override the config's for one
+layer of a layer-pattern stack (gemma3: sliding layers at theta 10k,
+global ones at 1M); None keeps ``cfg.sliding_window`` / ``cfg.rope_theta``.
 
 ``NEG_INF = -1e30`` masking is part of the semantics: a row with no
 valid slot yields the mean of V over the slots it reads, never NaN.
@@ -18,9 +31,9 @@ valid slot yields the mean of V over the slots it reads, never NaN.
 **Caches are updated in place.**  Where the reference rebuilds a cache
 functionally with ``.at[].set`` and restores bystander rows wholesale,
 these functions write K/V, positions and lengths only where a row is
-live (dense: a masked write-back of the row's own slot; paged: dead rows
-write into a sink block past the pool), so a decode step never copies
-the cache.  The returned cache is the argument cache.
+live (dense: a masked write-back of the row's own slot; paged and ring
+paged: dead rows write into a sink block past the pool), so a decode
+step never copies the cache.  The returned cache is the argument cache.
 """
 from __future__ import annotations
 
@@ -95,11 +108,12 @@ def attention_specs(d: int, n_heads: int, n_kv: int, head_dim: int,
 # Core attention math
 # ---------------------------------------------------------------------------
 
-def full_attention(q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """Causal attention.  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  Used
-    for every prefill length (the reference switches to an
-    equal-to-tolerance flash-style scan past 2048 tokens)."""
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   window: int = 0) -> torch.Tensor:
+    """Causal attention.  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D);
+    ``window`` > 0 keeps only keys ``> q_pos - window``.  Used for every
+    prefill length (the reference switches to an equal-to-tolerance
+    flash-style scan past 2048 tokens)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -107,7 +121,10 @@ def full_attention(q: torch.Tensor, k: torch.Tensor,
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(D)
     q_pos = torch.arange(S, device=q.device)
     k_pos = torch.arange(T, device=q.device)
-    scores = torch.where(k_pos[None, :] <= q_pos[:, None], scores, NEG_INF)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, H, D)
@@ -250,6 +267,44 @@ def init_paged_kv_cache(batch: int, pool_blocks: int, block_size: int,
     )
 
 
+class PagedRingKVCache(NamedTuple):
+    """Wraparound paged ring for a sliding-window layer.
+
+    The block table is window-sized: ``M = W // bs`` blocks cover ring
+    slots, not positions — position ``p`` lives at ring slot ``p % W``,
+    i.e. ``(block_tables[b, (p % W) // bs], (p % W) % bs)``; a new token
+    overwrites the slot of the token that just left the window, so a
+    request holds ``W // bs`` blocks however long it runs.  ``positions``
+    is the dense ring's per-slot metadata, so the gathered ``(B, W, K,
+    D)`` view in ring-slot order is the dense :class:`KVCache` layout and
+    the dense attends and window masks apply as they are: that identity
+    keeps the ring engine bit-identical to the dense sliding engine.  The
+    pools hold a write sink past the ``P`` blocks, as
+    :class:`PagedKVCache`'s do.
+    """
+    k: torch.Tensor             # (P + 1, bs, K, D) physical pool + sink
+    v: torch.Tensor             # (P + 1, bs, K, D)
+    block_tables: torch.Tensor  # (B, M) int32 ring-slot order, -1 unassigned
+    positions: torch.Tensor     # (B, M * bs) int32 position a slot, -1 empty
+    length: torch.Tensor        # (B,) int32 tokens seen so far
+
+
+def init_paged_ring_kv_cache(batch: int, pool_blocks: int, block_size: int,
+                             max_blocks: int, n_kv: int, head_dim: int,
+                             dtype=torch.bfloat16,
+                             device="cuda") -> PagedRingKVCache:
+    shape = (pool_blocks + 1, block_size, n_kv, head_dim)
+    return PagedRingKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        block_tables=torch.full((batch, max_blocks), -1, dtype=torch.int32,
+                                device=device),
+        positions=torch.full((batch, max_blocks * block_size), -1,
+                             dtype=torch.int32, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
 def rollback_kv_cache(cache: KVCache, keep_len: torch.Tensor,
                       rows: torch.Tensor) -> KVCache:
     """Rewind slot rows ((B,) bool) to ``keep_len`` ((B,) int) context
@@ -293,9 +348,23 @@ def _out_project(p, out):
     return out.reshape(*out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def attention_block(p, x, *, cfg) -> torch.Tensor:
+def _layer_args(cfg, window, rope_theta) -> tuple[int, float]:
+    """One layer's window and RoPE theta: the arguments, or the config's
+    stack-wide values where they are None."""
+    return (cfg.sliding_window if window is None else window,
+            cfg.rope_theta if rope_theta is None else rope_theta)
+
+
+def _rope(cfg, theta: float, device):
+    return rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction, theta,
+                            device)
+
+
+def attention_block(p, x, *, cfg, window: int | None = None,
+                    rope_theta: float | None = None) -> torch.Tensor:
     """Causal attention over a whole sequence.  x: (B,S,d)."""
     S = x.shape[1]
+    window, theta = _layer_args(cfg, window, rope_theta)
     q = _project(p, x, "wq")
     k = _project(p, x, "wk")
     v = _project(p, x, "wv")
@@ -303,17 +372,29 @@ def attention_block(p, x, *, cfg) -> torch.Tensor:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if cfg.rope_fraction > 0:
-        inv = rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction,
-                               cfg.rope_theta, x.device)
+        inv = _rope(cfg, theta, x.device)
         positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-    return _out_project(p, full_attention(q, k, v))
+    return _out_project(p, full_attention(q, k, v, window=window))
+
+
+def _window_valid(positions: torch.Tensor, pos: torch.Tensor,
+                  window: int) -> torch.Tensor:
+    """Slots a decode query at ``pos`` (B,) attends: written, and inside
+    the sliding window when one is set."""
+    valid = positions >= 0
+    if window:
+        valid = valid & (positions > (pos[:, None] - window))
+    return valid
 
 
 def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
                            paged_backend: str = "gather",
-                           live: torch.Tensor | None = None):
+                           ring_backend: str = "gather",
+                           live: torch.Tensor | None = None,
+                           window: int | None = None,
+                           rope_theta: float | None = None):
     """One decode step.  x: (B, 1, d) -> (y (B, 1, d), cache).
 
     RoPE is applied at write time (K is cached post-rotation).  ``live``
@@ -322,8 +403,13 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
     afterwards for a dense cache and drops their scatter for a paged
     one).  A non-live row's output is computed over its untouched cache
     and is meant to be discarded.  The cache is updated in place.
+    ``dense_backend`` / ``paged_backend`` / ``ring_backend`` are the
+    ``decode_dense`` / ``decode_paged`` / ``decode_ring`` sites; the
+    cache's type picks one (a ring attends its gathered view through the
+    dense one).
     """
     B = x.shape[0]
+    window, theta = _layer_args(cfg, window, rope_theta)
     if live is None:
         live = torch.ones((B,), dtype=torch.bool, device=x.device)
     pos = cache.length.clone()                 # (B,) position of the new token
@@ -334,11 +420,17 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
         q = rms_norm(q, p["q_norm"])
         k_new = rms_norm(k_new, p["k_norm"])
     if cfg.rope_fraction > 0:
-        inv = rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction,
-                               cfg.rope_theta, x.device)
+        inv = _rope(cfg, theta, x.device)
         q = apply_rope(q[:, None], pos[:, None], inv)[:, 0]
         k_new = apply_rope(k_new[:, None], pos[:, None], inv)[:, 0]
     bidx = torch.arange(B, device=x.device)
+
+    if isinstance(cache, PagedRingKVCache):
+        y = _ring_decode_write_attend(q, k_new, v_new, cache, pos,
+                                      window=window, live=live,
+                                      dense_backend=dense_backend,
+                                      backend=ring_backend)
+        return _out_project(p, y)[:, None], cache
 
     if isinstance(cache, PagedKVCache):
         sink = cache.k.shape[0] - 1
@@ -366,19 +458,56 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
     cache.positions[bidx, slot] = torch.where(live, pos,
                                               cache.positions[bidx, slot])
     cache.length.copy_(torch.where(live, pos + 1, pos))
-    valid = cache.positions >= 0
+    valid = _window_valid(cache.positions, pos, window)
     out = decode_attention(q, cache.k, cache.v, valid, dense_backend)
     return _out_project(p, out)[:, None], cache
 
 
+def _ring_decode_write_attend(q, k_new, v_new, cache: PagedRingKVCache,
+                              pos: torch.Tensor, *, window: int,
+                              live: torch.Tensor, dense_backend: str,
+                              backend: str = "gather") -> torch.Tensor:
+    """Write one token into the ring pool at ring slot ``pos % W`` and
+    attend over the window, in place.  Past the window that slot is the
+    token ``W`` positions back, which just left it: the overwrite is the
+    window's slide.  Dead rows and rows without a lease write into the
+    sink.  The attend is the dense ring's (written and inside the
+    window) over the gathered ring-slot-order view, so outputs match the
+    dense sliding engine bit for bit."""
+    if backend != "gather":
+        raise ValueError(f"unknown decode_ring backend {backend!r}")
+    B = q.shape[0]
+    sink = cache.k.shape[0] - 1
+    bs = cache.k.shape[1]
+    W = cache.block_tables.shape[1] * bs
+    bidx = torch.arange(B, device=q.device)
+    slot = (pos % W).long()
+    blk = cache.block_tables[bidx, slot // bs]
+    ok = live & (blk >= 0)                     # the ring wraps by design
+    dst = torch.where(ok, blk, sink).long()
+    off = slot % bs
+    cache.k[dst, off] = k_new.to(cache.k.dtype)
+    cache.v[dst, off] = v_new.to(cache.v.dtype)
+    cache.positions[bidx, slot] = torch.where(ok, pos,
+                                              cache.positions[bidx, slot])
+    cache.length.copy_(torch.where(ok, pos + 1, pos).to(torch.int32))
+    k_view, v_view = paged_kv_view(cache.k, cache.v, cache.block_tables)
+    valid = _window_valid(cache.positions, pos, window)
+    return decode_attention(q, k_view, v_view, valid, dense_backend)
+
+
 def prefill_into_cache(p, x, cache: KVCache, *, cfg,
-                       lengths: torch.Tensor | None = None):
+                       lengths: torch.Tensor | None = None,
+                       window: int | None = None,
+                       rope_theta: float | None = None):
     """Prefill: full-sequence attention AND populate a (fresh) cache in
     place.  ``lengths`` (B,) makes this a right-padded batch: positions at
     or past a row's length are recorded empty (-1) and each row's length
-    is its own."""
+    is its own.  A ring narrower than the prompt (a sliding layer's)
+    keeps the last ``min(W, S)`` positions at their slots."""
     B, S, _ = x.shape
     W = cache.k.shape[1]
+    window, theta = _layer_args(cfg, window, rope_theta)
     q = _project(p, x, "wq")
     k = _project(p, x, "wk")
     v = _project(p, x, "wv")
@@ -387,11 +516,10 @@ def prefill_into_cache(p, x, cache: KVCache, *, cfg,
         k = rms_norm(k, p["k_norm"])
     positions = torch.arange(S, device=x.device)[None, :]
     if cfg.rope_fraction > 0:
-        inv = rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction,
-                               cfg.rope_theta, x.device)
+        inv = _rope(cfg, theta, x.device)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-    out = full_attention(q, k, v)
+    out = full_attention(q, k, v, window=window)
     take = min(W, S)
     tail_pos = torch.arange(S - take, S, device=x.device)
     slots = tail_pos % W
@@ -407,9 +535,10 @@ def prefill_into_cache(p, x, cache: KVCache, *, cfg,
     return _out_project(p, out), cache
 
 
-def _chunk_qkv(p, x, *, cfg, offsets: torch.Tensor):
-    """Chunk-prefill front half shared by the dense and paged variants:
-    q/k/v projections, qk-norm and RoPE at the rows' absolute positions."""
+def _chunk_qkv(p, x, *, cfg, offsets: torch.Tensor, rope_theta: float):
+    """Chunk-prefill front half shared by the dense, paged and ring
+    variants: q/k/v projections, qk-norm and RoPE at the rows' absolute
+    positions."""
     C = x.shape[1]
     q = _project(p, x, "wq")                   # (B, C, H, D)
     k_new = _project(p, x, "wk")               # (B, C, K, D)
@@ -419,8 +548,7 @@ def _chunk_qkv(p, x, *, cfg, offsets: torch.Tensor):
         k_new = rms_norm(k_new, p["k_norm"])
     pos = offsets[:, None] + torch.arange(C, device=x.device)[None, :]
     if cfg.rope_fraction > 0:
-        inv = rope_frequencies(cfg.resolved_head_dim, cfg.rope_fraction,
-                               cfg.rope_theta, x.device)
+        inv = _rope(cfg, rope_theta, x.device)
         q = apply_rope(q, pos, inv)
         k_new = apply_rope(k_new, pos, inv)
     return q, k_new, v_new, pos
@@ -440,16 +568,31 @@ def _chunk_attend(p, q, k_cache, v_cache, attend) -> torch.Tensor:
     return _out_project(p, out)
 
 
+def _chunk_ring_attend(positions: torch.Tensor, pos: torch.Tensor,
+                       window: int) -> torch.Tensor:
+    """(B, C, W) chunk mask over a ring's slots: written, causally
+    visible, and inside the sliding window when one is set."""
+    slot_pos = positions[:, None, :]
+    attend = (slot_pos >= 0) & (slot_pos <= pos[:, :, None])
+    if window:
+        attend = attend & (slot_pos > pos[:, :, None] - window)
+    return attend
+
+
 def prefill_chunk_into_cache(p, x, cache: KVCache, *, cfg,
-                             offsets: torch.Tensor, n_new: torch.Tensor):
+                             offsets: torch.Tensor, n_new: torch.Tensor,
+                             window: int | None = None,
+                             rope_theta: float | None = None):
     """Chunked prefill: extend a ring cache by up to C prompt tokens per
     row, in place.  x: (B, C, d) right-padded; offsets: (B,) tokens each
     row has cached; n_new: (B,) valid tokens (0 = bystander, untouched).
     Chunk queries attend to the row's cache plus the chunk (written
-    first), masked by slot position."""
+    first), masked by slot position and the window."""
     C = x.shape[1]
     W = cache.k.shape[1]
-    q, k_new, v_new, pos = _chunk_qkv(p, x, cfg=cfg, offsets=offsets)
+    window, theta = _layer_args(cfg, window, rope_theta)
+    q, k_new, v_new, pos = _chunk_qkv(p, x, cfg=cfg, offsets=offsets,
+                                      rope_theta=theta)
     valid_new = torch.arange(C, device=x.device)[None, :] < n_new[:, None]
     slot = (pos % W).long()
     bidx = torch.arange(x.shape[0], device=x.device)[:, None]
@@ -461,24 +604,30 @@ def prefill_chunk_into_cache(p, x, cache: KVCache, *, cfg,
     cache.positions[bidx, slot] = torch.where(
         valid_new, pos.to(torch.int32), cache.positions[bidx, slot])
     cache.length.copy_(torch.where(n_new > 0, offsets + n_new, cache.length))
-    positions = cache.positions
-    attend = (positions[:, None, :] >= 0) \
-        & (positions[:, None, :] <= pos[:, :, None])          # (B, C, W)
+    attend = _chunk_ring_attend(cache.positions, pos, window)
     return _chunk_attend(p, q, cache.k, cache.v, attend), cache
 
 
 def prefill_chunk_into_paged_cache(p, x, cache: PagedKVCache, *, cfg,
                                    offsets: torch.Tensor,
-                                   n_new: torch.Tensor):
+                                   n_new: torch.Tensor,
+                                   window: int | None = None,
+                                   rope_theta: float | None = None):
     """Chunked prefill against a block-paged cache, in place: the same
     contract and masks as :func:`prefill_chunk_into_cache` (position
     ``p`` at axis index ``p``), K/V landing in pool blocks through the
-    row's block table; padded and bystander positions go to the sink."""
+    row's block table; padded and bystander positions go to the sink.
+    Full-attention layers only: a sliding layer takes the ring pool."""
+    if window:
+        raise ValueError("classic paged chunks attend the full context; "
+                         "sliding layers take the ring variant")
     C = x.shape[1]
     sink = cache.k.shape[0] - 1
     bs = cache.k.shape[1]
     M = cache.block_tables.shape[1]
-    q, k_new, v_new, pos = _chunk_qkv(p, x, cfg=cfg, offsets=offsets)
+    _, theta = _layer_args(cfg, 0, rope_theta)
+    q, k_new, v_new, pos = _chunk_qkv(p, x, cfg=cfg, offsets=offsets,
+                                      rope_theta=theta)
     valid_new = torch.arange(C, device=x.device)[None, :] < n_new[:, None]
     blk = torch.gather(cache.block_tables, 1,
                        (pos // bs).clamp(0, M - 1).long())
@@ -493,4 +642,40 @@ def prefill_chunk_into_paged_cache(p, x, cache: PagedKVCache, *, cfg,
     pos_k = torch.arange(k_view.shape[1], device=x.device)[None, None, :]
     attend = (pos_k < length[:, None, None]) \
         & (pos_k <= pos[:, :, None])                           # (B, C, W)
+    return _chunk_attend(p, q, k_view, v_view, attend), cache
+
+
+def prefill_chunk_into_ring_cache(p, x, cache: PagedRingKVCache, *, cfg,
+                                  offsets: torch.Tensor, n_new: torch.Tensor,
+                                  window: int | None = None,
+                                  rope_theta: float | None = None):
+    """Chunked prefill against the wraparound ring pool, in place: the
+    contract of :func:`prefill_chunk_into_cache`, K/V landing at ring slot
+    ``pos % W`` through the window-sized block table (padded, bystander
+    and unleased positions go to the sink).  A prompt longer than the
+    window laps the ring; the per-slot ``positions`` and the dense window
+    mask keep exactly the last ``window`` tokens attendable, as the dense
+    sliding ring does.  The chunk must not exceed the ring (the engine
+    checks): two positions of one chunk would share a slot."""
+    C = x.shape[1]
+    sink = cache.k.shape[0] - 1
+    bs = cache.k.shape[1]
+    W = cache.block_tables.shape[1] * bs
+    window, theta = _layer_args(cfg, window, rope_theta)
+    q, k_new, v_new, pos = _chunk_qkv(p, x, cfg=cfg, offsets=offsets,
+                                      rope_theta=theta)
+    valid_new = torch.arange(C, device=x.device)[None, :] < n_new[:, None]
+    slot = (pos % W).long()
+    blk = torch.gather(cache.block_tables, 1, slot // bs)
+    ok = valid_new & (blk >= 0)
+    dst = torch.where(ok, blk, sink).long()
+    off = slot % bs
+    cache.k[dst, off] = k_new.to(cache.k.dtype)
+    cache.v[dst, off] = v_new.to(cache.v.dtype)
+    bidx = torch.arange(x.shape[0], device=x.device)[:, None]
+    cache.positions[bidx, slot] = torch.where(
+        ok, pos.to(torch.int32), cache.positions[bidx, slot])
+    cache.length.copy_(torch.where(n_new > 0, offsets + n_new, cache.length))
+    k_view, v_view = paged_kv_view(cache.k, cache.v, cache.block_tables)
+    attend = _chunk_ring_attend(cache.positions, pos, window)
     return _chunk_attend(p, q, k_view, v_view, attend), cache

@@ -1,7 +1,8 @@
 """Top-level model: parameters and the serving steps, in PyTorch.
 
-The counterpart of ``repro.models.model.Model`` for the dense
-full-attention family: ``param_specs``, ``init``, ``forward``,
+The counterpart of ``repro.models.model.Model`` for the dense family
+(full attention, sliding windows and layer patterns): ``param_specs``,
+``init``, ``forward``,
 ``prefill_step``, ``prefill_chunk``, ``serve_step``, ``verify_step``,
 ``init_caches``, ``init_paged_caches``, ``reset_cache_rows`` and
 ``rollback_cache_rows``.  The parameter tree is
@@ -11,6 +12,11 @@ leaf for leaf.
 
 Differences of idiom, not of result:
 
+* a layer-pattern stack (gemma3's ``SSSSSG``) runs the reference's
+  per-layer path: its caches are a tuple of per-layer caches at their
+  natural widths (a sliding layer's ring is window-sized) and each layer
+  takes its own window and RoPE theta (``layer_windows``,
+  ``layer_thetas``); other stacks keep one stacked cache;
 * caches are updated **in place** and returned; a decode step writes K/V,
   positions and lengths only for live rows (the reference writes every
   row and restores the dead ones wholesale);
@@ -53,6 +59,13 @@ class Model:
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
         self._views: dict[int, tuple[Any, list]] = {}
+        #: the per-layer cache dataflow: a layer-pattern config takes the
+        #: per-layer path (tuple caches, a window and a RoPE theta a
+        #: layer); other configs keep the stacked cache
+        self.families = CF.layer_cache_families(cfg)
+        self.layer_windows = CF.layer_windows(cfg)
+        self.layer_thetas = CF.layer_rope_thetas(cfg)
+        self.hetero = bool(getattr(cfg, "layer_pattern", ""))
 
     # ------------------------------------------------------------------ specs
     def param_specs(self):
@@ -115,7 +128,10 @@ class Model:
 
     # ---------------------------------------------------------------- serving
     def cache_width(self, seq_len: int) -> int:
-        return seq_len            # full attention: the ring spans the horizon
+        """The dense ring's width: the window of a sliding stack, else the
+        horizon."""
+        w = self.cfg.sliding_window or seq_len
+        return min(w, seq_len)
 
     def _stack(self, one: T.LayerCache) -> T.LayerCache:
         """One layer's cache repeated along a leading layer axis."""
@@ -123,28 +139,90 @@ class Model:
         return T.LayerCache(kv=type(one.kv)(
             *(t.expand(L, *t.shape).clone() for t in one.kv)))
 
-    def init_caches(self, batch: int, seq_len: int) -> T.LayerCache:
-        """Ring-buffer caches with a leading layer axis on every leaf."""
+    def init_caches(self, batch: int, seq_len: int):
+        """Ring-buffer caches with a leading layer axis on every leaf — or,
+        for a layer-pattern stack, a tuple of per-layer caches at their
+        natural widths: a sliding layer's ring is window-sized, a global
+        layer's spans the horizon (masked slots add exact zero terms, so
+        the widths leave the softmax's bits alone)."""
+        if self.hetero:
+            return tuple(
+                T.init_layer_cache(self.cfg, batch,
+                                   min(w, seq_len) if w else seq_len,
+                                   self.dtype, self.device)
+                for w in self.layer_windows)
         return self._stack(T.init_layer_cache(
             self.cfg, batch, self.cache_width(seq_len), self.dtype,
             self.device))
 
     def init_paged_caches(self, batch: int, *, pool_blocks: int,
-                          block_size: int, max_blocks: int) -> T.LayerCache:
+                          block_size: int, max_blocks: int,
+                          ring_pool_blocks: int | None = None,
+                          ring_max_blocks: int | None = None):
         """Block-paged caches: one pool per layer (plus its write sink,
-        see ``attention.PagedKVCache``) and per-slot block tables."""
+        see ``attention.PagedKVCache``) and per-slot block tables.
+
+        By the layers' cache families: all-full stacks get the classic
+        pool, all-sliding stacks the wraparound ring pool (window-sized
+        tables), and a mixed stack both, a tuple of per-layer caches whose
+        ring layers take ``ring_pool_blocks`` / ``ring_max_blocks`` (the
+        two kinds have separate block-id spaces, as ``MixedKVPool``'s
+        pools do)."""
+        cfg = self.cfg
+        if not CF.supports_paged(cfg):
+            raise NotImplementedError(
+                "paged KV needs attention-only cache families "
+                f"(full or sliding per layer), not {CF.family_label(cfg)}")
+        kind = CF.paged_kind(cfg)
+        if kind == "mixed" and (ring_pool_blocks is None
+                                or ring_max_blocks is None):
+            raise ValueError(
+                "a mixed sliding+global stack needs its ring pool "
+                "geometry (ring_pool_blocks/ring_max_blocks) alongside "
+                "the classic pool's")
+        if self.hetero:
+            # every layer-pattern stack runs the per-layer path; a uniform
+            # pattern shares one pool, its ring geometry the main one's
+            rpb = pool_blocks if ring_pool_blocks is None \
+                else ring_pool_blocks
+            rmb = max_blocks if ring_max_blocks is None else ring_max_blocks
+            return tuple(
+                T.init_paged_layer_cache(
+                    cfg, batch,
+                    rpb if f.kv == "sliding" else pool_blocks, block_size,
+                    rmb if f.kv == "sliding" else max_blocks, self.dtype,
+                    self.device,
+                    kind="ring" if f.kv == "sliding" else "paged")
+                for f in self.families)
         return self._stack(T.init_paged_layer_cache(
-            self.cfg, batch, pool_blocks, block_size, max_blocks, self.dtype,
-            self.device))
+            cfg, batch, pool_blocks, block_size, max_blocks, self.dtype,
+            self.device, kind=kind))
 
-    @staticmethod
-    def _is_paged(caches) -> bool:
-        return isinstance(caches.kv, A.PagedKVCache)
+    def _layer_caches(self, caches) -> list:
+        """Per-layer views of the caches (a layer-pattern stack's tuple
+        holds them already)."""
+        if type(caches) is tuple:
+            return list(caches)
+        return T.layer_views(caches, self.cfg.n_layers)
 
-    def _block(self, lp, h, attn, mlp_backend: str):
-        """Residual attention then residual SwiGLU for one layer."""
-        h = h + attn(lp["attn"], rms_norm(h, lp["norm1"]))
-        return h + swiglu(lp["mlp"], rms_norm(h, lp["norm2"]), mlp_backend)
+    def _layer_kw(self, i: int) -> dict:
+        """Layer ``i``'s window and RoPE theta on the per-layer path (the
+        config's otherwise)."""
+        if not self.hetero:
+            return {}
+        return {"window": self.layer_windows[i],
+                "rope_theta": self.layer_thetas[i]}
+
+    def _run_layers(self, params, caches, x, attn, mlp_backend: str):
+        """Residual attention then residual SwiGLU through every layer:
+        ``attn(p, h, cache, **layer_args)`` attends layer ``i`` over its
+        cache view with its window and theta."""
+        for i, (lp, c) in enumerate(zip(self._layers(params),
+                                        self._layer_caches(caches))):
+            h = rms_norm(x, lp["norm1"])
+            x = x + attn(lp["attn"], h, c.kv, **self._layer_kw(i))
+            x = x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"]), mlp_backend)
+        return x
 
     def prefill_step(self, params, batch, max_len: int = 0, plan=None):
         """Run the prompt -> (last-position logits (B, V), fresh caches).
@@ -162,11 +240,11 @@ class Model:
         B, S = tokens.shape
         x = self._embed(params, tokens)
         caches = self.init_caches(B, max(max_len, S))
-        for lp, c in zip(self._layers(params),
-                         T.layer_views(caches, cfg.n_layers)):
-            x = self._block(lp, x, lambda p, h, c=c: A.prefill_into_cache(
-                p, h, c.kv, cfg=cfg, lengths=lengths)[0],
-                plan.linked_matmul)
+        x = self._run_layers(
+            params, caches, x,
+            lambda p, h, kv, **kw: A.prefill_into_cache(
+                p, h, kv, cfg=cfg, lengths=lengths, **kw)[0],
+            plan.linked_matmul)
         if lengths is None:
             x = x[:, -1:]
         else:
@@ -189,14 +267,12 @@ class Model:
         offsets = offsets.to(self.device, torch.int32)
         n_new = n_new.to(self.device, torch.int32)
         B, C = tokens.shape
-        fn = A.prefill_chunk_into_paged_cache if self._is_paged(caches) \
-            else A.prefill_chunk_into_cache
         x = self._embed(params, tokens)
-        for lp, c in zip(self._layers(params),
-                         T.layer_views(caches, cfg.n_layers)):
-            x = self._block(lp, x, lambda p, h, c=c: fn(
-                p, h, c.kv, cfg=cfg, offsets=offsets, n_new=n_new)[0],
-                plan.linked_matmul)
+        x = self._run_layers(
+            params, caches, x,
+            lambda p, h, kv, **kw: _chunk_fn(kv)(
+                p, h, kv, cfg=cfg, offsets=offsets, n_new=n_new, **kw)[0],
+            plan.linked_matmul)
         idx = (n_new - 1).clamp(0, C - 1).long()
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[2]))
         return self._head(params, x)[:, 0], caches
@@ -212,10 +288,12 @@ class Model:
             live = live.to(self.device, torch.bool)
         x = self._embed(params, tokens)
         x, _ = T.decoder_stack_decode(
-            self._layers(params), x, T.layer_views(caches, cfg.n_layers),
+            self._layers(params), x, self._layer_caches(caches),
             cfg=cfg, dense_backend=plan.decode_dense,
-            paged_backend=plan.decode_paged, mlp_backend=plan.linked_matmul,
-            live=live)
+            paged_backend=plan.decode_paged, ring_backend=plan.decode_ring,
+            mlp_backend=plan.linked_matmul, live=live,
+            layer_windows=self.layer_windows if self.hetero else None,
+            layer_thetas=self.layer_thetas if self.hetero else None)
         return self._head(params, x)[:, 0], caches
 
     def verify_step(self, params, caches, tokens, n_new, live=None,
@@ -280,12 +358,28 @@ class Model:
 
     def reset_cache_rows(self, caches, rows):
         """Mark slot rows ``rows`` ((B,) bool) empty for refill, in place:
-        only validity metadata changes (positions -> -1, length -> 0); a
-        paged cache's rows are re-pointed at admission instead."""
-        kv = caches.kv
-        if isinstance(kv, A.KVCache):
-            rows = rows.to(self.device, torch.bool)
-            kv.positions.copy_(torch.where(rows[None, :, None], -1,
-                                           kv.positions))
-            kv.length.copy_(torch.where(rows[None, :], 0, kv.length))
+        only validity metadata changes (positions -> -1, length -> 0, for
+        every cache that carries positions: the dense ring and the ring
+        pool); a classic paged cache's rows are re-pointed at admission
+        instead.  Stacked leaves carry a leading layer axis, a
+        layer-pattern tuple's are batch-major."""
+        rows = rows.to(self.device, torch.bool)
+        per_layer = type(caches) is tuple
+        pos_rows = rows[:, None] if per_layer else rows[None, :, None]
+        len_rows = rows if per_layer else rows[None, :]
+        for c in (caches if per_layer else (caches,)):
+            kv = c.kv
+            if hasattr(kv, "positions"):
+                kv.positions.copy_(torch.where(pos_rows, -1, kv.positions))
+                kv.length.copy_(torch.where(len_rows, 0, kv.length))
         return caches
+
+
+def _chunk_fn(kv):
+    """The chunked-prefill attention of a cache's layout, chosen per layer:
+    a mixed stack interleaves ring-paged and classic-paged layers."""
+    if isinstance(kv, A.PagedRingKVCache):
+        return A.prefill_chunk_into_ring_cache
+    if isinstance(kv, A.PagedKVCache):
+        return A.prefill_chunk_into_paged_cache
+    return A.prefill_chunk_into_cache

@@ -1,10 +1,13 @@
-"""Transformer stack for the dense full-attention family, in PyTorch.
+"""Transformer stack for the dense family, in PyTorch.
 
 The counterpart of ``repro.models.transformer`` for ``dense`` (and the
-identical ``vlm``) layers: pre-norm GQA attention + SwiGLU MLP.  The
-reference's ``lax.scan`` over stacked layer params becomes a Python loop
-over per-layer views of the stacked leaves; cache views share storage
-with the stack, so per-layer in-place updates land in the stacked cache.
+identical ``vlm``) layers: pre-norm GQA attention + SwiGLU MLP, with full
+or sliding-window attention and layer patterns (gemma3's ``SSSSSG``: a
+window and a RoPE theta per layer).  The reference's ``lax.scan`` over
+stacked layer params becomes a Python loop over per-layer views of the
+stacked leaves; cache views share storage with the stack, so per-layer
+in-place updates land in the stacked cache.  A layer-pattern stack's
+caches are a tuple of per-layer caches (the reference's unrolled path).
 MoE, SSM, hybrid and audio layers fail with ``NotImplementedError``
 (``check_supported``).
 """
@@ -21,8 +24,8 @@ from .layers import rms_norm, rms_norm_spec, swiglu, swiglu_specs
 _LATER = {
     "moe": "ROADMAP queue 1 item 9 (MoE)",
     "audio": "ROADMAP queue 1 item 9 (encoder-decoder)",
-    "ssm": "ROADMAP queue 1 item 7 (cache families: SSM)",
-    "hybrid": "ROADMAP queue 1 item 7 (cache families: hybrid)",
+    "ssm": "ROADMAP queue 1 item 7b (cache families: SSM)",
+    "hybrid": "ROADMAP queue 1 item 7b (cache families: hybrid)",
 }
 
 
@@ -34,15 +37,7 @@ def check_supported(cfg) -> None:
             f"{_LATER[cfg.family]} ports it")
     if cfg.family not in ("dense", "vlm") or cfg.attn_free:
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention decoders are ported")
-    if cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: layer_pattern {cfg.layer_pattern!r} stacks are "
-            "ported by ROADMAP queue 1 item 7 (cache families)")
-    if cfg.sliding_window > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding_window={cfg.sliding_window} is ported by "
-            "ROADMAP queue 1 item 7 (cache families: the sliding ring)")
+            f"{cfg.name}: only dense attention decoders are ported")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder stacks are ported by "
@@ -71,16 +66,20 @@ def layer_views(stacked, n_layers: int) -> list:
     return [view(stacked, i) for i in range(n_layers)]
 
 
-def decoder_layer(p, x, *, cfg, mlp_backend: str = "torch"):
+def decoder_layer(p, x, *, cfg, mlp_backend: str = "torch",
+                  window: int | None = None, rope_theta: float | None = None):
     """x: (B, S, d) -> (B, S, d).  ``mlp_backend``: the ``linked_matmul``
-    site (see :func:`~.layers.swiglu`)."""
-    x = x + A.attention_block(p["attn"], rms_norm(x, p["norm1"]), cfg=cfg)
+    site (see :func:`~.layers.swiglu`); ``window`` / ``rope_theta``
+    override the config's for one layer of a layer-pattern stack."""
+    x = x + A.attention_block(p["attn"], rms_norm(x, p["norm1"]), cfg=cfg,
+                              window=window, rope_theta=rope_theta)
     return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]), mlp_backend)
 
 
 def decoder_stack(layers: list, x, *, cfg, mlp_backend: str = "torch"):
-    """``layers``: per-layer param views (see :func:`layer_views`).  The
-    dense family has no auxiliary loss."""
+    """``layers``: per-layer param views (see :func:`layer_views`).  Every
+    layer takes the config's window and theta, as the reference's full
+    forward does.  The dense family has no auxiliary loss."""
     for lp in layers:
         x = decoder_layer(lp, x, cfg=cfg, mlp_backend=mlp_backend)
     return x
@@ -100,34 +99,53 @@ def init_layer_cache(cfg, batch: int, width: int, dtype=torch.bfloat16,
 
 def init_paged_layer_cache(cfg, batch: int, pool_blocks: int,
                            block_size: int, max_blocks: int,
-                           dtype=torch.bfloat16, device="cuda") -> LayerCache:
-    return LayerCache(kv=A.init_paged_kv_cache(
-        batch, pool_blocks, block_size, max_blocks, cfg.n_kv_heads,
-        cfg.resolved_head_dim, dtype, device))
+                           dtype=torch.bfloat16, device="cuda",
+                           kind: str = "paged") -> LayerCache:
+    """A per-layer cache backed by a block pool: ``kind`` ``"paged"``
+    (logical-order tables, full attention) or ``"ring"`` (window-sized
+    wraparound tables, sliding layers)."""
+    init = {"paged": A.init_paged_kv_cache,
+            "ring": A.init_paged_ring_kv_cache}[kind]
+    return LayerCache(kv=init(batch, pool_blocks, block_size, max_blocks,
+                              cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
+                              device))
 
 
 def decoder_layer_decode(p, x, cache: LayerCache, *, cfg,
                          dense_backend: str = "torch",
                          paged_backend: str = "gather",
-                         mlp_backend: str = "torch", live=None):
+                         ring_backend: str = "gather",
+                         mlp_backend: str = "torch", live=None,
+                         window: int | None = None,
+                         rope_theta: float | None = None):
     """One-token decode through one layer, updating ``cache`` in place.
     x: (B, 1, d)."""
     att, _ = A.attention_decode_block(p["attn"], rms_norm(x, p["norm1"]),
                                       cache.kv, cfg=cfg,
                                       dense_backend=dense_backend,
-                                      paged_backend=paged_backend, live=live)
+                                      paged_backend=paged_backend,
+                                      ring_backend=ring_backend, live=live,
+                                      window=window, rope_theta=rope_theta)
     x = x + att
     return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]), mlp_backend), cache
 
 
-def decoder_stack_decode(layers: list, x, caches: list, *, cfg,
+def decoder_stack_decode(layers: list, x, caches, *, cfg,
                          dense_backend: str = "torch",
                          paged_backend: str = "gather",
-                         mlp_backend: str = "torch", live=None):
-    """``layers``/``caches``: per-layer views; caches update in place."""
-    for lp, cache in zip(layers, caches):
-        x, _ = decoder_layer_decode(lp, x, cache, cfg=cfg,
-                                    dense_backend=dense_backend,
-                                    paged_backend=paged_backend,
-                                    mlp_backend=mlp_backend, live=live)
+                         ring_backend: str = "gather",
+                         mlp_backend: str = "torch", live=None,
+                         layer_windows: tuple | None = None,
+                         layer_thetas: tuple | None = None):
+    """``layers``/``caches``: per-layer views (a layer-pattern stack's
+    caches are its tuple of per-layer caches); caches update in place.
+    ``layer_windows`` / ``layer_thetas``: a layer-pattern stack's window
+    and RoPE theta by layer (None: the config's for every layer)."""
+    for i, (lp, cache) in enumerate(zip(layers, caches)):
+        x, _ = decoder_layer_decode(
+            lp, x, cache, cfg=cfg, dense_backend=dense_backend,
+            paged_backend=paged_backend, ring_backend=ring_backend,
+            mlp_backend=mlp_backend, live=live,
+            window=layer_windows[i] if layer_windows else None,
+            rope_theta=layer_thetas[i] if layer_thetas else None)
     return x, caches

@@ -7,7 +7,11 @@ most three batched dispatches: admit (row recycling, or the one-shot
 padded ``prefill_step`` in the batched/serial modes), one fixed-shape
 ``prefill_chunk`` call, and one ``serve_step`` decode with a ``live``
 mask.  KV is dense per slot (``kv="dense"``) or a block pool with
-refcounted shared prefixes (``kv="paged"``).
+refcounted shared prefixes (``kv="paged"``).  A sliding-window family
+runs the pool as a ring (window-sized block tables, rewritten in place
+as the window slides) and a layer-pattern stack (gemma3) as a
+:class:`MixedKVPool`: a classic lease for its global layers and a ring
+lease for its sliding ones, each request holding both.
 
 Every hot-path dispatch routes through a :class:`KernelPlan`: by default
 the ``kernel_select`` pass picks per site — the hand-written CUDA
@@ -33,8 +37,8 @@ spec-off engine's, bit for bit.
 Stage times come from a :class:`StageTimer` that synchronizes the card
 before a stage closes, so ``serve_schedule`` plans from step times.
 
-Not in this slice: mesh sharding and replicas (ROADMAP queue 1 item 8),
-layer-pattern / sliding / SSM stacks (item 7) — asking for them raises
+Not in this slice: mesh sharding and replicas (ROADMAP queue 1 item 8)
+and SSM / hybrid stacks (item 7b) — asking for them raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -50,7 +54,7 @@ from ..core.pipeline import KernelPlan, StageTimer
 from ..kernels.fused_sampler import ops as fused_ops
 from ..models import cache_family as CF
 from .graphs import StaticInputs, StepGraphs, tensor_key
-from .kv_pool import KVBlockPool, PoolConfig
+from .kv_pool import KVBlockPool, MixedKVPool, PoolConfig
 from .sampling import SamplingParams, sample_token_grid, sample_tokens
 from .scheduler import Scheduler, SchedulerConfig, TickPlan, serve_plan_graph
 from .speculative import (SPEC_OFF, DraftModelProposer, NGramProposer,
@@ -167,7 +171,10 @@ class ServingEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.kv = kv
-        self.pool: KVBlockPool | None = None
+        self.pool: KVBlockPool | MixedKVPool | None = None
+        #: ring-window width (tokens) when the paged pool runs in ring or
+        #: mixed mode — ring leases price this, not the decode horizon
+        self._kv_window = 0
         #: the policy of requests that carry no SamplingParams: greedy
         self.default_sampling = SamplingParams()
         self.timer = StageTimer(
@@ -215,6 +222,13 @@ class ServingEngine:
                 cfg.vocab))
         self.scheduler.eos_id = None if eos_id < 0 else eos_id
         self.scheduler.chunk_supported = CF.supports_chunked_prefill(cfg)
+        # the dataflow shape serve_schedule prices, from the per-layer
+        # descriptors: a window bounds per-request KV, a mixed stack grows
+        # per layer kind
+        plan_window = CF.kv_plan_window(cfg)
+        if plan_window:
+            self.scheduler.kv_window = min(plan_window, max_len)
+        self.scheduler.kv_mixed = CF.family_label(cfg) == "mixed"
         # replans feed the observed acceptance rate through serve_schedule
         # and adopt its planned spec_k (requests with k=None use it)
         self.scheduler.spec_mode = self.default_spec.mode
@@ -226,7 +240,9 @@ class ServingEngine:
             self._init_paged_kv(kv_block_size, kv_pool_blocks)
         else:
             self.caches = model.init_caches(slots, max_len)
-        self.scheduler.last_plan["kv_growth"] = "linear"
+        self.scheduler.last_plan["kv_growth"] = (
+            "mixed" if self.scheduler.kv_mixed
+            else "window" if self.scheduler.kv_window else "linear")
         self._kernel_report = None  # PassReport when the plan was routed
         self.kernel_plan = self._resolve_kernel_plan(kernel_plan)
         self.scheduler.kernel_plan = self.kernel_plan.as_dict()
@@ -305,13 +321,39 @@ class ServingEngine:
                        pool_blocks: int | None) -> None:
         """Build the block pool; unset geometry comes from the
         ``serve_schedule`` pass (block size clamped to the prefill chunk,
-        capacity the dense-equivalent token budget)."""
-        horizon = self.max_len
+        capacity the dense-equivalent token budget).
+
+        A sliding family runs the pool as a **ring** (``CF.paged_kind``):
+        each slot's table tiles the window, writes wrap in place, and
+        admission prices window-sized leases.  A layer-pattern stack runs
+        **mixed**: a :class:`MixedKVPool` leases a classic table (the
+        horizon) for the global layers and a ring table (the window) for
+        the sliding ones."""
+        cfg = self.model.cfg
+        kind = CF.paged_kind(cfg)
+        window = 0
+        if kind in ("ring", "mixed"):
+            window = min(CF.kv_plan_window(cfg), self.max_len)
+            if self.scheduler.cfg.chunk > window:
+                raise ValueError(
+                    f"{kind} paged KV needs chunk "
+                    f"({self.scheduler.cfg.chunk}) <= window ({window}): a "
+                    "larger chunk would write the same ring slot twice in "
+                    "one scatter")
+        # the span one slot's classic table tiles: the window in ring mode,
+        # the horizon otherwise (mixed keeps the horizon on its global
+        # layers; its ring table is sized below)
+        horizon = self.max_len if kind == "mixed" else (window or
+                                                        self.max_len)
         if block_size is None or pool_blocks is None:
             from ..core import pipeline
             options = {"slots": self.slots, "max_len": self.max_len,
                        "kv": "paged", "can_chunk": True,
                        "replan_every": self.scheduler.cfg.replan_every}
+            if window:
+                options["sliding_window"] = window
+            if kind == "mixed":
+                options["kv_mixed"] = True
             _, report = pipeline.optimize(
                 self.scheduler.plan_graph,
                 passes=("serve_schedule",), options=options)
@@ -320,25 +362,48 @@ class ServingEngine:
                 block_size = int(plan["kv_block_size"])
                 fitting = [b for b in pipeline.SERVE_KV_BLOCK_SIZES
                            if horizon % b == 0
+                           and (not window or window % b == 0)
                            and b <= max(self.scheduler.cfg.chunk, 8)]
                 if fitting:
                     block_size = min(block_size, max(fitting))
             if pool_blocks is None:
                 pool_blocks = self.slots * (horizon // block_size)
         if horizon % block_size:
+            what = f"window {horizon}" if window and kind != "mixed" \
+                else f"max_len {self.max_len}"
             raise ValueError(
-                f"max_len {self.max_len} is not a multiple of the KV block "
-                f"size {block_size}: the block table must tile it exactly "
+                f"{what} is not a multiple of the KV block size "
+                f"{block_size}: the block table must tile it exactly "
                 "(this is also what keeps paged and dense decode "
                 "bit-identical)")
+        if kind == "mixed" and window % block_size:
+            raise ValueError(
+                f"window {window} is not a multiple of the KV block size "
+                f"{block_size}: the ring block table must tile it exactly")
         max_blocks = horizon // block_size
-        self.pool = KVBlockPool(PoolConfig(
-            block_size=block_size, pool_blocks=pool_blocks,
-            max_blocks_per_seq=max_blocks))
-        self.caches = self.model.init_paged_caches(
-            self.slots, pool_blocks=pool_blocks, block_size=block_size,
-            max_blocks=max_blocks)
+        self._kv_window = window
+        if kind == "mixed":
+            ring_max = window // block_size
+            ring_blocks = self.slots * ring_max
+            self.pool = MixedKVPool(
+                PoolConfig(block_size=block_size, pool_blocks=pool_blocks,
+                           max_blocks_per_seq=max_blocks),
+                PoolConfig(block_size=block_size, pool_blocks=ring_blocks,
+                           max_blocks_per_seq=ring_max),
+                window)
+            self.caches = self.model.init_paged_caches(
+                self.slots, pool_blocks=pool_blocks, block_size=block_size,
+                max_blocks=max_blocks, ring_pool_blocks=ring_blocks,
+                ring_max_blocks=ring_max)
+        else:
+            self.pool = KVBlockPool(PoolConfig(
+                block_size=block_size, pool_blocks=pool_blocks,
+                max_blocks_per_seq=max_blocks))
+            self.caches = self.model.init_paged_caches(
+                self.slots, pool_blocks=pool_blocks, block_size=block_size,
+                max_blocks=max_blocks)
         self.scheduler.kv_mode = "paged"
+        self.scheduler.kv_window = window
         self.scheduler.kv_gate = self._kv_gate
         self.scheduler.on_admit = self._kv_on_admit
         self.scheduler.on_release = self._kv_on_release
@@ -350,14 +415,16 @@ class ServingEngine:
     def _kv_gate(self, sreq, victim=None) -> bool:
         ok = self.pool.can_admit(
             sreq.prompt_tokens, self._kv_horizon(sreq),
-            victim_rid=victim.req.rid if victim is not None else None)
+            victim_rid=victim.req.rid if victim is not None else None,
+            window=self._kv_window)
         if not ok:
             self.pool.gated_rids.add(sreq.req.rid)
         return ok
 
     def _kv_on_admit(self, sreq) -> None:
         _, cached = self.pool.allocate(sreq.req.rid, sreq.prompt_tokens,
-                                       self._kv_horizon(sreq))
+                                       self._kv_horizon(sreq),
+                                       window=self._kv_window)
         sreq.pos = cached
 
     def _kv_on_release(self, sreq) -> None:
@@ -442,16 +509,9 @@ class ServingEngine:
 
     # -- admission ------------------------------------------------------------
     def _admit(self, plan: TickPlan) -> None:
-        kv = self.caches.kv
         if self.scheduler.cfg.prefill_mode == "chunked":
             if self.pool is not None:
-                # point the admitted slots' block tables at their leases;
-                # length starts at the prefix-cache hit
-                for sreq in plan.admissions:
-                    row = torch.from_numpy(
-                        self.pool.block_table(sreq.req.rid)).to(self.device)
-                    kv.block_tables[:, sreq.slot] = row
-                    kv.length[:, sreq.slot] = sreq.pos
+                self._install_leases(plan)
                 return
             rows = np.zeros((self.slots,), bool)
             for sreq in plan.admissions:
@@ -467,6 +527,30 @@ class ServingEngine:
         for group in groups:
             self._prefill_group(group, padded=len(group) > 1)
 
+    def _install_leases(self, plan: TickPlan) -> None:
+        """Point the admitted slots' block tables at their leases, in
+        place; length starts at the prefix-cache hit.  A ring cache (the
+        one carrying per-slot positions) also forgets the slot's previous
+        occupant.  Under a :class:`MixedKVPool` the ring table goes on the
+        sliding layers and the classic one on the global layers; a
+        stacked cache (leading layer axis) shares one table over every
+        layer."""
+        per_layer = type(self.caches) is tuple
+        mixed = isinstance(self.pool, MixedKVPool)
+        for c in (self.caches if per_layer else (self.caches,)):
+            kv = c.kv
+            ring = hasattr(kv, "positions")
+            for sreq in plan.admissions:
+                rid = sreq.req.rid
+                table = self.pool.ring_block_table(rid) if ring and mixed \
+                    else self.pool.block_table(rid)
+                row = (sreq.slot,) if per_layer else (slice(None), sreq.slot)
+                kv.block_tables[row] = torch.from_numpy(table).to(
+                    self.device)
+                kv.length[row] = sreq.pos
+                if ring:
+                    kv.positions[row] = -1
+
     def _prefill_group(self, group, padded: bool) -> None:
         lens = [s.prompt_len for s in group]
         S = max(lens)
@@ -477,10 +561,16 @@ class ServingEngine:
         if padded:
             batch["lengths"] = torch.tensor(lens, dtype=torch.int32)
         logits, fresh = self._prefill(self.params, batch)
-        # splice the prefilled rows into their slots, in place
+        # splice the prefilled rows into their slots, in place (a
+        # layer-pattern tuple's leaves are batch-major: no layer axis)
         slots = torch.tensor([s.slot for s in group], device=self.device)
-        for full, one in zip(self.caches.kv, fresh.kv):
-            full[:, slots] = one
+        if type(self.caches) is tuple:
+            for full_c, one_c in zip(self.caches, fresh):
+                for full, one in zip(full_c.kv, one_c.kv):
+                    full[slots] = one
+        else:
+            for full, one in zip(self.caches.kv, fresh.kv):
+                full[:, slots] = one
         toks_out = self._sample(logits, group)
         for i, sreq in enumerate(group):
             t = int(toks_out[i])
@@ -841,6 +931,8 @@ class ServingEngine:
         if self.pool is not None:
             out["kv_pool"] = self.pool.stats()
             out["prefill_tokens_saved"] = self.pool.tokens_saved
+            if self._kv_window:
+                out["kv_window"] = self._kv_window
         rep = self.scheduler.last_report
         if rep is not None:
             out["plan_report"] = rep.as_dict()

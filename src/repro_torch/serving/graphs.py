@@ -33,7 +33,10 @@ reach everything but the capture.
   the step writes no cache row), so every cache filled on first use (the RoPE
   frequencies, the kernels' plans and occupancy queries, cuBLAS's
   workspace) is filled outside the capture, and the real step is not run
-  twice.
+  twice.  It runs every layer, so a layer-pattern stack's RoPE tables of
+  both thetas (gemma3: 10k and 1M) are made there too; a ring's
+  positions do not move (a dead row's write goes to the sink), and its
+  caches, a tuple of per-layer caches, are keyed like any other.
 * **Launch counts.**  A replay runs no Python, so no kernel wrapper
   counts it: the wrappers count what the capture records in
   ``kernels.RECORDED``, and every replay adds those counts to
@@ -43,6 +46,9 @@ reach everything but the capture.
   ``warmup_launches``.
 
 A capture or replay that raises propagates: nothing falls back to eager.
+Captures run with the cyclic garbage collector paused
+(``kernels.graph_capture``): a dropped engine's graphs, freed by it
+mid-capture, would invalidate the capture.
 """
 from __future__ import annotations
 
@@ -171,7 +177,7 @@ class StepGraph:
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         before = dict(kernels.RECORDED)
-        with torch.cuda.graph(graph, pool=pool):
+        with kernels.graph_capture(graph, pool):
             self.outputs = body(**inputs)
         self.launches = _added(before, kernels.RECORDED)
         self.graph = graph

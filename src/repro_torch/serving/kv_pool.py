@@ -1,8 +1,7 @@
 """Block-paged KV pool: the serving path's memory allocator.
 
 The PyTorch port's copy of ``repro.serving.kv_pool`` (host-side numpy
-bookkeeping, ported nearly verbatim).  ``MixedKVPool`` follows with
-ROADMAP queue 1 item 7.
+bookkeeping, ported nearly verbatim).
 
 The dense serving caches pre-allocate ``max_len`` KV per slot regardless of
 prompt length, and identical prompt prefixes re-prefill and re-store the
@@ -459,3 +458,136 @@ class KVBlockPool:
                     f"cached block {b} lost its registration")
         if int((self.refcount < 0).sum()):
             raise AssertionError("negative refcount")
+
+
+class MixedKVPool:
+    """Two-kind allocator for heterogeneous (layer-pattern) stacks: one
+    classic refcounted pool backs the global full-attention layers, one
+    ring pool backs the sliding-window layers.  The two pools have
+    **independent block-id spaces** (each layer kind owns its own device
+    arrays, sized to its own geometry — that separation is what makes a
+    mixed stack's KV footprint land between all-full and all-sliding), so
+    every request holds one lease in each and the engine installs the
+    classic table on its global layers and the ring table on its sliding
+    layers.
+
+    Prefix-cache behaviour is deliberately asymmetric: the classic lease
+    still probes and refcount-shares full prompt blocks (memory dedup for
+    the global layers — deterministic prefill rewrites a shared block
+    bit-identically), but ``allocate`` always reports ``cached_tokens=0``.
+    Skipping a prefill chunk skips it for *all* layers, and the ring
+    layers' window must be populated per request — so no prefill work is
+    ever skipped and ``tokens_saved`` stays honest at 0.
+    """
+
+    def __init__(self, classic_cfg: PoolConfig, ring_cfg: PoolConfig,
+                 window: int):
+        if window <= 0:
+            raise ValueError("MixedKVPool needs a sliding window > 0")
+        if classic_cfg.block_size != ring_cfg.block_size:
+            raise ValueError(
+                "mixed pools must share one block size, got "
+                f"{classic_cfg.block_size} vs {ring_cfg.block_size}")
+        if window % ring_cfg.block_size:
+            raise ValueError(
+                f"window {window} not a multiple of block size "
+                f"{ring_cfg.block_size}")
+        self.classic = KVBlockPool(classic_cfg)
+        self.ring = KVBlockPool(ring_cfg)
+        self.window = window
+
+    # engine-facing surface mirrors KVBlockPool; its ``window`` argument is
+    # ignored — this pool owns the split (classic leases price the horizon,
+    # ring leases price self.window)
+    @property
+    def cfg(self) -> PoolConfig:
+        return self.classic.cfg
+
+    @property
+    def tokens_saved(self) -> int:
+        return self.classic.tokens_saved
+
+    @property
+    def gated_rids(self) -> set:
+        return self.classic.gated_rids
+
+    def blocks_for(self, n_tokens: int) -> int:
+        return self.classic.blocks_for(n_tokens)
+
+    def available(self) -> int:
+        """Bottleneck capacity: an admission needs blocks from *both*."""
+        return min(self.classic.available(), self.ring.available())
+
+    def holds(self, rid: int) -> bool:
+        return self.classic.holds(rid)
+
+    def can_admit(self, tokens, horizon: int, victim_rid: int | None = None,
+                  window: int = 0) -> bool:
+        return self.classic.can_admit(tokens, horizon, victim_rid) \
+            and self.ring.can_admit(tokens, horizon, victim_rid,
+                                    window=self.window)
+
+    def allocate(self, rid: int, tokens, horizon: int,
+                 window: int = 0) -> tuple[list[int], int]:
+        blocks, cached = self.classic.allocate(rid, tokens, horizon)
+        # shared classic blocks are real memory dedup but not skipped
+        # prefill (see class docstring) — undo the classic pool's
+        # tokens-saved credit and report 0 cached tokens
+        self.classic.tokens_saved -= cached
+        try:
+            self.ring.allocate(rid, tokens, horizon, window=self.window)
+        except PoolError:
+            self.classic.free(rid)
+            raise
+        return blocks, 0
+
+    def note_prefilled(self, rid: int, pos: int) -> None:
+        self.classic.note_prefilled(rid, pos)
+        self.ring.note_prefilled(rid, pos)    # no-op (ring lease)
+
+    def free(self, rid: int) -> None:
+        self.classic.free(rid)
+        self.ring.free(rid)
+
+    def truncate(self, rid: int, n_tokens: int) -> int:
+        # spec decoding (the one truncate caller) is gated off for mixed
+        # stacks; classic-only keeps the hook total if that ever changes
+        return self.classic.truncate(rid, n_tokens)
+
+    def block_table(self, rid: int):
+        """The classic table (global layers)."""
+        return self.classic.block_table(rid)
+
+    def ring_block_table(self, rid: int):
+        """The ring table (sliding layers)."""
+        return self.ring.block_table(rid)
+
+    def stats(self) -> dict:
+        c, r = self.classic.stats(), self.ring.stats()
+        merged = dict(c)
+        for k in ("pool_blocks", "blocks_in_use", "blocks_free",
+                  "blocks_cached"):
+            merged[k] = c[k] + r[k]
+        merged["kind"] = "mixed"
+        merged["kv_window"] = self.window
+        merged["classic"] = c
+        merged["ring"] = r
+        return merged
+
+    def check_invariants(self) -> None:
+        self.classic.check_invariants()
+        self.ring.check_invariants()
+        if set(self.classic.leases) != set(self.ring.leases):
+            raise AssertionError(
+                "mixed pool lease drift: classic holds "
+                f"{sorted(self.classic.leases)} vs ring "
+                f"{sorted(self.ring.leases)}")
+        for rid, lease in self.ring.leases.items():
+            if not lease.ring:
+                raise AssertionError(
+                    f"rid {rid} holds a non-ring lease in the ring pool")
+        if self.classic.tokens_saved:
+            raise AssertionError(
+                "mixed pool reported skipped prefill tokens "
+                f"({self.classic.tokens_saved}) — mixed admissions must "
+                "prefill every token (ring layers need per-request KV)")

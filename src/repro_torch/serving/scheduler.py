@@ -1,9 +1,9 @@
 """Request scheduler for the continuous-batching serving engine.
 
 The PyTorch port's copy of ``repro.serving.scheduler`` (host-side
-Python, ported verbatim but for its imports and for the sliding-window,
-mixed-stack, recurrent-state and mesh fields it forwards to
-``serve_schedule``, which come with those paths).
+Python, ported verbatim but for its imports and for the recurrent-state
+and mesh fields it forwards to ``serve_schedule``, which come with those
+paths).
 
 The engine (``serving.engine``) executes arrays; this module decides
 *what* to execute each tick.  It owns the request lifecycle
@@ -163,6 +163,16 @@ class Scheduler:
         #: carries the routing it was planned under; the dict is fixed at
         #: engine construction, so replans still hit the optimize() cache.
         self.kernel_plan: dict[str, str] | None = None
+        #: sliding-window width (tokens) of the engine's family (0 = full
+        #: attention) — forwarded to the serve_schedule pass so a ring
+        #: pool's replanned geometry keeps pricing the *window* and the
+        #: plan's ``kv_growth`` reflects the dataflow shape.
+        self.kv_window = 0
+        #: heterogeneous (layer-pattern) stack mixing sliding and global
+        #: layers — forwarded so the plan's ``kv_growth`` reads "mixed"
+        #: (window layers constant past the window, global layers linear)
+        #: and a mixed paged engine's replans keep ring geometry fields.
+        self.kv_mixed = False
         #: speculative-decoding mode the engine runs ("off"|"ngram"|"draft")
         #: — forwarded to the serve_schedule pass so replans plan ``spec_k``
         #: from the observed acceptance rate.
@@ -294,13 +304,32 @@ class Scheduler:
             for sreq in self.active:
                 if sreq is None or sreq.state is not RequestState.PREFILL:
                     continue
-                n = min(self.cfg.chunk, sreq.prompt_len - sreq.pos)
+                n = self._chunk_tokens(sreq)
                 plan.prefill.append(PrefillAssignment(
                     slot=sreq.slot, start=sreq.pos, n_new=n, sreq=sreq))
         plan.decode_slots = [s.slot for s in self.active
                              if s is not None
                              and s.state is RequestState.DECODE]
         return plan
+
+    def _chunk_tokens(self, sreq: ScheduledRequest) -> int:
+        """Prompt tokens ``sreq`` prefills this tick: a chunk, except that
+        a sliding-window engine (``kv_window``) restoring a preempted
+        request stops its chunk at the original prompt's end and then
+        re-prefills the folded generated tokens one a tick.
+
+        A chunk writes all its positions into the window-wide ring before
+        it attends, so its earlier queries lose the keys its later
+        positions overwrite; the solo run decoded those tokens one at a
+        time and lost none.  One a tick (a chunk of one evicts only the
+        key its query has just left) replays the solo run's history, so
+        the restore ≡ the solo run (the reference re-prefills them in
+        chunks; ROADMAP queue 3).  Port only."""
+        n = min(self.cfg.chunk, sreq.prompt_len - sreq.pos)
+        if self.kv_window and sreq.req.generated:
+            prompt = len(sreq.req.prompt)
+            n = min(n, prompt - sreq.pos) if sreq.pos < prompt else 1
+        return n
 
     def _preempt(self, sreq: ScheduledRequest) -> None:
         """Evict a DECODE (or mid-prefill) request: back to WAITING with its
@@ -406,6 +435,10 @@ class Scheduler:
         }
         if self.kv_mode != "dense":
             options["kv"] = self.kv_mode
+        if self.kv_window:
+            options["sliding_window"] = self.kv_window
+        if self.kv_mixed:
+            options["kv_mixed"] = True
         if self.kernel_plan:
             options["kernel_plan"] = dict(sorted(self.kernel_plan.items()))
         if self.spec_mode != "off":

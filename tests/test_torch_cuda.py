@@ -34,7 +34,8 @@ TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D,G", [(32, 3), (64, 4), (128, 2), (128, 8)])
+@pytest.mark.parametrize("D,G", [(32, 3), (64, 4), (128, 2), (128, 8),
+                                 (256, 4), (256, 1)])
 def test_decode_kernels_match_plain(card, dtype, D, G):
     """Dense (ragged W, a row with no valid slot) and paged (-1 table
     entries, a length-0 row) flash-decode vs the plain masked softmax,
@@ -117,9 +118,9 @@ def _main_edges():
     change: each split boundary of a full row, S, 16 S, 32 S and 64 S
     (pieces of one slot, half a 32-slot tile, one tile, two tiles) and
     W."""
-    B, K, G, W = 8, 8, 2, 2048
+    B, K, G, W, D = 8, 8, 2, 2048, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, S = t_da.decode_grid(B, K, G, W, sms)
+    _, S = t_da.decode_grid(B, K, G, W, sms, D)
     edges = {t_da.split_range(0, W, S, s)[0] for s in range(1, S)}
     edges |= {S, 16 * S, 32 * S, 64 * S, W}
     return S, sorted({min(W, max(0, e + d)) for e in edges
@@ -167,7 +168,7 @@ def test_decode_dense_late_and_wrapped_rings(card, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
 def test_decode_kernels_across_group_and_head_sizes(card, dtype, D, G):
     """G query heads per kv head, head_dim D: dense (a random mask, a late
@@ -181,6 +182,34 @@ def test_decode_kernels_across_group_and_head_sizes(card, dtype, D, G):
     for bs in (16, 32):
         M = -(-W // bs)
         _check_paged(card, dtype, [W // 3, 0, M * bs, 1], M, bs, K, G, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [8, 1])
+def test_decode_kernels_at_gemma3_shapes(card, dtype, B):
+    """gemma3-1b's decode: one kv head of 256, G = 4.  A sliding layer's
+    512-slot ring (full, wrapped with its span starting mid-row, short)
+    and a global layer's 2048-slot horizon, dense and paged at block
+    sizes 16 and 32.  B = 1 puts a row at the D = 256 split cap (24),
+    where the merge fills the ring's 48 KB."""
+    K, G, D = 1, 4, 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if B == 1:
+        assert t_da.decode_grid(B, K, G, 2048, sms, D)[1] == \
+            t_da.max_splits(D, 2)
+    for W in (512, 2048):
+        pos = torch.arange(W, device="cuda")[None, :]
+        start = torch.tensor([137, 0, W - 3, 300, 1, 0, 64, 511][:B],
+                             device="cuda")[:, None]
+        n = torch.tensor([512, 512, 3, 200, 1, 0, 500, 512][:B],
+                         device="cuda")[:, None]
+        wrapped = ((pos - start) % W) < n        # a ring's live span
+        _check_dense(card, dtype, wrapped, K, G, D)
+        ls = [W, 600 % W, 0, 1, W - 1, 17, 513 % W, 256][:B]
+        _check_dense(card, dtype, _prefix(ls, W), K, G, D)
+        for bs in (16, 32):
+            _check_paged(card, dtype, ls, W // bs, bs, K, G, D)
 
 
 @pytest.mark.cuda
@@ -732,9 +761,11 @@ MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
     ("float32", 37, 50, 130), ("bfloat16", 13, 2047, 129),
     ("float32", 8, 6000, 70), ("bfloat16", 1, 1, 1),
     ("bfloat16", 5, 136, 200), ("float32", 37, 64, 136),
-    ("bfloat16", 37, 256, 208), ("float32", 1100, 256, 512)])
+    ("bfloat16", 37, 256, 208), ("float32", 1100, 256, 512),
+    ("bfloat16", 8, 1152, 6912), ("bfloat16", 256, 1152, 6912)])
 def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
-    """The serving shapes (decode M = 8, prefill M = 8 x 32, M = 1), fp32,
+    """The serving shapes (decode M = 8, prefill M = 8 x 32, M = 1; qwen3's
+    d 2048 and gemma3's d 1152, ff 6912), fp32,
     ragged M, d and ff with 16-byte loads where rows are aligned (a last
     ff block of 8 or 16 columns) and scalar loads where not, a d wide
     enough to shrink the row tile, and more row tiles than SMs (one ff
@@ -764,7 +795,8 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     (63, 2048, 6144), (64, 2048, 6144), (65, 2048, 6144),
     (129, 2048, 6144), (8, 2048, 6144), (200, 2048, 320),
     (70, 136, 200), (300, 1000, 520), (17, 8, 8), (129, 2040, 1032),
-    (4352, 2048, 1032)])
+    (4352, 2048, 1032), (8, 1152, 6912), (256, 1152, 6912),
+    (65, 1152, 6912)])
 def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
     """The tensor-core kernel on either side of its 16-row m16 tiles, its
     64-row M tiles and its 64-column ff blocks; d and ff multiples of 8
@@ -1121,6 +1153,71 @@ def test_graphed_engine_matches_eager(card, kv, sampled, spec):
         assert c["warmup_launches"]["fused_mask"] == c["captures"], name
 
 
+def _family_model(pattern):
+    """gemma3-shaped on the card, bf16: head_dim 256, one kv head, G = 4,
+    a 32-token window; ``pattern`` "SG" (a sliding and a global layer:
+    the mixed pool) or "" (every layer sliding: the ring pool)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("gemma3-1b").reduced(),
+                              dtype="bfloat16", head_dim=256,
+                              sliding_window=32, layer_pattern=pattern)
+    model = Model(cfg, device="cuda")
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+def _family_trace(vocab, sampled):
+    """Prompts of 20-45 tokens and 8-16 new ones: contexts past the
+    32-token window, so every ring wraps."""
+    from repro_torch.serving import SamplingParams
+    rng = np.random.default_rng(7)
+    return [(int(rng.integers(0, 3)),
+             rng.integers(0, vocab, int(rng.integers(20, 46)))
+             .astype(np.int32), int(rng.integers(8, 17)), 0,
+             SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                            seed=rid) if sampled else None)
+            for rid in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["SG", ""], ids=["mixed", "sliding"])
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_cache_family_engines_graphed_match_eager(card, pattern, kv):
+    """The sliding and layer-pattern engines on the card at head_dim 256
+    (dense rings; the ring pool or the mixed pool): the graphed engine
+    emits the eager one's sampled streams bit for bit, and a decode
+    replay launches ``gqa_decode`` once a sliding layer (over the ring
+    or its gathered view) and ``gqa_decode_paged`` once a paged global
+    layer."""
+    model, params = _family_model(pattern)
+    trace = _family_trace(model.cfg.vocab, sampled=True)
+    eager, _ = _serve_trace_run(model, params, trace, kv, False)
+    graphed, eng = _serve_trace_run(model, params, trace, kv, True)
+    assert graphed == eager
+    n_global = sum(w == 0 for w in model.layer_windows)
+    want = {"gqa_decode": model.cfg.n_layers - (n_global if kv == "paged"
+                                                else 0),
+            "gqa_decode_paged": n_global if kv == "paged" else 0,
+            "linked_mlp_tc": model.cfg.n_layers, "fused_mask": 1}
+    got = eng.stats()["graphs"]["serve_sample"]["launches"]
+    assert {k: got.get(k, 0) for k in want} == want
+
+
+@pytest.mark.cuda
+def test_ring_matches_dense_sliding_on_the_card(card):
+    """Ring-paged ≡ dense sliding bit for bit on the card, greedy and
+    past the window: both attend through ``gqa_decode`` over the same
+    ring-slot-order layout."""
+    model, params = _family_model("")
+    trace = _family_trace(model.cfg.vocab, sampled=False)
+    dense, _ = _serve_trace_run(model, params, trace, "dense", True)
+    ring, eng = _serve_trace_run(model, params, trace, "paged", True)
+    assert ring == dense
+    assert eng.stats()["kv_window"] == 32
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["dense", "paged"])
 def test_graphed_engine_replans_like_eager(card, kv):
@@ -1271,6 +1368,27 @@ def test_graph_replay_never_syncs_and_counts_launches(card):
     torch.cuda.synchronize()
     for name, count in kernels.LAUNCHES.items():
         assert count == 3 * graph.launches.get(name, 0), name
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dropped_engine(card):
+    """A dropped graphed engine lives on in a reference cycle (its step
+    bodies refer back to it) until the cyclic collector frees it, and its
+    graphs with it; freed in the middle of another engine's capture, they
+    would invalidate that capture.  With the collector at its most eager,
+    a second engine still captures and emits the first one's streams."""
+    import gc
+    model, params = _serve_model()
+    trace = _serve_trace(3, False, model.cfg.vocab)
+    first, _ = _serve_trace_run(model, params, trace, "dense", True)
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        again, eng = _serve_trace_run(model, params, trace, "dense", True)
+    finally:
+        gc.set_threshold(*old)
+    assert again == first
+    assert eng.stats()["graphs"]["serve_sample"]["captures"] == 1
 
 
 @pytest.mark.cuda

@@ -92,7 +92,7 @@ def test_cuda_request_without_a_card_raises():
 
 @pytest.mark.parametrize("arch,item", [
     ("olmoe-1b-7b", "item 9"), ("mamba2-370m", "item 7"),
-    ("hymba-1.5b", "item 7"), ("gemma3-1b", "item 7"),
+    ("hymba-1.5b", "item 7"), ("arctic-480b", "item 9"),
     ("seamless-m4t-large-v2", "item 9")])
 def test_unported_families_fail_loudly(arch, item):
     from repro_torch.configs.base import get_config

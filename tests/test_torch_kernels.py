@@ -28,7 +28,8 @@ def _t(x):
 
 @pytest.mark.parametrize("B,H,K,D,W,bw", [
     (1, 4, 1, 64, 256, 128), (2, 8, 2, 64, 1024, 256),
-    (2, 8, 8, 128, 512, 512), (1, 16, 4, 32, 2048, 1024)])
+    (2, 8, 8, 128, 512, 512), (1, 16, 4, 32, 2048, 1024),
+    (2, 4, 1, 256, 512, 128)])      # gemma3-1b: a sliding layer's ring
 def test_gqa_decode_plain_matches_reference(B, H, K, D, W, bw):
     rng = np.random.default_rng(B * 1000 + W)
     q = rng.normal(size=(B, H, D)).astype(np.float32)
@@ -65,7 +66,8 @@ def test_gqa_decode_row_without_valid_slot_is_mean_of_v():
 
 @pytest.mark.parametrize("B,H,K,D,bs,M", [
     (1, 4, 1, 64, 16, 4), (2, 8, 2, 64, 8, 8),
-    (2, 8, 8, 128, 32, 2), (3, 16, 4, 32, 8, 4)])
+    (2, 8, 8, 128, 32, 2), (3, 16, 4, 32, 8, 4),
+    (2, 4, 1, 256, 16, 8)])         # gemma3-1b: a global layer's pool
 def test_gqa_decode_paged_plain_matches_reference(B, H, K, D, bs, M):
     rng = np.random.default_rng(B * 100 + bs)
     P = B * M + 3
