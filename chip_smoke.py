@@ -28,7 +28,13 @@ Phases (any failure exits non-zero before the result line):
    (the mixed pool's block size and 16), one row at the D = 256 split
    cap, timed beside SDPA; ``fused_mask`` at (8, 262144), served and
    greedy; ``linked_mlp_tc`` at d 1152, ff 6912 (a cluster of 5), M = 8
-   and 256, beside the unlinked form;
+   and 256, beside the unlinked form; and at hymba-1.5b's and
+   mamba2-370m's: ``gqa_decode`` at 25 q / 5 kv heads of 64 (G = 5) over
+   1024-slot rings (wrapped spans, prefixes), timed beside SDPA;
+   ``linked_mlp_tc`` at d 1600, ff 5504 (a cluster of 7, its last rank
+   64 columns), M = 8 and 256; ``fused_mask`` at (8, 32001) in a
+   32,256-wide row and at (8, 50280) in a 50,432-wide one, served and
+   greedy;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -80,12 +86,27 @@ Phases (any failure exits non-zero before the result line):
    dense KV, greedy, streams equal bit for bit.  Prints each run's
    steady step, busy share, profiled kernels and KV bytes beside the
    dense full-attention KV;
+3d. the recurrent cache families at full width (random weights, seed 0,
+   bf16, dense KV, chunked prefill at chunk 32, replanning off):
+   hymba-1.5b (32 layers, d 1600, attention and Mamba2 heads in
+   parallel, window 1024, SSM 50 heads x 64 x state 16) serving 16
+   requests of 1100-1600-token prompts (every ring wraps in prefill) and
+   64 new tokens, greedy and sampled (T 0.8, top-k 50, top-p 0.95), and
+   mamba2-370m (48 layers, d 1024, SSM 32 heads x 64 x state 128)
+   serving 16 requests of 480-544-token prompts, greedy; each run
+   graphed beside its eager twin, streams equal bit for bit, the plan's
+   ``kv_growth`` "constant"; a hymba decode replay launches
+   ``gqa_decode`` and ``linked_mlp_tc`` 32 times and ``fused_mask``
+   once, a mamba2 one ``fused_mask`` alone (no attention or MLP kernel
+   ever).  Prints each run's steady step, busy share and cache bytes
+   (ring KV, SSM state, conv register) beside hymba's full-attention KV;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth (qwen3 at 2
    layers; gemma3 at 6, five sliding and one global, 600-token
-   prompts): greedy streams must match wherever the plain path's
-   top-1/top-2 logit margin (its engine's computation replayed for one
-   request) exceeds the bf16 tolerance;
+   prompts; hymba at 4, dense KV, its attention drawn at one layer's
+   fan-in): greedy streams must match wherever
+   the plain path's top-1/top-2 logit margin (its engine's computation
+   replayed for one request) exceeds the bf16 tolerance;
 5. the paper's CNN path: the zoo's MobileNet (224, width 1.0, 1000
    classes) and ResNet18 (224, width 64, 1000 classes) at the zoo's depth,
    the Figure-5 graph, both Table-4 CBRA graphs, and the zoo's
@@ -215,6 +236,20 @@ G3_D_MODEL, G3_D_FF, G3_VOCAB = 1152, 6912, 262144
 G3_PROMPT_LENS = (600, 1100)
 #: phase 3c's profiled decode ticks (the first wave's decode)
 G3_WINDOW_TICKS = (40, 45)
+#: hymba-1.5b (configs/hymba_1_5b.py): 25 q / 5 kv heads of 64 over a
+#: 1024-token window, d 1600, ff 5504, vocab 32,001 in a 32,256-wide
+#: padded row; mamba2-370m's vocab 50,280 in a 50,432-wide row
+HY_H, HY_K, HY_D, HY_WINDOW = 25, 5, 64, 1024
+HY_D_MODEL, HY_D_FF, HY_VOCAB, HY_ROW = 1600, 5504, 32001, 32256
+M2_VOCAB, M2_ROW = 50280, 50432
+#: phase 3d's prompts: hymba's past its window (every ring wraps in
+#: prefill), mamba2's phase 3's
+HY_PROMPT_LENS = (1100, 1600)
+M2_PROMPT_LENS = PROMPT_LENS
+#: phase 3d's profiled decode ticks (the first wave's decode, every slot
+#: decoding)
+HY_WINDOW_TICKS = (60, 65)
+M2_WINDOW_TICKS = (30, 35)
 
 
 def fail(msg: str) -> None:
@@ -428,15 +463,16 @@ def check_dense(torch, ops, gen, report):
     print_share(report["gqa_decode"])
 
 
-def g3_decode_case(torch, dtype, W, spans, gen):
+def g3_decode_case(torch, dtype, W, spans, gen, heads=(G3_H, G3_K, G3_D)):
     """gemma3's decode shape over a W-slot dense ring: q (8, 4, 256), k/v
-    (8, W, 1, 256); row b's live span is ``spans[b] = (start, n)`` slots
-    from ``start``, wrapping past the ring's end (a ring whose span starts
-    mid-row)."""
+    (8, W, 1, 256) (``heads``: another model's (H, K, D)); row b's live
+    span is ``spans[b] = (start, n)`` slots from ``start``, wrapping past
+    the ring's end (a ring whose span starts mid-row)."""
     B = len(spans)
-    q = torch.randn((B, G3_H, G3_D), generator=gen, device=DEV).to(dtype)
-    k = torch.randn((B, W, G3_K, G3_D), generator=gen, device=DEV).to(dtype)
-    v = torch.randn((B, W, G3_K, G3_D), generator=gen, device=DEV).to(dtype)
+    nh, nk, hd = heads
+    q = torch.randn((B, nh, hd), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((B, W, nk, hd), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((B, W, nk, hd), generator=gen, device=DEV).to(dtype)
     pos = torch.arange(W, device=DEV)[None, :]
     start = torch.tensor([a for a, _ in spans], device=DEV)[:, None]
     n = torch.tensor([c for _, c in spans], device=DEV)[:, None]
@@ -549,6 +585,52 @@ def check_decode_gemma3(torch, ops, gen, bs, report):
         report[kernel]["gemma3_max_abs_err"] = w
         report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"],
                                             w["bfloat16"])
+
+
+def check_decode_hymba(torch, ops, gen, report):
+    """``gqa_decode`` at hymba's shapes: 25 q / 5 kv heads of 64 (G = 5:
+    one query head a CTA, 200 work units at B = 8) over its 1024-slot
+    sliding rings, element by element in fp32 and bf16 (full windows
+    whose span starts mid-row, short, empty, prefix rows), then timed at
+    the served shape (bf16, every window full, as after a prefill past
+    it) beside SDPA and the bytes bound; under ``hymba`` in the row."""
+    heads = (HY_H, HY_K, HY_D)
+    W = HY_WINDOW
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gt, S = ops.decode_grid(SLOTS, HY_K, HY_H // HY_K, W, sms, HY_D)
+    worst = {}
+    cases = {"wrapped": [(137, W), (0, W), (W - 3, 3), (300, 200), (1, 1),
+                         (0, 0), (64, 1000), (W - 1, W)],
+             "prefix": [(0, n) for n in (W, 600, 0, 1, W - 1, 17, 513,
+                                         256)]}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for label, sp in cases.items():
+            q, k, v, valid = g3_decode_case(torch, dtype, W, sp, gen, heads)
+            err = check_close(
+                f"gqa_decode hymba {name} W={W} {label} (GT {gt}, {S} "
+                "splits)", ops.gqa_decode(q, k, v, valid),
+                ops.gqa_decode_plain(q, k, v, valid), name)
+            worst[name] = max(worst.get(name, 0.0), err)
+    sp = [(s0, W) for s0 in (137, 0, 300, 480, 64, 7, 211, 1000)]
+    rows = sum(n for _, n in sp)
+    sets = [g3_decode_case(torch, torch.bfloat16, W, sp, gen, heads)
+            for _ in range(ROTATE)]
+    nbytes = 2 * rows * HY_K * HY_D * 2 + 2 * SLOTS * HY_H * HY_D * 2 \
+        + SLOTS * W
+    b_ms, b_by = bound_ms(nbytes, 4 * rows * HY_H * HY_D, "bfloat16")
+    row = {"shape": [SLOTS, HY_H, HY_K, HY_D, W], "dtype": "bfloat16",
+           "gt": gt, "splits": S,
+           "ms": cuda_ms([lambda s=s: ops.gqa_decode(*s) for s in sets]),
+           "plain_ms": cuda_ms([lambda s=s: ops.gqa_decode_plain(*s)
+                                for s in sets]),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in sets]),
+           "max_abs_err": worst}
+    report["gqa_decode"]["hymba"] = row
+    report["gqa_decode"]["max_abs_err"] = max(
+        report["gqa_decode"]["max_abs_err"], worst["bfloat16"])
+    print_share({"name": "gqa_decode hymba w1024", **row})
 
 
 def print_share(row) -> None:
@@ -750,16 +832,19 @@ def check_fused_mask(torch, ops, gen, report):
     }
 
 
-def check_fused_mask_gemma3(torch, ops, gen, report):
-    """``fused_mask`` at gemma3's rows, (8, 262144): the widest yet.  The
-    served policy (T 0.8, top-k 50, top-p 0.95) and the greedy one, held
-    against the plain version as at qwen3's rows (equal survivors, equal
-    supports off the nucleus boundary, two launches the same bits) and
-    timed beside the bytes bound; under ``gemma3`` in the row."""
-    B, V = SLOTS, G3_VOCAB
+def check_fused_mask_rows(torch, ops, gen, report, key, V, width):
+    """``fused_mask`` at another model's rows, (8, V) sliced out of rows
+    ``width`` wide as served (its padded vocabulary): gemma3's (8,
+    262144), the widest; hymba's odd 32,001 in 32,256 and mamba2's
+    50,280 in 50,432.  The served policy (T 0.8, top-k 50, top-p 0.95)
+    and the greedy one, held against the plain version as at qwen3's
+    rows (equal survivors, equal supports off the nucleus boundary, two
+    launches the same bits) and timed beside the bytes bound; under
+    ``key`` in the row."""
+    B = SLOTS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     solo = ops.solo_clusters(torch.device(DEV))
-    logits = torch.randn((B, V + 256), generator=gen, device=DEV) * 3.0
+    logits = torch.randn((B, width), generator=gen, device=DEV) * 3.0
     rows = logits[:, :V]                    # a strided slice, as served
     b_ms, b_by = bound_ms(2 * B * V * 4 + B * 12, B * V, "float32")
     out = {"rows": [B, V], "plan": ops.mask_plan(B, V, sms,
@@ -768,7 +853,7 @@ def check_fused_mask_gemma3(torch, ops, gen, report):
         args = mask_policy(torch, *MASK_POLICIES[label])
         got = ops.fused_mask(rows, *args)
         if not torch.equal(got, ops.fused_mask(rows, *args)):
-            fail(f"fused_mask gemma3 {label}: two launches gave different "
+            fail(f"fused_mask {key} {label}: two launches gave different "
                  "bits")
         want = ops.fused_mask_plain(rows, *args)
         free = ops.nucleus_boundary(rows, *args)
@@ -777,7 +862,7 @@ def check_fused_mask_gemma3(torch, ops, gen, report):
         err = (got[both] - want[both]).abs().max().item() \
             if both.any() else 0.0
         if (differ & ~free).any() or err != 0.0:
-            fail(f"fused_mask gemma3 ({B},{V}) {label} disagrees with its "
+            fail(f"fused_mask {key} ({B},{V}) {label} disagrees with its "
                  "plain version")
         r = out[label] = {
             "policy": list(MASK_POLICIES[label]),
@@ -786,11 +871,13 @@ def check_fused_mask_gemma3(torch, ops, gen, report):
                                 iters=5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "boundary_tokens_differing": int(differ.sum())}
-        print(f"fused_mask gemma3 ({B},{V}) {label}: plan {out['plan']}; "
+        print(f"fused_mask {key} ({B},{V}) in rows {width} wide {label}: "
+              f"plan {out['plan']}; "
               f"supports differ on {int(differ.sum())} nucleus-boundary "
               f"tokens; {r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"share {b_ms / r['ms']:.3f}; plain {r['plain_ms']:.4f} ms")
-    report["fused_mask"]["gemma3"] = out
+    out["row_width"] = width
+    report["fused_mask"][key] = out
 
 
 def unlinked_cbra(x, w, b):
@@ -1053,12 +1140,16 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
     # gemma3-1b's MLP: d 1152 is no multiple of the 256 columns a cluster
     # rank owns (a cluster of 5, the last rank 128 columns), ff 6912 is
     # 108 blocks; decode (slots rows) and a 32-token chunk of the slots
-    gemma3 = {"gemma3_decode": (SLOTS, G3_D_MODEL, G3_D_FF, bf16),
-              "gemma3_prefill_c32": (SLOTS * 32, G3_D_MODEL, G3_D_FF, bf16)}
-    for label, shape in {**cases, **gemma3}.items():
+    # hymba-1.5b's: d 1600 is a cluster of 7 whose last rank owns 64
+    # columns, half of warpgroup 0's 128
+    others = {"gemma3_decode": (SLOTS, G3_D_MODEL, G3_D_FF, bf16),
+              "gemma3_prefill_c32": (SLOTS * 32, G3_D_MODEL, G3_D_FF, bf16),
+              "hymba_decode": (SLOTS, HY_D_MODEL, HY_D_FF, bf16),
+              "hymba_prefill_c32": (SLOTS * 32, HY_D_MODEL, HY_D_FF, bf16)}
+    for label, shape in {**cases, **others}.items():
         linked_mlp_case(torch, ops, gen, label, shape, row,
-                        timed=label in served or label in gemma3)
-    for label, (M, d, ff, dt) in gemma3.items():
+                        timed=label in served or label in others)
+    for label, (M, d, ff, dt) in others.items():
         plan = row["per_shape"][label]["plan"]
         if plan["path"] != "tc" or plan["cl"] != -(-d // ops.TC_DS):
             fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
@@ -1337,8 +1428,23 @@ def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
     decode-attention kernel launches ``attn[kernel]`` times every decode
     step (K1 times that at a verify of width K1), and ``fused_mask`` once
     a sampler dispatch; a graphed run's launches are its replays' plus its
-    graphs' warm-ups, each warm-up the launches of one replay."""
+    graphs' warm-ups, each warm-up the launches of one replay.  A family
+    with no MLP (mamba2) launches no ``linked_mlp`` at all."""
     ln, warm = run["launches"], run["warmup"]
+    if not cfg.d_ff:
+        attn = {**attn, "linked_mlp": 0, "linked_mlp_tc": 0}
+        print(f"{label}: " + "; ".join(f"{k} {ln.get(k, 0)}" for k in attn)
+              + f"; fused_mask {ln['fused_mask']} over "
+              f"{run['sampler_calls']} sampler dispatches and warm-ups "
+              f"{warm.get('fused_mask', 0)}")
+        for k in attn:
+            if ln.get(k, 0):
+                fail(f"{label}: {k} launched {ln[k]} times, want none")
+        want = run["sampler_calls"] + warm.get("fused_mask", 0)
+        if ln["fused_mask"] != want or want <= 0:
+            fail(f"{label}: fused_mask launched {ln['fused_mask']} times, "
+                 f"want one per sampler dispatch and warm-up ({want})")
+        return
     for name, g in run["graphs"].items():
         want = {k: g["captures"] * n for k, n in g["launches"].items()}
         if g["warmup_launches"] != want:
@@ -1493,15 +1599,11 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
 
 
 def kv_bytes(engine) -> dict:
-    """The KV bytes an engine's caches hold (every layer's K and V, a
-    pool's write sink included), by cache kind, beside the dense
-    full-attention KV of the same slots, horizon and heads."""
-    caches = engine.caches
-    out: dict = {}
-    for c in (caches if type(caches) is tuple else (caches,)):
-        kind = type(c.kv).__name__
-        out[kind] = out.get(kind, 0) + sum(
-            t.numel() * t.element_size() for t in (c.kv.k, c.kv.v))
+    """The bytes an engine's caches hold by kind (``cache_bytes``: each
+    KV layout's K and V, a pool's write sink included; SSM state and
+    conv register), beside the dense full-attention KV of the same
+    slots, horizon and heads."""
+    out = engine.cache_bytes()
     cfg = engine.model.cfg
     out["dense_full_equivalent"] = (
         2 * cfg.n_layers * engine.slots * engine.max_len * cfg.n_kv_heads
@@ -1594,6 +1696,61 @@ def cache_family_phase(torch, kernels, serve, Model, gemma3, qwen,
     return runs
 
 
+def state_mb(run) -> str:
+    """A run's cache bytes by kind (``kv_bytes``), in MB."""
+    return ", ".join(f"{k} {v / 1e6:.1f} MB"
+                     for k, v in run["kv_bytes"].items())
+
+
+def recurrent_phase(torch, kernels, serve, hymba, mamba2) -> dict:
+    """Phase 3d: hymba-1.5b at full width, greedy and sampled, and
+    mamba2-370m at full width, greedy, each graphed beside its eager twin
+    (the same requests, replanning off, dense KV), streams equal bit for
+    bit.  A hymba decode replay launches ``gqa_decode`` and
+    ``linked_mlp_tc`` once a layer and ``fused_mask`` once; a mamba2 one
+    ``fused_mask`` alone.  Prints each run's steady step, busy share and
+    cache bytes beside the full-attention KV of the same slots and
+    horizon (``kv_bytes``; 0 for mamba2)."""
+    runs = {}
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.95)
+    plan = [("hymba_greedy", hymba, {}, 20, HY_PROMPT_LENS, HY_WINDOW_TICKS),
+            ("hymba_sampled", hymba, sampled, 21, HY_PROMPT_LENS,
+             HY_WINDOW_TICKS),
+            ("mamba2_greedy", mamba2, {}, 22, M2_PROMPT_LENS,
+             M2_WINDOW_TICKS)]
+    for label, (model, params), policy, seed, lens, window in plan:
+        cfg = model.cfg
+        args = serve_args(serve, kv="dense", **policy)
+        n = cfg.n_layers if cfg.d_ff else 0
+        for graphed in (True, False):
+            name = label if graphed else f"{label}_eager"
+            engine = serve.build_engine(args, model, params, graphed=graphed)
+            if engine.stats()["plan"]["kv_growth"] != "constant":
+                fail(f"{name}: plan kv_growth "
+                     f"{engine.stats()['plan']['kv_growth']}, want constant")
+            runs[name] = serve_phase(torch, kernels, serve, engine, args,
+                                     name, seed, window=window, lens=lens)
+            runs[name]["kv_bytes"] = kv_bytes(engine)
+            del engine
+            check_launches(name, runs[name], cfg, True,
+                           {"gqa_decode": n, "gqa_decode_paged": 0})
+            if graphed:
+                want = {"gqa_decode": n, "gqa_decode_paged": 0,
+                        "linked_mlp_tc": n, "fused_mask": 1}
+                got = runs[name]["graphs"]["serve_sample"]["launches"]
+                if {k: got.get(k, 0) for k in want} != want:
+                    fail(f"{name}: a decode replay launches {got}, want "
+                         f"{want}")
+            print(f"{name}: cache {state_mb(runs[name])}")
+        same_streams(f"{label} graphed vs eager", runs[label],
+                     runs[f"{label}_eager"])
+        g, e = runs[label], runs[f"{label}_eager"]
+        print(f"{label}: decode step eager {e['mean_decode_ms']:.2f} ms "
+              f"(busy {e['busy_share']}), graphed {g['mean_decode_ms']:.2f} "
+              f"ms (busy {g['busy_share']}); cache {state_mb(g)}")
+    return runs
+
+
 def plain_logits(torch, model, params, prompt, generated, chunk: int,
                  max_len: int):
     """The plain plan's logits at each emitted step of one request, the
@@ -1616,8 +1773,19 @@ def plain_logits(torch, model, params, prompt, generated, chunk: int,
 
 
 def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
-                 prompt_len: int = 64, max_len: int = 256):
-    """Routed cuda plan vs plain-backend plan, reduced depth, greedy."""
+                 prompt_len: int = 64, max_len: int = 256,
+                 kvs=("dense", "paged"), per_layer_fan_in: bool = False):
+    """Routed cuda plan vs plain-backend plan, reduced depth, greedy, over
+    each KV layout in ``kvs``.  ``per_layer_fan_in`` draws the attention
+    projections at one layer's fan-in: ``Model.init`` (as the
+    reference's) takes a stacked 4-D leaf's fan-in from its layer axis,
+    so a stack without qk-norm (hymba) at a few layers attends with
+    scores of std in the hundreds, a one-hot softmax under which two
+    correct bf16 paths part far past the margin rule (on an H100, hymba
+    at 4 layers split at step 0, margin 0.109 against 0.067, in
+    prefill, where the two plans differ only in the MLP), as
+    ``tests/test_torch_recurrent.py`` shows the reference doing under a
+    1e-7 move of its own weights."""
     small = dataclasses.replace(cfg, n_layers=n_layers)
     # the plain-torch plan at every site; the model's own plan, so the
     # margin logits come from it too
@@ -1626,10 +1794,16 @@ def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
                                 linked_matmul="torch", split_matmul="torch",
                                 sampler="fused")
     model = Model(small, kernel_plan=plain, device=DEV)
-    params = model.cast_params(model.init(
-        torch.Generator(device=DEV).manual_seed(1)))
+    raw = model.init(torch.Generator(device=DEV).manual_seed(1))
+    if per_layer_fan_in:
+        attn = raw["layers"]["attn"]
+        for k in ("wq", "wk", "wv"):
+            attn[k].mul_((n_layers / small.d_model) ** 0.5)
+        attn["wo"].mul_((n_layers / (small.n_heads
+                                     * small.resolved_head_dim)) ** 0.5)
+    params = model.cast_params(raw)
     out = {}
-    for kv in ("dense", "paged"):
+    for kv in kvs:
         streams = {}
         for name, plan in (("plain", plain), ("routed", None)):
             args = serve_args(serve, requests=4, prompt_len=prompt_len,
@@ -1916,8 +2090,14 @@ def main() -> int:
     check_dense(torch, dec_ops, gen, report)
     check_paged(torch, dec_ops, gen, bs, report)
     check_decode_gemma3(torch, dec_ops, gen, g3_bs, report)
+    check_decode_hymba(torch, dec_ops, gen, report)
     check_fused_mask(torch, fs_ops, gen, report)
-    check_fused_mask_gemma3(torch, fs_ops, gen, report)
+    check_fused_mask_rows(torch, fs_ops, gen, report, "gemma3", G3_VOCAB,
+                          G3_VOCAB + 256)
+    check_fused_mask_rows(torch, fs_ops, gen, report, "hymba", HY_VOCAB,
+                          HY_ROW)
+    check_fused_mask_rows(torch, fs_ops, gen, report, "mamba2", M2_VOCAB,
+                          M2_ROW)
     check_cbr_avgpool(torch, cb_ops, gen, report)
     check_linked_mlp(torch, lm_ops, gen, pipeline.SERVE_CHUNK_SIZES, report)
     check_split_matmul(torch, sm_ops, gen, report)
@@ -1934,8 +2114,28 @@ def main() -> int:
     runs.update(cache_family_phase(torch, kernels, serve, Model,
                                    (g3_model, g3_params), (model, params),
                                    g3_paged_args))
-    result["serve"] = runs
     del params, g3_params
+    torch.cuda.empty_cache()
+    recurrent = {}
+    for arch in ("hymba-1.5b", "mamba2-370m"):
+        rcfg = get_config(arch)
+        rmodel = Model(rcfg, device=DEV)
+        t0 = time.perf_counter()
+        recurrent[arch] = (rmodel, rmodel.cast_params(rmodel.init(
+            torch.Generator(device=DEV).manual_seed(0))))
+        torch.cuda.synchronize()
+        print(f"{arch} full width ({rcfg.n_layers} layers, d "
+              f"{rcfg.d_model}, {rcfg.n_heads} q / {rcfg.n_kv_heads} kv "
+              f"heads, window {rcfg.sliding_window}, SSM {rcfg.ssm_heads} "
+              f"heads x {rcfg.ssm_head_dim} x state {rcfg.ssm_state}, conv "
+              f"{rcfg.ssm_conv}, ff {rcfg.d_ff}, vocab {rcfg.vocab}): "
+              f"{rmodel.param_count() / 1e9:.3f} B params initialized in "
+              f"{time.perf_counter() - t0:.1f} s")
+    runs.update(recurrent_phase(torch, kernels, serve,
+                                recurrent["hymba-1.5b"],
+                                recurrent["mamba2-370m"]))
+    result["serve"] = runs
+    del recurrent
     torch.cuda.empty_cache()
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
     # gemma3 at six layers (five sliding, one global), prompts past the
@@ -1943,6 +2143,11 @@ def main() -> int:
     result["parity_gemma3"] = parity_phase(
         torch, serve, pipeline, Model, g3cfg, n_layers=6, prompt_len=600,
         max_len=1024)
+    # hymba at four layers: dense KV, the only layout it serves; its
+    # attention at one layer's fan-in (see parity_phase)
+    result["parity_hymba"] = parity_phase(
+        torch, serve, pipeline, Model, get_config("hymba-1.5b"), n_layers=4,
+        kvs=("dense",), per_layer_fan_in=True)
     torch.cuda.empty_cache()
 
     plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})

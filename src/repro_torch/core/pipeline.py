@@ -621,9 +621,11 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     ``sliding_window`` (a sliding family's window, 0 = none) and
     ``kv_mixed`` (sliding and global layers) set ``kv_growth`` to
     ``"window"`` / ``"mixed"`` and a paged plan's ring geometry
-    (:func:`_plan_kv_pool`).  The constant-state and mesh options follow
-    with the paths that set them (ROADMAP queue 1 items 7b and 8).  On a
-    CUDA engine the two timings are synchronized step times (see
+    (:func:`_plan_kv_pool`); ``constant_state`` (the family carries
+    recurrent SSM / hybrid state: per-request decode state is O(1) in
+    context) sets it to ``"constant"``, ahead of the other two.  The mesh
+    option follows with the path that sets it (ROADMAP queue 1 item 8).
+    On a CUDA engine the two timings are synchronized step times (see
     :class:`StageTimer`)."""
     o = ctx.options
     slots = int(o.get("slots", 4))
@@ -634,6 +636,7 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     can_chunk = bool(o.get("can_chunk", True))
     window = int(o.get("sliding_window", 0))
     mixed = bool(o.get("kv_mixed", False))
+    constant_state = bool(o.get("constant_state", False))
 
     if decode_s > 0.0 and prefill_tok_s > 0.0:
         budget_tokens = CHUNK_RATIO * decode_s / prefill_tok_s
@@ -673,10 +676,12 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
                         else max(1, int(o.get("replan_every", 32)) // 2),
         "modeled_chunk_cost_steps": round(chunk * prefill_tok_s / decode_s, 2)
                                     if decode_s > 0 else None,
-        # how per-request KV grows with context: O(seq) full attention,
-        # O(window) sliding, and a mixed stack linear with the global
-        # layers' slope only
-        "kv_growth": "mixed" if mixed else "window" if window else "linear",
+        # how per-request KV grows with context: O(1) recurrent state (a
+        # hybrid's sliding attention is window-bounded too), O(seq) full
+        # attention, O(window) sliding, and a mixed stack linear with the
+        # global layers' slope only
+        "kv_growth": ("constant" if constant_state else "mixed" if mixed
+                      else "window" if window else "linear"),
     }
     if kv == "paged":
         plan["kv"] = kv
@@ -741,10 +746,10 @@ register_pass(Pass(
 #:                         ``decode_dense`` site, its kernel on a card);
 #:   * ``sampler``       — token sampling (``reference`` two-sort |
 #:                         ``fused`` one-sort | ``cuda`` sort-free
-#:                         ``fused_mask`` kernel).
-#:
-#: The reference's ``ssm_scan`` site comes with the path that runs it
-#: (ROADMAP queue 1 item 7b).
+#:                         ``fused_mask`` kernel);
+#:   * ``ssm_scan``      — the masked SSD state scan of SSM / hybrid
+#:                         chunked prefill and decode (``torch`` only, as
+#:                         the reference's is ``xla`` only: plain ops).
 KERNEL_SITE_BACKENDS: dict[str, tuple[str, ...]] = {
     "decode_dense": ("torch", "cuda"),
     "decode_paged": ("gather", "fold", "cuda"),
@@ -753,6 +758,7 @@ KERNEL_SITE_BACKENDS: dict[str, tuple[str, ...]] = {
     "linked_matmul": ("torch", "cuda"),
     "split_matmul": ("torch", "cuda"),
     "sampler": ("reference", "fused", "cuda"),
+    "ssm_scan": ("torch",),
 }
 
 
@@ -771,6 +777,7 @@ class KernelPlan:
     linked_matmul: str = "torch"
     split_matmul: str = "torch"
     sampler: str = "reference"
+    ssm_scan: str = "torch"
 
     def __post_init__(self):
         for site, backend in self.items():
@@ -845,6 +852,7 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
         linked_matmul="cuda" if cuda else "torch",
         split_matmul="cuda" if cuda else "torch",
         sampler="cuda" if cuda else "fused",
+        ssm_scan="torch",
     )
     return plan, detail
 

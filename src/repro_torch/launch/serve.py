@@ -16,6 +16,9 @@ batching on one device (the card by default).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --reduced --sliding-window 32 --kv paged --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --reduced --device cpu
+
 The same flags as ``python -m repro.launch.serve``, plus ``--device``.
 Weights are random, drawn on the device from ``--seed``
 (``Model.init``); ``--spec draft`` drafts with the arch's reduced config
@@ -26,7 +29,11 @@ and verify steps run as CUDA graphs on the card (``ServingEngine``'s
 (named ``<arch>-swa<W>``, as the reference names it): per-request KV
 stays O(W), and with ``--kv paged`` the pool runs window-sized ring
 tables; a layer-pattern arch (gemma3-1b) runs its own windows, paged
-through a ``MixedKVPool``.  Exits nonzero when a request did not complete
+through a ``MixedKVPool``.  The recurrent archs (``mamba2-370m``,
+``hymba-1.5b``) carry constant-size SSM state per slot (the report's
+``cache`` line: ``kv_growth constant`` and the bytes of each cache kind)
+and serve dense KV only: ``--kv paged`` fails with the engine's
+``ValueError``.  Exits nonzero when a request did not complete
 or the batched decode loop produced no throughput.  Flags for paths this
 slice does not port (``--mesh-shards`` > 1, ``--replicas`` > 1) raise
 ``NotImplementedError``.
@@ -199,6 +206,9 @@ def main(argv=None) -> int:
     print(f"plan: {stats['plan']} (prefill_mode={stats['prefill_mode']}, "
           f"kv={stats['kv']})")
     print(f"kernel plan: {stats['kernel_plan']}")
+    print(f"cache: kv_growth {stats['plan']['kv_growth']}; "
+          + ", ".join(f"{k} {v / 1e6:.1f} MB"
+                      for k, v in stats["cache_bytes"].items()))
     if "spec" in stats:
         sp = stats["spec"]
         # emissions and draft traffic are different currencies: report

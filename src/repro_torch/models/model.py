@@ -1,8 +1,9 @@
 """Top-level model: parameters and the serving steps, in PyTorch.
 
 The counterpart of ``repro.models.model.Model`` for the dense family
-(full attention, sliding windows and layer patterns): ``param_specs``,
-``init``, ``forward``,
+(full attention, sliding windows and layer patterns) and the recurrent
+ones (``ssm``: Mamba2 alone; ``hybrid``: attention and Mamba2 heads in
+parallel): ``param_specs``, ``init``, ``forward``,
 ``prefill_step``, ``prefill_chunk``, ``serve_step``, ``verify_step``,
 ``init_caches``, ``init_paged_caches``, ``reset_cache_rows`` and
 ``rollback_cache_rows``.  The parameter tree is
@@ -18,8 +19,8 @@ Differences of idiom, not of result:
   takes its own window and RoPE theta (``layer_windows``,
   ``layer_thetas``); other stacks keep one stacked cache;
 * caches are updated **in place** and returned; a decode step writes K/V,
-  positions and lengths only for live rows (the reference writes every
-  row and restores the dead ones wholesale);
+  positions, lengths and SSM state only for live rows (the reference
+  writes every row and restores the dead ones wholesale);
 * ``cast_params`` makes one serving copy in ``cfg.dtype`` (the reference
   casts fp32 params at every use — the same numbers);
 * the model lives on one ``device`` (default ``"cuda"``); asking for
@@ -36,6 +37,7 @@ import torch
 from .. import resolve_device
 from . import attention as A
 from . import cache_family as CF
+from . import ssm as SSM
 from . import transformer as T
 from .layers import (embed_lookup, embed_specs, init_params, param_count,
                      rms_norm, rms_norm_spec, stack_layer_specs, swiglu,
@@ -134,10 +136,15 @@ class Model:
         return min(w, seq_len)
 
     def _stack(self, one: T.LayerCache) -> T.LayerCache:
-        """One layer's cache repeated along a leading layer axis."""
+        """One layer's cache repeated along a leading layer axis (every
+        leaf: KV and SSM state)."""
         L = self.cfg.n_layers
-        return T.LayerCache(kv=type(one.kv)(
-            *(t.expand(L, *t.shape).clone() for t in one.kv)))
+
+        def rep(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.expand(L, *tree.shape).clone()
+            return type(tree)(*(rep(v) for v in tree))
+        return rep(one)
 
     def init_caches(self, batch: int, seq_len: int):
         """Ring-buffer caches with a leading layer axis on every leaf — or,
@@ -213,14 +220,23 @@ class Model:
         return {"window": self.layer_windows[i],
                 "rope_theta": self.layer_thetas[i]}
 
-    def _run_layers(self, params, caches, x, attn, mlp_backend: str):
-        """Residual attention then residual SwiGLU through every layer:
-        ``attn(p, h, cache, **layer_args)`` attends layer ``i`` over its
-        cache view with its window and theta."""
+    def _run_layers(self, params, caches, x, attn, ssm, mlp_backend: str):
+        """Every layer's token mixing, by family, then (but for ``ssm``)
+        the residual SwiGLU: ``attn(p, h, kv, **layer_args)`` attends layer
+        ``i`` over its KV view with its window and theta, ``ssm(p, h, sc)``
+        runs its Mamba2 mixer over its SSM state view; a hybrid layer runs
+        both on the same normed input and mean-fuses them."""
+        fam = self.cfg.family
         for i, (lp, c) in enumerate(zip(self._layers(params),
                                         self._layer_caches(caches))):
             h = rms_norm(x, lp["norm1"])
-            x = x + attn(lp["attn"], h, c.kv, **self._layer_kw(i))
+            if fam == "ssm":
+                x = x + ssm(lp["ssm"], h, c.ssm)
+                continue
+            att = attn(lp["attn"], h, c.kv, **self._layer_kw(i))
+            if fam == "hybrid":
+                att = T.fuse_hybrid(lp, att, ssm(lp["ssm"], h, c.ssm))
+            x = x + att
             x = x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"]), mlp_backend)
         return x
 
@@ -229,22 +245,35 @@ class Model:
 
         ``max_len`` sizes the cache for the decode horizon.
         ``batch["lengths"]`` (B,) makes this a right-padded multi-sequence
-        prefill: per-row logits come from position ``lengths[b]-1``.
+        prefill: per-row logits come from position ``lengths[b]-1``;
+        attention-only families alone (a recurrent scan cannot stop at a
+        per-row length: the engine groups equal-length prompts instead).
         ``plan`` overrides ``self.kernel_plan`` for this call."""
         cfg = self.cfg
         plan = plan if plan is not None else self.kernel_plan
         tokens = batch["tokens"].to(self.device)
         lengths = batch.get("lengths")
+        if lengths is not None and not cfg.attention_only:
+            raise NotImplementedError(
+                "padded-batch prefill (lengths=...) needs attention-only "
+                f"layers; {cfg.family} carries recurrent state through the "
+                "padded tail")
         if lengths is not None:
             lengths = lengths.to(self.device)
         B, S = tokens.shape
         x = self._embed(params, tokens)
         caches = self.init_caches(B, max(max_len, S))
+
+        def ssm(p, h, sc):
+            y, state = SSM.mamba2_block(p, h, cfg=cfg, return_state=True)
+            sc.state.copy_(state)
+            sc.conv.copy_(SSM.conv_tail(p, h, cfg))
+            return y
         x = self._run_layers(
             params, caches, x,
             lambda p, h, kv, **kw: A.prefill_into_cache(
                 p, h, kv, cfg=cfg, lengths=lengths, **kw)[0],
-            plan.linked_matmul)
+            ssm, plan.linked_matmul)
         if lengths is None:
             x = x[:, -1:]
         else:
@@ -272,6 +301,8 @@ class Model:
             params, caches, x,
             lambda p, h, kv, **kw: _chunk_fn(kv)(
                 p, h, kv, cfg=cfg, offsets=offsets, n_new=n_new, **kw)[0],
+            lambda p, h, sc: SSM.mamba2_chunk_update(
+                p, h, sc, cfg=cfg, n_new=n_new, backend=plan.ssm_scan)[0],
             plan.linked_matmul)
         idx = (n_new - 1).clamp(0, C - 1).long()
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[2]))
@@ -291,7 +322,8 @@ class Model:
             self._layers(params), x, self._layer_caches(caches),
             cfg=cfg, dense_backend=plan.decode_dense,
             paged_backend=plan.decode_paged, ring_backend=plan.decode_ring,
-            mlp_backend=plan.linked_matmul, live=live,
+            ssm_backend=plan.ssm_scan, mlp_backend=plan.linked_matmul,
+            live=live,
             layer_windows=self.layer_windows if self.hetero else None,
             layer_thetas=self.layer_thetas if self.hetero else None)
         return self._head(params, x)[:, 0], caches
@@ -358,20 +390,29 @@ class Model:
 
     def reset_cache_rows(self, caches, rows):
         """Mark slot rows ``rows`` ((B,) bool) empty for refill, in place:
-        only validity metadata changes (positions -> -1, length -> 0, for
-        every cache that carries positions: the dense ring and the ring
-        pool); a classic paged cache's rows are re-pointed at admission
-        instead.  Stacked leaves carry a leading layer axis, a
-        layer-pattern tuple's are batch-major."""
+        validity metadata (positions -> -1, length -> 0, for every cache
+        that carries positions: the dense ring and the ring pool) and the
+        recurrent SSM state and conv register (-> 0); stale K/V payloads
+        are dead once no position points at them, and a classic paged
+        cache's rows are re-pointed at admission instead.  Stacked leaves
+        carry a leading layer axis, a layer-pattern tuple's are
+        batch-major."""
         rows = rows.to(self.device, torch.bool)
         per_layer = type(caches) is tuple
-        pos_rows = rows[:, None] if per_layer else rows[None, :, None]
-        len_rows = rows if per_layer else rows[None, :]
+        lead = 1 if per_layer else 2
+
+        def clear(leaf, value):
+            m = rows.reshape((1,) * (lead - 1) + rows.shape
+                             + (1,) * (leaf.dim() - lead))
+            leaf.copy_(torch.where(m, value, leaf))
         for c in (caches if per_layer else (caches,)):
             kv = c.kv
             if hasattr(kv, "positions"):
-                kv.positions.copy_(torch.where(pos_rows, -1, kv.positions))
-                kv.length.copy_(torch.where(len_rows, 0, kv.length))
+                clear(kv.positions, -1)
+                clear(kv.length, 0)
+            if isinstance(c.ssm, SSM.SSMCache):
+                clear(c.ssm.state, 0)
+                clear(c.ssm.conv, 0)
         return caches
 
 

@@ -11,7 +11,12 @@ refcounted shared prefixes (``kv="paged"``).  A sliding-window family
 runs the pool as a ring (window-sized block tables, rewritten in place
 as the window slides) and a layer-pattern stack (gemma3) as a
 :class:`MixedKVPool`: a classic lease for its global layers and a ring
-lease for its sliding ones, each request holding both.
+lease for its sliding ones, each request holding both.  The recurrent
+families (``ssm``: mamba2; ``hybrid``: hymba) carry constant-size SSM
+state per slot beside their dense KV, if any: nothing of theirs pages,
+their plan's ``kv_growth`` reads ``"constant"``, and the one-shot
+prefill modes batch equal-length prompts instead of padding them (a
+recurrent scan would run through the padded tail).
 
 Every hot-path dispatch routes through a :class:`KernelPlan`: by default
 the ``kernel_select`` pass picks per site — the hand-written CUDA
@@ -37,9 +42,8 @@ spec-off engine's, bit for bit.
 Stage times come from a :class:`StageTimer` that synchronizes the card
 before a stage closes, so ``serve_schedule`` plans from step times.
 
-Not in this slice: mesh sharding and replicas (ROADMAP queue 1 item 8)
-and SSM / hybrid stacks (item 7b) — asking for them raises
-``NotImplementedError``.
+Not in this slice: mesh sharding and replicas (ROADMAP queue 1 item 8):
+asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -148,6 +152,14 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
     return cache[key]
 
 
+def _leaves(tree) -> list:
+    """The tensor leaves of a cache tree (tuples and named tuples), in
+    order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree for t in _leaves(v)]
+
+
 class ServingEngine:
     def __init__(self, model, params, *, slots: int = 4, max_len: int = 256,
                  eos_id: int = -1, prefill_mode: str | None = None,
@@ -210,6 +222,11 @@ class ServingEngine:
         if auto_mode:
             prefill_mode = ("chunked" if CF.supports_chunked_prefill(cfg)
                             else "batched")
+        if kv == "paged" and not CF.supports_paged(cfg):
+            raise ValueError(
+                f"kv='paged' needs an attention KV family, not "
+                f"{CF.family_label(cfg)} (constant-state layers hold no "
+                "pageable KV)")
         if kv == "paged" and prefill_mode != "chunked":
             raise ValueError(f"kv='paged' requires prefill_mode='chunked', "
                              f"not {prefill_mode!r}")
@@ -229,6 +246,8 @@ class ServingEngine:
         if plan_window:
             self.scheduler.kv_window = min(plan_window, max_len)
         self.scheduler.kv_mixed = CF.family_label(cfg) == "mixed"
+        self.scheduler.constant_state = any(
+            f.ssm for f in CF.layer_cache_families(cfg))
         # replans feed the observed acceptance rate through serve_schedule
         # and adopt its planned spec_k (requests with k=None use it)
         self.scheduler.spec_mode = self.default_spec.mode
@@ -241,7 +260,8 @@ class ServingEngine:
         else:
             self.caches = model.init_caches(slots, max_len)
         self.scheduler.last_plan["kv_growth"] = (
-            "mixed" if self.scheduler.kv_mixed
+            "constant" if self.scheduler.constant_state
+            else "mixed" if self.scheduler.kv_mixed
             else "window" if self.scheduler.kv_window else "linear")
         self._kernel_report = None  # PassReport when the plan was routed
         self.kernel_plan = self._resolve_kernel_plan(kernel_plan)
@@ -518,14 +538,22 @@ class ServingEngine:
                 rows[sreq.slot] = True
             self._reset_rows(self.caches, torch.from_numpy(rows))
             return
-        # one-shot modes: batched padded prefill of the admission set
+        # one-shot modes: batched padded prefill of the admission set; a
+        # recurrent family cannot mask a padded tail out of its state scan,
+        # so it batches groups of equal-length prompts instead
+        paddable = self.model.cfg.attention_only
         if self.scheduler.cfg.prefill_mode == "serial" or \
                 len(plan.admissions) == 1:
             groups = [[s] for s in plan.admissions]
-        else:
+        elif paddable:
             groups = [list(plan.admissions)]
+        else:
+            by_len: dict[int, list] = {}
+            for s in plan.admissions:
+                by_len.setdefault(s.prompt_len, []).append(s)
+            groups = list(by_len.values())
         for group in groups:
-            self._prefill_group(group, padded=len(group) > 1)
+            self._prefill_group(group, padded=paddable and len(group) > 1)
 
     def _install_leases(self, plan: TickPlan) -> None:
         """Point the admitted slots' block tables at their leases, in
@@ -561,16 +589,14 @@ class ServingEngine:
         if padded:
             batch["lengths"] = torch.tensor(lens, dtype=torch.int32)
         logits, fresh = self._prefill(self.params, batch)
-        # splice the prefilled rows into their slots, in place (a
-        # layer-pattern tuple's leaves are batch-major: no layer axis)
+        # splice the prefilled rows into their slots, every leaf (KV and
+        # SSM state), in place (a layer-pattern tuple's leaves are
+        # batch-major: no layer axis)
         slots = torch.tensor([s.slot for s in group], device=self.device)
-        if type(self.caches) is tuple:
-            for full_c, one_c in zip(self.caches, fresh):
-                for full, one in zip(full_c.kv, one_c.kv):
-                    full[slots] = one
-        else:
-            for full, one in zip(self.caches.kv, fresh.kv):
-                full[:, slots] = one
+        lead = (slots,) if type(self.caches) is tuple \
+            else (slice(None), slots)
+        for full, one in zip(_leaves(self.caches), _leaves(fresh)):
+            full[lead] = one
         toks_out = self._sample(logits, group)
         for i, sreq in enumerate(group):
             t = int(toks_out[i])
@@ -906,12 +932,33 @@ class ServingEngine:
             self.timer.counts["replan"] = \
                 self.timer.counts.get("replan", 0) + 1
 
+    def cache_bytes(self) -> dict[str, int]:
+        """The bytes the slot caches hold, by kind: each KV layout's K
+        and V over every layer (``KVCache``, ``PagedKVCache``,
+        ``PagedRingKVCache``; a pool's write sink included), the
+        recurrent SSM state (``ssm_state``) and the conv shift register
+        (``ssm_conv``)."""
+        out: dict[str, int] = {}
+
+        def add(kind, tensors):
+            out[kind] = out.get(kind, 0) + sum(
+                t.numel() * t.element_size() for t in tensors)
+        caches = self.caches
+        for c in (caches if type(caches) is tuple else (caches,)):
+            if c.kv != ():
+                add(type(c.kv).__name__, (c.kv.k, c.kv.v))
+            if c.ssm != ():
+                add("ssm_state", (c.ssm.state,))
+                add("ssm_conv", (c.ssm.conv,))
+        return out
+
     def stats(self) -> dict:
         """Per-stage timing + throughput + the scheduler's plan; the
         decode and verify steps by width (``steps``: steady calls and
         time, and the steps that captured a graph); the sampler's
         dispatches (``sampler_calls``: eager calls and sampling-graph
-        replays); with ``graphed``, each step graph's captures, replays,
+        replays); the caches' bytes by kind (``cache_bytes``); with
+        ``graphed``, each step graph's captures, replays,
         capture time, pool bytes, the launches one replay adds and those
         its warm-ups launched."""
         out = {"stages": self.timer.as_dict(), "tokens_out": self.tokens_out,
@@ -923,7 +970,8 @@ class ServingEngine:
                "kernel_plan": self.kernel_plan.as_dict(),
                "graphed": self.graphed,
                "steps": {w: dict(v) for w, v in sorted(self.steps.items())},
-               "sampler_calls": self.sampler_calls}
+               "sampler_calls": self.sampler_calls,
+               "cache_bytes": self.cache_bytes()}
         if self.graphs.counts:
             out["graphs"] = {k: dict(v) for k, v in self.graphs.counts.items()}
         if self._kernel_report is not None:

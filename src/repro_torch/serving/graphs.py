@@ -36,7 +36,10 @@ reach everything but the capture.
   twice.  It runs every layer, so a layer-pattern stack's RoPE tables of
   both thetas (gemma3: 10k and 1M) are made there too; a ring's
   positions do not move (a dead row's write goes to the sink), and its
-  caches, a tuple of per-layer caches, are keyed like any other.
+  caches, a tuple of per-layer caches, are keyed like any other.  A
+  recurrent family's SSM state and conv register (``SSMCache`` leaves)
+  are keyed like any cache tensor, and the warm-up leaves every row's
+  bits as they were: the decode step writes state for live rows only.
 * **Launch counts.**  A replay runs no Python, so no kernel wrapper
   counts it: the wrappers count what the capture records in
   ``kernels.RECORDED``, and every replay adds those counts to

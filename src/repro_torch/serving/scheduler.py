@@ -173,6 +173,9 @@ class Scheduler:
         #: (window layers constant past the window, global layers linear)
         #: and a mixed paged engine's replans keep ring geometry fields.
         self.kv_mixed = False
+        #: the engine's family carries recurrent (SSM / hybrid) state —
+        #: forwarded so the plan's ``kv_growth`` reads "constant".
+        self.constant_state = False
         #: speculative-decoding mode the engine runs ("off"|"ngram"|"draft")
         #: — forwarded to the serve_schedule pass so replans plan ``spec_k``
         #: from the observed acceptance rate.
@@ -439,6 +442,8 @@ class Scheduler:
             options["sliding_window"] = self.kv_window
         if self.kv_mixed:
             options["kv_mixed"] = True
+        if self.constant_state:
+            options["constant_state"] = True
         if self.kernel_plan:
             options["kernel_plan"] = dict(sorted(self.kernel_plan.items()))
         if self.spec_mode != "off":

@@ -1414,3 +1414,134 @@ def test_failed_capture_raises(card, monkeypatch):
         for _ in range(10):
             eng.step()
     assert eng.graphs.counts == {}
+
+
+# -- the recurrent cache families' shapes (hymba-1.5b, mamba2-370m) -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_hymba_shapes(card, dtype):
+    """hymba-1.5b's decode: 25 q / 5 kv heads of 64 (G = 5, so one query
+    head a CTA: 200 work units at B = 8) over its 1024-slot sliding
+    rings: full windows whose span starts mid-row, short, empty and
+    prefix rows."""
+    K, G, D, W = 5, 5, 64, 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_da.decode_grid(8, K, G, W, sms, D)[0] == 1
+    pos = torch.arange(W, device="cuda")[None, :]
+    start = torch.tensor([137, 0, W - 3, 300, 1, 0, 64, 1023],
+                         device="cuda")[:, None]
+    n = torch.tensor([1024, 1024, 3, 200, 1, 0, 1000, 1024],
+                     device="cuda")[:, None]
+    _check_dense(card, dtype, ((pos - start) % W) < n, K, G, D)
+    _check_dense(card, dtype, _prefix([W, 600, 0, 1, W - 1, 17, 513, 256],
+                                      W), K, G, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 256, 4352])
+def test_linked_mlp_tc_at_hymba_width(card, M):
+    """hymba-1.5b's MLP, d 1600 and ff 5504: a cluster of 7 whose last
+    rank owns 64 columns, half of warpgroup 0's 128 (every served shape
+    before left a whole warpgroup); decode, a 32-token chunk of 8 slots
+    and batched prefill's rows (held as in the tile-edge test past 1024
+    rows)."""
+    x, wg, wu, wd = _mlp(card, M, 1600, 5504, torch.bfloat16)
+    plan = _plan(x, wg, wu, wd)
+    assert plan.path == "tc" and plan.cl == 7
+    assert 1600 - (plan.cl - 1) * t_lm.TC_DS == 64
+    kernels.reset_launches()
+    got = t_lm.linked_mlp(x, wg, wu, wd)
+    again = t_lm.linked_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linked_mlp_tc"] == 2
+    assert torch.equal(got, again)
+    plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
+    if M <= 1024:
+        torch.testing.assert_close(got.float(), plain.float(),
+                                   **MLP_TOL["bfloat16"])
+    else:
+        ref = _mlp_fp64(x, wg, wu, wd)
+        assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * _mlp_err(plain, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,stride", [(32001, 32256), (50280, 50432)])
+def test_fused_mask_at_the_recurrent_vocabularies(card, V, stride):
+    """hymba's vocabulary (32,001: odd, in its 32,256-wide padded row)
+    and mamba2's (50,280 in 50,432), on the heterogeneous policies and
+    on tied logits."""
+    temps, ks, ps = _mask_policies(8, V)
+    for tied in (False, True):
+        _check_mask(_mask_rows(V, 8, V, stride, tied), temps, ks, ps)
+
+
+def _recurrent_model(arch):
+    """A reduced recurrent config in bf16 on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    model = Model(cfg, device="cuda")
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_recurrent_engines_graphed_match_eager(card, arch, sampled):
+    """The hybrid and SSM engines on the card: the graphed engine emits
+    the eager one's streams bit for bit (admissions, priorities and
+    preemption, SSM state carried through the captured decode step), and
+    a decode replay launches ``gqa_decode`` and ``linked_mlp_tc`` once a
+    hybrid layer, none for mamba2, and ``fused_mask`` once."""
+    model, params = _recurrent_model(arch)
+    trace = _serve_trace(11 + sampled, sampled, model.cfg.vocab)
+    eager, _ = _serve_trace_run(model, params, trace, "dense", False)
+    graphed, eng = _serve_trace_run(model, params, trace, "dense", True)
+    assert graphed == eager
+    n = model.cfg.n_layers if model.cfg.family == "hybrid" else 0
+    want = {"gqa_decode": n, "gqa_decode_paged": 0, "linked_mlp_tc": n,
+            "fused_mask": 1}
+    got = eng.stats()["graphs"]["serve_sample"]["launches"]
+    assert {k: got.get(k, 0) for k in want} == want
+
+
+@pytest.mark.cuda
+def test_capture_warmup_leaves_ssm_state(card):
+    """A capture's warm-up runs the decode step with a zero live mask and
+    the capture itself runs nothing: every KV, SSM state and register
+    bit stays as it was; the first replay then advances the live rows
+    only."""
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.graphs import StepGraph
+    model, params = _recurrent_model("hymba-1.5b")
+    eng = ServingEngine(model, params, slots=4, max_len=64, chunk=16,
+                        prefill_mode="chunked", graphed=False)
+    rng = np.random.default_rng(5)
+    for rid in range(3):
+        eng.submit(Request(rid=rid, prompt=rng.integers(
+            0, model.cfg.vocab, 20).astype(np.int32), max_new_tokens=8))
+    for _ in range(3):
+        eng.step()
+    live = torch.tensor([True, True, True, False], device="cuda")
+    inputs = {"tokens": torch.ones((4, 1), dtype=torch.long, device="cuda"),
+              "live": live}
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        return [t for v in tree for t in leaves(v)]
+    before = [t.clone() for t in leaves(eng.caches)]
+    graph = StepGraph(
+        lambda **ins: eng._serve(eng.params, eng.caches, *ins.values())[0],
+        inputs, None, ("live",), torch.cuda.Stream(), None)
+    torch.cuda.synchronize()
+    assert graph.graph is not None
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(eng.caches)))
+    graph.replay()
+    torch.cuda.synchronize()
+    state = eng.caches.ssm.state
+    assert not torch.equal(state[:, :3], before[-2][:, :3])
+    assert torch.equal(state[:, 3], before[-2][:, 3])
