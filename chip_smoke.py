@@ -34,7 +34,9 @@ Phases (any failure exits non-zero before the result line):
    ``linked_mlp_tc`` at d 1600, ff 5504 (a cluster of 7, its last rank
    64 columns), M = 8 and 256; ``fused_mask`` at (8, 32001) in a
    32,256-wide row and at (8, 50280) in a 50,432-wide one, served and
-   greedy;
+   greedy; and at a concat-TP rank's heads (qwen3's over 2 ranks, 8 q / 4
+   kv, and over 4, 4 / 2), both decode kernels against their plain
+   versions, timed at 8 / 4 beside the plain version and SDPA;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -100,6 +102,30 @@ Phases (any failure exits non-zero before the result line):
    once, a mamba2 one ``fused_mask`` alone (no attention or MLP kernel
    ever).  Prints each run's steady step, busy share and cache bytes
    (ring KV, SSM state, conv register) beside hymba's full-attention KV;
+3e. replica routing and concat tensor parallelism on qwen3-1.7b at full
+   width: (a) two graphed, paged replicas on the one card behind a
+   ``ReplicaRouter``, sharing phase 3's params, serving 16 requests in 4
+   groups (each a shared 256-token block-aligned prefix, then a tail
+   shorter than a block), 32 new tokens, greedy and seeded sampled: every
+   stream equal to a solo graphed engine's, prefix affinity hits, both
+   replicas busy, then again with replica 1 failed after 12 ticks (its
+   requests requeued and replayed, still equal); prints the router's
+   stats; (b) two concat-TP ranks on the one card (spawned processes,
+   ``devices=["cuda:0", "cuda:0"]``, gloo, eager; both load the kernels
+   built here), dense greedy and paged sampled, 8 requests of 120-160
+   tokens, 24 new tokens, beside a one-device eager engine under the
+   ranks' kernel plan on the same requests: streams equal, or parting
+   only where a shift of the one-device logits under the bf16
+   tolerance turns their decision into the rank's token (a sampled
+   row's over the draw's own scores, with the top-k boundary counted
+   only where it lets that token win: ``decision_margin``); each rank's
+   KV bytes half the one-device engine's at 4 kv heads, its decode
+   kernel launched 28 times a decode step, ``fused_mask`` once a
+   sampler dispatch, no ``linked_mlp``; a rank that fails or overruns
+   its time limit fails the run.  Prints the eager decode step and busy
+   share of rank 0 and of the one-device engine, the count of parted
+   streams, and whether a teacher-forced logits probe's bits equal the
+   one-device bits;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth (qwen3 at 2
    layers; gemma3 at 6, five sliding and one global, 600-token
@@ -250,6 +276,22 @@ M2_PROMPT_LENS = PROMPT_LENS
 #: decoding)
 HY_WINDOW_TICKS = (60, 65)
 M2_WINDOW_TICKS = (30, 35)
+#: phase 3e (a): the routed requests (groups sharing a block-aligned
+#: prefix, a tail shorter than a block each), new tokens, and the router
+#: tick replica 1 fails at in the failover run
+ROUTER_GROUPS, ROUTER_PER_GROUP, ROUTER_PREFIX = 4, 4, 256
+ROUTER_NEW, ROUTER_FAIL_AT = 32, 12
+#: phase 3e (b): the concat-TP runs (dense greedy, paged sampled at T 0.8
+#: and top-k 50: a nucleus boundary moves with any bf16 difference, so
+#: the margin rule covers top-k sampling only), their prompts and new
+#: tokens, the profiled decode ticks of rank 0 and the one-device twin,
+#: the ranks' time limit, and the logits probe's shape
+TP_RUNS = {"dense_greedy": dict(kv="dense", requests=8, max_new=24),
+           "paged_sampled": dict(kv="paged", requests=8, max_new=24,
+                                 temperature=0.8, top_k=50, top_p=1.0)}
+TP_PROMPT_LENS, TP_PROMPT_SEED, TP_WINDOW = (120, 160), 23, (10, 14)
+TP_TIMEOUT = 480.0
+TP_PROBE_CHUNK, TP_PROBE_STEPS = 32, 3
 
 
 def fail(msg: str) -> None:
@@ -461,6 +503,83 @@ def check_dense(torch, ops, gen, report):
         "splits": S,
     }
     print_share(report["gqa_decode"])
+
+
+def shard_decode_inputs(torch, dtype, heads, lengths, gen, bs=None):
+    """A concat-TP rank's decode inputs at qwen3's head_dim: ``heads`` =
+    (q heads, kv heads) of the rank; a dense 2048-slot cache with prefix
+    rows of ``lengths`` (``bs`` None), or block pools of ``bs``-token
+    blocks in a shuffled order, -1 past each row's length."""
+    h, k = heads
+    B = len(lengths)
+    q = torch.randn((B, h, D), generator=gen, device=DEV).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    if bs is None:
+        kv = [torch.randn((B, MAX_LEN, k, D), generator=gen,
+                          device=DEV).to(dtype) for _ in range(2)]
+        return q, *kv, torch.arange(MAX_LEN, device=DEV)[None, :] \
+            < ln[:, None]
+    M = MAX_LEN // bs
+    kp, vp = (torch.randn((B * M, bs, k, D), generator=gen,
+                          device=DEV).to(dtype) for _ in range(2))
+    perm = torch.randperm(B * M, generator=gen, device=DEV).reshape(B, M)
+    start = torch.arange(M, device=DEV)[None, :] * bs
+    bt = torch.where(start < ln[:, None], perm, -1).to(torch.int32)
+    return q, kp, vp, bt.contiguous(), ln
+
+
+def check_decode_shards(torch, ops, gen, bs, report):
+    """Both decode kernels at a concat-TP rank's heads: qwen3's 16 q / 8
+    kv over 2 ranks (8 / 4, phase 3e's) and over 4 (4 / 2), dense and
+    paged (block size ``bs``), element by element against the plain
+    version in fp32 and bf16; timed at 8 / 4 beside the plain version and
+    SDPA (``report[...]["k4"]``)."""
+    lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
+    for heads in ((H // 2, K // 2), (H // 4, K // 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            for label, fn, plain, pbs in (
+                    ("gqa_decode", ops.gqa_decode, ops.gqa_decode_plain,
+                     None),
+                    ("gqa_decode_paged", ops.gqa_decode_paged,
+                     ops.gqa_decode_paged_plain, bs)):
+                args = shard_decode_inputs(torch, dtype, heads, lengths, gen,
+                                           pbs)
+                err = check_close(f"{label} {name} at a rank's {heads[0]} q "
+                                  f"/ {heads[1]} kv heads", fn(*args),
+                                  plain(*args), name)
+                row = report[label]
+                key = "max_abs_err" if name == "bfloat16" else \
+                    "max_abs_err_fp32"
+                row[key] = max(row[key], err)
+    ls = [560, 512, 600, 540, 580, 530, 590, 520]
+    h, k = H // 2, K // 2
+    rows = sum(ls)
+    b_ms, b_by = bound_ms(2 * rows * k * D * 2 + 2 * SLOTS * h * D * 2,
+                          4 * rows * h * D, "bfloat16")
+    for label, fn, plain, pbs in (
+            ("gqa_decode", ops.gqa_decode, ops.gqa_decode_plain, None),
+            ("gqa_decode_paged", ops.gqa_decode_paged,
+             ops.gqa_decode_paged_plain, bs)):
+        sets = [shard_decode_inputs(torch, torch.bfloat16, (h, k), ls, gen,
+                                    pbs) for _ in range(ROTATE)]
+        views = sets if pbs is None else [
+            (q, ops.paged_view(kp, bt), ops.paged_view(vp, bt),
+             torch.arange(MAX_LEN, device=DEV)[None, :] < ln[:, None])
+            for q, kp, vp, bt, ln in sets]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row = report[label]["k4"] = {
+            "heads": [h, k], "splits": ops.decode_grid(
+                SLOTS, k, h // k, MAX_LEN, sms, D)[1],
+            "ms": cuda_ms([lambda s=s: fn(*s) for s in sets]),
+            "plain_ms": cuda_ms([lambda s=s: plain(*s) for s in sets]),
+            "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in views]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{label} at a rank's {h} q / {k} kv heads, ~560 of "
+              f"{MAX_LEN} slots: {row['ms']:.4f} ms ({row['splits']} "
+              f"splits; bound {b_ms:.4f} by {b_by}, share "
+              f"{b_ms / row['ms']:.3f}), plain {row['plain_ms']:.4f}, "
+              f"SDPA {row['library_ms']:.4f}")
 
 
 def g3_decode_case(torch, dtype, W, spans, gen, heads=(G3_H, G3_K, G3_D)):
@@ -1751,6 +1870,357 @@ def recurrent_phase(torch, kernels, serve, hymba, mamba2) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: replica routing and concat tensor parallelism
+# ---------------------------------------------------------------------------
+
+def router_requests(torch, vocab: int, bs: int) -> list:
+    """Phase 3e's routed requests: ROUTER_GROUPS groups of
+    ROUTER_PER_GROUP, each group's first ROUTER_PREFIX tokens shared
+    (block-aligned), then a distinct tail shorter than a block (so the
+    longest block-aligned prefix, the router's affinity key, is the
+    group's); odd request ids sample (T 0.8, top-k 50, top-p 0.95,
+    seeded), even ones are greedy."""
+    import numpy as np
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(31)
+    out = []
+    for g in range(ROUTER_GROUPS):
+        prefix = rng.integers(0, vocab, ROUTER_PREFIX)
+        for i in range(ROUTER_PER_GROUP):
+            rid = g * ROUTER_PER_GROUP + i
+            tail = rng.integers(0, vocab, 1 + (rid * 5) % (bs - 1))
+            out.append(Request(
+                rid=rid, max_new_tokens=ROUTER_NEW,
+                prompt=np.concatenate([prefix, tail]).astype(np.int32),
+                sampling=SamplingParams(temperature=0.8, top_k=50,
+                                        top_p=0.95, seed=rid)
+                if rid % 2 else None))
+    return out
+
+
+def router_phase(torch, kernels, serve, model, params, card: str) -> dict:
+    """Phase 3e (a): two graphed, paged replicas of full-width qwen3-1.7b
+    on one card behind a ``ReplicaRouter``, the params shared, against a
+    solo graphed engine on the same requests: once steady, once with
+    replica 1 failed part-way (its unfinished requests requeued from
+    scratch onto replica 0).  Every stream must equal the solo engine's;
+    the steady run must place requests on both replicas by prefix
+    affinity."""
+    from repro_torch.serving import ReplicaRouter
+    args = serve_args(serve, kv="paged", requests=ROUTER_GROUPS
+                      * ROUTER_PER_GROUP, max_new=ROUTER_NEW)
+
+    def served(label, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        out.update(wall_s=time.perf_counter() - t0,
+                   launches=dict(kernels.LAUNCHES))
+        print(f"router {label}: {out['wall_s']:.2f} s, launches "
+              f"{out['launches']}")
+        return out
+
+    def solo():
+        engine = serve.build_engine(args, model, params)
+        reqs = router_requests(torch, model.cfg.vocab,
+                               engine.pool.cfg.block_size)
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        return {"streams": [list(r.generated) for r in reqs]}
+
+    def routed(fail_at):
+        router = ReplicaRouter([serve.build_engine(args, model, params)
+                                for _ in range(2)])
+        reqs = router_requests(torch, model.cfg.vocab,
+                               router.affinity_block)
+        for r in reqs:
+            router.submit(r)
+        router._dispatch()
+        first = [router.placements[r.rid].replica for r in reqs]
+        moved, steps = 0, 0
+        while router.pending():
+            if steps == fail_at:
+                moved = router.fail_replica(1)
+            router.step()
+            steps += 1
+        st = router.stats()
+        per = [None if p is None else {
+            "tokens_out": p["tokens_out"],
+            "decode_tokens_per_s": p.get("decode_tokens_per_s"),
+            "prefill_tokens_saved": p.get("prefill_tokens_saved"),
+            "decode_ms": p["steps"].get(1, {}).get("total_s", 0.0) * 1e3
+            / max(p["steps"].get(1, {}).get("calls", 0), 1)}
+            for p in st["per_replica"]]
+        summary = {k: st[k] for k in ("replicas", "live_replicas",
+                                      "dispatched", "affinity_hits",
+                                      "requeued", "queued")}
+        summary["aggregate_decode_tokens_per_s"] = st.get(
+            "aggregate_decode_tokens_per_s")
+        summary["per_replica"] = per
+        print(f"router stats ({card}): {json.dumps(summary)}")
+        return {"streams": [list(r.generated) for r in reqs],
+                "first_replica": first, "moved": moved, "stats": summary,
+                "ticks": steps}
+
+    runs = {"router_solo": served("solo", solo)}
+    want = runs["router_solo"]["streams"]
+    for label, fail_at in (("router_steady", None),
+                           ("router_failover", ROUTER_FAIL_AT)):
+        run = runs[label] = served(label, lambda f=fail_at: routed(f))
+        torch.cuda.empty_cache()
+        if run["streams"] != want:
+            bad = [i for i, (a, b) in enumerate(zip(run["streams"], want))
+                   if a != b]
+            fail(f"{label}: streams of requests {bad} differ from the solo "
+                 "engine's")
+        if fail_at is None:
+            if run["stats"]["affinity_hits"] <= 0 \
+                    or set(run["first_replica"]) != {0, 1}:
+                fail(f"{label}: no affinity hit, or a replica took no "
+                     f"request (placements {run['first_replica']})")
+        elif run["moved"] < 1 or run["stats"]["requeued"] < 1:
+            fail(f"{label}: failing replica 1 at tick {fail_at} requeued "
+                 "nothing")
+        print(f"{label}: {len(want)} streams equal the solo engine's bit "
+              f"for bit; first placements {run['first_replica']}, "
+              f"{run['stats']['affinity_hits']} affinity hits, "
+              f"{run['moved']} requests requeued")
+    return runs
+
+
+def probe_logits(torch, model, params, plan, mesh=None) -> list:
+    """Teacher-forced logits on the card: one TP_PROBE_CHUNK-token prefill
+    chunk of SLOTS rows, then TP_PROBE_STEPS decode steps feeding the
+    greedy tokens back, under ``plan`` (on one device, or this rank of
+    ``mesh`` from the full ``params``).  Returned to the host, fp32."""
+    import numpy as np
+    from repro_torch.distributed import tp
+    shards = mesh.shards if mesh is not None else 1
+    if mesh is not None:
+        params = tp.shard_params(params, shards, mesh.rank,
+                                 tp.serving_param_specs(model.param_specs()))
+    caches = model.init_caches(SLOTS, TP_PROBE_CHUNK * 4, shards=shards)
+    rng = np.random.default_rng(41)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab,
+                                         (SLOTS, TP_PROBE_CHUNK)))
+    zeros = torch.zeros((SLOTS,), dtype=torch.int32)
+    full = torch.full((SLOTS,), TP_PROBE_CHUNK, dtype=torch.int32)
+    logits, caches = model.prefill_chunk(params, caches, toks, zeros, full,
+                                         plan=plan, shard_axis=mesh)
+    out = [logits]
+    for _ in range(TP_PROBE_STEPS):
+        tok = torch.argmax(out[-1][:, :model.cfg.vocab], dim=-1)[:, None]
+        logits, caches = model.serve_step(params, caches, tok, plan=plan,
+                                          shard_axis=mesh)
+        out.append(logits)
+    return [t.float().cpu() for t in out]
+
+
+def decision_margin(torch, logits, sampling, step: int, other: int):
+    """How far the one-device logits must shift for the decision at
+    ``step`` to emit ``other`` (the token the run under test emitted
+    there) in place of their own winner, and the bf16 tolerance that
+    shift is held to.  A greedy row: the winner's logit minus
+    ``other``'s (phase 4's rule names the runner-up), tolerance ``rtol
+    * max(1, |top-1|)``.  A sampled row (T, top-k; no nucleus), on
+    logits / T and a tolerance over T: the draw scores each token
+    logits / T plus the request's Gumbel noise for this step (key
+    ``fold_in(key(seed), step)``) and takes the best of the top-k
+    survivors (ties at the k-th logit kept).  ``other`` wins either by
+    outscoring the winner, or by outscoring every other survivor once
+    the winner drops below the first token outside the support; it
+    must be admitted first if it lies under the k-th logit.  The shift
+    is the lesser of the two routes, each the largest gap it must
+    close; so a tie at the top-k boundary lowers it only where it can
+    change the draw to ``other``."""
+    from repro_torch.serving import sampling as S
+    x = logits.float()
+    tol = TOL["bfloat16"]["rtol"] * max(1.0, abs(x.max().item()))
+    if sampling is None or sampling.temperature <= 0:
+        return (x.max() - x[other]).item(), tol
+    if sampling.top_p < 1.0:
+        raise ValueError("the margin rule covers top-k sampling only")
+    x = x / sampling.temperature
+    tol /= sampling.temperature
+    n = x.numel()
+    k = min(sampling.top_k or n, n)
+    xs = torch.sort(x, descending=True).values
+    seed = torch.tensor([sampling.seed & 0xFFFFFFFF], device=x.device)
+    key = S.fold_in(S.prng_key(seed), torch.tensor([step], device=x.device))
+    scores = x + S.gumbel(key, n)[0]
+    win = int(torch.argmax(torch.where(x >= xs[k - 1], scores, -torch.inf)))
+    if win == other:
+        return 0.0, tol
+    admit = max(0.0, (xs[k - 1] - x[other]).item())
+    beat_winner = max(admit, (scores[win] - scores[other]).item())
+    if k == n:
+        return beat_winner, tol
+    rest = torch.where(x >= xs[k], scores, -torch.inf)
+    rest[win] = rest[other] = -torch.inf
+    drop_winner = max(admit, (x[win] - xs[k]).item(),
+                      (rest.max() - scores[other]).item())
+    return min(beat_winner, drop_winner), tol
+
+
+def tp_rank(mesh, card: str):
+    """One rank of phase 3e (b): full-width qwen3-1.7b from seed 0 on this
+    rank's device, sliced to its shard by the engine; each TP_RUNS run
+    through ``serve_phase`` (rank 0 prints and profiles), then the
+    logits probe.  Returns the runs (with the rank's cache bytes, its
+    KV heads and the mesh's backend) and, on rank 0, the probe."""
+    import contextlib
+    import io
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.pipeline import KernelPlan
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    quiet = io.StringIO() if mesh.rank else None
+    with contextlib.redirect_stdout(quiet or sys.stdout):
+        model = Model(get_config("qwen3-1.7b"), device=mesh.device)
+        params = model.cast_params(model.init(
+            torch.Generator(device=mesh.device).manual_seed(0)))
+        runs = {}
+        for label, over in TP_RUNS.items():
+            args = serve_args(serve, mesh_shards=mesh.shards, **over)
+            engine = serve.build_engine(args, model, params, mesh=mesh,
+                                        graphed=False)
+            run = serve_phase(
+                torch, kernels, serve, engine, args,
+                f"tp_{label} rank {mesh.rank} ({card})", TP_PROMPT_SEED,
+                window=TP_WINDOW if mesh.rank == 0 else None,
+                lens=TP_PROMPT_LENS)
+            st = engine.stats()
+            run.update(cache_bytes=engine.cache_bytes(),
+                       kv_heads=engine.caches.kv.k.shape[3],
+                       per_shard=st.get("kv_pool", {}).get("per_shard"),
+                       mesh_shards=st["mesh_shards"], backend=mesh.backend)
+            runs[label] = run
+            del engine
+            torch.cuda.empty_cache()
+        plan = KernelPlan(**runs[next(iter(TP_RUNS))]["kernel_plan"])
+        probe = probe_logits(torch, model, params, plan, mesh)
+    return {"runs": runs, "probe": probe if mesh.rank == 0 else None}
+
+
+def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
+    """Phase 3e (b): two concat-TP ranks of full-width qwen3-1.7b on the
+    one card (``devices=["cuda:0", "cuda:0"]``, gloo, eager; both load
+    the kernels this process built), dense greedy and paged sampled,
+    against a one-device eager engine under the ranks' kernel plan on
+    the same requests.  Streams must be equal, or part only at a step
+    where a shift under the bf16 tolerance turns the one-device
+    decision into the rank's token (:func:`decision_margin`); each
+    rank's KV bytes are half the one-device
+    engine's; each rank launches its decode kernel (at K / 2 = 4 kv
+    heads) n_layers times a decode step, ``fused_mask`` once a sampler
+    dispatch and no ``linked_mlp``.  The probe's logits say whether the
+    ranks' bits equal the one-device bits."""
+    from repro_torch.core.pipeline import KernelPlan
+    from repro_torch.launch.mesh import spawn_ranks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(tp_rank, 2, args=(card,),
+                            devices=["cuda:0", "cuda:0"],
+                            timeout_s=TP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"tp: {e}")
+    spawn_s = time.perf_counter() - t0
+    cfg = model.cfg
+    runs = {}
+    for label, over in TP_RUNS.items():
+        plan = KernelPlan(**ranks[0]["runs"][label]["kernel_plan"])
+        if plan.linked_matmul != "torch" or plan.decode_dense != "cuda" \
+                or plan.decode_paged != "cuda" or plan.sampler != "cuda":
+            fail(f"tp_{label}: the sharded engines' kernel plan {plan}")
+        args = serve_args(serve, **over)
+        engine = serve.build_engine(args, model, params, kernel_plan=plan,
+                                    graphed=False)
+        one = serve_phase(torch, kernels, serve, engine, args,
+                          f"tp_{label} one device ({card})", TP_PROMPT_SEED,
+                          window=TP_WINDOW, lens=TP_PROMPT_LENS)
+        one_bytes = sum(engine.cache_bytes().values())
+        reqs = serve.make_requests(args, cfg.vocab)
+        ragged_prompts(reqs, cfg.vocab, TP_PROMPT_SEED, TP_PROMPT_LENS)
+        del engine
+        runs[f"tp_{label}_one_device"] = one
+        attn = "gqa_decode" if over["kv"] == "dense" else "gqa_decode_paged"
+        for rank, res in enumerate(ranks):
+            run = res["runs"][label]
+            runs[f"tp_{label}_rank{rank}"] = run
+            ln = run["launches"]
+            name = f"tp_{label} rank {rank}"
+            if run["kv_heads"] != cfg.n_kv_heads // 2:
+                fail(f"{name}: caches hold {run['kv_heads']} kv heads")
+            if 2 * sum(run["cache_bytes"].values()) != one_bytes:
+                fail(f"{name}: KV bytes {run['cache_bytes']}, the one-device "
+                     f"engine's {one_bytes}: want half")
+            want = cfg.n_layers * run["kernel_steps"]
+            if ln[attn] != want or want <= 0:
+                fail(f"{name}: {attn} launched {ln[attn]} times, want "
+                     f"{cfg.n_layers} a decode step ({want})")
+            if ln["fused_mask"] != run["sampler_calls"] \
+                    or ln["linked_mlp"] or ln["linked_mlp_tc"]:
+                fail(f"{name}: fused_mask {ln['fused_mask']} over "
+                     f"{run['sampler_calls']} sampler dispatches, "
+                     f"linked_mlp {ln['linked_mlp']} (want none)")
+            print(f"{name}: {attn} {ln[attn]} launches at "
+                  f"{run['kv_heads']} kv heads ({cfg.n_layers} a decode "
+                  f"step over {run['kernel_steps']} steps), fused_mask "
+                  f"{ln['fused_mask']} over {run['sampler_calls']} sampler "
+                  f"dispatches, linked_mlp 0; KV {run['cache_bytes']} = "
+                  f"half of {one_bytes}; {run['backend']}")
+        if ranks[1]["runs"][label]["streams"] != \
+                ranks[0]["runs"][label]["streams"]:
+            fail(f"tp_{label}: the two ranks' streams differ")
+        diverged = compared = 0
+        for i, (a, b) in enumerate(zip(one["streams"],
+                                       ranks[0]["runs"][label]["streams"])):
+            if a == b:
+                compared += len(a)
+                continue
+            t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            logits = plain_logits(torch, model, params, reqs[i].prompt, a,
+                                  args.chunk, MAX_LEN)
+            margin, tol = decision_margin(torch, logits[t], reqs[i].sampling,
+                                          t, b[t])
+            print(f"tp_{label}: request {i} parts from the one-device "
+                  f"stream at step {t} ({a[t]} -> {b[t]}), one-device "
+                  f"margin {margin:.4f}, tol {tol:.4f}")
+            if margin > tol:
+                fail(f"tp_{label}: request {i} parts at step {t} where the "
+                     f"margin {margin:.4f} > tol {tol:.4f}")
+            compared += t
+            diverged += 1
+        r0 = ranks[0]["runs"][label]
+        print(f"tp_{label} ({card}): {compared} tokens equal the one-device "
+              f"stream's, {diverged} streams part at a low-margin step; "
+              f"eager decode step {r0['mean_decode_ms']:.2f} ms on 2 ranks "
+              f"(busy {r0['busy_share']}) against {one['mean_decode_ms']:.2f}"
+              f" ms on one device (busy {one['busy_share']})")
+        runs[f"tp_{label}_rank0"]["vs_one_device"] = {
+            "tokens_equal": compared, "diverged_low_margin": diverged}
+    probe = ranks[0]["probe"]
+    solo = probe_logits(torch, model, params, plan)
+    diffs = [(a - b).abs().max().item() for a, b in zip(probe, solo)]
+    bits = all(torch.equal(a, b) for a, b in zip(probe, solo))
+    print(f"tp logits probe (prefill chunk {TP_PROBE_CHUNK} x {SLOTS} rows, "
+          f"{TP_PROBE_STEPS} decode steps): bits equal {bits}; max |rank 0 "
+          f"- one device| by step {[f'{d:.3e}' for d in diffs]}; ranks "
+          f"spawned and run in {spawn_s:.1f} s")
+    runs["tp_probe"] = {"bits_equal": bits, "max_abs_diff": diffs,
+                        "spawn_s": spawn_s}
+    return runs
+
+
 def plain_logits(torch, model, params, prompt, generated, chunk: int,
                  max_len: int):
     """The plain plan's logits at each emitted step of one request, the
@@ -2089,6 +2559,7 @@ def main() -> int:
     report: dict = {}
     check_dense(torch, dec_ops, gen, report)
     check_paged(torch, dec_ops, gen, bs, report)
+    check_decode_shards(torch, dec_ops, gen, bs, report)
     check_decode_gemma3(torch, dec_ops, gen, g3_bs, report)
     check_decode_hymba(torch, dec_ops, gen, report)
     check_fused_mask(torch, fs_ops, gen, report)
@@ -2114,7 +2585,11 @@ def main() -> int:
     runs.update(cache_family_phase(torch, kernels, serve, Model,
                                    (g3_model, g3_params), (model, params),
                                    g3_paged_args))
-    del params, g3_params
+    del g3_params
+    torch.cuda.empty_cache()
+    runs.update(router_phase(torch, kernels, serve, model, params, card))
+    runs.update(tp_phase(torch, kernels, serve, model, params, card))
+    del params
     torch.cuda.empty_cache()
     recurrent = {}
     for arch in ("hymba-1.5b", "mamba2-370m"):
@@ -2167,7 +2642,7 @@ def main() -> int:
                 g["runs"][r][name] for g in result["cnn"].values()
                 for r in ("ho_cuda", "xenos_eager", "xenos_graph"))
         else:
-            row["launches"] = sum(r["launches"].get(name, 0)
+            row["launches"] = sum(r.get("launches", {}).get(name, 0)
                                   for r in runs.values())
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

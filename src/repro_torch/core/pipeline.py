@@ -560,12 +560,16 @@ def _plan_spec_k(accept_rate: float) -> int:
 
 
 def _plan_kv_pool(slots: int, max_len: int, chunk: int,
-                  avg_prompt: float, window: int = 0,
+                  avg_prompt: float, shards: int = 1, window: int = 0,
                   mixed: bool = False) -> dict[str, Any]:
     """Size the paged KV pool from the prompt-length distribution, by the
     reference's rules: the largest candidate block dividing the horizon
     that does not exceed half the average prompt; a dense-equivalent pool
     without stats, twice the average prompt per request with them.
+
+    ``shards`` (a concat-TP mesh's width): each rank stores ``1/shards``
+    of every block's kv-head bytes, so the block-size target scales up by
+    ``shards`` (per-rank block bytes stay those of the unsharded target).
 
     ``window`` (a sliding family's, 0 = full attention): a ring pool's
     horizon is the window, and its leases are window-sized whatever the
@@ -583,6 +587,7 @@ def _plan_kv_pool(slots: int, max_len: int, chunk: int,
         divisors = [next(b for b in (4, 2, 1)
                          if horizon % b == 0 and (not mixed or w % b == 0))]
     target = avg_prompt / 2 if avg_prompt > 0 else float(chunk)
+    target *= max(int(shards), 1)
     fitting = [b for b in divisors if b <= max(target, divisors[0])]
     bs = max(fitting) if fitting else divisors[0]
     per_seq = -(-horizon // bs)
@@ -623,10 +628,13 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     ``"window"`` / ``"mixed"`` and a paged plan's ring geometry
     (:func:`_plan_kv_pool`); ``constant_state`` (the family carries
     recurrent SSM / hybrid state: per-request decode state is O(1) in
-    context) sets it to ``"constant"``, ahead of the other two.  The mesh
-    option follows with the path that sets it (ROADMAP queue 1 item 8).
-    On a CUDA engine the two timings are synchronized step times (see
-    :class:`StageTimer`)."""
+    context) sets it to ``"constant"``, ahead of the other two.
+    ``mesh_shards`` (a concat-TP mesh's width, 1 = unsharded): with no
+    stats a sharded engine starts at the widest chunk (every chunk
+    dispatch pays two gathers a layer, whatever its width), the plan
+    records ``mesh_shards``, and the pool's block-size target scales by
+    it (:func:`_plan_kv_pool`).  On a CUDA engine the two timings are
+    synchronized step times (see :class:`StageTimer`)."""
     o = ctx.options
     slots = int(o.get("slots", 4))
     max_len = int(o.get("max_len", 256))
@@ -637,6 +645,7 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
     window = int(o.get("sliding_window", 0))
     mixed = bool(o.get("kv_mixed", False))
     constant_state = bool(o.get("constant_state", False))
+    shards = int(o.get("mesh_shards", 1))
 
     if decode_s > 0.0 and prefill_tok_s > 0.0:
         budget_tokens = CHUNK_RATIO * decode_s / prefill_tok_s
@@ -644,6 +653,8 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
         for c in SERVE_CHUNK_SIZES:
             if c <= budget_tokens:
                 chunk = c
+    elif shards > 1:
+        chunk = SERVE_CHUNK_SIZES[-1]
     else:
         chunk = 32
     chunk = min(chunk, max_len)
@@ -683,10 +694,12 @@ def _serve_schedule_fn(g: Graph, ctx: PassContext) -> Graph:
         "kv_growth": ("constant" if constant_state else "mixed" if mixed
                       else "window" if window else "linear"),
     }
+    if shards > 1:
+        plan["mesh_shards"] = shards
     if kv == "paged":
         plan["kv"] = kv
-        plan.update(_plan_kv_pool(slots, max_len, chunk, avg_prompt, window,
-                                  mixed))
+        plan.update(_plan_kv_pool(slots, max_len, chunk, avg_prompt, shards,
+                                  window, mixed))
     kplan = o.get("kernel_plan")
     if kplan:
         plan["kernel_plan"] = dict(kplan)
@@ -801,7 +814,11 @@ GATHER_TAKE_S = 2e-7
 
 def _modeled_decode_paged(o: dict[str, Any]) -> tuple[str, dict[str, Any]]:
     """Roofline the two host paged-decode lowerings: gather vs fold
-    (same model as the reference, priced with this module's constants)."""
+    (same model as the reference, priced with this module's constants).
+    Under a concat-TP mesh (``mesh_shards`` > 1) a rank holds ``K /
+    shards`` kv heads and ``H / shards`` query heads, so the per-token KV
+    traffic and the attention FLOPs shrink by the shard count; the
+    per-block take dispatches do not."""
     B = int(o.get("slots", 4))
     H = int(o.get("q_heads", 8))
     K = int(o.get("kv_heads", max(1, H // 4)))
@@ -809,14 +826,17 @@ def _modeled_decode_paged(o: dict[str, Any]) -> tuple[str, dict[str, Any]]:
     W = int(o.get("max_len", 256))
     bs = int(o.get("kv_block_size", 0))
     P = int(o.get("kv_pool_blocks", 0))
+    shards = max(int(o.get("mesh_shards", 1)), 1)
     if bs <= 0 or P <= 0:
         return "gather", {}
     itemsize = 4
-    kv_bytes = K * D * itemsize
-    att_flops = 4 * B * H * D * W
+    K_loc = max(1, K // shards)
+    H_loc = max(1, H // shards)
+    kv_bytes = K_loc * D * itemsize
+    att_flops = 4 * B * H_loc * D * W
     n_blocks = B * (W // bs)
     gather_bytes = 2 * (2 * B * W * kv_bytes)
-    fold_flops = (att_flops + 2 * B * W * P * K * D)
+    fold_flops = (att_flops + 2 * B * W * P * K_loc * D)
     fold_bytes = (P * bs * kv_bytes + 2 * B * W * kv_bytes)
     gather_s = (cm.roofline(att_flops, gather_bytes, 0).serial_s
                 + 2 * n_blocks * GATHER_TAKE_S)
@@ -837,10 +857,18 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
     way the reference routes ``tpu`` to Pallas; a host keeps
     plain-torch attention, the gather/fold roofline choice and the
     one-sort ``fused`` sampler.  The reference's measured-timings
-    override comes with the autotuner that measures them."""
+    override comes with the autotuner that measures them.
+
+    Port-only rule: under a concat-TP mesh (``mesh_shards`` > 1)
+    ``linked_matmul`` stays ``torch``.  ``linked_mlp`` fuses ``down`` over
+    the hidden width, and a rank holds ``ff / shards`` columns of h: it
+    would return a partial sum, not the output (the sharded MLP gathers
+    h before a plain ``down``).  The reference routes no caller to its
+    linked kernel, so the rule changes no result of the reference's."""
     o = dict(options or {})
     acc = str(o.get("accelerator", "cpu"))
     cuda = acc == "cuda"
+    sharded = int(o.get("mesh_shards", 1)) > 1
     detail: dict[str, Any] = {"accelerator": acc}
     paged_default, paged_detail = _modeled_decode_paged(o)
     detail.update(paged_detail)
@@ -849,7 +877,7 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
         decode_paged="cuda" if cuda else paged_default,
         decode_ring="gather",
         prefill_chunk="torch",
-        linked_matmul="cuda" if cuda else "torch",
+        linked_matmul="cuda" if cuda and not sharded else "torch",
         split_matmul="cuda" if cuda else "torch",
         sampler="cuda" if cuda else "fused",
         ssm_scan="torch",

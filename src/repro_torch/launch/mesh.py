@@ -1,0 +1,157 @@
+"""The serving mesh of the port, and the processes that hold its ranks.
+
+The counterpart of ``repro.launch.mesh.make_serving_mesh``.  The
+reference builds a 1-D ``("model",)`` device mesh inside one process and
+``shard_map``s the serving step over it; the port runs one process per
+rank, joined by a ``torch.distributed`` process group, and each rank
+computes its own shard of every step (``repro_torch.distributed.tp``).
+
+:func:`make_serving_mesh` joins the group from inside a rank;
+:func:`spawn_ranks` starts the ranks (``torch.multiprocessing``, the
+``spawn`` context), runs one function on each and returns what each
+returned, failing if a rank fails or outlives its timeout.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+
+import torch
+
+from .. import resolve_device
+from ..distributed.tp import ServingMesh
+
+
+def make_serving_mesh(shards: int, *, rank: int = 0, devices=None,
+                      init_method: str | None = None,
+                      timeout_s: float = 600.0) -> ServingMesh:
+    """Join rank ``rank`` of a ``shards``-rank concat-TP mesh.
+
+    ``devices`` lists each rank's device; by default rank ``i`` takes
+    ``cuda:i``, and a mesh wider than the visible cards raises
+    ``ValueError``, as the reference's does: never shrink the mesh
+    silently.  An explicit list may place several ranks on one device
+    (``["cuda:0", "cuda:0"]``, or ``"cpu"`` for every rank: each rank is
+    a process).  Backend: NCCL when every rank has a card of its own,
+    else gloo (NCCL refuses two ranks on one card).  ``init_method`` is
+    the group's rendezvous (``file://...`` or ``tcp://localhost:<port>``);
+    ``timeout_s`` bounds each collective.  A rank on the host takes its
+    share of the host's cores as intra-op threads (ranks that each spin
+    up every core slow each other several times over).  Rank 0 prints
+    the backend it took."""
+    if shards < 1:
+        raise ValueError(f"serving mesh needs >= 1 shard, got {shards}")
+    if devices is None:
+        devices = default_devices(shards)
+    devs = [torch.device(d) for d in devices]
+    if len(devs) != shards:
+        raise ValueError(f"{len(devs)} devices listed for {shards} shards")
+    if not 0 <= rank < shards:
+        raise ValueError(f"rank {rank} outside a {shards}-shard mesh")
+    device = resolve_device(devs[rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    elif shards > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // shards))
+    if shards == 1:
+        return ServingMesh(shards=1, rank=0, device=device)
+    import torch.distributed as dist
+    cards = [(d.index or 0) for d in devs if d.type == "cuda"]
+    backend = "nccl" if len(set(cards)) == shards else "gloo"
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=shards,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    if rank == 0:
+        print(f"serving mesh: {shards} ranks on "
+              f"{[str(d) for d in devs]}, backend {backend}", flush=True)
+    return ServingMesh(shards=shards, rank=rank, device=device,
+                       group=dist.group.WORLD, backend=backend)
+
+
+def default_devices(shards: int) -> list[str]:
+    """One card a rank, ``cuda:0`` .. ``cuda:<shards-1>``; raises
+    ``ValueError`` when fewer cards are visible."""
+    visible = torch.cuda.device_count()
+    if shards > visible:
+        raise ValueError(
+            f"a {shards}-shard serving mesh needs {shards} devices, "
+            f"{visible} visible (pass devices= to place several ranks on "
+            "one device)")
+    return [f"cuda:{i}" for i in range(shards)]
+
+
+def _rank_main(rank, fn, args, shards, devices, init_method, timeout_s,
+               results) -> None:
+    import torch.distributed as dist
+    try:
+        mesh = make_serving_mesh(shards, rank=rank, devices=devices,
+                                 init_method=init_method,
+                                 timeout_s=timeout_s)
+        results.put((rank, True, fn(mesh, *args)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(fn, shards: int, *, args: tuple = (), devices=None,
+                timeout_s: float = 120.0, store_dir=None) -> list:
+    """Run ``fn(mesh, *args)`` on ``shards`` ranks, one spawned process
+    each (``fn`` must be importable by name), and return the ranks'
+    results in rank order.
+
+    The ranks meet through a ``torch.distributed.FileStore`` in a fresh
+    directory under ``store_dir`` (default: the system's temporary
+    directory), so no TCP port is taken.  A rank that raises fails the
+    call with its traceback; one that dies, or ranks that do not finish
+    within ``timeout_s``, fail it too (``RuntimeError`` /
+    ``TimeoutError``), and every rank still running is then killed.
+    ``devices`` goes to :func:`make_serving_mesh`."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="serving-mesh-", dir=store_dir)
+    init_method = "file://" + os.path.join(tmp, "store")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, fn, args, shards, devices, init_method,
+                               timeout_s, results))
+             for r in range(shards)]
+    deadline = time.monotonic() + timeout_s
+    got: dict[int, object] = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < shards:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"ranks {sorted(set(range(shards)) - set(got))} of "
+                    f"{shards} did not finish within {timeout_s:.0f} s")
+            try:
+                rank, ok, out = results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(
+                        f"rank {dead[0]} of {shards} died (exit code "
+                        f"{procs[dead[0]].exitcode}) without a result")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {shards} failed:\n{out}")
+            got[rank] = out
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [got[r] for r in range(shards)]

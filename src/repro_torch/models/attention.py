@@ -146,10 +146,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, D = q.shape
     K = k_cache.shape[2]
     qg = q.reshape(B, K, H // K, D)
-    s = torch.einsum("bkgd,bwkd->bkgw", qg, k_cache).float() / math.sqrt(D)
+    # batched matmuls over contiguous (B, K, ...) copies: each head's dot
+    # products then run the same way whatever K is, so a concat-TP rank's
+    # heads equal the one-device op's bit for bit (an einsum over the
+    # strided cache picks its path by K)
+    kt = k_cache.permute(0, 2, 3, 1).contiguous()          # (B, K, D, W)
+    s = torch.matmul(qg, kt).float() / math.sqrt(D)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkgw,bwkd->bkgd", w, v_cache)
+    out = torch.matmul(w, v_cache.permute(0, 2, 1, 3).contiguous())
     return out.reshape(B, H, D)
 
 
@@ -342,8 +347,18 @@ def _project(p, x, name):
         *x.shape[:-1], w.shape[1], w.shape[2])
 
 
-def _out_project(p, out):
-    """out (..., H, hd) @ wo (H, hd, d) -> (..., d)."""
+def _out_project(p, out, shard_axis=None):
+    """out (..., H, hd) @ wo (H, hd, d) -> (..., d).
+
+    ``shard_axis`` (concat-TP serving, ``repro_torch.distributed.tp``):
+    the mesh whose ranks hold the head shards; ``out`` holds this rank's
+    contiguous head slice (``wq``/``wk``/``wv`` are column-split, so it is
+    exactly those heads of the one-device op) and is gathered back to
+    full width, a concatenation with no arithmetic, before the replicated
+    ``wo``: its contraction sees the same full-width input on every
+    rank."""
+    if shard_axis is not None:
+        out = shard_axis.gather(out, dim=out.dim() - 2)
     wo = p["wo"].to(out.dtype)
     return out.reshape(*out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
@@ -394,7 +409,8 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
                            ring_backend: str = "gather",
                            live: torch.Tensor | None = None,
                            window: int | None = None,
-                           rope_theta: float | None = None):
+                           rope_theta: float | None = None,
+                           shard_axis=None):
     """One decode step.  x: (B, 1, d) -> (y (B, 1, d), cache).
 
     RoPE is applied at write time (K is cached post-rotation).  ``live``
@@ -406,7 +422,8 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
     ``dense_backend`` / ``paged_backend`` / ``ring_backend`` are the
     ``decode_dense`` / ``decode_paged`` / ``decode_ring`` sites; the
     cache's type picks one (a ring attends its gathered view through the
-    dense one).
+    dense one).  ``shard_axis`` (concat-TP): the params hold this rank's
+    heads and the cache its kv heads; see :func:`_out_project`.
     """
     B = x.shape[0]
     window, theta = _layer_args(cfg, window, rope_theta)
@@ -430,7 +447,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
                                       window=window, live=live,
                                       dense_backend=dense_backend,
                                       backend=ring_backend)
-        return _out_project(p, y)[:, None], cache
+        return _out_project(p, y, shard_axis)[:, None], cache
 
     if isinstance(cache, PagedKVCache):
         sink = cache.k.shape[0] - 1
@@ -446,7 +463,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
         cache.length.copy_(new_len)
         y = decode_attention_paged(q, cache.k, cache.v, cache.block_tables,
                                    new_len, paged_backend)
-        return _out_project(p, y)[:, None], cache
+        return _out_project(p, y, shard_axis)[:, None], cache
 
     W = cache.k.shape[1]
     slot = (pos % W).long()
@@ -460,7 +477,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
     cache.length.copy_(torch.where(live, pos + 1, pos))
     valid = _window_valid(cache.positions, pos, window)
     out = decode_attention(q, cache.k, cache.v, valid, dense_backend)
-    return _out_project(p, out)[:, None], cache
+    return _out_project(p, out, shard_axis)[:, None], cache
 
 
 def _ring_decode_write_attend(q, k_new, v_new, cache: PagedRingKVCache,
@@ -554,9 +571,11 @@ def _chunk_qkv(p, x, *, cfg, offsets: torch.Tensor, rope_theta: float):
     return q, k_new, v_new, pos
 
 
-def _chunk_attend(p, q, k_cache, v_cache, attend) -> torch.Tensor:
+def _chunk_attend(p, q, k_cache, v_cache, attend,
+                  shard_axis=None) -> torch.Tensor:
     """Chunk-prefill back half: chunk queries over the whole (updated)
-    cache view, masked per row by ``attend`` (B, C, W), then ``wo``."""
+    cache view, masked per row by ``attend`` (B, C, W), then ``wo``
+    (after the head gather under concat-TP)."""
     B, C, H, hd = q.shape
     K = k_cache.shape[2]
     qg = q.reshape(B, C, K, H // K, hd)
@@ -565,7 +584,7 @@ def _chunk_attend(p, q, k_cache, v_cache, attend) -> torch.Tensor:
     s = torch.where(attend[:, None, None, :, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgcw,bwkd->bckgd", w, v_cache).reshape(B, C, H, hd)
-    return _out_project(p, out)
+    return _out_project(p, out, shard_axis)
 
 
 def _chunk_ring_attend(positions: torch.Tensor, pos: torch.Tensor,
@@ -582,12 +601,15 @@ def _chunk_ring_attend(positions: torch.Tensor, pos: torch.Tensor,
 def prefill_chunk_into_cache(p, x, cache: KVCache, *, cfg,
                              offsets: torch.Tensor, n_new: torch.Tensor,
                              window: int | None = None,
-                             rope_theta: float | None = None):
+                             rope_theta: float | None = None,
+                             shard_axis=None):
     """Chunked prefill: extend a ring cache by up to C prompt tokens per
     row, in place.  x: (B, C, d) right-padded; offsets: (B,) tokens each
     row has cached; n_new: (B,) valid tokens (0 = bystander, untouched).
     Chunk queries attend to the row's cache plus the chunk (written
-    first), masked by slot position and the window."""
+    first), masked by slot position and the window.  ``shard_axis``
+    (concat-TP): this rank's heads, gathered before ``wo``
+    (:func:`_out_project`)."""
     C = x.shape[1]
     W = cache.k.shape[1]
     window, theta = _layer_args(cfg, window, rope_theta)
@@ -605,14 +627,15 @@ def prefill_chunk_into_cache(p, x, cache: KVCache, *, cfg,
         valid_new, pos.to(torch.int32), cache.positions[bidx, slot])
     cache.length.copy_(torch.where(n_new > 0, offsets + n_new, cache.length))
     attend = _chunk_ring_attend(cache.positions, pos, window)
-    return _chunk_attend(p, q, cache.k, cache.v, attend), cache
+    return _chunk_attend(p, q, cache.k, cache.v, attend, shard_axis), cache
 
 
 def prefill_chunk_into_paged_cache(p, x, cache: PagedKVCache, *, cfg,
                                    offsets: torch.Tensor,
                                    n_new: torch.Tensor,
                                    window: int | None = None,
-                                   rope_theta: float | None = None):
+                                   rope_theta: float | None = None,
+                                   shard_axis=None):
     """Chunked prefill against a block-paged cache, in place: the same
     contract and masks as :func:`prefill_chunk_into_cache` (position
     ``p`` at axis index ``p``), K/V landing in pool blocks through the
@@ -642,13 +665,14 @@ def prefill_chunk_into_paged_cache(p, x, cache: PagedKVCache, *, cfg,
     pos_k = torch.arange(k_view.shape[1], device=x.device)[None, None, :]
     attend = (pos_k < length[:, None, None]) \
         & (pos_k <= pos[:, :, None])                           # (B, C, W)
-    return _chunk_attend(p, q, k_view, v_view, attend), cache
+    return _chunk_attend(p, q, k_view, v_view, attend, shard_axis), cache
 
 
 def prefill_chunk_into_ring_cache(p, x, cache: PagedRingKVCache, *, cfg,
                                   offsets: torch.Tensor, n_new: torch.Tensor,
                                   window: int | None = None,
-                                  rope_theta: float | None = None):
+                                  rope_theta: float | None = None,
+                                  shard_axis=None):
     """Chunked prefill against the wraparound ring pool, in place: the
     contract of :func:`prefill_chunk_into_cache`, K/V landing at ring slot
     ``pos % W`` through the window-sized block table (padded, bystander
@@ -678,4 +702,4 @@ def prefill_chunk_into_ring_cache(p, x, cache: PagedRingKVCache, *, cfg,
     cache.length.copy_(torch.where(n_new > 0, offsets + n_new, cache.length))
     k_view, v_view = paged_kv_view(cache.k, cache.v, cache.block_tables)
     attend = _chunk_ring_attend(cache.positions, pos, window)
-    return _chunk_attend(p, q, k_view, v_view, attend), cache
+    return _chunk_attend(p, q, k_view, v_view, attend, shard_axis), cache

@@ -115,18 +115,33 @@ def swiglu_specs(d: int, ff: int) -> dict[str, ParamSpec]:
 
 
 def swiglu(p: dict[str, torch.Tensor], x: torch.Tensor,
-           backend: str = "torch") -> torch.Tensor:
+           backend: str = "torch", shard_axis=None) -> torch.Tensor:
     """(silu(x@gate) * (x@up)) @ down: the transformer instance of the
     paper's Matmul->Matmul operator linking.  ``backend`` is the
     ``linked_matmul`` site of a ``KernelPlan``: ``"torch"`` runs the three
     matmuls, ``"cuda"`` the ``linked_mlp`` kernel, which keeps the hidden
-    activation on chip (its plain version on CPU tensors)."""
+    activation on chip (its plain version on CPU tensors).
+
+    ``shard_axis`` (concat-TP serving, ``repro_torch.distributed.tp``):
+    the mesh whose ranks hold column shards of gate/up; h is gathered to
+    full width (a concatenation, no arithmetic) before the replicated
+    ``down``.  The linked kernel would fuse ``down`` over this rank's
+    columns of h alone, a partial sum, so this path takes the three
+    matmuls (``kernel_select`` routes ``linked_matmul`` to ``torch`` on a
+    mesh)."""
     if backend == "cuda":
+        if shard_axis is not None:
+            raise ValueError(
+                "the linked_mlp kernel fuses down over a rank's columns of "
+                "h (a partial sum); a concat-TP mesh needs linked_matmul "
+                "'torch'")
         from ..kernels.linked_matmul import ops as linked_ops
         return linked_ops.linked_mlp(x, p["gate"].to(x.dtype),
                                      p["up"].to(x.dtype),
                                      p["down"].to(x.dtype))
     h = F.silu(x @ p["gate"].to(x.dtype)) * (x @ p["up"].to(x.dtype))
+    if shard_axis is not None:
+        h = shard_axis.gather(h, dim=h.dim() - 1)
     return h @ p["down"].to(x.dtype)
 
 

@@ -146,26 +146,28 @@ class Model:
             return type(tree)(*(rep(v) for v in tree))
         return rep(one)
 
-    def init_caches(self, batch: int, seq_len: int):
+    def init_caches(self, batch: int, seq_len: int, shards: int = 1):
         """Ring-buffer caches with a leading layer axis on every leaf — or,
         for a layer-pattern stack, a tuple of per-layer caches at their
         natural widths: a sliding layer's ring is window-sized, a global
         layer's spans the horizon (masked slots add exact zero terms, so
-        the widths leave the softmax's bits alone)."""
+        the widths leave the softmax's bits alone).  ``shards``: a
+        concat-TP rank's caches, at ``n_kv_heads / shards`` kv heads."""
         if self.hetero:
             return tuple(
                 T.init_layer_cache(self.cfg, batch,
                                    min(w, seq_len) if w else seq_len,
-                                   self.dtype, self.device)
+                                   self.dtype, self.device, shards)
                 for w in self.layer_windows)
         return self._stack(T.init_layer_cache(
             self.cfg, batch, self.cache_width(seq_len), self.dtype,
-            self.device))
+            self.device, shards))
 
     def init_paged_caches(self, batch: int, *, pool_blocks: int,
                           block_size: int, max_blocks: int,
                           ring_pool_blocks: int | None = None,
-                          ring_max_blocks: int | None = None):
+                          ring_max_blocks: int | None = None,
+                          shards: int = 1):
         """Block-paged caches: one pool per layer (plus its write sink,
         see ``attention.PagedKVCache``) and per-slot block tables.
 
@@ -174,7 +176,7 @@ class Model:
         tables), and a mixed stack both, a tuple of per-layer caches whose
         ring layers take ``ring_pool_blocks`` / ``ring_max_blocks`` (the
         two kinds have separate block-id spaces, as ``MixedKVPool``'s
-        pools do)."""
+        pools do).  ``shards`` as in :meth:`init_caches`."""
         cfg = self.cfg
         if not CF.supports_paged(cfg):
             raise NotImplementedError(
@@ -199,11 +201,12 @@ class Model:
                     rpb if f.kv == "sliding" else pool_blocks, block_size,
                     rmb if f.kv == "sliding" else max_blocks, self.dtype,
                     self.device,
-                    kind="ring" if f.kv == "sliding" else "paged")
+                    kind="ring" if f.kv == "sliding" else "paged",
+                    shards=shards)
                 for f in self.families)
         return self._stack(T.init_paged_layer_cache(
             cfg, batch, pool_blocks, block_size, max_blocks, self.dtype,
-            self.device, kind=kind))
+            self.device, kind=kind, shards=shards))
 
     def _layer_caches(self, caches) -> list:
         """Per-layer views of the caches (a layer-pattern stack's tuple
@@ -220,12 +223,14 @@ class Model:
         return {"window": self.layer_windows[i],
                 "rope_theta": self.layer_thetas[i]}
 
-    def _run_layers(self, params, caches, x, attn, ssm, mlp_backend: str):
+    def _run_layers(self, params, caches, x, attn, ssm, mlp_backend: str,
+                    shard_axis=None):
         """Every layer's token mixing, by family, then (but for ``ssm``)
         the residual SwiGLU: ``attn(p, h, kv, **layer_args)`` attends layer
         ``i`` over its KV view with its window and theta, ``ssm(p, h, sc)``
         runs its Mamba2 mixer over its SSM state view; a hybrid layer runs
-        both on the same normed input and mean-fuses them."""
+        both on the same normed input and mean-fuses them.
+        ``shard_axis``: the concat-TP mesh the MLP gathers over."""
         fam = self.cfg.family
         for i, (lp, c) in enumerate(zip(self._layers(params),
                                         self._layer_caches(caches))):
@@ -237,7 +242,8 @@ class Model:
             if fam == "hybrid":
                 att = T.fuse_hybrid(lp, att, ssm(lp["ssm"], h, c.ssm))
             x = x + att
-            x = x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"]), mlp_backend)
+            x = x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"]), mlp_backend,
+                           shard_axis)
         return x
 
     def prefill_step(self, params, batch, max_len: int = 0, plan=None):
@@ -282,14 +288,16 @@ class Model:
         return self._head(params, x)[:, 0], caches
 
     def prefill_chunk(self, params, caches, tokens, offsets, n_new,
-                      plan=None):
+                      plan=None, shard_axis=None):
         """Advance a chunked prefill by up to C tokens per row, in place.
 
         tokens: (B, C) right-padded; offsets: (B,) tokens already
         prefilled; n_new: (B,) valid tokens (0 = bystander, untouched).
         Returns (logits at each row's last valid chunk position (B, V),
         caches).  B is the full slot batch.  ``plan`` overrides
-        ``self.kernel_plan`` for this call."""
+        ``self.kernel_plan`` for this call.  ``shard_axis``: the
+        concat-TP mesh when ``params`` / ``caches`` are one rank's shards
+        (``repro_torch.distributed.tp``); the logits are every rank's."""
         cfg = self.cfg
         plan = plan if plan is not None else self.kernel_plan
         tokens = tokens.to(self.device)
@@ -300,19 +308,22 @@ class Model:
         x = self._run_layers(
             params, caches, x,
             lambda p, h, kv, **kw: _chunk_fn(kv)(
-                p, h, kv, cfg=cfg, offsets=offsets, n_new=n_new, **kw)[0],
+                p, h, kv, cfg=cfg, offsets=offsets, n_new=n_new,
+                shard_axis=shard_axis, **kw)[0],
             lambda p, h, sc: SSM.mamba2_chunk_update(
                 p, h, sc, cfg=cfg, n_new=n_new, backend=plan.ssm_scan)[0],
-            plan.linked_matmul)
+            plan.linked_matmul, shard_axis)
         idx = (n_new - 1).clamp(0, C - 1).long()
         x = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[2]))
         return self._head(params, x)[:, 0], caches
 
-    def serve_step(self, params, caches, tokens, live=None, plan=None):
+    def serve_step(self, params, caches, tokens, live=None, plan=None,
+                   shard_axis=None):
         """One decode step, in place.  tokens: (B, 1) -> (logits (B, V),
         caches).  ``live`` (B,) bool: only live rows write the cache; the
         logits of other rows are to be discarded.  ``plan`` overrides
-        ``self.kernel_plan`` for this call."""
+        ``self.kernel_plan`` for this call; ``shard_axis`` as in
+        :meth:`prefill_chunk`."""
         cfg = self.cfg
         plan = plan if plan is not None else self.kernel_plan
         if live is not None:
@@ -325,11 +336,12 @@ class Model:
             ssm_backend=plan.ssm_scan, mlp_backend=plan.linked_matmul,
             live=live,
             layer_windows=self.layer_windows if self.hetero else None,
-            layer_thetas=self.layer_thetas if self.hetero else None)
+            layer_thetas=self.layer_thetas if self.hetero else None,
+            shard_axis=shard_axis)
         return self._head(params, x)[:, 0], caches
 
     def verify_step(self, params, caches, tokens, n_new, live=None,
-                    plan=None):
+                    plan=None, shard_axis=None):
         """Speculative verify: score ``K1`` positions per row, in place.
         tokens: (B, K1) = per row ``[pending, draft_1..draft_k]``
         right-padded; n_new: (B,) valid positions (0 = bystander row).
@@ -341,7 +353,8 @@ class Model:
         so position ``i``'s logits are bit-identical to ``serve_step``
         after feeding the first ``i`` tokens; with K1 == 1 this is the
         decode step.  Chunked-prefill attention is not reused: its
-        batched contraction runs in another order."""
+        batched contraction runs in another order.  ``shard_axis`` as in
+        :meth:`prefill_chunk`."""
         cfg = self.cfg
         if not CF.supports_spec(cfg):
             raise NotImplementedError(
@@ -355,7 +368,7 @@ class Model:
             base_live = base_live & live.to(self.device, torch.bool)
         logits = [self.serve_step(params, caches, tokens[:, i:i + 1],
                                   live=base_live & (i < n_new),
-                                  plan=plan)[0]
+                                  plan=plan, shard_axis=shard_axis)[0]
                   for i in range(tokens.shape[1])]
         return torch.stack(logits, dim=1), caches
 

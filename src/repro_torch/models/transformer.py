@@ -118,11 +118,13 @@ class LayerCache(NamedTuple):
 
 
 def init_layer_cache(cfg, batch: int, width: int, dtype=torch.bfloat16,
-                     device="cuda") -> LayerCache:
+                     device="cuda", shards: int = 1) -> LayerCache:
+    """``shards``: a concat-TP rank's cache holds ``n_kv_heads / shards``
+    kv heads (``repro_torch.distributed.tp``)."""
     kv: Any = ()
     ssm: Any = ()
     if not cfg.attn_free:
-        kv = A.init_kv_cache(batch, width, cfg.n_kv_heads,
+        kv = A.init_kv_cache(batch, width, cfg.n_kv_heads // shards,
                              cfg.resolved_head_dim, dtype, device)
     if cfg.family in ("ssm", "hybrid"):
         ssm = S.init_ssm_cache(batch, cfg, dtype, device)
@@ -132,15 +134,17 @@ def init_layer_cache(cfg, batch: int, width: int, dtype=torch.bfloat16,
 def init_paged_layer_cache(cfg, batch: int, pool_blocks: int,
                            block_size: int, max_blocks: int,
                            dtype=torch.bfloat16, device="cuda",
-                           kind: str = "paged") -> LayerCache:
+                           kind: str = "paged",
+                           shards: int = 1) -> LayerCache:
     """A per-layer cache backed by a block pool: ``kind`` ``"paged"``
     (logical-order tables, full attention) or ``"ring"`` (window-sized
-    wraparound tables, sliding layers)."""
+    wraparound tables, sliding layers); ``shards`` as in
+    :func:`init_layer_cache`."""
     init = {"paged": A.init_paged_kv_cache,
             "ring": A.init_paged_ring_kv_cache}[kind]
     return LayerCache(kv=init(batch, pool_blocks, block_size, max_blocks,
-                              cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
-                              device))
+                              cfg.n_kv_heads // shards,
+                              cfg.resolved_head_dim, dtype, device))
 
 
 def decoder_layer_decode(p, x, cache: LayerCache, *, cfg,
@@ -150,10 +154,13 @@ def decoder_layer_decode(p, x, cache: LayerCache, *, cfg,
                          ssm_backend: str = "torch",
                          mlp_backend: str = "torch", live=None,
                          window: int | None = None,
-                         rope_theta: float | None = None):
+                         rope_theta: float | None = None,
+                         shard_axis=None):
     """One-token decode through one layer, updating ``cache`` in place.
     x: (B, 1, d).  ``ssm_backend`` is the ``ssm_scan`` site; ``live``
-    rows alone write KV and SSM state."""
+    rows alone write KV and SSM state.  ``shard_axis``: the concat-TP
+    mesh of a sharded engine (attention heads and MLP columns gathered
+    before ``wo`` / ``down``), None on one device."""
     h = rms_norm(x, p["norm1"])
     if cfg.family == "ssm":
         y, _ = S.mamba2_decode(p["ssm"], h, cache.ssm, cfg=cfg,
@@ -163,14 +170,16 @@ def decoder_layer_decode(p, x, cache: LayerCache, *, cfg,
                                       dense_backend=dense_backend,
                                       paged_backend=paged_backend,
                                       ring_backend=ring_backend, live=live,
-                                      window=window, rope_theta=rope_theta)
+                                      window=window, rope_theta=rope_theta,
+                                      shard_axis=shard_axis)
     if cfg.family == "hybrid":
         ssm_o, _ = S.mamba2_decode(p["ssm"], h, cache.ssm, cfg=cfg,
                                    backend=ssm_backend, live=live)
         x = x + fuse_hybrid(p, att, ssm_o)
     else:
         x = x + att
-    return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]), mlp_backend), cache
+    return x + swiglu(p["mlp"], rms_norm(x, p["norm2"]), mlp_backend,
+                      shard_axis), cache
 
 
 def decoder_stack_decode(layers: list, x, caches, *, cfg,
@@ -180,16 +189,19 @@ def decoder_stack_decode(layers: list, x, caches, *, cfg,
                          ssm_backend: str = "torch",
                          mlp_backend: str = "torch", live=None,
                          layer_windows: tuple | None = None,
-                         layer_thetas: tuple | None = None):
+                         layer_thetas: tuple | None = None,
+                         shard_axis=None):
     """``layers``/``caches``: per-layer views (a layer-pattern stack's
     caches are its tuple of per-layer caches); caches update in place.
     ``layer_windows`` / ``layer_thetas``: a layer-pattern stack's window
-    and RoPE theta by layer (None: the config's for every layer)."""
+    and RoPE theta by layer (None: the config's for every layer);
+    ``shard_axis`` as in :func:`decoder_layer_decode`."""
     for i, (lp, cache) in enumerate(zip(layers, caches)):
         x, _ = decoder_layer_decode(
             lp, x, cache, cfg=cfg, dense_backend=dense_backend,
             paged_backend=paged_backend, ring_backend=ring_backend,
             ssm_backend=ssm_backend, mlp_backend=mlp_backend, live=live,
             window=layer_windows[i] if layer_windows else None,
-            rope_theta=layer_thetas[i] if layer_thetas else None)
+            rope_theta=layer_thetas[i] if layer_thetas else None,
+            shard_axis=shard_axis)
     return x, caches

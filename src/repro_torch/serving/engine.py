@@ -22,7 +22,7 @@ Every hot-path dispatch routes through a :class:`KernelPlan`: by default
 the ``kernel_select`` pass picks per site — the hand-written CUDA
 kernels on a CUDA engine, plain torch on the host.  The reference's
 jitted entries become a per-model table of step bodies
-(:func:`_serving_calls`).  With ``graphed=True`` (the default) the
+(:func:`_serving_calls`).  With ``graphed=True`` (one device's default) the
 entries that run every decode tick — ``serve`` (reference sampler),
 ``serve_sample`` (decode, ``fused_mask`` and the draw: tokens out) and
 ``verify`` (per draft width; with the grid sampler under a fused plan)
@@ -42,8 +42,17 @@ spec-off engine's, bit for bit.
 Stage times come from a :class:`StageTimer` that synchronizes the card
 before a stage closes, so ``serve_schedule`` plans from step times.
 
-Not in this slice: mesh sharding and replicas (ROADMAP queue 1 item 8):
-asking for them raises ``NotImplementedError``.
+``mesh`` (a ``repro_torch.distributed.tp.ServingMesh`` of more than one
+rank) makes this engine one rank of a concat-TP deployment: every rank
+runs an engine over the same requests in the same order, holding its
+slice of the attention heads and MLP columns (``shard_params``) and
+caches at ``K / shards`` kv heads; each step gathers head outputs and
+MLP activations across the ranks, so every rank holds the same logits
+and its host scheduling makes the same decisions: it is deterministic
+given the plan, and a replan reads rank 0's step times on every rank
+(``ServingMesh.agree``), never a rank's own.  A sharded engine runs its steps eagerly: a gloo collective
+cannot be captured in a CUDA graph.  Replicas of an engine go behind a
+``serving.router.ReplicaRouter``.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 
 from ..core.pipeline import KernelPlan, StageTimer
+from ..distributed import tp as _tp
 from ..kernels.fused_sampler import ops as fused_ops
 from ..models import cache_family as CF
 from .graphs import StaticInputs, StepGraphs, tensor_key
@@ -90,9 +100,12 @@ def settle_ticks(prompt_len: int, chunk: int) -> int:
     return 2 * max(1, -(-prompt_len // max(chunk, 1))) + 1
 
 
-def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
+def _serving_calls(model, max_len: int, plan: KernelPlan,
+                   mesh=None) -> dict:
     """The serving step bodies, cached **on the model** per ``(max_len,
-    plan)`` — the counterpart of the reference's jit cache; an engine
+    plan, mesh)`` — the counterpart of the reference's jit cache; ``mesh``
+    (a concat-TP mesh of more than one rank, else None) threads through
+    the decode, verify and chunk bodies as their ``shard_axis``.  An engine
     calls them directly (eager) or captures ``serve``, ``serve_sample``,
     ``verify`` and ``verify_sample`` as CUDA graphs (``serving.graphs``).
     Decode, verify, one-shot and chunked prefill all run under ``plan``
@@ -107,15 +120,17 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
     if cache is None:
         cache = {}
         model._serving_call_cache = cache
-    key = (max_len, plan)
+    key = (max_len, plan, mesh)
     if key not in cache:
         vocab = model.cfg.vocab
 
         def serve(p, c, t, live):
-            return model.serve_step(p, c, t, live=live, plan=plan)
+            return model.serve_step(p, c, t, live=live, plan=plan,
+                                    shard_axis=mesh)
 
         def verify(p, c, t, n_new):
-            return model.verify_step(p, c, t, n_new, plan=plan)
+            return model.verify_step(p, c, t, n_new, plan=plan,
+                                     shard_axis=mesh)
 
         if plan.sampler == "reference":
             sample = functools.partial(sample_tokens, vocab=vocab)
@@ -140,7 +155,8 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
             "serve": serve,
             "prefill": lambda p, b: model.prefill_step(p, b, max_len=max_len,
                                                        plan=plan),
-            "chunk": functools.partial(model.prefill_chunk, plan=plan),
+            "chunk": functools.partial(model.prefill_chunk, plan=plan,
+                                       shard_axis=mesh),
             "reset": model.reset_cache_rows,
             "sample": sample,
             "serve_sample": serve_sample,
@@ -150,6 +166,13 @@ def _serving_calls(model, max_len: int, plan: KernelPlan) -> dict:
             "sample_grid": sample_grid,
         }
     return cache[key]
+
+
+def _device_id(device: torch.device) -> tuple:
+    """``(type, index)``, an unindexed CUDA device as the current one."""
+    if device.type == "cuda" and device.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (device.type, device.index)
 
 
 def _leaves(tree) -> list:
@@ -169,15 +192,26 @@ class ServingEngine:
                  kernel_plan: KernelPlan | None = None,
                  spec: SpecParams | None = None, spec_k_max: int = 16,
                  draft_model=None, draft_params=None,
-                 graphed: bool = True, mesh=None):
+                 graphed: bool | None = None, mesh=None):
         if kv not in ("dense", "paged"):
             raise ValueError(f"unknown kv mode {kv!r}; have dense|paged")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is ported by ROADMAP queue 1 item 8")
         self.model = model
         self.device = model.device
-        #: the serving copy of the weights, in cfg.dtype (cast once here)
+        #: the concat-TP mesh (``repro_torch.distributed.tp``), validated
+        #: here so an incompatible config fails at construction
+        self.mesh = mesh
+        self.mesh_shards = _tp.validate_serving_tp(model.cfg, mesh)
+        if self.mesh_shards > 1:
+            if _device_id(mesh.device) != _device_id(self.device):
+                raise ValueError(
+                    f"the model lives on {self.device}, this rank of the "
+                    f"mesh on {mesh.device}")
+            # this rank's slice of every sharded leaf, sliced once
+            params = _tp.shard_params(
+                params, self.mesh_shards, mesh.rank,
+                _tp.serving_param_specs(model.param_specs()))
+        #: the serving copy of the weights (this rank's slices on a mesh),
+        #: in cfg.dtype (cast once here)
         self.params = model.cast_params(params)
         self.slots = slots
         self.max_len = max_len
@@ -218,10 +252,36 @@ class ServingEngine:
             self._check_spec_model(model.cfg)
 
         cfg = model.cfg
+        if self.mesh_shards > 1 and any(f.ssm
+                                        for f in CF.layer_cache_families(cfg)):
+            raise ValueError(
+                "mesh-sharded serving does not support constant-state "
+                f"(SSM/hybrid) families ({CF.family_label(cfg)}): the "
+                "concat-TP partition specs cover attention KV only")
+        if self.mesh_shards > 1 and getattr(cfg, "layer_pattern", ""):
+            raise ValueError(
+                "mesh-sharded serving does not support heterogeneous "
+                f"(layer_pattern={cfg.layer_pattern!r}) cache stacks")
         auto_mode = prefill_mode is None
         if auto_mode:
             prefill_mode = ("chunked" if CF.supports_chunked_prefill(cfg)
                             else "batched")
+        if self.mesh_shards > 1 and prefill_mode != "chunked":
+            # the one-shot prefill_step path is not shard-threaded; every
+            # sharded dispatch goes through the chunked entries
+            raise ValueError(
+                f"a mesh-sharded engine requires prefill_mode='chunked', "
+                f"not {prefill_mode!r}")
+        if graphed is None:
+            graphed = self.mesh_shards == 1
+        if graphed and self.mesh_shards > 1:
+            why = ("a gloo collective cannot be captured in a CUDA graph"
+                   if mesh.backend == "gloo" else
+                   "capturing the sharded step over NCCL is not ported")
+            raise ValueError(
+                f"a mesh-sharded engine runs its steps eagerly "
+                f"(graphed=False): its steps gather over "
+                f"torch.distributed ({mesh.backend}), and {why}")
         if kv == "paged" and not CF.supports_paged(cfg):
             raise ValueError(
                 f"kv='paged' needs an attention KV family, not "
@@ -252,13 +312,18 @@ class ServingEngine:
         # and adopt its planned spec_k (requests with k=None use it)
         self.scheduler.spec_mode = self.default_spec.mode
         # a pinned mode stays pinned; an auto dense engine lets
-        # serve_schedule switch batched<->chunked from observed stats
-        self.scheduler.adopt_prefill_mode = auto_mode and kv != "paged"
+        # serve_schedule switch batched<->chunked from observed stats (not
+        # a sharded one: the one-shot path is not shard-threaded)
+        self.scheduler.adopt_prefill_mode = (auto_mode and kv != "paged"
+                                             and self.mesh_shards == 1)
+        # replans price the per-dispatch gathers of a sharded plan
+        self.scheduler.mesh_shards = self.mesh_shards
 
         if kv == "paged":
             self._init_paged_kv(kv_block_size, kv_pool_blocks)
         else:
-            self.caches = model.init_caches(slots, max_len)
+            self.caches = model.init_caches(slots, max_len,
+                                            shards=self.mesh_shards)
         self.scheduler.last_plan["kv_growth"] = (
             "constant" if self.scheduler.constant_state
             else "mixed" if self.scheduler.kv_mixed
@@ -268,7 +333,8 @@ class ServingEngine:
         self.scheduler.kernel_plan = self.kernel_plan.as_dict()
         #: the token each slot feeds its next decode step (host copy)
         self._last_tokens = np.zeros((slots, 1), np.int64)
-        calls = _serving_calls(model, max_len, self.kernel_plan)
+        calls = _serving_calls(model, max_len, self.kernel_plan,
+                               mesh if self.mesh_shards > 1 else None)
         self._serve = calls["serve"]
         self._prefill = calls["prefill"]
         self._chunk_step = calls["chunk"]
@@ -280,7 +346,8 @@ class ServingEngine:
         self._rollback = calls["rollback"]
         self._sample_grid_step = calls["sample_grid"]
         #: run the per-tick steps staged (captured as CUDA graphs on the
-        #: card, eagerly on the host) instead of calling them directly
+        #: card, eagerly on the host) instead of calling them directly;
+        #: the default for one device, refused on a mesh
         self.graphed = graphed
         self.graphs = StepGraphs()
         self._static = StaticInputs(self.device)
@@ -325,6 +392,8 @@ class ServingEngine:
             "q_heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
             "head_dim": cfg.resolved_head_dim,
         }
+        if self.mesh_shards > 1:
+            options["mesh_shards"] = self.mesh_shards
         if self.pool is not None:
             options["kv_block_size"] = self.pool.cfg.block_size
             options["kv_pool_blocks"] = self.pool.cfg.pool_blocks
@@ -374,6 +443,8 @@ class ServingEngine:
                 options["sliding_window"] = window
             if kind == "mixed":
                 options["kv_mixed"] = True
+            if self.mesh_shards > 1:
+                options["mesh_shards"] = self.mesh_shards
             _, report = pipeline.optimize(
                 self.scheduler.plan_graph,
                 passes=("serve_schedule",), options=options)
@@ -418,10 +489,10 @@ class ServingEngine:
         else:
             self.pool = KVBlockPool(PoolConfig(
                 block_size=block_size, pool_blocks=pool_blocks,
-                max_blocks_per_seq=max_blocks))
+                max_blocks_per_seq=max_blocks, shards=self.mesh_shards))
             self.caches = self.model.init_paged_caches(
                 self.slots, pool_blocks=pool_blocks, block_size=block_size,
-                max_blocks=max_blocks)
+                max_blocks=max_blocks, shards=self.mesh_shards)
         self.scheduler.kv_mode = "paged"
         self.scheduler.kv_window = window
         self.scheduler.kv_gate = self._kv_gate
@@ -919,11 +990,17 @@ class ServingEngine:
         if self.default_spec.mode != "off" \
                 and self.spec_stats.drafts_proposed:
             accept = self.spec_stats.accept_rate
+        decode_step_s = decode / decode_calls if decode_calls else 0.0
+        prefill_token_s = (prefill_s / self._prefill_tokens
+                           if self._prefill_tokens else 0.0)
+        if self.mesh_shards > 1 and self.scheduler.replan_due():
+            # each rank times its own steps: plan from rank 0's times on
+            # every rank, so the mesh adopts one chunk and preempt bound
+            decode_step_s, prefill_token_s = self.mesh.agree(
+                [decode_step_s, prefill_token_s])
         t0 = time.perf_counter()
         plan = self.scheduler.maybe_replan(
-            decode_step_s=decode / decode_calls if decode_calls else 0.0,
-            prefill_token_s=prefill_s / self._prefill_tokens
-            if self._prefill_tokens else 0.0,
+            decode_step_s=decode_step_s, prefill_token_s=prefill_token_s,
             accept_rate=accept)
         if plan is not None:
             dt = time.perf_counter() - t0
@@ -976,11 +1053,26 @@ class ServingEngine:
             out["graphs"] = {k: dict(v) for k, v in self.graphs.counts.items()}
         if self._kernel_report is not None:
             out["kernel_report"] = self._kernel_report.as_dict()
+        if self.mesh_shards > 1:
+            out["mesh_shards"] = self.mesh_shards
         if self.pool is not None:
             out["kv_pool"] = self.pool.stats()
             out["prefill_tokens_saved"] = self.pool.tokens_saved
             if self._kv_window:
                 out["kv_window"] = self._kv_window
+            if self.mesh_shards > 1:
+                # block allocation is one host-side decision on every
+                # rank; each rank stores only its kv-head slice of a block
+                kv = self.caches.kv
+                k_loc, hd = kv.k.shape[-2], kv.k.shape[-1]
+                blk = self.pool.cfg.block_size
+                item = kv.k.element_size()
+                out["kv_pool"]["per_shard"] = {
+                    "kv_heads": k_loc,
+                    "block_bytes": 2 * blk * k_loc * hd * item,
+                    "pool_bytes": 2 * self.pool.cfg.pool_blocks * blk
+                    * k_loc * hd * item,
+                }
         rep = self.scheduler.last_report
         if rep is not None:
             out["plan_report"] = rep.as_dict()

@@ -180,6 +180,10 @@ class Scheduler:
         #: — forwarded to the serve_schedule pass so replans plan ``spec_k``
         #: from the observed acceptance rate.
         self.spec_mode = "off"
+        #: concat-TP shard count of the engine's serving mesh (1 =
+        #: unsharded) — forwarded to the serve_schedule pass, whose chunk
+        #: and pool geometry price the per-dispatch gathers.
+        self.mesh_shards = 1
         #: paged-KV hooks, set by the engine when it runs a block pool:
         #: ``kv_gate(sreq, victim=None)`` — may this request be admitted
         #: given free blocks (counting the victim's, when preempting)?;
@@ -411,6 +415,11 @@ class Scheduler:
         return bool(self.waiting) or any(s is not None for s in self.active)
 
     # -- re-planning through the pass manager ---------------------------------
+    def replan_due(self) -> bool:
+        """Does this tick's :meth:`maybe_replan` run the pass?"""
+        return self.plan_graph is not None \
+            and self._ticks % self.cfg.replan_every == 0
+
     def maybe_replan(self, decode_step_s: float, prefill_token_s: float,
                      device=None,
                      accept_rate: float | None = None) -> dict[str, Any] | None:
@@ -421,7 +430,7 @@ class Scheduler:
         engine also feeds its observed draft ``accept_rate`` (None = no
         drafts verified yet) and adopts the planned ``spec_k``.  Returns
         the plan on replan ticks, None otherwise."""
-        if self.plan_graph is None or self._ticks % self.cfg.replan_every:
+        if not self.replan_due():
             return None
         from repro_torch.core import pipeline  # serving depends on core
 
@@ -444,6 +453,8 @@ class Scheduler:
             options["kv_mixed"] = True
         if self.constant_state:
             options["constant_state"] = True
+        if self.mesh_shards > 1:
+            options["mesh_shards"] = self.mesh_shards
         if self.kernel_plan:
             options["kernel_plan"] = dict(sorted(self.kernel_plan.items()))
         if self.spec_mode != "off":

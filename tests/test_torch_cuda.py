@@ -7,6 +7,7 @@ on a card machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1545,3 +1546,179 @@ def test_capture_warmup_leaves_ssm_state(card):
     state = eng.caches.ssm.state
     assert not torch.equal(state[:, :3], before[-2][:, :3])
     assert torch.equal(state[:, 3], before[-2][:, 3])
+
+
+# -- replica routing and concat tensor parallelism ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [4, 2])
+def test_decode_kernels_at_a_ranks_heads(card, dtype, K):
+    """qwen3-1.7b's 16 q / 8 kv heads of 128 over 2 ranks (8 / 4) and 4
+    ranks (4 / 2): both decode kernels against their plain versions over
+    2048 slots (prefix rows, an empty one, a full one)."""
+    lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
+    _check_dense(card, dtype, _prefix(lengths, 2048), K, 2, 128)
+    _check_paged(card, dtype, lengths, 2048 // 16, 16, K, 2, 128)
+
+
+def _routed_requests(vocab, n=8):
+    """Two groups sharing a two-block prefix (tails shorter than a block:
+    the router's affinity key is the group's), odd ids sampled."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(7)
+    prefixes = [rng.integers(0, vocab, 2 * SERVE_BLOCK) for _ in range(2)]
+    return [Request(rid=rid, max_new_tokens=6 + rid % 5,
+                    prompt=np.concatenate([
+                        prefixes[rid % 2],
+                        rng.integers(0, vocab, 1 + rid % (SERVE_BLOCK - 1))])
+                    .astype(np.int32),
+                    sampling=SamplingParams(temperature=0.9, top_k=50,
+                                            seed=rid) if rid % 2 else None)
+            for rid in range(n)]
+
+
+def _paged_engine(model, params, graphed=True, mesh=None):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(model, params, slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, chunk=SERVE_CHUNK,
+                         prefill_mode="chunked", replan_every=10_000,
+                         kv="paged", kv_block_size=SERVE_BLOCK,
+                         graphed=graphed, mesh=mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fail_at", [None, 4], ids=["steady", "failover"])
+def test_router_over_graphed_replicas_matches_solo(card, fail_at):
+    """Two graphed paged replicas behind a ReplicaRouter emit a solo
+    graphed engine's streams bit for bit, steady (prefix affinity puts
+    each group on one replica, both replicas busy) and with replica 1
+    failed part-way (its requests requeued and replayed)."""
+    from repro_torch.serving import ReplicaRouter
+    model, params = _serve_model()
+    solo = _paged_engine(model, params)
+    reqs = _routed_requests(model.cfg.vocab)
+    for r in reqs:
+        solo.submit(r)
+    solo.run()
+    want = [list(r.generated) for r in reqs]
+    router = ReplicaRouter([_paged_engine(model, params) for _ in range(2)])
+    reqs = _routed_requests(model.cfg.vocab)
+    for r in reqs:
+        router.submit(r)
+    router._dispatch()
+    assert {pl.replica for pl in router.placements.values()} == {0, 1}
+    steps = 0
+    while router.pending():
+        if steps == fail_at:
+            assert router.fail_replica(1) >= 1
+        router.step()
+        steps += 1
+    assert [list(r.generated) for r in reqs] == want
+    assert router.affinity_hits > 0
+    for i, eng in enumerate(router.engines):
+        if router.alive[i]:
+            assert eng.stats()["graphs"]["serve_sample"]["replays"] > 0
+
+
+def _tp_rank(mesh, kv):
+    """One rank of a 2-rank mesh on one card: the reduced bf16 model from
+    seed 0, sliced by the engine, serving ``_routed_requests`` eagerly.
+    Returns the streams, the launches, the decode steps and sampler
+    dispatches, the cache bytes and the kernel plan."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="bfloat16")
+    model = Model(cfg, device=mesh.device)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = _tp_engine(model, params, kv, mesh)
+    kernels.reset_launches()
+    reqs = _routed_requests(cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    return ([list(r.generated) for r in reqs], dict(kernels.LAUNCHES),
+            st["steps"][1]["calls"], st["sampler_calls"],
+            sum(eng.cache_bytes().values()), st["kernel_plan"],
+            eng.caches.kv.k.shape[3])
+
+
+def _tp_engine(model, params, kv, mesh=None, kernel_plan=None):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(model, params, slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, chunk=SERVE_CHUNK,
+                         prefill_mode="chunked", replan_every=10_000, kv=kv,
+                         kv_block_size=SERVE_BLOCK if kv == "paged" else None,
+                         graphed=False, mesh=mesh, kernel_plan=kernel_plan)
+
+
+def _margin(model, params, req, step, other):
+    """How far the one-device plain plan's logits before emitting
+    ``req.generated[step]`` must shift for the decision to emit
+    ``other`` instead, and its bf16 tolerance:
+    ``chip_smoke.decision_margin``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    caches = model.init_caches(1, SERVE_MAX_LEN)
+    prompt = req.prompt
+    for start in range(0, len(prompt), SERVE_CHUNK):
+        n = min(SERVE_CHUNK, len(prompt) - start)
+        toks = torch.zeros((1, SERVE_CHUNK), dtype=torch.long)
+        toks[0, :n] = torch.as_tensor(prompt[start:start + n])
+        logits, caches = model.prefill_chunk(
+            params, caches, toks, torch.tensor([start], dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32))
+    for t in req.generated[:step]:
+        logits, caches = model.serve_step(
+            params, caches, torch.tensor([[t]], device="cuda"))
+    return chip_smoke.decision_margin(torch, logits[0, :model.cfg.vocab],
+                                      req.sampling, step, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_tp_engine_on_one_card_within_the_margin_rule(card, kv, tmp_path):
+    """Two concat-TP ranks on one card (gloo, eager) against the one-device
+    eager engine under the same kernel plan: streams equal, or parting
+    only where a shift of the one-device logits under the bf16
+    tolerance turns their decision into the ranks' token; both ranks
+    agree, each holds half the KV bytes at K / 2
+    kv heads, launches its decode kernel n_layers times a decode step,
+    fused_mask once a sampler dispatch and no linked_mlp."""
+    from repro_torch.core.pipeline import KernelPlan
+    from repro_torch.launch.mesh import spawn_ranks
+    model, params = _serve_model()
+    torch.cuda.synchronize()
+    ranks = spawn_ranks(_tp_rank, 2, args=(kv,), devices=["cuda:0"] * 2,
+                        timeout_s=300.0, store_dir=tmp_path)
+    streams, launches, steps, samples, nbytes, plan, k_loc = ranks[0]
+    assert ranks[1][0] == streams
+    assert plan["linked_matmul"] == "torch" and plan["decode_dense"] == "cuda"
+    one = _tp_engine(model, params, kv, kernel_plan=KernelPlan(**plan))
+    reqs = _routed_requests(model.cfg.vocab)
+    for r in reqs:
+        one.submit(r)
+    one.run()
+    for r, got in zip(reqs, streams):
+        if list(r.generated) != got:
+            t = next(i for i, (a, b) in enumerate(zip(r.generated, got))
+                     if a != b)
+            margin, tol = _margin(model, model.cast_params(params), r, t,
+                                  got[t])
+            assert margin <= tol, (r.rid, t, margin, tol)
+    assert 2 * nbytes == sum(one.cache_bytes().values())
+    assert k_loc == model.cfg.n_kv_heads // 2
+    attn = "gqa_decode" if kv == "dense" else "gqa_decode_paged"
+    for _, ln, st, sc, *_ in ranks:
+        assert ln[attn] == model.cfg.n_layers * st > 0
+        assert ln["fused_mask"] == sc > 0
+        assert ln["linked_mlp"] == 0 and ln["linked_mlp_tc"] == 0

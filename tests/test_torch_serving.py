@@ -22,6 +22,7 @@ from repro.serving import ServingEngine as JaxEngine
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import pipeline as port_pipeline
+from repro_torch.distributed.tp import ServingMesh
 from repro_torch.models.model import Model
 from repro_torch.serving import Request, ServingEngine, kv_pool as port_pool
 from repro_torch.serving import scheduler as port_sched
@@ -152,7 +153,7 @@ def test_engine_matches_reference_engine(engines_pair, seed, kv):
 def test_engine_routes_and_reports(engines_pair):
     """The host engine routes through kernel_select (plain torch attention,
     the fused sampler), reports its stages, checks its speculative
-    arguments, and rejects what this slice does not port."""
+    arguments, and refuses to capture a sharded step."""
     *_, tm, tp = engines_pair
     eng = ServingEngine(tm, tp, slots=SLOTS, max_len=MAX_LEN, chunk=CHUNK,
                         kv="paged", kv_block_size=BLOCK)
@@ -163,8 +164,9 @@ def test_engine_routes_and_reports(engines_pair):
                for p in stats["kernel_report"]["passes"])
     with pytest.raises(ValueError, match="draft_model"):
         ServingEngine(tm, tp, spec=SpecParams(mode="draft"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingEngine(tm, tp, mesh=object())
+    with pytest.raises(ValueError, match="cannot be captured"):
+        ServingEngine(tm, tp, mesh=ServingMesh(shards=2, backend="gloo"),
+                      graphed=True)
 
 
 @pytest.mark.parametrize("mode", ["batched", "serial"])
