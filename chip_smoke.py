@@ -36,7 +36,13 @@ Phases (any failure exits non-zero before the result line):
    32,256-wide row and at (8, 50280) in a 50,432-wide one, served and
    greedy; and at a concat-TP rank's heads (qwen3's over 2 ranks, 8 q / 4
    kv, and over 4, 4 / 2), both decode kernels against their plain
-   versions, timed at 8 / 4 beside the plain version and SDPA;
+   versions, timed at 8 / 4 beside the plain version and SDPA; and at MHA
+   (G = 1): both decode kernels at olmoe-1b-7b's 16 q / 16 kv heads of
+   128 over a 2048-slot horizon (~560 live slots timed), ``gqa_decode``
+   at seamless-m4t-large-v2's 16 / 16 of 64 over a 512-frame cross span
+   with every slot valid and over its 69-slot self span, each timed
+   beside SDPA; ``fused_mask`` at (8, 50304) in 50,432-wide rows and at
+   (8, 256206) in 256,256-wide rows, served and greedy;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -114,25 +120,49 @@ Phases (any failure exits non-zero before the result line):
    ``devices=["cuda:0", "cuda:0"]``, gloo, eager; both load the kernels
    built here), dense greedy and paged sampled, 8 requests of 120-160
    tokens, 24 new tokens, beside a one-device eager engine under the
-   ranks' kernel plan on the same requests: streams equal, or parting
-   only where a shift of the one-device logits under the bf16
-   tolerance turns their decision into the rank's token (a sampled
-   row's over the draw's own scores, with the top-k boundary counted
-   only where it lets that token win: ``decision_margin``); each rank's
-   KV bytes half the one-device engine's at 4 kv heads, its decode
-   kernel launched 28 times a decode step, ``fused_mask`` once a
-   sampler dispatch, no ``linked_mlp``; a rank that fails or overruns
-   its time limit fails the run.  Prints the eager decode step and busy
-   share of rank 0 and of the one-device engine, the count of parted
-   streams, and whether a teacher-forced logits probe's bits equal the
-   one-device bits;
+   ranks' kernel plan on the same requests: a rank's decode kernels
+   take one device's split count, so a teacher-forced logits probe's
+   bits must equal the one-device bits and every stream, greedy and
+   sampled (T 0.8, top-k 50, top-p 0.95), the one-device stream (the
+   probe also prints the worst difference between a rank's half of
+   each sharded projection and the one-device columns); each rank's KV
+   bytes half the one-device engine's at 4 kv heads, its decode kernel
+   launched 28 times a decode step, ``fused_mask`` once a sampler
+   dispatch, no ``linked_mlp``; a rank that fails or overruns its time
+   limit fails the run.  Prints the eager decode step and busy share of
+   rank 0 and of the one-device engine;
+3f. MoE and encoder-decoder at full width (random weights, seed 0,
+   bf16): (a) olmoe-1b-7b (16 layers, d 2048, 16 q / 16 kv heads of
+   128, 64 experts top 8 of ff 1024, vocab 50,304; 6.82 B params)
+   serving phase 3's traffic, dense KV greedy and paged KV sampled, each
+   graphed beside its eager twin, then the paged run with ``spec ngram``
+   (k 4) beside it, streams equal bit for bit; a decode replay launches
+   16 ``gqa_decode`` (or ``gqa_decode_paged``), one ``fused_mask`` and
+   no ``linked_mlp`` (the experts have no kernel site); prints each
+   run's steady step, busy share, KV bytes and graphs, and the MoE FFN's
+   device ms a decode tick (every layer's ``moe_block`` at the decode
+   shape, profiler and CUDA events) beside the least time for the expert
+   weights its rows route to, and its share of a graphed tick; (b)
+   reduced arctic-480b (2 layers, d 256, 4 experts top 2, its dense
+   SwiGLU residual), dense greedy, graphed ≡ eager, a decode replay 2
+   ``linked_mlp_tc``; (c) seamless-m4t-large-v2 (24 + 24 layers, d
+   1024, ff 8192, 16 / 16 heads of 64, vocab 256,206) through
+   ``launch/translate_audio.py``: 8 utterances of 512 stub frames, a
+   4-token prompt and 64 decode steps, greedy and sampled, 48
+   ``gqa_decode`` a step (24 self, 24 cross), one ``fused_mask`` a
+   sampled step, no ``linked_mlp``; prints the encoder's device ms, the
+   decode step, busy share and cross-KV bytes;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth (qwen3 at 2
    layers; gemma3 at 6, five sliding and one global, 600-token
    prompts; hymba at 4, dense KV, its attention drawn at one layer's
-   fan-in): greedy streams must match wherever
-   the plain path's top-1/top-2 logit margin (its engine's computation
-   replayed for one request) exceeds the bf16 tolerance;
+   fan-in; olmoe at 2, dense and paged, and seamless at 2 + 2, through
+   the translate driver, every attention likewise): greedy streams must
+   match wherever the plain path's top-1/top-2 logit margin (its
+   engine's computation replayed for one request) exceeds the bf16
+   tolerance; an olmoe stream may also part after a routing decision
+   within the bf16 tolerance of its top-k boundary (a bf16 difference
+   in a layer's input can swap an expert: ``routing_margins``);
 5. the paper's CNN path: the zoo's MobileNet (224, width 1.0, 1000
    classes) and ResNet18 (224, width 64, 1000 classes) at the zoo's depth,
    the Figure-5 graph, both Table-4 CBRA graphs, and the zoo's
@@ -281,17 +311,32 @@ M2_WINDOW_TICKS = (30, 35)
 #: tick replica 1 fails at in the failover run
 ROUTER_GROUPS, ROUTER_PER_GROUP, ROUTER_PREFIX = 4, 4, 256
 ROUTER_NEW, ROUTER_FAIL_AT = 32, 12
-#: phase 3e (b): the concat-TP runs (dense greedy, paged sampled at T 0.8
-#: and top-k 50: a nucleus boundary moves with any bf16 difference, so
-#: the margin rule covers top-k sampling only), their prompts and new
-#: tokens, the profiled decode ticks of rank 0 and the one-device twin,
-#: the ranks' time limit, and the logits probe's shape
+#: phase 3e (b): the concat-TP runs (dense greedy, paged sampled at T
+#: 0.8, top-k 50 and top-p 0.95, as one device samples: a rank's logits
+#: equal one device's bit for bit), their prompts and new tokens, the
+#: profiled decode ticks of rank 0 and the one-device twin, the ranks'
+#: time limit, and the logits probe's shape
 TP_RUNS = {"dense_greedy": dict(kv="dense", requests=8, max_new=24),
            "paged_sampled": dict(kv="paged", requests=8, max_new=24,
-                                 temperature=0.8, top_k=50, top_p=1.0)}
+                                 temperature=0.8, top_k=50, top_p=0.95)}
 TP_PROMPT_LENS, TP_PROMPT_SEED, TP_WINDOW = (120, 160), 23, (10, 14)
 TP_TIMEOUT = 480.0
 TP_PROBE_CHUNK, TP_PROBE_STEPS = 32, 3
+#: olmoe-1b-7b (configs/olmoe_1b_7b.py): 16 q / 16 kv heads of 128 (G 1),
+#: d 2048, 64 experts top 8 of ff 1024, vocab 50,304 in 50,432-wide rows;
+#: phase 3f (a)'s profiled decode ticks (the first wave's decode)
+OL_H, OL_K, OL_D = 16, 16, 128
+OL_VOCAB, OL_ROW = 50304, 50432
+OL_WINDOW_TICKS = (30, 35)
+#: seamless-m4t-large-v2: 16 q / 16 kv heads of 64 (G 1), vocab 256,206
+#: in 256,256-wide rows; phase 3f (c)'s utterances of stub frames, its
+#: decode steps after the prefill's token and its profiled steps
+SM_H, SM_K, SM_D = 16, 16, 64
+SM_VOCAB, SM_ROW = 256206, 256256
+SM_FRAMES, SM_NEW, SM_WINDOW = 512, 64, (20, 28)
+#: the self-attention span of seamless's decode: the 4-token prompt and
+#: the 64 new tokens, plus one
+SM_SELF = 69
 
 
 def fail(msg: str) -> None:
@@ -750,6 +795,85 @@ def check_decode_hymba(torch, ops, gen, report):
     report["gqa_decode"]["max_abs_err"] = max(
         report["gqa_decode"]["max_abs_err"], worst["bfloat16"])
     print_share({"name": "gqa_decode hymba w1024", **row})
+
+
+def time_decode_row(torch, ops, sets, nbytes, flops, paged=False, **info):
+    """A decode kernel timed on rotating input ``sets`` beside its plain
+    version, SDPA (the gathered view for paged) and the bound."""
+    fn, plain = ((ops.gqa_decode_paged, ops.gqa_decode_paged_plain) if paged
+                 else (ops.gqa_decode, ops.gqa_decode_plain))
+    views = sets if not paged else [
+        (q, ops.paged_view(kp, bt), ops.paged_view(vp, bt),
+         torch.arange(bt.shape[1] * kp.shape[1], device=DEV)[None, :]
+         < ln[:, None]) for q, kp, vp, bt, ln in sets]
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    return {**info, "dtype": "bfloat16",
+            "ms": cuda_ms([lambda s=s: fn(*s) for s in sets]),
+            "plain_ms": cuda_ms([lambda s=s: plain(*s) for s in sets]),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in views])}
+
+
+def check_decode_g1(torch, ops, gen, bs, report):
+    """Both decode kernels at MHA (G = 1: one query head a CTA): olmoe's
+    16 q / 16 kv heads of 128 over a 2048-slot horizon, dense and paged
+    (block size ``bs``), and seamless's 16 / 16 of 64 over a 512-frame
+    cross span with every slot valid and over its self span of
+    ``SM_SELF`` slots; element by element against the plain version in
+    fp32 and bf16, then timed at the served shapes (~560 live of 2048
+    slots for olmoe; full spans for seamless) beside SDPA and the bound.
+    Rows go under ``olmoe`` / ``seamless_cross`` / ``seamless_self``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
+    heads = {"olmoe": (OL_H, OL_K, OL_D)}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        key = "max_abs_err" if name == "bfloat16" else "max_abs_err_fp32"
+        for label, fn, plain, pbs in (
+                ("gqa_decode", ops.gqa_decode, ops.gqa_decode_plain, None),
+                ("gqa_decode_paged", ops.gqa_decode_paged,
+                 ops.gqa_decode_paged_plain, bs)):
+            args = shard_decode_inputs(torch, dtype, (OL_H, OL_K), lengths,
+                                       gen, pbs)
+            err = check_close(f"{label} olmoe {name} (G 1, D {OL_D})",
+                              fn(*args), plain(*args), name)
+            report[label][key] = max(report[label][key], err)
+        for W, spans in ((SM_FRAMES, [(0, SM_FRAMES)] * SLOTS),
+                         (SM_SELF, [(0, n) for n in (SM_SELF, 5, 1, 40, 68,
+                                                     SM_SELF, 17, 33)])):
+            q, k, v, valid = g3_decode_case(torch, dtype, W, spans, gen,
+                                            (SM_H, SM_K, SM_D))
+            err = check_close(f"gqa_decode seamless {name} W={W} (G 1, "
+                              f"D {SM_D})", ops.gqa_decode(q, k, v, valid),
+                              ops.gqa_decode_plain(q, k, v, valid), name)
+            report["gqa_decode"][key] = max(report["gqa_decode"][key], err)
+    ls = [560, 512, 600, 540, 580, 530, 590, 520]
+    rows = sum(ls)
+    for label, pbs in (("gqa_decode", None), ("gqa_decode_paged", bs)):
+        sets = [shard_decode_inputs(torch, torch.bfloat16, (OL_H, OL_K), ls,
+                                    gen, pbs) for _ in range(ROTATE)]
+        nbytes = 2 * rows * OL_K * OL_D * 2 + 2 * SLOTS * OL_H * OL_D * 2 \
+            + (SLOTS * MAX_LEN if pbs is None
+               else sets[0][3].numel() * 4 + SLOTS * 4)
+        row = report[label]["olmoe"] = time_decode_row(
+            torch, ops, sets, nbytes, 4 * rows * OL_H * OL_D,
+            paged=pbs is not None, shape=[SLOTS, OL_H, OL_K, OL_D, MAX_LEN],
+            splits=ops.decode_grid(SLOTS, OL_K, 1, MAX_LEN, sms, OL_D)[1])
+        print_share({"name": f"{label} olmoe ~560 of {MAX_LEN} slots "
+                     f"({row['splits']} splits)", **row})
+    for key, W in (("seamless_cross", SM_FRAMES), ("seamless_self", SM_SELF)):
+        sets = [g3_decode_case(torch, torch.bfloat16, W, [(0, W)] * SLOTS,
+                               gen, (SM_H, SM_K, SM_D))
+                for _ in range(ROTATE)]
+        rows = SLOTS * W
+        nbytes = 2 * rows * SM_K * SM_D * 2 + 2 * SLOTS * SM_H * SM_D * 2 \
+            + SLOTS * W
+        row = report["gqa_decode"][key] = time_decode_row(
+            torch, ops, sets, nbytes, 4 * rows * SM_H * SM_D,
+            shape=[SLOTS, SM_H, SM_K, SM_D, W],
+            splits=ops.decode_grid(SLOTS, SM_K, 1, W, sms, SM_D)[1])
+        print_share({"name": f"gqa_decode {key} W={W} all valid "
+                     f"({row['splits']} splits)", **row})
 
 
 def print_share(row) -> None:
@@ -1541,6 +1665,16 @@ def decode_kernels(model, kv: str) -> dict:
     return {"gqa_decode": sliding, "gqa_decode_paged": n - sliding}
 
 
+def swiglu_layers(cfg) -> int:
+    """The layers whose FFN is a SwiGLU on the ``linked_matmul`` site: a
+    dense or hybrid layer's MLP, an MoE layer's dense residual (arctic);
+    an MoE layer's experts, a GELU MLP (audio) and a Mamba2 layer have
+    no kernel site."""
+    if cfg.family == "moe":
+        return cfg.n_layers if cfg.moe_dense_residual else 0
+    return cfg.n_layers if cfg.d_ff and cfg.family != "audio" else 0
+
+
 def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
     """Every prefill launch of ``linked_mlp`` goes through the tensor-core
     kernel (decode's through the one the planner picks), each
@@ -1548,29 +1682,37 @@ def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
     step (K1 times that at a verify of width K1), and ``fused_mask`` once
     a sampler dispatch; a graphed run's launches are its replays' plus its
     graphs' warm-ups, each warm-up the launches of one replay.  A family
-    with no MLP (mamba2) launches no ``linked_mlp`` at all."""
+    with no SwiGLU on the linked site (mamba2, olmoe's experts) launches
+    no ``linked_mlp`` at all."""
     ln, warm = run["launches"], run["warmup"]
-    if not cfg.d_ff:
-        attn = {**attn, "linked_mlp": 0, "linked_mlp_tc": 0}
-        print(f"{label}: " + "; ".join(f"{k} {ln.get(k, 0)}" for k in attn)
-              + f"; fused_mask {ln['fused_mask']} over "
-              f"{run['sampler_calls']} sampler dispatches and warm-ups "
-              f"{warm.get('fused_mask', 0)}")
-        for k in attn:
-            if ln.get(k, 0):
-                fail(f"{label}: {k} launched {ln[k]} times, want none")
-        want = run["sampler_calls"] + warm.get("fused_mask", 0)
-        if ln["fused_mask"] != want or want <= 0:
-            fail(f"{label}: fused_mask launched {ln['fused_mask']} times, "
-                 f"want one per sampler dispatch and warm-up ({want})")
-        return
     for name, g in run["graphs"].items():
         want = {k: g["captures"] * n for k, n in g["launches"].items()}
         if g["warmup_launches"] != want:
             fail(f"{label}: graph {name}'s warm-ups launched "
                  f"{g['warmup_launches']}, want one replay's a capture "
                  f"({want})")
-    decode_mlp = cfg.n_layers * run["kernel_steps"] + warm.get(
+    if not swiglu_layers(cfg):
+        print(f"{label}: " + "; ".join(
+            f"{k} {ln.get(k, 0)} ({n} a step) over {run['kernel_steps']} "
+            f"decode-kernel steps and warm-ups {warm.get(k, 0)}"
+            for k, n in attn.items())
+            + f"; linked_mlp {ln.get('linked_mlp', 0)}; fused_mask "
+            f"{ln['fused_mask']} over {run['sampler_calls']} sampler "
+            f"dispatches and warm-ups {warm.get('fused_mask', 0)}")
+        for k in ("linked_mlp", "linked_mlp_tc"):
+            if ln.get(k, 0):
+                fail(f"{label}: {k} launched {ln[k]} times, want none")
+        want = run["sampler_calls"] + warm.get("fused_mask", 0)
+        if ln["fused_mask"] != want or want <= 0:
+            fail(f"{label}: fused_mask launched {ln['fused_mask']} times, "
+                 f"want one per sampler dispatch and warm-up ({want})")
+        for k, n in attn.items():
+            want = n * run["kernel_steps"] + warm.get(k, 0)
+            if ln.get(k, 0) != want or (n and want <= 0):
+                fail(f"{label}: {k} launched {ln.get(k, 0)} times, want {n} "
+                     f"per decode-kernel step and the warm-ups' ({want})")
+        return
+    decode_mlp = swiglu_layers(cfg) * run["kernel_steps"] + warm.get(
         "linked_mlp", 0)
     want_tc = ln["linked_mlp"] - (0 if decode_tc else decode_mlp)
     print(f"{label}: linked_mlp {ln['linked_mlp']} launches, linked_mlp_tc "
@@ -2106,7 +2248,35 @@ def tp_rank(mesh, card: str):
             torch.cuda.empty_cache()
         plan = KernelPlan(**runs[next(iter(TP_RUNS))]["kernel_plan"])
         probe = probe_logits(torch, model, params, plan, mesh)
-    return {"runs": runs, "probe": probe if mesh.rank == 0 else None}
+    # numpy: a spawned rank's torch tensors reach the parent through a file
+    # descriptor that its exit closes
+    return {"runs": runs,
+            "probe": [p.numpy() for p in probe] if mesh.rank == 0 else None}
+
+
+def column_slices(torch, model, params) -> dict:
+    """Whether cuBLAS gives a rank's column slice of each sharded
+    projection of layer 0 (``wq`` / ``wk`` / ``wv`` / ``gate`` / ``up``,
+    half the columns) the bits of the same columns of the one-device
+    product, at a decode step's rows (SLOTS) and a chunk's (SLOTS x 32):
+    the worst |difference| by op and row count (0: bit-equal)."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    lp = model._layers(params)[0]
+    out = {}
+    for op, w in (("wq", lp["attn"]["wq"]), ("wk", lp["attn"]["wk"]),
+                  ("wv", lp["attn"]["wv"]), ("gate", lp["mlp"]["gate"]),
+                  ("up", lp["mlp"]["up"])):
+        w2 = w.reshape(w.shape[0], -1)
+        half = w2.shape[1] // 2
+        for rows in (SLOTS, SLOTS * 32):
+            x = torch.randn((rows, w2.shape[0]), generator=gen,
+                            device=DEV).to(model.dtype)
+            full = x @ w2
+            worst = max((full[:, i * half:(i + 1) * half]
+                         - x @ w2[:, i * half:(i + 1) * half].contiguous())
+                        .abs().max().item() for i in range(2))
+            out[f"{op}@{rows}"] = worst
+    return out
 
 
 def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
@@ -2114,14 +2284,15 @@ def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
     one card (``devices=["cuda:0", "cuda:0"]``, gloo, eager; both load
     the kernels this process built), dense greedy and paged sampled,
     against a one-device eager engine under the ranks' kernel plan on
-    the same requests.  Streams must be equal, or part only at a step
-    where a shift under the bf16 tolerance turns the one-device
-    decision into the rank's token (:func:`decision_margin`); each
-    rank's KV bytes are half the one-device
-    engine's; each rank launches its decode kernel (at K / 2 = 4 kv
-    heads) n_layers times a decode step, ``fused_mask`` once a sampler
-    dispatch and no ``linked_mlp``.  The probe's logits say whether the
-    ranks' bits equal the one-device bits."""
+    the same requests.  The ranks' decode kernels take one device's split
+    count (``ops.rank_splits``), so the probe's logits must equal the
+    one-device logits bit for bit and every stream, greedy and sampled
+    (top-p included), the one-device stream; the probe also prints
+    whether cuBLAS gives a rank's half of each projection the one-device
+    bits (``column_slices``).  Each rank's KV bytes are half the
+    one-device engine's; each rank launches its decode kernel (at K / 2
+    = 4 kv heads) n_layers times a decode step, ``fused_mask`` once a
+    sampler dispatch and no ``linked_mlp``."""
     from repro_torch.core.pipeline import KernelPlan
     from repro_torch.launch.mesh import spawn_ranks
     torch.cuda.synchronize()
@@ -2148,8 +2319,6 @@ def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
                           f"tp_{label} one device ({card})", TP_PROMPT_SEED,
                           window=TP_WINDOW, lens=TP_PROMPT_LENS)
         one_bytes = sum(engine.cache_bytes().values())
-        reqs = serve.make_requests(args, cfg.vocab)
-        ragged_prompts(reqs, cfg.vocab, TP_PROMPT_SEED, TP_PROMPT_LENS)
         del engine
         runs[f"tp_{label}_one_device"] = one
         attn = "gqa_decode" if over["kv"] == "dense" else "gqa_decode_paged"
@@ -2181,44 +2350,410 @@ def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
         if ranks[1]["runs"][label]["streams"] != \
                 ranks[0]["runs"][label]["streams"]:
             fail(f"tp_{label}: the two ranks' streams differ")
-        diverged = compared = 0
-        for i, (a, b) in enumerate(zip(one["streams"],
-                                       ranks[0]["runs"][label]["streams"])):
-            if a == b:
-                compared += len(a)
-                continue
-            t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            logits = plain_logits(torch, model, params, reqs[i].prompt, a,
-                                  args.chunk, MAX_LEN)
-            margin, tol = decision_margin(torch, logits[t], reqs[i].sampling,
-                                          t, b[t])
-            print(f"tp_{label}: request {i} parts from the one-device "
-                  f"stream at step {t} ({a[t]} -> {b[t]}), one-device "
-                  f"margin {margin:.4f}, tol {tol:.4f}")
-            if margin > tol:
-                fail(f"tp_{label}: request {i} parts at step {t} where the "
-                     f"margin {margin:.4f} > tol {tol:.4f}")
-            compared += t
-            diverged += 1
         r0 = ranks[0]["runs"][label]
-        print(f"tp_{label} ({card}): {compared} tokens equal the one-device "
-              f"stream's, {diverged} streams part at a low-margin step; "
-              f"eager decode step {r0['mean_decode_ms']:.2f} ms on 2 ranks "
-              f"(busy {r0['busy_share']}) against {one['mean_decode_ms']:.2f}"
-              f" ms on one device (busy {one['busy_share']})")
-        runs[f"tp_{label}_rank0"]["vs_one_device"] = {
-            "tokens_equal": compared, "diverged_low_margin": diverged}
-    probe = ranks[0]["probe"]
+        parted = [i for i, (a, b) in enumerate(zip(one["streams"],
+                                                   r0["streams"])) if a != b]
+        print(f"tp_{label} ({card}): {len(one['streams']) - len(parted)} of "
+              f"{len(one['streams'])} streams equal the one-device streams "
+              f"(parted: {parted}); eager decode step "
+              f"{r0['mean_decode_ms']:.2f} ms on 2 ranks (busy "
+              f"{r0['busy_share']}) against {one['mean_decode_ms']:.2f} ms on "
+              f"one device (busy {one['busy_share']})")
+        runs[f"tp_{label}_rank0"]["vs_one_device"] = {"parted": parted}
+        if parted:
+            fail(f"tp_{label}: streams {parted} part from one device's")
+    probe = [torch.from_numpy(p) for p in ranks[0]["probe"]]
     solo = probe_logits(torch, model, params, plan)
     diffs = [(a - b).abs().max().item() for a, b in zip(probe, solo)]
-    bits = all(torch.equal(a, b) for a, b in zip(probe, solo))
+    bits = [torch.equal(a, b) for a, b in zip(probe, solo)]
+    slices = column_slices(torch, model, params)
     print(f"tp logits probe (prefill chunk {TP_PROBE_CHUNK} x {SLOTS} rows, "
-          f"{TP_PROBE_STEPS} decode steps): bits equal {bits}; max |rank 0 "
-          f"- one device| by step {[f'{d:.3e}' for d in diffs]}; ranks "
-          f"spawned and run in {spawn_s:.1f} s")
-    runs["tp_probe"] = {"bits_equal": bits, "max_abs_diff": diffs,
+          f"{TP_PROBE_STEPS} decode steps, {card}): bits equal by step "
+          f"{bits}; max |rank 0 - one device| by step "
+          f"{[f'{d:.3e}' for d in diffs]}; ranks spawned and run in "
+          f"{spawn_s:.1f} s; a rank's half of each projection against the "
+          f"one-device columns, worst |difference| by op@rows {slices}")
+    runs["tp_probe"] = {"bits_equal": all(bits), "bits_by_step": bits,
+                        "max_abs_diff": diffs, "column_slices": slices,
                         "spawn_s": spawn_s}
+    if not all(bits):
+        fail(f"tp: rank 0's logits differ from one device's (by step "
+             f"{diffs}); column slices {slices}")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: MoE and encoder-decoder
+# ---------------------------------------------------------------------------
+
+def init_model(torch, Model, cfg, label: str):
+    """``cfg`` on the card with random weights from seed 0 (drawn in
+    ``param_dtype``, then the serving copy in ``cfg.dtype``; the draw is
+    freed)."""
+    model = Model(cfg, device=DEV)
+    t0 = time.perf_counter()
+    raw = model.init(torch.Generator(device=DEV).manual_seed(0))
+    params = model.cast_params(raw)
+    del raw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{label} ({cfg.n_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+          + f", d {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads "
+          f"of {cfg.resolved_head_dim}, ff {cfg.d_ff}"
+          + (f", {cfg.n_experts} experts top {cfg.top_k}"
+             + (" + a dense residual" if cfg.moe_dense_residual else "")
+             if cfg.family == "moe" else "")
+          + f", vocab {cfg.vocab}, {cfg.dtype}): "
+          f"{model.param_count() / 1e9:.3f} B params initialized in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def moe_ffn_timing(torch, model, params, card: str, ticks: int = 4) -> dict:
+    """The device time a decode tick spends in the MoE FFN (routing, the
+    fixed form's every-expert FFN, the gathered combine): every layer's
+    ``moe_block`` at the decode shape (slots rows of normed activations,
+    each layer its own weights), summed over the profiler's CUDA kernels
+    and over CUDA events, a tick being one call a layer.  Beside it the
+    least time the card could take for the expert weights those rows
+    route to (each routed expert's gate, up and down read once, the
+    router's weights once; counted from this run's routing), and the
+    weights the fixed form reads (every expert)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.models import moe as M
+    cfg = model.cfg
+    layers = model._layers(params)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    xs = [torch.randn((SLOTS, 1, cfg.d_model), generator=gen,
+                      device=DEV).to(model.dtype) for _ in layers]
+
+    def tick():
+        for lp, x in zip(layers, xs):
+            M.moe_block(lp["moe"], x, cfg=cfg)
+    routed = 0
+    for lp, x in zip(layers, xs):
+        _, top_i = M.route(x[:, 0], lp["moe"]["router"], cfg.top_k)
+        routed += int(torch.unique(top_i).numel())
+    esize = model.dtype.itemsize
+    expert_bytes = 3 * cfg.d_model * cfg.d_ff * esize
+    nbytes = routed * expert_bytes + cfg.n_layers * (
+        cfg.d_model * cfg.n_experts * esize + 2 * SLOTS * cfg.d_model * esize)
+    b_ms, b_by = bound_ms(nbytes, 6 * SLOTS * cfg.top_k * cfg.n_layers
+                          * cfg.d_model * cfg.d_ff, "bfloat16")
+    ms = cuda_ms([tick], iters=ticks * 2, warmup=2)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            tick()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    # the profiler's kernel time, or the events' where it saw none
+    dev_ms = dev_us / 1e3 / ticks if dev_us else None
+    out = {"ms_per_tick_events": ms, "device_ms_per_tick": dev_ms or ms,
+           "profiler_ms_per_tick": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "experts_routed_per_layer": routed / cfg.n_layers,
+           "weights_read_bytes": cfg.n_layers * cfg.n_experts * expert_bytes,
+           "routed_weight_bytes": routed * expert_bytes}
+    print(f"olmoe MoE FFN a decode tick ({SLOTS} rows x {cfg.n_layers} "
+          f"layers, {card}): profiler "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, "
+          f"events {ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+          f"{routed / cfg.n_layers:.1f} routed experts a layer, "
+          f"{out['routed_weight_bytes'] / 1e9:.2f} GB; the fixed form reads "
+          f"all {cfg.n_experts}, {out['weights_read_bytes'] / 1e9:.2f} GB), "
+          f"share of bound {b_ms / out['device_ms_per_tick']:.3f}")
+    return out
+
+
+def moe_phase(torch, kernels, serve, Model, card: str) -> dict:
+    """Phase 3f (a): olmoe-1b-7b at full width (bf16, seed 0) serving 16
+    requests of 480-544-token prompts and 64 new tokens (slots 8, max_len
+    2048, chunk 32, replanning off): dense KV greedy and paged KV sampled
+    (T 0.8, top-k 50, top-p 0.95), each graphed beside its eager twin,
+    then the paged run with ``spec ngram`` (k 4) beside the graphed
+    paged run, and 4 dense greedy requests with the target as its own
+    draft (k 4: on random weights the n-gram lookup may propose nothing)
+    beside their spec-off twin; streams equal bit for bit, the oracle's
+    verify step run.  A decode replay launches the
+    decode kernel once a layer, ``fused_mask`` once and no
+    ``linked_mlp`` (the experts have no kernel site).  Prints each run's
+    steady step, busy share, KV bytes and graphs, and the MoE FFN's
+    device ms a tick beside its bound (``moe_ffn_timing``) and its share
+    of the graphed decode tick."""
+    from repro_torch.configs.base import get_config
+    model, params = init_model(torch, Model, get_config("olmoe-1b-7b"),
+                               "olmoe-1b-7b full width")
+    cfg = model.cfg
+    runs = {}
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.95)
+    for label, over, seed in (("olmoe_dense_greedy", dict(kv="dense"), 24),
+                              ("olmoe_paged_sampled",
+                               dict(kv="paged", **sampled), 25)):
+        args = serve_args(serve, **over)
+        for graphed in (True, False):
+            name = label if graphed else f"{label}_eager"
+            engine = serve.build_engine(args, model, params, graphed=graphed)
+            runs[name] = serve_phase(torch, kernels, serve, engine, args,
+                                     name, seed, window=OL_WINDOW_TICKS)
+            runs[name]["kv_bytes"] = kv_bytes(engine)
+            del engine
+            attn = decode_kernels(model, args.kv)
+            check_launches(name, runs[name], cfg, True, attn)
+            if graphed:
+                want = {**attn, "fused_mask": 1, "linked_mlp": 0,
+                        "linked_mlp_tc": 0}
+                got = runs[name]["graphs"]["serve_sample"]["launches"]
+                if {k: got.get(k, 0) for k in want} != want:
+                    fail(f"{name}: a decode replay launches {got}, want "
+                         f"{want}")
+            print(f"{name}: KV {state_mb(runs[name])}")
+        same_streams(f"{label} graphed vs eager", runs[label],
+                     runs[f"{label}_eager"])
+        g, e = runs[label], runs[f"{label}_eager"]
+        print(f"{label}: decode step eager {e['mean_decode_ms']:.2f} ms "
+              f"(busy {e['busy_share']}), graphed {g['mean_decode_ms']:.2f} "
+              f"ms (busy {g['busy_share']})")
+    label = "olmoe_paged_sampled_ngram"
+    args = serve_args(serve, kv="paged", spec="ngram", spec_k=SPEC_K,
+                      **sampled)
+    runs[label] = serve_phase(torch, kernels, serve,
+                              serve.build_engine(args, model, params), args,
+                              label, 25, window=None)
+    check_launches(label, runs[label], cfg, True,
+                   decode_kernels(model, "paged"))
+    same_streams(f"{label} vs spec off", runs[label],
+                 runs["olmoe_paged_sampled"])
+    # the n-gram lookup may propose nothing on random weights: the target
+    # as its own draft (phase 3b's oracle) drives the MoE verify step and
+    # its graphs
+    base = dict(kv="dense", requests=4, max_new=32)
+    for label, over, draft in (
+            ("olmoe_dense_greedy_oracle_twin", {}, None),
+            ("olmoe_dense_greedy_oracle",
+             dict(spec="draft", spec_k=SPEC_K), (model, params))):
+        args = serve_args(serve, **base, **over)
+        runs[label] = serve_phase(
+            torch, kernels, serve,
+            serve.build_engine(args, model, params, draft=draft), args,
+            label, 27, window=None, lens=ORACLE_PROMPT_LENS)
+        check_launches(label, runs[label], cfg, True,
+                       decode_kernels(model, "dense"))
+    same_streams("olmoe_dense_greedy_oracle vs spec off",
+                 runs["olmoe_dense_greedy_oracle"],
+                 runs["olmoe_dense_greedy_oracle_twin"])
+    for label in ("olmoe_paged_sampled_ngram", "olmoe_dense_greedy_oracle"):
+        sp = runs[label]["spec"]
+        print(f"{label}: accept rate {sp['accept_rate']} "
+              f"({sp['drafts_accepted']} of {sp['drafts_proposed']} "
+              f"drafts), {sp['verify_calls']} verify calls; steady verify "
+              "step ms by K1 " + ", ".join(
+                  f"{w}: {ms:.2f}" for w, ms in
+                  sorted(runs[label]["steady_ms"].items()) if w > 1))
+    # the draft runs the plain plan and the target the kernels: on
+    # olmoe's random weights their greedy tokens may part at every step
+    # (PERF.md, PR 21), so the gate is that the verify step ran
+    sp = runs["olmoe_dense_greedy_oracle"]["spec"]
+    if sp["verify_calls"] < 1 or sp["drafts_proposed"] < 1:
+        fail(f"olmoe oracle draft: {sp['verify_calls']} verify calls, "
+             f"{sp['drafts_proposed']} drafts proposed; want the verify "
+             "step run")
+    ffn = runs["olmoe_moe_ffn"] = moe_ffn_timing(torch, model, params, card)
+    tick = (runs["olmoe_dense_greedy"]["profile"] or {}).get(
+        "device_ms_per_tick")
+    ffn["share_of_graphed_tick"] = (ffn["device_ms_per_tick"] / tick
+                                    if tick else None)
+    print(f"olmoe: the MoE FFN's share of a graphed dense decode tick's "
+          f"device time ({tick} ms): {ffn['share_of_graphed_tick']}")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def arctic_phase(torch, kernels, serve, Model, lm_ops, gen) -> dict:
+    """Phase 3f (b): reduced arctic-480b in bf16 (2 layers, d 256, 4
+    experts top 2, its dense SwiGLU residual on the linked site), one
+    dense greedy run graphed beside eager, streams bit for bit; each
+    decode replay launches ``linked_mlp_tc`` once a layer (the dense
+    residual: the one path to ``linked_mlp`` in this phase)."""
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config("arctic-480b").reduced(),
+                              dtype="bfloat16", param_dtype="float32")
+    model, params = init_model(torch, Model, cfg, "arctic-480b reduced")
+    decode_tc = mlp_plan(torch, lm_ops, mlp_inputs(
+        torch, SLOTS, cfg.d_model, cfg.d_ff, torch.bfloat16, gen)).path \
+        == "tc"
+    if not decode_tc:
+        fail("arctic reduced: the decode MLP does not plan the tensor-core "
+             "kernel")
+    args = serve_args(serve, kv="dense", requests=8, max_new=32)
+    runs = {}
+    for graphed in (True, False):
+        name = "arctic_dense_greedy" + ("" if graphed else "_eager")
+        runs[name] = serve_phase(
+            torch, kernels, serve,
+            serve.build_engine(args, model, params, graphed=graphed), args,
+            name, 26, window=None, lens=ORACLE_PROMPT_LENS)
+        check_launches(name, runs[name], cfg, decode_tc,
+                       decode_kernels(model, "dense"))
+    got = runs["arctic_dense_greedy"]["graphs"]["serve_sample"]["launches"]
+    want = {"gqa_decode": cfg.n_layers, "linked_mlp_tc": cfg.n_layers}
+    if {k: got.get(k, 0) for k in want} != want:
+        fail(f"arctic: a decode replay launches {got}, want {want}")
+    same_streams("arctic graphed vs eager", runs["arctic_dense_greedy"],
+                 runs["arctic_dense_greedy_eager"])
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def translate_run(torch, kernels, TA, model, params, src, prompt, sampling,
+                  label: str, card: str) -> dict:
+    """One translate_audio pass at full width: launches, the decode step
+    (host clock over synchronized steps), the device ms of the profiled
+    steps SM_WINDOW and the busy share (their device time over their
+    mean wall time)."""
+    times, prof = [], {}
+
+    def on_step(i, logits):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        if i == SM_WINDOW[0]:
+            prof["p"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if i == SM_WINDOW[1]:
+            prof["p"].__exit__(None, None, None)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    toks, caches = TA.translate(model, params, src, prompt,
+                                new_tokens=SM_NEW, sampling=sampling,
+                                on_step=on_step)
+    launches = dict(kernels.LAUNCHES)
+    toks = toks.cpu().numpy()
+    n_win = SM_WINDOW[1] - SM_WINDOW[0]
+    window = profile_window(torch, prof["p"], n_win)
+    steps_ms = [1e3 * (b - a) for a, b in zip(times, times[1:])]
+    win_ms = steps_ms[SM_WINDOW[0]:SM_WINDOW[1]]
+    steady = [m for i, m in enumerate(steps_ms)
+              if not SM_WINDOW[0] <= i < SM_WINDOW[1]]
+    dev = window["device_ms_per_tick"]
+    busy = dev / (sum(steady) / len(steady)) if dev else None
+    cross = sum(t.numel() * t.element_size()
+                for t in (caches.cross_k, caches.cross_v))
+    n = model.cfg.n_layers
+    want = {"gqa_decode": 2 * n * SM_NEW,
+            "fused_mask": 0 if sampling is None else SM_NEW + 1,
+            "linked_mlp": 0, "gqa_decode_paged": 0}
+    if {k: launches.get(k, 0) for k in want} != want:
+        fail(f"{label}: launches {launches}, want {want} ({2 * n} "
+             "gqa_decode a step: self and cross)")
+    if not ((toks >= 0) & (toks < model.cfg.vocab)).all():
+        fail(f"{label}: a token outside the vocabulary")
+    out = {"launches": launches, "decode_ms": sum(steady) / len(steady),
+           "profiled_step_ms": sum(win_ms) / len(win_ms),
+           "device_ms_per_step": dev, "busy_share": busy,
+           "cross_kv_bytes": cross, "profile": window,
+           "streams": toks.tolist()}
+    print(f"{label} ({card}): decode step {out['decode_ms']:.2f} ms over "
+          f"{len(steady)} steps; device {dev} ms a step, busy share {busy}; "
+          f"cross KV {cross / 1e6:.1f} MB; launches {launches}")
+    for k in window["top_kernels"]:
+        print(f"    {k['ms_per_tick']:.3f} ms/step "
+              f"{k['calls_per_tick']:.0f} calls/step  {k['name']}")
+    return out
+
+
+def seamless_phase(torch, kernels, Model, card: str) -> dict:
+    """Phase 3f (c): seamless-m4t-large-v2 at full width (24 + 24 layers,
+    bf16, seed 0) through ``launch/translate_audio.py``: 8 utterances of
+    512 stub frames, a 4-token prompt and 64 decode steps, greedy, then
+    sampled (T 0.8, top-k 50, top-p 0.95); every decode step launches 48
+    ``gqa_decode`` (24 self, 24 cross) and, sampling, one ``fused_mask``;
+    no ``linked_mlp``.  Eager (the reference serves this family outside
+    the engine).  Prints the encoder's device ms (CUDA events), each
+    run's decode step, busy share and cross-KV bytes."""
+    from repro_torch.launch import translate_audio as TA
+    args = TA.build_parser().parse_args(
+        ["--batch", str(SLOTS), "--src-len", str(SM_FRAMES)])
+    model = TA.build_model(args)
+    if (model.kernel_plan.decode_dense, model.kernel_plan.sampler) != \
+            ("cuda", "cuda"):
+        fail(f"seamless: the card's plan {model.kernel_plan}")
+    raw = model.init(torch.Generator(device=DEV).manual_seed(0))
+    params = model.cast_params(raw)
+    del raw
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    print(f"seamless-m4t-large-v2 full width ({cfg.encoder_layers} + "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, ff {cfg.d_ff}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab}): "
+          f"{model.param_count() / 1e9:.3f} B params")
+    src, prompt = TA.stub_inputs(model, SLOTS, SM_FRAMES, 0)
+    enc_ms = cuda_ms([lambda: model._encode(params, src)], iters=5,
+                     warmup=1)
+    print(f"seamless encoder ({SLOTS} x {SM_FRAMES} frames, {card}): "
+          f"{enc_ms:.2f} ms")
+    runs = {"seamless_encoder": {"ms": enc_ms}}
+    for label, sampling in (("seamless_greedy", None),
+                            ("seamless_sampled",
+                             TA.parse_sample("0.8,50,0.95"))):
+        runs[label] = translate_run(torch, kernels, TA, model, params, src,
+                                    prompt, sampling, label, card)
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def parity_translate(torch, pipeline, Model, cfg, n_layers: int = 2,
+                     frames: int = 64, new: int = 24) -> dict:
+    """Phase 4 for the encoder-decoder: the routed cuda plan against the
+    plain plan on seamless at ``n_layers`` + ``n_layers`` layers, full
+    width, 4 utterances of ``frames`` stub frames, greedy through
+    ``translate_audio.translate``; streams must match wherever the plain
+    run's top-1 / top-2 margin at the parting step exceeds the bf16
+    tolerance."""
+    from repro_torch.launch import translate_audio as TA
+    small = dataclasses.replace(cfg, n_layers=n_layers,
+                                encoder_layers=n_layers)
+    plain = pipeline.KernelPlan(decode_dense="torch", sampler="fused")
+    routed, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
+    model = Model(small, kernel_plan=plain, device=DEV)
+    raw = model.init(torch.Generator(device=DEV).manual_seed(1))
+    layer_fan_in(raw, small)
+    params = model.cast_params(raw)
+    src, prompt = TA.stub_inputs(model, 4, frames, 1)
+    logits = []
+    want, _ = TA.translate(model, params, src, prompt, new_tokens=new,
+                           on_step=lambda i, lg: logits.append(
+                               lg[:, :small.vocab].float()))
+    model.kernel_plan = routed
+    got, _ = TA.translate(model, params, src, prompt, new_tokens=new)
+    want, got = want.tolist(), got.tolist()
+    compared = diverged = 0
+    for b, (a, c) in enumerate(zip(want, got)):
+        for t, (x, y) in enumerate(zip(a, c)):
+            if x != y:
+                top = torch.topk(logits[t][b], 2).values
+                margin = (top[0] - top[1]).item()
+                tol = TOL["bfloat16"]["rtol"] * max(1.0, abs(top[0].item()))
+                if margin > tol:
+                    fail(f"parity {small.name}: utterance {b} differs at "
+                         f"step {t} where the plain margin {margin:.4f} > "
+                         f"tol {tol:.4f}")
+                diverged += 1
+                break
+            compared += 1
+    print(f"parity {small.name} ({n_layers} + {n_layers} layers, {frames} "
+          f"frames): {compared} tokens compared, {diverged} streams diverged "
+          f"at a low-margin step, routed plan {routed.as_dict()}")
+    return {"compared": compared, "diverged_low_margin": diverged}
 
 
 def plain_logits(torch, model, params, prompt, generated, chunk: int,
@@ -2240,6 +2775,62 @@ def plain_logits(torch, model, params, prompt, generated, chunk: int,
             params, caches, torch.tensor([[t]], device=DEV))
         out.append(logits[0])
     return torch.stack(out)[:, :model.cfg.vocab].float()
+
+
+def routing_margins(torch, model, params, prompt, generated, chunk: int,
+                    max_len: int) -> list:
+    """An MoE model's routing decisions along one request, the way
+    :func:`plain_logits` replays it: for each decode step (the step that
+    emits ``generated[j]``, j >= 1), the least gap over layers and rows
+    between the k-th and the (k+1)-th router logit, beside its bf16
+    tolerance (``rtol * max(1, |k-th|)``).  A gap under it is a routing
+    decision that a bf16 difference in the layer's input can flip."""
+    from repro_torch.models import moe as M
+    seen = []
+    real = M.route
+
+    def spy(x, router, k):
+        logits = x.float() @ router.float()
+        top = torch.sort(logits, dim=-1, descending=True).values
+        seen.append(((top[:, k - 1] - top[:, k]).min().item(),
+                     TOL["bfloat16"]["rtol"]
+                     * max(1.0, top[:, k - 1].abs().max().item())))
+        return real(x, router, k)
+    M.route = spy
+    try:
+        caches = model.init_caches(1, max_len)
+        for start in range(0, len(prompt), chunk):
+            n = min(chunk, len(prompt) - start)
+            toks = torch.zeros((1, chunk), dtype=torch.long)
+            toks[0, :n] = torch.as_tensor(prompt[start:start + n])
+            _, caches = model.prefill_chunk(
+                params, caches, toks, torch.tensor([start], dtype=torch.int32),
+                torch.tensor([n], dtype=torch.int32))
+        out = []
+        for t in generated[:-1]:
+            seen.clear()
+            _, caches = model.serve_step(
+                params, caches, torch.tensor([[t]], device=DEV))
+            out.append(min(seen, key=lambda g: g[0] - g[1]))
+    finally:
+        M.route = real
+    return out
+
+
+def layer_fan_in(raw, cfg) -> None:
+    """Every attention's projections of ``raw`` (a stack's, an encoder's,
+    a decoder's cross-attention) rescaled in place to one layer's
+    fan-in: ``Model.init`` takes a stacked 4-D leaf's fan-in from its
+    layer axis, as the reference's does."""
+    for key, L in (("layers", cfg.n_layers), ("encoder", cfg.encoder_layers)):
+        for name in ("attn", "cross_attn"):
+            attn = raw.get(key, {}).get(name)
+            if attn is None:
+                continue
+            for k in ("wq", "wk", "wv"):
+                attn[k].mul_((L / cfg.d_model) ** 0.5)
+            attn["wo"].mul_((L / (cfg.n_heads * cfg.resolved_head_dim))
+                            ** 0.5)
 
 
 def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
@@ -2266,11 +2857,7 @@ def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
     model = Model(small, kernel_plan=plain, device=DEV)
     raw = model.init(torch.Generator(device=DEV).manual_seed(1))
     if per_layer_fan_in:
-        attn = raw["layers"]["attn"]
-        for k in ("wq", "wk", "wv"):
-            attn[k].mul_((n_layers / small.d_model) ** 0.5)
-        attn["wo"].mul_((n_layers / (small.n_heads
-                                     * small.resolved_head_dim)) ** 0.5)
+        layer_fan_in(raw, small)
     params = model.cast_params(raw)
     out = {}
     for kv in kvs:
@@ -2289,7 +2876,7 @@ def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
                 or routed.linked_matmul != "cuda" \
                 or (kv == "paged" and routed.decode_paged != "cuda"):
             fail(f"parity {kv}: the routed plan did not route to cuda")
-        compared = diverged = 0
+        compared = diverged = routing = 0
         for a, b, prompt in zip(streams["plain"][0], streams["routed"][0],
                                 streams["plain"][1]):
             logits = plain_logits(torch, model, params, prompt, a,
@@ -2299,6 +2886,22 @@ def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
                 margin = (top[0] - top[1]).item()
                 tol = TOL["bfloat16"]["rtol"] * max(1.0, abs(top[0].item()))
                 if x != y:
+                    if margin > tol and small.family == "moe":
+                        # a routing decision at a step up to t within the
+                        # bf16 tolerance can flip an expert (PR 21)
+                        steps = routing_margins(torch, model, params, prompt,
+                                                a[:t + 1], args.chunk,
+                                                max_len)
+                        low = [(j + 1, g, rt) for j, (g, rt)
+                               in enumerate(steps) if g <= rt]
+                        print(f"parity {small.name} {kv}: parts at step {t} "
+                              f"(plain margin {margin:.4f} > tol "
+                              f"{tol:.4f}); routing decisions within "
+                              f"their tolerance at steps up to it "
+                              f"(step, gap, tol): {low[:4]}")
+                        if low:
+                            routing += 1
+                            break
                     if margin > tol:
                         fail(f"parity {small.name} {kv}: streams differ at "
                              f"step {t} where the plain margin "
@@ -2308,9 +2911,11 @@ def parity_phase(torch, serve, pipeline, Model, cfg, n_layers: int = 2,
                 compared += 1
         print(f"parity {small.name} ({n_layers} layers, prompts "
               f"{prompt_len}) {kv}: {compared} tokens compared, {diverged} "
-              "streams diverged at a low-margin step, routed plan "
+              f"streams diverged at a low-margin step, {routing} after a "
+              "low-margin routing decision, routed plan "
               f"{streams['routed'][2].as_dict()}")
-        out[kv] = {"compared": compared, "diverged_low_margin": diverged}
+        out[kv] = {"compared": compared, "diverged_low_margin": diverged,
+                   "diverged_low_routing_margin": routing}
     return out
 
 
@@ -2562,6 +3167,7 @@ def main() -> int:
     check_decode_shards(torch, dec_ops, gen, bs, report)
     check_decode_gemma3(torch, dec_ops, gen, g3_bs, report)
     check_decode_hymba(torch, dec_ops, gen, report)
+    check_decode_g1(torch, dec_ops, gen, bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
     check_fused_mask_rows(torch, fs_ops, gen, report, "gemma3", G3_VOCAB,
                           G3_VOCAB + 256)
@@ -2569,6 +3175,10 @@ def main() -> int:
                           HY_ROW)
     check_fused_mask_rows(torch, fs_ops, gen, report, "mamba2", M2_VOCAB,
                           M2_ROW)
+    check_fused_mask_rows(torch, fs_ops, gen, report, "olmoe", OL_VOCAB,
+                          OL_ROW)
+    check_fused_mask_rows(torch, fs_ops, gen, report, "seamless", SM_VOCAB,
+                          SM_ROW)
     check_cbr_avgpool(torch, cb_ops, gen, report)
     check_linked_mlp(torch, lm_ops, gen, pipeline.SERVE_CHUNK_SIZES, report)
     check_split_matmul(torch, sm_ops, gen, report)
@@ -2609,9 +3219,12 @@ def main() -> int:
     runs.update(recurrent_phase(torch, kernels, serve,
                                 recurrent["hymba-1.5b"],
                                 recurrent["mamba2-370m"]))
-    result["serve"] = runs
     del recurrent
     torch.cuda.empty_cache()
+    runs.update(moe_phase(torch, kernels, serve, Model, card))
+    runs.update(arctic_phase(torch, kernels, serve, Model, lm_ops, gen))
+    runs.update(seamless_phase(torch, kernels, Model, card))
+    result["serve"] = runs
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
     # gemma3 at six layers (five sliding, one global), prompts past the
     # window
@@ -2623,6 +3236,15 @@ def main() -> int:
     result["parity_hymba"] = parity_phase(
         torch, serve, pipeline, Model, get_config("hymba-1.5b"), n_layers=4,
         kvs=("dense",), per_layer_fan_in=True)
+    # olmoe at two layers, dense and paged; seamless at two + two; both
+    # without qk-norm, so at the stacked init their plain path's bf16
+    # scores (|s| in the hundreds) round by whole units: attention at one
+    # layer's fan-in, as hymba's
+    result["parity_olmoe"] = parity_phase(
+        torch, serve, pipeline, Model, get_config("olmoe-1b-7b"),
+        per_layer_fan_in=True)
+    result["parity_seamless"] = parity_translate(
+        torch, pipeline, Model, get_config("seamless-m4t-large-v2"))
     torch.cuda.empty_cache()
 
     plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})

@@ -2,10 +2,10 @@
 
 A second package beside the JAX reference (``repro``), mirroring its
 layout: ``configs/``, ``models/``, ``kernels/`` (hand-written CUDA for
-``sm_90a``, sources in ``csrc/``), ``serving/``, ``core/``, ``launch/``
-and ``convert.py``.  It imports torch and numpy and nothing of JAX or of
-the reference package.  Entry points run on the card unless the caller
-asks for the CPU (``device="cpu"``), as the tests do.
+``sm_90a``, sources in ``csrc/``), ``serving/``, ``core/``, ``launch/``,
+``data/`` and ``convert.py``.  It imports torch and numpy and nothing
+of JAX or of the reference package.  Entry points run on the card unless
+the caller asks for the CPU (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 

@@ -85,19 +85,36 @@ def max_splits(D: int, gt: int) -> int:
     return min(MAX_SPLITS, RING_BYTES // (gt * D * 4))
 
 
-def decode_grid(B: int, K: int, G: int, W: int, sms: int, D: int
-                ) -> tuple[int, int]:
+def decode_grid(B: int, K: int, G: int, W: int, sms: int, D: int,
+                splits: int | None = None) -> tuple[int, int]:
     """``(GT, S)``: query heads per CTA (2 when G is even, else 1) and
     splits per row.  The grid is ``B*K*G/GT`` units of ``S`` CTAs: as many
     splits as one wave of ``CTAS_PER_SM`` CTAs on each of the ``sms`` SMs
     holds, at most :func:`max_splits` of ``(D, GT)`` and at most one per
     ``MIN_SPLIT_SLOTS`` slots of ``W``, at least one.  Shapes alone
-    decide it: no length."""
+    decide it: no length.  ``splits`` overrides S (capped by
+    :func:`max_splits`, at least one): a concat-TP rank passes
+    :func:`rank_splits`."""
     gt = 2 if G % 2 == 0 else 1
+    if splits is not None:
+        return gt, max(1, min(splits, max_splits(D, gt)))
     units = B * K * (G // gt)
     s = min(CTAS_PER_SM * sms // units, -(-W // MIN_SPLIT_SLOTS),
             max_splits(D, gt))
     return gt, max(1, s)
+
+
+def rank_splits(B: int, K: int, G: int, W: int, sms: int, D: int,
+                shards: int) -> int:
+    """The split count a concat-TP rank holding ``K`` of ``K * shards`` kv
+    heads launches with: the count one device takes at the full kv heads.
+    At its own K the rank would take more splits (twice as many at two
+    ranks: the grid fills one wave either way) and merge each row's
+    partials in another order.  :func:`split_range` cuts a row by its
+    own live span and S alone, so equal counts give the rank's heads the
+    one-device pieces and merge order, and their bits.  GT follows G,
+    which sharding keeps."""
+    return decode_grid(B, K * shards, G, W, sms, D)[1]
 
 
 def split_range(lo: int, hi: int, S: int, s: int) -> tuple[int, int]:
@@ -172,9 +189,11 @@ def _check_common(q, k, v, kernel):
     return B, H, K, D
 
 
-def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel):
+def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel,
+            splits):
     B, H, K, D = q.shape[0], q.shape[1], k.shape[2], q.shape[2]
-    gt, n_split = decode_grid(B, K, H // K, W, sm_count(q.device), D)
+    gt, n_split = decode_grid(B, K, H // K, W, sm_count(q.device), D,
+                              splits)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = _scratch(q.device, stream, B, H, D, gt, n_split)
     out = torch.empty_like(q)
@@ -191,8 +210,11 @@ def _launch(paged, q, k, v, valid, tables, lengths, W, bs, M, kernel):
 
 
 def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-               valid: torch.Tensor) -> torch.Tensor:
-    """q (B,H,D); k/v_cache (B,W,K,D); valid (B,W) bool -> (B,H,D)."""
+               valid: torch.Tensor, splits: int | None = None
+               ) -> torch.Tensor:
+    """q (B,H,D); k/v_cache (B,W,K,D); valid (B,W) bool -> (B,H,D).
+    ``splits``: the split count a row takes (:func:`decode_grid`'s
+    override; None: the grid's own)."""
     if not q.is_cuda:
         return gqa_decode_plain(q, k_cache, v_cache, valid)
     B, H, K, D = _check_common(q, k_cache, v_cache, "gqa_decode")
@@ -205,15 +227,17 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)} {tuple(valid.shape)} "
                          f"{valid.dtype}")
     return _launch(False, q, k_cache, v_cache, valid, None, None, W, 1, 1,
-                   "gqa_decode")
+                   "gqa_decode", splits)
 
 
 def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, splits: int | None = None
+                     ) -> torch.Tensor:
     """q (B,H,D); pools (P,bs,K,D); block_tables (B,M) int32 (-1 =
     unassigned); lengths (B,) int32 -> (B,H,D).  The dense per-request
-    view is never built: the kernel maps each slot through the table."""
+    view is never built: the kernel maps each slot through the table.
+    ``splits`` as in :func:`gqa_decode`."""
     if not q.is_cuda:
         return gqa_decode_paged_plain(q, k_pool, v_pool, block_tables,
                                       lengths)
@@ -231,4 +255,4 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype}")
     bs = k_pool.shape[1]
     return _launch(True, q, k_pool, v_pool, None, block_tables, lengths,
-                   M * bs, bs, M, "gqa_decode_paged")
+                   M * bs, bs, M, "gqa_decode_paged", splits)

@@ -19,6 +19,9 @@ batching on one device (the card by default).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --reduced --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --kv paged
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --reduced --device cpu --mesh-shards 2 --replicas 2 --kv paged
 
@@ -36,7 +39,11 @@ its own windows, paged through a ``MixedKVPool``.  The recurrent archs
 (``mamba2-370m``, ``hymba-1.5b``) carry constant-size SSM state per
 slot (the report's ``cache`` line: ``kv_growth constant`` and the bytes
 of each cache kind) and serve dense KV only: ``--kv paged`` fails with
-the engine's ``ValueError``.
+the engine's ``ValueError``.  An MoE arch (``olmoe-1b-7b``,
+reduced ``arctic-480b``) serves as a dense one does.  An
+encoder-decoder arch (``seamless-m4t-large-v2``) is refused: the
+engine drives decoder-only stacks, and ``repro_torch.launch.
+translate_audio`` serves it.
 
 ``--mesh-shards N`` serves each engine concat-TP over N ranks
 (``repro_torch.distributed.tp``): the command spawns N processes
@@ -220,7 +227,8 @@ def run(args, mesh=None) -> int:
                   device=mesh.device if mesh is not None else args.device)
     cfg = model.cfg
     if cfg.is_encoder_decoder:
-        raise SystemExit("serve drives decoder-only archs")
+        raise SystemExit("serve.py drives decoder-only archs; for seamless "
+                         "see src/repro_torch/launch/translate_audio.py")
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(args.seed))
     draft = build_draft(cfg, model.device, args.seed + 1) \

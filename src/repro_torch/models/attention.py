@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import sm_count
 from ..kernels.decode_attention import ops as dec_ops
 from .layers import ParamSpec, rms_norm
 
@@ -109,11 +110,12 @@ def attention_specs(d: int, n_heads: int, n_kv: int, head_dim: int,
 # ---------------------------------------------------------------------------
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   window: int = 0) -> torch.Tensor:
-    """Causal attention.  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D);
-    ``window`` > 0 keeps only keys ``> q_pos - window``.  Used for every
-    prefill length (the reference switches to an equal-to-tolerance
-    flash-style scan past 2048 tokens)."""
+                   window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Attention over a whole sequence.  q: (B,S,H,D), k/v: (B,T,K,D) ->
+    (B,S,H,D); ``causal`` keeps keys ``<= q_pos``, ``window`` > 0 only
+    keys ``> q_pos - window``.  Used for every prefill length (the
+    reference switches to an equal-to-tolerance flash-style scan past
+    2048 tokens)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -121,7 +123,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(D)
     q_pos = torch.arange(S, device=q.device)
     k_pos = torch.arange(T, device=q.device)
-    mask = k_pos[None, :] <= q_pos[:, None]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
     if window:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
     scores = torch.where(mask, scores, NEG_INF)
@@ -130,17 +134,34 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, D)
 
 
+def rank_splits(q: torch.Tensor, K: int, W: int, shards: int):
+    """The decode kernels' split count for a concat-TP rank holding ``K``
+    of ``K * shards`` kv heads: one device's at the full kv heads
+    (``dec_ops.rank_splits``), so the rank's heads take the one-device
+    pieces and merge order.  None (the grid's own) on one device or off
+    the card."""
+    if shards == 1 or not q.is_cuda:
+        return None
+    B, H, D = q.shape
+    return dec_ops.rank_splits(B, K, H // K, W, sm_count(q.device), D,
+                               shards)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, valid: torch.Tensor,
-                     backend: str = "torch") -> torch.Tensor:
+                     backend: str = "torch", shards: int = 1) -> torch.Tensor:
     """One-token attention over a cache.
 
     q: (B,H,D); caches: (B,W,K,D); valid: (B,W) bool.  ``backend`` is the
     ``decode_dense`` site of a ``KernelPlan``: ``"torch"`` (einsum +
     softmax, the reference's XLA path) or ``"cuda"`` (flash-decode kernel).
+    ``shards``: the concat-TP mesh's ranks when the cache holds one
+    rank's kv heads (:func:`rank_splits`).
     """
     if backend == "cuda":
-        return dec_ops.gqa_decode(q, k_cache, v_cache, valid)
+        return dec_ops.gqa_decode(
+            q, k_cache, v_cache, valid,
+            rank_splits(q, k_cache.shape[2], k_cache.shape[1], shards))
     if backend != "torch":
         raise ValueError(f"unknown decode_dense backend {backend!r}")
     B, H, D = q.shape
@@ -170,7 +191,8 @@ def paged_kv_view(k_pool: torch.Tensor, v_pool: torch.Tensor,
 def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor,
-                           backend: str = "gather") -> torch.Tensor:
+                           backend: str = "gather",
+                           shards: int = 1) -> torch.Tensor:
     """One-token attention over a block-paged cache.
 
     q: (B,H,D); pools: (P,bs,K,D); block_tables: (B,M) int32 (-1 =
@@ -181,11 +203,14 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     ``backend`` is the ``decode_paged`` site: ``"gather"`` builds the dense
     view, ``"fold"`` selects K by an exact one-hot contraction
     (:func:`_paged_fold_attention`), ``"cuda"`` is the paged flash-decode
-    kernel, which never builds the view.
+    kernel, which never builds the view.  ``shards`` as in
+    :func:`decode_attention`.
     """
     if backend == "cuda":
-        return dec_ops.gqa_decode_paged(q, k_pool, v_pool, block_tables,
-                                        lengths)
+        return dec_ops.gqa_decode_paged(
+            q, k_pool, v_pool, block_tables, lengths,
+            rank_splits(q, k_pool.shape[2],
+                        block_tables.shape[1] * k_pool.shape[1], shards))
     if backend == "fold":
         return _paged_fold_attention(q, k_pool, v_pool, block_tables,
                                      lengths)
@@ -376,22 +401,34 @@ def _rope(cfg, theta: float, device):
 
 
 def attention_block(p, x, *, cfg, window: int | None = None,
-                    rope_theta: float | None = None) -> torch.Tensor:
-    """Causal attention over a whole sequence.  x: (B,S,d)."""
+                    rope_theta: float | None = None, causal: bool = True,
+                    kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                    ) -> torch.Tensor:
+    """Attention over a whole sequence.  x: (B,S,d).  ``causal`` False:
+    bidirectional (the encoder's).  ``kv`` overrides K/V (cross-attention
+    over the encoder's, :func:`~.transformer.cross_kv`): then no mask, no
+    RoPE on either side and no k-norm, as in the reference."""
     S = x.shape[1]
     window, theta = _layer_args(cfg, window, rope_theta)
     q = _project(p, x, "wq")
-    k = _project(p, x, "wk")
-    v = _project(p, x, "wv")
+    if kv is None:
+        k = _project(p, x, "wk")
+        v = _project(p, x, "wv")
+    else:
+        k, v = kv
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    if cfg.rope_fraction > 0:
+        if kv is None:
+            k = rms_norm(k, p["k_norm"])
+    if kv is None and cfg.rope_fraction > 0:
         inv = _rope(cfg, theta, x.device)
         positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-    return _out_project(p, full_attention(q, k, v, window=window))
+    if kv is not None:
+        causal, window = False, 0
+    return _out_project(p, full_attention(q, k, v, window=window,
+                                          causal=causal))
 
 
 def _window_valid(positions: torch.Tensor, pos: torch.Tensor,
@@ -410,7 +447,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
                            live: torch.Tensor | None = None,
                            window: int | None = None,
                            rope_theta: float | None = None,
-                           shard_axis=None):
+                           shard_axis=None, cross_kv=None):
     """One decode step.  x: (B, 1, d) -> (y (B, 1, d), cache).
 
     RoPE is applied at write time (K is cached post-rotation).  ``live``
@@ -423,14 +460,28 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
     ``decode_dense`` / ``decode_paged`` / ``decode_ring`` sites; the
     cache's type picks one (a ring attends its gathered view through the
     dense one).  ``shard_axis`` (concat-TP): the params hold this rank's
-    heads and the cache its kv heads; see :func:`_out_project`.
+    heads and the cache its kv heads; see :func:`_out_project`; the
+    decode kernels then take one device's split count
+    (:func:`rank_splits`).
+
+    ``cross_kv`` ((B, Ssrc, K, D) K and V): cross-attention over the
+    encoder's static K/V through the ``decode_dense`` site, every slot
+    valid, no RoPE; ``cache`` is neither read nor written.
     """
     B = x.shape[0]
     window, theta = _layer_args(cfg, window, rope_theta)
+    shards = shard_axis.shards if shard_axis is not None else 1
+    q = _project(p, x, "wq")[:, 0]             # (B, H, D)
+    if cross_kv is not None:
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        k_c, v_c = cross_kv
+        valid = torch.ones(k_c.shape[:2], dtype=torch.bool, device=x.device)
+        out = decode_attention(q, k_c, v_c, valid, dense_backend, shards)
+        return _out_project(p, out, shard_axis)[:, None], cache
     if live is None:
         live = torch.ones((B,), dtype=torch.bool, device=x.device)
     pos = cache.length.clone()                 # (B,) position of the new token
-    q = _project(p, x, "wq")[:, 0]             # (B, H, D)
     k_new = _project(p, x, "wk")[:, 0]         # (B, K, D)
     v_new = _project(p, x, "wv")[:, 0]
     if cfg.qk_norm:
@@ -462,7 +513,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
         new_len = torch.where(ok, pos + 1, pos).to(torch.int32)
         cache.length.copy_(new_len)
         y = decode_attention_paged(q, cache.k, cache.v, cache.block_tables,
-                                   new_len, paged_backend)
+                                   new_len, paged_backend, shards)
         return _out_project(p, y, shard_axis)[:, None], cache
 
     W = cache.k.shape[1]
@@ -476,7 +527,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
                                               cache.positions[bidx, slot])
     cache.length.copy_(torch.where(live, pos + 1, pos))
     valid = _window_valid(cache.positions, pos, window)
-    out = decode_attention(q, cache.k, cache.v, valid, dense_backend)
+    out = decode_attention(q, cache.k, cache.v, valid, dense_backend, shards)
     return _out_project(p, out, shard_axis)[:, None], cache
 
 

@@ -145,6 +145,24 @@ def swiglu(p: dict[str, torch.Tensor], x: torch.Tensor,
     return h @ p["down"].to(x.dtype)
 
 
+def gelu_mlp_specs(d: int, ff: int) -> dict[str, ParamSpec]:
+    return {
+        "up": ParamSpec((d, ff), ("embed", "mlp")),
+        "up_b": ParamSpec((ff,), ("mlp",), init="zeros"),
+        "down": ParamSpec((ff, d), ("mlp", "embed")),
+        "down_b": ParamSpec((d,), ("embed",), init="zeros"),
+    }
+
+
+def gelu_mlp(p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """gelu(x@up + up_b) @ down + down_b: the encoder-decoder's MLP.  The
+    tanh form of GELU, as ``jax.nn.gelu``'s default.  No kernel site: the
+    linked kernel fuses SwiGLU only."""
+    h = F.gelu(x @ p["up"].to(x.dtype) + p["up_b"].to(x.dtype),
+               approximate="tanh")
+    return h @ p["down"].to(x.dtype) + p["down_b"].to(x.dtype)
+
+
 def embed_specs(vocab: int, d: int) -> dict[str, ParamSpec]:
     return {"tokens": ParamSpec((vocab, d), ("vocab", "embed"), init="embed")}
 

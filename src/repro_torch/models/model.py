@@ -1,9 +1,11 @@
 """Top-level model: parameters and the serving steps, in PyTorch.
 
-The counterpart of ``repro.models.model.Model`` for the dense family
-(full attention, sliding windows and layer patterns) and the recurrent
+The counterpart of ``repro.models.model.Model`` for every family: dense
+(full attention, sliding windows and layer patterns), MoE, the recurrent
 ones (``ssm``: Mamba2 alone; ``hybrid``: attention and Mamba2 heads in
-parallel): ``param_specs``, ``init``, ``forward``,
+parallel) and the encoder-decoder (``audio``: the encoder runs over
+precomputed frame embeddings, ``batch["src"]``, and the decoder
+cross-attends its output): ``param_specs``, ``init``, ``forward``,
 ``prefill_step``, ``prefill_chunk``, ``serve_step``, ``verify_step``,
 ``init_caches``, ``init_paged_caches``, ``reset_cache_rows`` and
 ``rollback_cache_rows``.  The parameter tree is
@@ -40,8 +42,8 @@ from . import cache_family as CF
 from . import ssm as SSM
 from . import transformer as T
 from .layers import (embed_lookup, embed_specs, init_params, param_count,
-                     rms_norm, rms_norm_spec, stack_layer_specs, swiglu,
-                     tree_leaves, tree_map, unembed)
+                     rms_norm, rms_norm_spec, stack_layer_specs, tree_leaves,
+                     tree_map, unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -72,12 +74,18 @@ class Model:
     # ------------------------------------------------------------------ specs
     def param_specs(self):
         cfg = self.cfg
-        return {
+        specs: dict[str, Any] = {
             "embed": embed_specs(cfg.padded_vocab(), cfg.d_model),
-            "layers": stack_layer_specs(T.decoder_layer_specs(cfg),
-                                        cfg.n_layers),
+            "layers": stack_layer_specs(
+                T.decoder_layer_specs(cfg, cross=cfg.is_encoder_decoder),
+                cfg.n_layers),
             "final_norm": rms_norm_spec(cfg.d_model),
         }
+        if cfg.is_encoder_decoder:
+            specs["encoder"] = stack_layer_specs(
+                T.encoder_layer_specs(cfg), cfg.encoder_layers)
+            specs["enc_norm"] = rms_norm_spec(cfg.d_model)
+        return specs
 
     def init(self, generator: torch.Generator, device=None):
         """Random parameters drawn like the reference's ``_init_leaf``, in
@@ -97,17 +105,18 @@ class Model:
                         if t.is_floating_point() else t.to(self.device),
                         params)
 
-    def _layers(self, params) -> list:
-        """Per-layer views of the stacked params, memoized per tree and
-        made again when any stacked leaf was replaced."""
-        stacked = params["layers"]
+    def _layers(self, params, key: str = "layers") -> list:
+        """Per-layer views of the stacked params (``key`` "encoder": the
+        encoder's), memoized per tree and made again when any stacked
+        leaf was replaced."""
+        stacked = params[key]
         leaves = tree_leaves(stacked)
         hit = self._views.get(id(stacked))
         if hit is not None and len(hit[0]) == len(leaves) \
                 and all(a is b for a, b in zip(hit[0], leaves)):
             return hit[1]
-        views = T.layer_views(stacked, self.cfg.n_layers)
-        if len(self._views) >= 2:
+        views = T.layer_views(stacked, leaves[0].shape[0])
+        if len(self._views) >= 4:
             self._views.pop(next(iter(self._views)))
         self._views[id(stacked)] = (leaves, views)
         return views
@@ -121,12 +130,23 @@ class Model:
                             tokens.to(self.device), self.dtype)
 
     # ---------------------------------------------------------------- forward
+    def _encode(self, params, src):
+        """The encoder over frame embeddings src (B, Ssrc, d), final-normed."""
+        x = T.encoder_stack(self._layers(params, "encoder"),
+                            src.to(self.device, self.dtype), cfg=self.cfg)
+        return rms_norm(x, params["enc_norm"])
+
     def forward(self, params, batch):
-        """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
+        """Full-sequence forward -> (logits (B, S, V), aux_loss: the MoE
+        load-balance loss summed over layers, else 0).  An
+        encoder-decoder reads ``batch["src"]``."""
+        enc_out = self._encode(params, batch["src"]) \
+            if self.cfg.is_encoder_decoder else None
         x = self._embed(params, batch["tokens"])
-        x = T.decoder_stack(self._layers(params), x, cfg=self.cfg,
-                            mlp_backend=self.kernel_plan.linked_matmul)
-        return self._head(params, x), torch.zeros((), device=x.device)
+        x, aux = T.decoder_stack(self._layers(params), x, cfg=self.cfg,
+                                 mlp_backend=self.kernel_plan.linked_matmul,
+                                 enc_out=enc_out)
+        return self._head(params, x), aux
 
     # ---------------------------------------------------------------- serving
     def cache_width(self, seq_len: int) -> int:
@@ -146,22 +166,24 @@ class Model:
             return type(tree)(*(rep(v) for v in tree))
         return rep(one)
 
-    def init_caches(self, batch: int, seq_len: int, shards: int = 1):
+    def init_caches(self, batch: int, seq_len: int, shards: int = 1,
+                    src_len: int = 0):
         """Ring-buffer caches with a leading layer axis on every leaf — or,
         for a layer-pattern stack, a tuple of per-layer caches at their
         natural widths: a sliding layer's ring is window-sized, a global
         layer's spans the horizon (masked slots add exact zero terms, so
         the widths leave the softmax's bits alone).  ``shards``: a
-        concat-TP rank's caches, at ``n_kv_heads / shards`` kv heads."""
+        concat-TP rank's caches, at ``n_kv_heads / shards`` kv heads;
+        ``src_len``: an encoder-decoder's source frames (its cross K/V)."""
         if self.hetero:
             return tuple(
                 T.init_layer_cache(self.cfg, batch,
                                    min(w, seq_len) if w else seq_len,
-                                   self.dtype, self.device, shards)
+                                   self.dtype, self.device, shards, src_len)
                 for w in self.layer_windows)
         return self._stack(T.init_layer_cache(
             self.cfg, batch, self.cache_width(seq_len), self.dtype,
-            self.device, shards))
+            self.device, shards, src_len))
 
     def init_paged_caches(self, batch: int, *, pool_blocks: int,
                           block_size: int, max_blocks: int,
@@ -224,26 +246,31 @@ class Model:
                 "rope_theta": self.layer_thetas[i]}
 
     def _run_layers(self, params, caches, x, attn, ssm, mlp_backend: str,
-                    shard_axis=None):
+                    shard_axis=None, cross=None):
         """Every layer's token mixing, by family, then (but for ``ssm``)
-        the residual SwiGLU: ``attn(p, h, kv, **layer_args)`` attends layer
-        ``i`` over its KV view with its window and theta, ``ssm(p, h, sc)``
-        runs its Mamba2 mixer over its SSM state view; a hybrid layer runs
-        both on the same normed input and mean-fuses them.
+        its FFN (:func:`~.transformer.ffn`): ``attn(p, h, kv,
+        **layer_args)`` attends layer ``i`` over its KV view with its
+        window and theta, ``ssm(p, h, sc)`` runs its Mamba2 mixer over its
+        SSM state view; a hybrid layer runs both on the same normed input
+        and mean-fuses them; ``cross(p, x, c)`` (an encoder-decoder's) is
+        the cross-attention residual over layer ``i``'s cache view.
         ``shard_axis``: the concat-TP mesh the MLP gathers over."""
-        fam = self.cfg.family
+        cfg = self.cfg
         for i, (lp, c) in enumerate(zip(self._layers(params),
                                         self._layer_caches(caches))):
             h = rms_norm(x, lp["norm1"])
-            if fam == "ssm":
+            if cfg.family == "ssm":
                 x = x + ssm(lp["ssm"], h, c.ssm)
                 continue
             att = attn(lp["attn"], h, c.kv, **self._layer_kw(i))
-            if fam == "hybrid":
+            if cfg.family == "hybrid":
                 att = T.fuse_hybrid(lp, att, ssm(lp["ssm"], h, c.ssm))
             x = x + att
-            x = x + swiglu(lp["mlp"], rms_norm(x, lp["norm2"]), mlp_backend,
-                           shard_axis)
+            if cross is not None:
+                x = x + cross(lp, x, c)
+            y, _ = T.ffn(lp, rms_norm(x, lp["norm2"]), cfg=cfg,
+                         mlp_backend=mlp_backend, shard_axis=shard_axis)
+            x = x + y
         return x
 
     def prefill_step(self, params, batch, max_len: int = 0, plan=None):
@@ -267,8 +294,19 @@ class Model:
         if lengths is not None:
             lengths = lengths.to(self.device)
         B, S = tokens.shape
+        cross = None
+        src_len = 0
+        if cfg.is_encoder_decoder:
+            enc_out = self._encode(params, batch["src"])
+            src_len = enc_out.shape[1]
+
+            def cross(lp, x, c):
+                kv = T.cross_kv(lp["cross_attn"], enc_out)
+                c.cross_k.copy_(kv[0])
+                c.cross_v.copy_(kv[1])
+                return T.cross_attend(lp, x, kv, cfg=cfg)
         x = self._embed(params, tokens)
-        caches = self.init_caches(B, max(max_len, S))
+        caches = self.init_caches(B, max(max_len, S), src_len=src_len)
 
         def ssm(p, h, sc):
             y, state = SSM.mamba2_block(p, h, cfg=cfg, return_state=True)
@@ -279,7 +317,7 @@ class Model:
             params, caches, x,
             lambda p, h, kv, **kw: A.prefill_into_cache(
                 p, h, kv, cfg=cfg, lengths=lengths, **kw)[0],
-            ssm, plan.linked_matmul)
+            ssm, plan.linked_matmul, cross=cross)
         if lengths is None:
             x = x[:, -1:]
         else:
@@ -299,6 +337,10 @@ class Model:
         concat-TP mesh when ``params`` / ``caches`` are one rank's shards
         (``repro_torch.distributed.tp``); the logits are every rank's."""
         cfg = self.cfg
+        if not CF.supports_chunked_prefill(cfg):
+            raise NotImplementedError(
+                f"chunked prefill needs decoder-only cache families, not "
+                f"{cfg.family}")
         plan = plan if plan is not None else self.kernel_plan
         tokens = tokens.to(self.device)
         offsets = offsets.to(self.device, torch.int32)

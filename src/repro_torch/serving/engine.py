@@ -290,6 +290,9 @@ class ServingEngine:
         if kv == "paged" and prefill_mode != "chunked":
             raise ValueError(f"kv='paged' requires prefill_mode='chunked', "
                              f"not {prefill_mode!r}")
+        if prefill_mode == "chunked" and not CF.supports_chunked_prefill(cfg):
+            raise ValueError(f"{cfg.family} cannot run chunked prefill; "
+                             f"use prefill_mode='batched'")
         self.scheduler = Scheduler(
             SchedulerConfig(slots=slots, max_len=max_len, chunk=chunk,
                             prefill_mode=prefill_mode,

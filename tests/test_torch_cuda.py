@@ -1722,3 +1722,142 @@ def test_tp_engine_on_one_card_within_the_margin_rule(card, kv, tmp_path):
         assert ln[attn] == model.cfg.n_layers * st > 0
         assert ln["fused_mask"] == sc > 0
         assert ln["linked_mlp"] == 0 and ln["linked_mlp_tc"] == 0
+
+
+# -- MoE and encoder-decoder ---------------------------------------------------
+
+def _moe_model(arch):
+    """Reduced ``arch`` (olmoe-1b-7b: 4 experts top 2; arctic-480b: the
+    same with its dense SwiGLU residual) in bf16 on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    model = Model(cfg, device="cuda")
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b"])
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+@pytest.mark.parametrize("spec", [None, "ngram"])
+def test_moe_engine_graphed_matches_eager(card, arch, kv, spec):
+    """The MoE decode and verify steps captured as CUDA graphs emit the
+    eager engine's streams bit for bit (sampled, with preemption and
+    speculation); a decode replay launches the decode kernel once a
+    layer, ``fused_mask`` once, and ``linked_mlp_tc`` once a layer for
+    arctic's dense residual only (the experts have no kernel site)."""
+    from repro_torch.serving.speculative import SpecParams
+    model, params = _moe_model(arch)
+    trace = _serve_trace(11, True, model.cfg.vocab)
+    sp = SpecParams(mode="ngram", k=4, min_ngram=1) if spec else None
+    eager, e_eng = _serve_trace_run(model, params, trace, kv, False, sp)
+    graphed, g_eng = _serve_trace_run(model, params, trace, kv, True, sp)
+    assert graphed == eager
+    assert g_eng.spec_stats == e_eng.spec_stats
+    n = model.cfg.n_layers
+    attn = "gqa_decode" if kv == "dense" else "gqa_decode_paged"
+    got = g_eng.stats()["graphs"]["serve_sample"]["launches"]
+    mlp = n if model.cfg.moe_dense_residual else 0
+    assert (got.get(attn, 0), got.get("fused_mask", 0),
+            got.get("linked_mlp_tc", 0), got.get("linked_mlp", 0)) == \
+        (n, 1, mlp, mlp)
+
+
+@pytest.mark.cuda
+def test_moe_decode_step_never_syncs(card):
+    """The MoE decode step (routing, the stable top-k, every expert on the
+    rows, the gathered combine) runs with no host synchronization (sync
+    debug mode raises on one): what a CUDA graph captures."""
+    model, params = _moe_model("olmoe-1b-7b")
+    params = model.cast_params(params)
+    caches = model.init_caches(SERVE_SLOTS, SERVE_MAX_LEN)
+    toks = torch.randint(0, model.cfg.vocab, (SERVE_SLOTS, 1), device="cuda",
+                         generator=card)
+    live = torch.ones((SERVE_SLOTS,), dtype=torch.bool, device="cuda")
+    model.serve_step(params, caches, toks, live=live)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, caches = model.serve_step(params, caches, toks, live=live)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_over_a_cross_span(card, dtype):
+    """Cross-attention's decode: seamless's 16 q / 16 kv heads of 64 (G =
+    1) over a 512-frame encoder span, every slot valid (the live-span
+    split over the whole row), and over short and odd spans."""
+    dt = getattr(torch, dtype)
+    for W in (512, 24, 509):
+        q = _rnd(card, dt, 8, 16, 64)
+        k, v = _rnd(card, dt, 8, W, 16, 64), _rnd(card, dt, 8, W, 16, 64)
+        valid = torch.ones((8, W), dtype=torch.bool, device="cuda")
+        got = t_da.gqa_decode(q, k, v, valid)
+        want = t_da.gqa_decode_plain(q, k, v, valid)
+        err = (got.float() - want.float()).abs()
+        tol = TOL[dtype]
+        assert (err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()
+
+
+def _tp_probe(mesh, max_len):
+    """Teacher-forced logits of a 2-rank mesh's rank (or one device,
+    ``mesh`` None) on a wide reduced qwen3 (16 q / 8 kv heads of 64) in
+    bf16: a 16-token prefill chunk of 4 rows, then 3 greedy decode steps,
+    through the cuda decode kernel over a ``max_len``-slot cache."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.pipeline import KernelPlan
+    from repro_torch.distributed import tp
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              dtype="bfloat16", n_heads=16, n_kv_heads=8,
+                              head_dim=64)
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    model = Model(cfg, kernel_plan=KernelPlan(decode_dense="cuda"),
+                  device=device)
+    params = model.cast_params(model.init(
+        torch.Generator(device=device).manual_seed(0)))
+    shards = 1 if mesh is None else mesh.shards
+    if mesh is not None:
+        params = tp.shard_params(params, shards, mesh.rank,
+                                 tp.serving_param_specs(model.param_specs()))
+    caches = model.init_caches(4, max_len, shards=shards)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 16)))
+    logits, caches = model.prefill_chunk(
+        params, caches, toks, torch.zeros(4, dtype=torch.int32),
+        torch.full((4,), 16, dtype=torch.int32), shard_axis=mesh)
+    out = [logits]
+    for _ in range(3):
+        tok = torch.argmax(out[-1][:, :cfg.vocab], dim=-1)[:, None]
+        logits, caches = model.serve_step(params, caches, tok,
+                                          shard_axis=mesh)
+        out.append(logits)
+    # numpy: a spawned rank's torch tensors reach the parent through a
+    # file descriptor that its exit closes
+    return [t.float().cpu().numpy() for t in out]
+
+
+@pytest.mark.cuda
+def test_tp_engine_decode_logits_equal_one_device(card, tmp_path):
+    """A rank's decode kernels take one device's split count (8 a row
+    where its 4 kv heads would take 16, at 4 rows over 2048 slots on a
+    132-SM card), so rank 0's decode logits equal one device's bit for
+    bit, as its prefill logits do."""
+    from repro_torch.launch.mesh import spawn_ranks
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_da.rank_splits(4, 4, 2, 2048, sms, 64, 2) == \
+        t_da.decode_grid(4, 8, 2, 2048, sms, 64)[1]
+    ranks = spawn_ranks(_tp_probe, 2, args=(2048,), devices=["cuda:0"] * 2,
+                        timeout_s=300.0, store_dir=tmp_path)
+    one = _tp_probe(None, 2048)
+    for step, (a, b) in enumerate(zip(ranks[0], one)):
+        assert np.array_equal(a, b), (step, np.abs(a - b).max())
+    assert all(np.array_equal(a, b) for a, b in zip(ranks[1], ranks[0]))

@@ -16,6 +16,10 @@
   reference's ``serving_param_specs`` on qwen3-1.7b's tree, and with
   ``serving_cache_specs`` on its caches; ``shard_params`` pieces
   concatenate back to every leaf.
+* **A rank's decode grid**: the decode kernels take the split count one
+  device takes at the full kv heads (``rank_splits``), so a rank's heads
+  merge their splits in the one-device order (qwen3's and gemma3's
+  shapes on a 132-SM card).
 * **Planner**: ``serve_schedule`` / ``_plan_kv_pool`` /
   ``_modeled_decode_paged`` under ``mesh_shards`` 2 and 4 equal the
   reference's; ``select_kernel_plan`` keeps ``linked_matmul`` on
@@ -47,7 +51,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import pipeline as port_pipeline
 from repro_torch.distributed import tp
+from repro_torch.kernels.decode_attention import ops as t_da
 from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks
+from repro_torch.models import attention
 from repro_torch.models.model import Model
 from repro_torch.serving import ServingEngine
 
@@ -559,3 +565,42 @@ def test_serve_command_fails_past_visible_cards():
     from repro_torch.launch import serve
     assert serve.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh-shards",
                        str(torch.cuda.device_count() + 2)]) == 2
+
+
+# -- a rank's decode split count (the decode kernels' grid on a mesh) --------
+
+@pytest.mark.parametrize("splits", [1, 3, 8, 24, 32, 40, 0, -2])
+@pytest.mark.parametrize("D,G", [(128, 2), (256, 4), (64, 1)])
+def test_decode_grid_takes_the_split_count_asked_for(D, G, splits):
+    """An override is the split count, capped by the kernel's merge ring
+    (``max_splits``) and at least one; GT still follows G."""
+    gt, S = t_da.decode_grid(8, 4, G, 2048, 132, D, splits)
+    assert gt == t_da.decode_grid(8, 4, G, 2048, 132, D)[0]
+    assert S == max(1, min(splits, t_da.max_splits(D, gt)))
+
+
+#: (B, K, G, W, D): qwen3-1.7b's decode (8 kv heads of 128, G 2) and
+#: gemma3-1b's shape (G 4, head_dim 256: a global layer's horizon, a
+#: sliding layer's ring) at two kv heads
+RANK_SHAPES = {"qwen3": (8, 8, 2, 2048, 128),
+               "gemma3_global": (8, 2, 4, 2048, 256),
+               "gemma3_sliding": (8, 2, 4, 512, 256)}
+
+
+@pytest.mark.parametrize("shape", RANK_SHAPES.values(), ids=RANK_SHAPES)
+def test_rank_takes_one_device_split_count(shape):
+    """On a 132-SM card a 2-rank engine's decode launches take the split
+    count one device takes at the full kv heads (qwen3: 4, where its own
+    K / 2 would take 8), so each head's row is cut into the same pieces
+    and merged in the same order; on one device and off the card the
+    grid keeps its own."""
+    B, K, G, W, D = shape
+    one = t_da.decode_grid(B, K, G, W, 132, D)[1]
+    rank = t_da.rank_splits(B, K // 2, G, W, 132, D, 2)
+    assert rank == one
+    assert t_da.decode_grid(B, K // 2, G, W, 132, D, rank)[1] == one
+    if shape == RANK_SHAPES["qwen3"]:
+        assert (one, t_da.decode_grid(B, K // 2, G, W, 132, D)[1]) == (4, 8)
+    q = torch.zeros((B, K // 2 * G, D))
+    assert attention.rank_splits(q, K // 2, W, 2) is None   # a CPU tensor
+    assert attention.rank_splits(q, K // 2, W, 1) is None
