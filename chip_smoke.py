@@ -178,7 +178,29 @@ Phases (any failure exits non-zero before the result line):
    xenos inference of bert_s (its four FFN matmuls, split three ways)
    and never for the other graphs.  Prints the
    median ms per inference per graph and mode (Fig. 7 on the card) and
-   the device busy share of xenos.
+   the device busy share of xenos;
+6. training (``Model.train_step``: AdamW, per-layer remat, the loss
+   over the padded vocabulary), which runs none of the six kernels:
+   (a) reduced qwen3-1.7b, olmoe-1b-7b and mamba2-370m (fp32, TF32 off,
+   attention at one layer's fan-in), three steps from one state on the
+   card under the ``cuda`` kernel plan and on the host: losses at rtol
+   1e-4, params by the CPU parity tests' rule (``close_params``); (b)
+   the reference's convergence checks on the card: reduced qwen3 40
+   steps and reduced olmoe 50 (grad clip 10) at batch 8 x seq 32, peak
+   lr 3e-3, warmup 5 (last-5 mean below first-5 by 0.2 / 0.05), and
+   ``examples/train_lm.py``'s ~100M config, 200 steps of 8 x 256 at
+   peak 1e-3, warmup 20 (last-10 mean below first-10); (c) qwen3-1.7b at
+   full width (bf16 compute, fp32 params and moments, remat on), 20
+   steps of 8 x 512 tokens of ``SyntheticLM``, cosine lr 3e-4 warmup 5,
+   every loss and grad norm finite: the param count, the median step
+   over steps 3-20, forward / backward / optimizer by CUDA events,
+   tokens/s, MFU (6 N + attention FLOPs a token over the bf16 dense
+   peak), peak memory, the busy share and top device ops of two
+   profiled steps, the first-5 / last-5 loss means; then three steps
+   with int8 moments, their step ms and moment bytes; (d) reduced
+   qwen3's train state with int8 moments saved from the card and loaded
+   back onto it, equal bit for bit.  ``LAUNCHES`` must not move across
+   the phase.
 
 Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
 by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32), twice (the
@@ -3068,6 +3090,382 @@ def cnn_phase(torch, kernels, core, plan, graphs, iters: int = 20) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+#: the parity steps' lr (step 0 is warmup's zero), as tests/test_torch_train
+TRAIN_SCHED = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+#: full-width qwen3-1.7b training: batch x seq, steps, the steady steps
+#: the median is over, the cosine's peak and warmup
+FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_STEADY = 8, 512, 20, (2, 20)
+FULL_LR, FULL_WARMUP = 3e-4, 5
+
+
+def hundred_m_config(get_config):
+    """``examples/train_lm.py``'s ~100M-parameter qwen3-family config."""
+    return dataclasses.replace(
+        get_config("qwen3-1.7b"), name="qwen3-100m", n_layers=8,
+        d_model=512, n_heads=8, n_kv_heads=4, head_dim=64, d_ff=1536,
+        vocab=8192, dtype="float32", param_dtype="float32")
+
+
+def train_batch(cfg, seed: int, batch: int = 4, seq: int = 16) -> dict:
+    import numpy as np
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                (batch, seq + 1))
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}
+
+
+def close_params(want, got, lr_sum: float) -> tuple[float, int]:
+    """The CPU parity tests' rule for params after AdamW steps: every
+    element within half the summed lr, all but 0.1% within 1e-3 of it
+    (plus rtol 1e-5 both).  Returns (worst error / summed lr, elements
+    past 1e-3 of it)."""
+    off = total = 0
+    worst = 0.0
+    for a, b in zip(want, got):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        err = (a - b).abs() - 1e-5 * a.abs()
+        worst = max(worst, err.max().item() / lr_sum)
+        off += int((err > 1e-3 * lr_sum).sum())
+        total += err.numel()
+    if not (worst <= 0.5 and off <= 1e-3 * total):
+        fail(f"params parted: worst {worst:.4f} of the summed lr, {off} of "
+             f"{total} elements past 1e-3 of it")
+    return worst, off
+
+
+def card_vs_cpu(torch, kernels, Model, plan, cfg, label: str) -> dict:
+    """Phase 6 (a): three ``train_step``s of reduced ``cfg`` from one state
+    (drawn on the CPU, attention at one layer's fan-in) on the card under
+    the ``cuda`` kernel plan and on the CPU: losses at rtol 1e-4, params
+    by :func:`close_params`, no kernel launched."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import TrainState
+    from repro_torch.optim import adamw_init, cosine_schedule
+    cpu = Model(cfg, device="cpu")
+    card = Model(cfg, device=DEV, kernel_plan=plan)
+    raw = cpu.init(torch.Generator().manual_seed(0))
+    layer_fan_in(raw, cfg)
+    states = {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        params = tree_map(lambda t, d=m.device: t.detach().clone().to(d)
+                          .requires_grad_(True), raw)
+        states[name] = TrainState(params, adamw_init(params, m.opt_cfg),
+                                  torch.zeros((), dtype=torch.int32,
+                                              device=m.device))
+    sched = lambda s: cosine_schedule(s, **TRAIN_SCHED)
+    before = dict(kernels.LAUNCHES)
+    losses = {"cpu": [], "cuda": []}
+    for i in range(3):
+        batch = train_batch(cfg, seed=i)
+        for name, m in (("cpu", cpu), ("cuda", card)):
+            states[name], met = m.train_step(states[name], batch,
+                                             lr_schedule=sched)
+            losses[name].append(float(met["loss"]))
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES != before:
+        fail(f"training {label} launched kernels: {kernels.LAUNCHES} "
+             f"(before {before})")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                                  losses["cuda"]))
+    if not rel <= 1e-4:
+        fail(f"training {label}: card losses {losses['cuda']} vs cpu "
+             f"{losses['cpu']}")
+    lr_sum = sum(float(sched(i)) for i in range(3))
+    worst, off = close_params(tree_leaves(states["cpu"].params),
+                              tree_leaves(states["cuda"].params), lr_sum)
+    print(f"train {label} card vs cpu (3 steps, {cfg.dtype}, TF32 off, "
+          f"plan linked_matmul={plan.linked_matmul}): losses card "
+          f"{losses['cuda']} cpu {losses['cpu']}, max rel {rel:.2e}; params "
+          f"worst {worst:.4f} of the summed lr, {off} elements past 1e-3 "
+          "of it; no kernel launched")
+    return {"losses": losses, "loss_rel": rel, "param_worst": worst,
+            "param_off": off}
+
+
+def converge(torch, Model, cfg, label: str, steps: int, seed: int,
+             batch: int, seq: int, peak_lr: float, warmup: int, window: int,
+             margin: float, **opt) -> dict:
+    """Phase 6 (b): ``steps`` steps on ``SyntheticLM(vocab, seq, seed)``
+    from the port's seed-0 init; the mean of the last ``window`` losses
+    must lie ``margin`` below that of the first ``window``."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticLM, make_train_iterator
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    m = Model(cfg, device=DEV, opt_cfg=AdamWConfig(**opt) if opt else None)
+    state = m.init_train_state(torch.Generator(device=DEV).manual_seed(0))
+    it = make_train_iterator(SyntheticLM(cfg.vocab, seq, seed=seed), batch)
+    sched = lambda s: cosine_schedule(s, peak_lr=peak_lr,
+                                      warmup_steps=warmup, total_steps=steps)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, met = m.train_step(state, next(it), lr_schedule=sched)
+        losses.append(met["loss"])
+    losses = [float(x) for x in losses]
+    wall = time.perf_counter() - t0
+    first, last = np.mean(losses[:window]), np.mean(losses[-window:])
+    print(f"train {label}: {steps} steps of {batch} x {seq} in {wall:.1f} s "
+          f"({m.param_count():,} params); loss mean first {window} "
+          f"{first:.4f} -> last {window} {last:.4f} (must drop by "
+          f"{margin})")
+    if not (np.isfinite(losses).all() and last < first - margin):
+        fail(f"training {label} did not converge: {losses[::max(1, steps // 8)]}")
+    return {"first": first, "last": last, "wall_s": wall,
+            "losses": losses}
+
+
+def step_flops(cfg, n_params: int, tokens: int, seq: int) -> tuple[float,
+                                                                     float]:
+    """(model FLOPs of one training step: 6 N a token plus attention's
+    12 L H hd S a token, executed FLOPs: those plus remat's second
+    forward of the layers, 2 N_layers a token plus attention's 4 L H hd S)."""
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * seq
+    model = (6 * n_params + attn) * tokens
+    layer_params = n_params - cfg.padded_vocab() * cfg.d_model - cfg.d_model
+    remat = (2 * layer_params + attn / 3) * tokens if cfg.remat else 0
+    return model, model + remat
+
+
+def split_step(torch, m, state, batch, sched):
+    """One train step in its three parts, each between CUDA events: the
+    forward (``loss_fn``), the backward (``torch.autograd.grad``) and the
+    optimizer (``adamw_update``).  Returns (state, ms of each)."""
+    from repro_torch.models.layers import tree_leaves, tree_unflatten
+    from repro_torch.models.model import TrainState
+    from repro_torch.optim import adamw_update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = m.loss_fn(state.params, batch)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, tree_leaves(state.params))
+    ev[2].record()
+    params, opt, _ = adamw_update(state.params, tree_unflatten(
+        state.params, grads), state.opt, m.opt_cfg, sched(state.step))
+    ev[3].record()
+    torch.cuda.synchronize()
+    return TrainState(params, opt, state.step + 1), \
+        [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def moment_bytes(opt) -> int:
+    from repro_torch.models.layers import tree_leaves
+    total = 0
+    for leaf in tree_leaves(opt.m) + tree_leaves(opt.v):
+        for t in ((leaf.q, leaf.scale) if hasattr(leaf, "q") else (leaf,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def full_width_training(torch, kernels, Model, cfg, card: str) -> dict:
+    """Phase 6 (c): qwen3-1.7b at full width (bf16 compute, fp32 params
+    and moments, remat on), ``FULL_STEPS`` steps of FULL_BATCH x FULL_SEQ
+    tokens of ``SyntheticLM(vocab, FULL_SEQ, seed=0)`` under a cosine lr
+    (peak FULL_LR, warmup FULL_WARMUP): every loss and grad norm finite.
+    Prints the median step over the steady steps (synchronized), tokens/s,
+    MFU, peak memory, two profiled steps' busy share and top device ops,
+    then three steps split by CUDA events into forward / backward /
+    optimizer; then three steps with int8 moments."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticLM, make_train_iterator
+    from repro_torch.optim import cosine_schedule
+    m = Model(cfg, device=DEV)
+    n = m.param_count()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    state = m.init_train_state(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    it = make_train_iterator(SyntheticLM(cfg.vocab, FULL_SEQ, seed=0),
+                             FULL_BATCH)
+    sched = lambda s: cosine_schedule(s, peak_lr=FULL_LR,
+                                      warmup_steps=FULL_WARMUP,
+                                      total_steps=FULL_STEPS)
+    before = dict(kernels.LAUNCHES)
+    losses, gnorms, step_ms = [], [], []
+    for _ in range(FULL_STEPS):
+        batch = next(it)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = m.train_step(state, batch, lr_schedule=sched)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        fail(f"full-width training: a loss or grad norm is not finite: "
+             f"{losses} {gnorms}")
+    steady = step_ms[FULL_STEADY[0]:FULL_STEADY[1]]
+    med = float(np.median(steady))
+    tokens = FULL_BATCH * FULL_SEQ
+    model_flops, exec_flops = step_flops(cfg, n, tokens, FULL_SEQ)
+    peak = PEAK_FLOPS["bfloat16"]
+    mfu = model_flops / (med / 1e3) / peak
+    # two profiled steps: their device kernel time over the steady median
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, met = m.train_step(state, next(it), lr_schedule=sched)
+        torch.cuda.synchronize()
+    prof_out = profile_window(torch, prof, 2)
+    dev_ms = prof_out["device_ms_per_tick"]
+    busy = dev_ms / med if dev_ms else None
+    splits = []
+    for _ in range(3):
+        state, ms = split_step(torch, m, state, next(it), sched)
+        splits.append(ms)
+    fwd, bwd, opt_ms = (float(np.median([s[i] for s in splits]))
+                        for i in range(3))
+    if kernels.LAUNCHES != before:
+        fail(f"full-width training launched kernels: {kernels.LAUNCHES}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"train qwen3-1.7b full width ({card}): {n:,} params "
+          f"({cfg.dtype} compute, {cfg.param_dtype} params, "
+          f"{m.opt_cfg.moment_dtype} moments, remat {cfg.remat}), batch "
+          f"{FULL_BATCH} x seq {FULL_SEQ}, init {init_s:.1f} s, state "
+          f"{state_gb:.2f} GB")
+    print(f"train full-width step: median {med:.2f} ms over steps "
+          f"{FULL_STEADY[0] + 1}-{FULL_STEADY[1]} (all: "
+          f"{[round(x, 1) for x in step_ms]}) ({card})")
+    print(f"train full-width split (CUDA events, median of 3 steps): "
+          f"forward {fwd:.2f} ms, backward {bwd:.2f} ms, optimizer "
+          f"{opt_ms:.2f} ms ({card})")
+    print(f"train full-width throughput: {tokens / med * 1e3:.0f} tokens/s; "
+          f"MFU {mfu:.4f} ({model_flops:.3e} model FLOPs a step over "
+          f"{peak:.3e} FLOP/s bf16 dense peak; executed with remat "
+          f"{exec_flops:.3e}, HFU {exec_flops / (med / 1e3) / peak:.4f}) "
+          f"({card})")
+    print(f"train full-width memory: max_memory_allocated {peak_gb:.2f} GB, "
+          f"of it {held_gb:.2f} GB held before the phase ({card})")
+    print(f"train full-width busy share (2 profiled steps): "
+          f"{'not measured' if busy is None else f'{busy:.3f}'} (device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.2f} ms'} a "
+          f"step) ({card}); top device ops:")
+    for k in prof_out["top_kernels"]:
+        print(f"    {k['ms_per_tick']:.3f} ms/step "
+              f"{k['calls_per_tick']:.0f} calls/step  {k['name']}")
+    print(f"train full-width loss: first 5 mean {first5:.4f}, last 5 mean "
+          f"{last5:.4f}; grad norms {[round(g, 3) for g in gnorms]}")
+    out = {"params": n, "median_step_ms": med, "step_ms": step_ms,
+           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt_ms,
+           "tokens_per_s": tokens / med * 1e3, "mfu": mfu,
+           "model_flops": model_flops, "executed_flops": exec_flops,
+           "max_memory_gb": peak_gb, "held_before_gb": held_gb,
+           "state_gb": state_gb,
+           "busy_share": busy, "profile": prof_out, "losses": losses,
+           "grad_norms": gnorms, "first5": first5, "last5": last5}
+    del state, met
+    torch.cuda.empty_cache()
+
+    q = Model(dataclasses.replace(cfg, opt_dtype="int8"), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    state = q.init_train_state(torch.Generator(device=DEV).manual_seed(0))
+    q_ms, q_losses = [], []
+    for _ in range(3):
+        batch = next(it)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = q.train_step(state, batch, lr_schedule=sched)
+        torch.cuda.synchronize()
+        q_ms.append((time.perf_counter() - t1) * 1e3)
+        q_losses.append(float(met["loss"]))
+    if not np.isfinite(q_losses).all():
+        fail(f"full-width int8-moment training: {q_losses}")
+    mb = moment_bytes(state.opt)
+    q_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train full-width int8 moments: steps {[round(x, 1) for x in q_ms]}"
+          f" ms, moments {mb / 1e9:.3f} GB (fp32: {8 * n / 1e9:.3f} GB), "
+          f"max_memory_allocated {q_peak:.2f} GB, losses {q_losses} ({card})")
+    out["int8"] = {"step_ms": q_ms, "moment_bytes": mb, "losses": q_losses,
+                   "max_memory_gb": q_peak}
+    del state, met
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_round_trip(torch, Model, cfg) -> dict:
+    """Phase 6 (d): reduced ``cfg``'s train state with int8 moments, after
+    two steps, saved from the card and loaded back onto it: every leaf
+    (each moment's codes and scales) equal bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step, load_checkpoint, \
+        save_checkpoint
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    m = Model(cfg, device=DEV, opt_cfg=AdamWConfig(moment_dtype="int8"))
+    state = m.init_train_state(torch.Generator(device=DEV).manual_seed(0))
+    for i in range(2):
+        state, _ = m.train_step(state, train_batch(cfg, seed=i))
+    d = REPO / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    save_checkpoint(d, 2, state)
+    like = m.init_train_state(torch.Generator(device=DEV).manual_seed(1))
+    back = load_checkpoint(d, latest_step(d), like)
+
+    def leaves(s):
+        out = [s.step, s.opt.step] + tree_leaves(s.params)
+        for leaf in tree_leaves(s.opt.m) + tree_leaves(s.opt.v):
+            out += [leaf.q, leaf.scale]
+        return out
+    a, b = leaves(state), leaves(back)
+    if len(a) != len(b) or not all(
+            x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(a, b)):
+        fail("a checkpoint of the card's train state did not load back bit "
+             "for bit")
+    nbytes = sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"train checkpoint: reduced {cfg.name} with int8 moments, "
+          f"{len(a)} tensors ({nbytes / 1e6:.2f} MB), saved from and loaded "
+          "onto the card, equal bit for bit")
+    return {"tensors": len(a), "bytes": nbytes}
+
+
+def training_phase(torch, kernels, Model, get_config, plan, card: str
+                   ) -> dict:
+    """Phase 6: training (see the module docstring).  The counts are set
+    to 0 before it and must all read 0 after it: training launches none
+    of the six kernels."""
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out: dict = {}
+    for arch in ("qwen3-1.7b", "olmoe-1b-7b", "mamba2-370m"):
+        out[f"card_vs_cpu/{arch}"] = card_vs_cpu(
+            torch, kernels, Model, plan, get_config(arch).reduced(), arch)
+    out["converge/qwen3"] = converge(
+        torch, Model, get_config("qwen3-1.7b").reduced(), "reduced qwen3",
+        40, 0, 8, 32, 3e-3, 5, 5, 0.2)
+    out["converge/olmoe"] = converge(
+        torch, Model, get_config("olmoe-1b-7b").reduced(), "reduced olmoe",
+        50, 1, 8, 32, 3e-3, 5, 5, 0.05, grad_clip=10.0)
+    out["converge/100m"] = converge(
+        torch, Model, hundred_m_config(get_config), "qwen3-100m", 200, 0, 8,
+        256, 1e-3, 20, 10, 0.0)
+    out["full_width"] = full_width_training(
+        torch, kernels, Model, get_config("qwen3-1.7b"), card)
+    out["checkpoint"] = checkpoint_round_trip(
+        torch, Model, get_config("qwen3-1.7b").reduced())
+    if any(kernels.LAUNCHES.values()):
+        fail(f"the training phase launched kernels: {kernels.LAUNCHES}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 6 (training) in {out['wall_s']:.1f} s; kernel launches "
+          f"during it {kernels.LAUNCHES}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3254,6 +3652,13 @@ def main() -> int:
     result["cnn"] = cnn_phase(
         torch, kernels, core, plan,
         cnn_graphs(cnn_zoo, optimize_graph, DeviceSpec.tms320c6678()))
+    # the serving models' per-layer view memos (``Model._views``) still
+    # pin phase 3's weights: drop them, so phase 6 measures the trainer
+    for m in (model, g3_model):
+        m._views.clear()
+    torch.cuda.empty_cache()
+    result["training"] = training_phase(torch, kernels, Model, get_config,
+                                        plan, card)
 
     table = []
     for name in ("gqa_decode", "gqa_decode_paged", "fused_mask",

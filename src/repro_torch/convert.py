@@ -11,6 +11,11 @@ serving copy.
 array, for a CNN graph; :func:`graph_params_from_numpy` turns it into the
 port's executor parameters for the port's graph of the same model (the
 graph builders name parameters identically in both packages).
+
+A reference ``TrainState`` (``Model.init_train_state``) crosses with
+:func:`train_state_from_numpy`: params, the AdamW step and moments in any
+of the three moment dtypes (``QuantMoment`` leaves included), so both
+packages can train from one state.
 """
 from __future__ import annotations
 
@@ -18,15 +23,45 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .checkpoint.store import from_numpy
+from .models.layers import tree_map
+from .models.model import TrainState
+from .optim.adamw import AdamWState, QuantMoment
 
 
 def params_from_numpy(tree, device="cuda"):
     """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device``."""
+    ``device`` (bfloat16 arrays stay bfloat16)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+    return from_numpy(np.asarray(tree)).to(dev)
+
+
+def _moments_from_numpy(tree, dev):
+    """A moment tree: arrays, or the reference's int8 moments (anything
+    with ``q``, ``scale`` and ``shape``) as :class:`QuantMoment`."""
+    if isinstance(tree, dict):
+        return {k: _moments_from_numpy(v, dev) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QuantMoment(q=from_numpy(np.asarray(tree.q)).to(dev),
+                           scale=from_numpy(np.asarray(tree.scale)).to(dev),
+                           shape=tuple(tree.shape))
+    return from_numpy(np.asarray(tree)).to(dev)
+
+
+def train_state_from_numpy(state, device="cuda") -> TrainState:
+    """A reference ``TrainState(params, opt=AdamWState(step, m, v),
+    step)`` (leaves: anything ``np.asarray`` reads) -> the port's, on
+    ``device``, its params leaves that require grad."""
+    dev = resolve_device(device)
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      params_from_numpy(state.params, dev))
+    opt = AdamWState(step=from_numpy(np.asarray(state.opt.step)).to(dev),
+                     m=_moments_from_numpy(state.opt.m, dev),
+                     v=_moments_from_numpy(state.opt.v, dev))
+    return TrainState(params=params, opt=opt,
+                      step=from_numpy(np.asarray(state.step)).to(dev))
 
 
 def graph_params_from_numpy(params, graph, device="cuda"):

@@ -1,5 +1,8 @@
 """Input data for the port (the counterpart of ``repro.data``): the
-audio frontend's stub frames."""
-from .pipeline import audio_batch_stub
+synthetic LM stream, the memory-mapped token file, the sharded training
+iterator and the audio frontend's stub frames."""
+from .pipeline import (SyntheticLM, TokenFileDataset, audio_batch_stub,
+                       make_train_iterator)
 
-__all__ = ["audio_batch_stub"]
+__all__ = ["SyntheticLM", "TokenFileDataset", "audio_batch_stub",
+           "make_train_iterator"]

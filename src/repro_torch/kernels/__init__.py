@@ -173,6 +173,21 @@ def sm_count(device) -> int:
     return n
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires grad.  A kernel
+    writes its output through a raw pointer, so that output has no
+    ``grad_fn``: gradients would silently stop at it.  Each wrapper calls
+    this first, whatever the device, so a CPU run refuses what the card
+    would."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{kernel}: an input requires grad, and the kernel's output "
+            "carries none (it has no backward); run it under "
+            "torch.no_grad() or on detached tensors")
+
+
 def check_launch(err: int, kernel: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if err:

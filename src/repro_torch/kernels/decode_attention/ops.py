@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from .. import check_launch, count_launch, library, sm_count
+from .. import check_launch, count_launch, library, refuse_grad, sm_count
 
 NEG_INF = -1e30
 
@@ -215,6 +215,7 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """q (B,H,D); k/v_cache (B,W,K,D); valid (B,W) bool -> (B,H,D).
     ``splits``: the split count a row takes (:func:`decode_grid`'s
     override; None: the grid's own)."""
+    refuse_grad("gqa_decode", q, k_cache, v_cache)
     if not q.is_cuda:
         return gqa_decode_plain(q, k_cache, v_cache, valid)
     B, H, K, D = _check_common(q, k_cache, v_cache, "gqa_decode")
@@ -238,6 +239,7 @@ def gqa_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     unassigned); lengths (B,) int32 -> (B,H,D).  The dense per-request
     view is never built: the kernel maps each slot through the table.
     ``splits`` as in :func:`gqa_decode`."""
+    refuse_grad("gqa_decode_paged", q, k_pool, v_pool)
     if not q.is_cuda:
         return gqa_decode_paged_plain(q, k_pool, v_pool, block_tables,
                                       lengths)

@@ -32,7 +32,7 @@ import torch
 
 from ...serving.sampling import keyed_draw
 from .. import (CTA_SMEM_MAX, CTA_SMEM_RESERVED, SM_SMEM, check_launch,
-                count_launch, library, sm_count)
+                count_launch, library, refuse_grad, sm_count)
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
@@ -238,6 +238,7 @@ def fused_mask(rows: torch.Tensor, temperature: torch.Tensor,
     logits); temperature/top_p (B,) fp32 and top_k (B,) int32,
     contiguous.  ``plan`` overrides :func:`mask_plan`'s choice (for tests
     and timing)."""
+    refuse_grad("fused_mask", rows, temperature, top_p)
     if not rows.is_cuda:
         return fused_mask_plain(rows, temperature, top_k, top_p)
     if rows.dim() != 2 or rows.dtype != torch.float32 or rows.stride(1) != 1:

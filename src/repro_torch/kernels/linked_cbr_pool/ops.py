@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .. import (SM_SMEM, CTA_SMEM_RESERVED, check_launch, count_launch,
-                library, sm_count)
+                library, refuse_grad, sm_count)
 
 #: channels of C a pipeline step
 BK = 32
@@ -226,6 +226,7 @@ def cbr_avgpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     """x (N,H,W,C); w (C,OC) or (1,1,C,OC); b (OC,) -> (N,H//2,W//2,OC).
     On CUDA all three must be contiguous float32 on one device.  ``plan``
     overrides :func:`cbra_plan`'s choice (for tests and timing)."""
+    refuse_grad("cbr_avgpool", x, w, b)
     if not x.is_cuda:
         return cbr_avgpool_plain(x, w, b)
     w = _weight_2d(w)

@@ -25,7 +25,8 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .. import CTA_SMEM_MAX, check_launch, count_launch, library, sm_count
+from .. import (CTA_SMEM_MAX, check_launch, count_launch, library,
+                refuse_grad, sm_count)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -186,6 +187,7 @@ def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     CUDA all four must be contiguous, of one dtype (float32 or bfloat16),
     on one device.  ``plan`` overrides :func:`mlp_plan`'s choice (for
     tests and timing)."""
+    refuse_grad("linked_mlp", x, wg, wu, wd)
     if not x.is_cuda:
         return linked_mlp_plain(x, wg, wu, wd)
     tensors = (x, wg, wu, wd)

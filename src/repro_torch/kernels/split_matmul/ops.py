@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import check_launch, count_launch, library, sm_count
+from .. import check_launch, count_launch, library, refuse_grad, sm_count
 
 #: k a pipeline step of the kernel, and y columns a CTA
 BK, BN = 32, 64
@@ -156,6 +156,7 @@ def split_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if block_n < 1 or block_k < 1:
         raise ValueError(f"split_matmul: block_n ({block_n}) and block_k "
                          f"({block_k}) must be positive")
+    refuse_grad("split_matmul", x, w, b)
     if not x.is_cuda:
         return split_matmul_plain(x, w, b, block_n, block_k)
     tensors = (x, w, b)

@@ -55,6 +55,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """The nested dict of ``like``'s structure holding ``leaves`` (in
+    :func:`tree_leaves`' order)."""
+    it = iter(leaves)
+
+    def build(tree):
+        if isinstance(tree, dict):
+            return {k: build(tree[k]) for k in sorted(tree)}
+        return next(it)
+    return build(like)
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator, device,
                dtype) -> torch.Tensor:
     if spec.init == "zeros":
@@ -175,3 +187,20 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits over the padded vocabulary."""
     return x @ table.to(x.dtype).T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean next-token CE in fp32 over the positions whose label is >= 0;
+    the logits' padded vocabulary entries (past ``vocab``) are masked to
+    -1e30."""
+    logits = logits.float()
+    padded = logits.shape[-1]
+    if padded > vocab:
+        pad = torch.arange(padded, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    labels = labels.to(logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

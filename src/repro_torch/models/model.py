@@ -8,7 +8,9 @@ precomputed frame embeddings, ``batch["src"]``, and the decoder
 cross-attends its output): ``param_specs``, ``init``, ``forward``,
 ``prefill_step``, ``prefill_chunk``, ``serve_step``, ``verify_step``,
 ``init_caches``, ``init_paged_caches``, ``reset_cache_rows`` and
-``rollback_cache_rows``.  The parameter tree is
+``rollback_cache_rows``; and training: ``loss_fn``, ``init_train_state``
+and ``train_step`` (AdamW, per-layer remat, microbatched gradient
+accumulation).  The parameter tree is
 the reference's (same nested dict, names, shapes and stacked leading
 layer axis), so ``repro_torch.convert`` carries reference weights over
 leaf for leaf.
@@ -26,31 +28,42 @@ Differences of idiom, not of result:
 * ``cast_params`` makes one serving copy in ``cfg.dtype`` (the reference
   casts fp32 params at every use — the same numbers);
 * the model lives on one ``device`` (default ``"cuda"``); asking for
-  CUDA without a card raises.
-
-Training (``loss_fn``, ``train_step``) is ROADMAP queue 1 item 10.
+  CUDA without a card raises;
+* ``train_step`` updates the params and moments **in place** (see
+  :func:`~repro_torch.optim.adamw.adamw_update`): the returned state holds
+  the same tensors as the one passed in.  Training runs on one device;
+  sharded training is ROADMAP queue 1 item 10b.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, NamedTuple
 
 import torch
 
 from .. import resolve_device
+from ..optim import AdamWConfig, adamw_init, adamw_update
 from . import attention as A
 from . import cache_family as CF
 from . import ssm as SSM
 from . import transformer as T
-from .layers import (embed_lookup, embed_specs, init_params, param_count,
-                     rms_norm, rms_norm_spec, stack_layer_specs, tree_leaves,
-                     tree_map, unembed)
+from .layers import (cross_entropy, embed_lookup, embed_specs, init_params,
+                     param_count, rms_norm, rms_norm_spec, stack_layer_specs,
+                     tree_leaves, tree_map, tree_unflatten, unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+class TrainState(NamedTuple):
+    params: Any          # nested dict of leaves that require grad
+    opt: Any             # repro_torch.optim.AdamWState
+    step: torch.Tensor   # int32, 0-dim
+
+
 class Model:
-    def __init__(self, cfg, kernel_plan=None, device="cuda"):
+    def __init__(self, cfg, kernel_plan=None, device="cuda",
+                 opt_cfg: AdamWConfig | None = None):
         from ..core.pipeline import KernelPlan
         T.check_supported(cfg)
         self.cfg = cfg
@@ -62,6 +75,7 @@ class Model:
             else KernelPlan()
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
+        self.opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.opt_dtype)
         self._views: dict[int, tuple[Any, list]] = {}
         #: the per-layer cache dataflow: a layer-pattern config takes the
         #: per-layer path (tuple caches, a window and a RoPE theta a
@@ -100,17 +114,27 @@ class Model:
 
     def cast_params(self, params):
         """The serving copy: every floating leaf in ``cfg.dtype`` on the
-        model's device (leaves already there are returned as they are)."""
-        return tree_map(lambda t: t.to(self.device, self.dtype)
-                        if t.is_floating_point() else t.to(self.device),
-                        params)
+        model's device (leaves already there are returned as they are).
+        A leaf that requires grad (a train state's) is detached first:
+        the serving steps and their kernels take plain tensors."""
+        def cast(t):
+            if t.requires_grad:
+                t = t.detach()
+            return t.to(self.device, self.dtype) if t.is_floating_point() \
+                else t.to(self.device)
+        return tree_map(cast, params)
 
     def _layers(self, params, key: str = "layers") -> list:
         """Per-layer views of the stacked params (``key`` "encoder": the
         encoder's), memoized per tree and made again when any stacked
-        leaf was replaced."""
+        leaf was replaced.  Under grad, with leaves that require it, the
+        views are made afresh on every call: they belong to this call's
+        graph (a memoized view's graph is freed by the backward that used
+        it, and the optimizer's in-place step outdates its version)."""
         stacked = params[key]
         leaves = tree_leaves(stacked)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return T.unbind_layers(stacked, leaves[0].shape[0])
         hit = self._views.get(id(stacked))
         if hit is not None and len(hit[0]) == len(leaves) \
                 and all(a is b for a, b in zip(hit[0], leaves)):
@@ -136,17 +160,97 @@ class Model:
                             src.to(self.device, self.dtype), cfg=self.cfg)
         return rms_norm(x, params["enc_norm"])
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, plan=None):
         """Full-sequence forward -> (logits (B, S, V), aux_loss: the MoE
         load-balance loss summed over layers, else 0).  An
-        encoder-decoder reads ``batch["src"]``."""
+        encoder-decoder reads ``batch["src"]``.  ``plan`` overrides
+        ``self.kernel_plan`` for this call.  Each layer is checkpointed
+        under grad when ``cfg.remat``."""
+        plan = plan if plan is not None else self.kernel_plan
         enc_out = self._encode(params, batch["src"]) \
             if self.cfg.is_encoder_decoder else None
         x = self._embed(params, batch["tokens"])
         x, aux = T.decoder_stack(self._layers(params), x, cfg=self.cfg,
-                                 mlp_backend=self.kernel_plan.linked_matmul,
+                                 mlp_backend=plan.linked_matmul,
                                  enc_out=enc_out)
         return self._head(params, x), aux
+
+    # ------------------------------------------------------------------ train
+    def loss_fn(self, params, batch):
+        """-> (ce + router_aux_coef * aux, {"ce", "aux"}): the mean
+        next-token CE over labels >= 0 and the MoE load-balance loss.
+        The ``linked_matmul`` site runs ``torch`` whatever the plan: the
+        ``linked_mlp`` kernel's output carries no gradient (its wrapper
+        refuses inputs that require one)."""
+        plan = dataclasses.replace(self.kernel_plan, linked_matmul="torch")
+        logits, aux = self.forward(params, batch, plan=plan)
+        ce = cross_entropy(logits, batch["labels"], self.cfg.vocab)
+        return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
+
+    def init_train_state(self, generator: torch.Generator) -> TrainState:
+        """Fresh params (:meth:`init`, leaves that require grad), zero
+        AdamW moments and step 0."""
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          self.init(generator))
+        return TrainState(params=params, opt=adamw_init(params, self.opt_cfg),
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device=self.device))
+
+    def _grads(self, params, batch):
+        """(loss, its parts, the gradient of every leaf in
+        ``tree_leaves`` order; zeros for a leaf the loss does not
+        read)."""
+        with torch.enable_grad():
+            loss, parts = self.loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(params),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), parts, list(grads)
+
+    def train_step(self, state: TrainState, batch, lr_schedule=None):
+        """One optimizer step -> (new state, metrics).  ``batch``:
+        ``tokens`` / ``labels`` (B, S) (and ``src`` for an
+        encoder-decoder), tensors or numpy arrays.  ``lr_schedule``: step
+        -> lr, read at ``state.step`` (default ``opt_cfg.lr``).
+
+        With ``cfg.microbatch`` below B, the loss and gradients are summed
+        over ``microbatch``-row slices and divided by their count, as the
+        reference's accumulation; the metrics then hold no ``ce`` /
+        ``aux``.  Metrics: ``loss``, ``ce``, ``aux``, ``grad_norm``,
+        ``step`` (the optimizer's new count).  The params and moments are
+        updated in place."""
+        cfg = self.cfg
+        batch = {k: torch.as_tensor(v).to(self.device)
+                 for k, v in batch.items()}
+        params = state.params
+        mb = cfg.microbatch
+        B = batch["tokens"].shape[0]
+        if mb and B > mb:
+            if B % mb:
+                raise ValueError(f"batch {B} is not a multiple of the "
+                                 f"microbatch {mb}")
+            n_mb = B // mb
+            loss = torch.zeros((), device=self.device)
+            grads = None
+            for i in range(n_mb):
+                l, _, g = self._grads(
+                    params, {k: v[i * mb:(i + 1) * mb]
+                             for k, v in batch.items()})
+                loss = loss + l
+                grads = g if grads is None else \
+                    [a + b for a, b in zip(grads, g)]
+            loss = loss / n_mb
+            grads = [g / n_mb for g in grads]
+            metrics = {}
+        else:
+            loss, parts, grads = self._grads(params, batch)
+            metrics = {k: v.detach() for k, v in parts.items()}
+        lr = lr_schedule(state.step) if lr_schedule else self.opt_cfg.lr
+        params, opt, opt_metrics = adamw_update(
+            params, tree_unflatten(params, grads), state.opt, self.opt_cfg,
+            lr)
+        return TrainState(params, opt, state.step + 1), \
+            {"loss": loss, **metrics, **opt_metrics}
 
     # ---------------------------------------------------------------- serving
     def cache_width(self, seq_len: int) -> int:

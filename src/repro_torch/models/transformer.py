@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import moe as M
@@ -123,6 +124,28 @@ def fuse_hybrid(lp, att, ssm_o):
                   + ssm_o * lp["ssm_scale"].to(att.dtype))
 
 
+def unbind_layers(stacked, n_layers: int) -> list:
+    """Per-layer views of a tree of stacked param leaves (nested dicts),
+    each leaf unbound along its layer axis once: the training path's.
+    Under autograd one unbind's backward stacks the layers' gradients in
+    one pass, where ``n_layers`` indexed views (:func:`layer_views`)
+    would each add a zero-filled gradient of the whole stack, O(L^2)
+    traffic a leaf (full-width qwen3-1.7b, 28 layers, batch 8 x 512:
+    the backward 406-432 ms with indexed views, 208-228 ms with these,
+    on an H100 80GB HBM3 at 700 W)."""
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(n_layers)]
+
+
 def layer_views(stacked, n_layers: int) -> list:
     """Per-layer views of a tree of stacked leaves (dicts / NamedTuples)."""
     def view(tree, i):
@@ -160,16 +183,33 @@ def decoder_layer(p, x, *, cfg, mlp_backend: str = "torch",
     return x + y, loss
 
 
+def _remat(fn, remat: bool):
+    """``fn`` checkpointed when ``remat`` and grad is on: its activations
+    are recomputed in the backward instead of held (the reference's
+    ``jax.checkpoint`` of each layer); the same function otherwise."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def decoder_stack(layers: list, x, *, cfg, mlp_backend: str = "torch",
-                  enc_out=None):
+                  enc_out=None, remat: bool | None = None):
     """``layers``: per-layer param views (see :func:`layer_views`).  Every
     layer takes the config's window and theta, as the reference's full
-    forward does.  Returns (x, the summed MoE load-balance loss: 0 but
-    for the moe family)."""
+    forward does.  ``remat`` (default ``cfg.remat``): checkpoint each
+    layer under grad, its MoE loss an output of the checkpointed call.
+    Returns (x, the summed MoE load-balance loss: 0 but for the moe
+    family)."""
+    remat = cfg.remat if remat is None else remat
+    aux = cfg.family == "moe"
+
+    def layer(lp, x, enc_out):
+        return decoder_layer(lp, x, cfg=cfg, mlp_backend=mlp_backend,
+                             enc_out=enc_out, aux=aux)
+    layer = _remat(layer, remat)
     total = torch.zeros((), device=x.device)
     for lp in layers:
-        x, loss = decoder_layer(lp, x, cfg=cfg, mlp_backend=mlp_backend,
-                                enc_out=enc_out, aux=cfg.family == "moe")
+        x, loss = layer(lp, x, enc_out)
         if loss is not None:
             total = total + loss
     return x, total
@@ -182,10 +222,13 @@ def encoder_layer(p, x, *, cfg):
     return x + gelu_mlp(p["mlp"], rms_norm(x, p["norm2"]))
 
 
-def encoder_stack(layers: list, x, *, cfg):
-    """``layers``: the encoder's per-layer param views."""
+def encoder_stack(layers: list, x, *, cfg, remat: bool | None = None):
+    """``layers``: the encoder's per-layer param views; ``remat`` as in
+    :func:`decoder_stack`."""
+    layer = _remat(lambda lp, x: encoder_layer(lp, x, cfg=cfg),
+                   cfg.remat if remat is None else remat)
     for lp in layers:
-        x = encoder_layer(lp, x, cfg=cfg)
+        x = layer(lp, x)
     return x
 
 

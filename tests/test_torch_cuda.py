@@ -1861,3 +1861,120 @@ def test_tp_engine_decode_logits_equal_one_device(card, tmp_path):
     for step, (a, b) in enumerate(zip(ranks[0], one)):
         assert np.array_equal(a, b), (step, np.abs(a - b).max())
     assert all(np.array_equal(a, b) for a, b in zip(ranks[1], ranks[0]))
+
+
+# -- training ------------------------------------------------------------------
+
+def _train_states(cfg, plan):
+    """One state (drawn on the host, attention at one layer's fan-in) on
+    the host and on the card, with their models (the card's under
+    ``plan``)."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model, TrainState
+    from repro_torch.optim import adamw_init
+    host = Model(cfg, device="cpu")
+    dev = Model(cfg, device="cuda", kernel_plan=plan)
+    raw = host.init(torch.Generator().manual_seed(0))
+    L = cfg.n_layers
+    attn = raw["layers"].get("attn")
+    if attn is not None:
+        for k in ("wq", "wk", "wv"):
+            attn[k].mul_((L / cfg.d_model) ** 0.5)
+        attn["wo"].mul_((L / (cfg.n_heads * cfg.resolved_head_dim)) ** 0.5)
+    out = []
+    for m in (host, dev):
+        p = tree_map(lambda t, d=m.device: t.clone().to(d)
+                     .requires_grad_(True), raw)
+        out.append((m, TrainState(p, adamw_init(p, m.opt_cfg), torch.zeros(
+            (), dtype=torch.int32, device=m.device))))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+def test_train_step_on_the_card_matches_the_host(card, arch):
+    """Three reduced ``train_step``s on the card (TF32 off, under the
+    ``cuda`` kernel plan) ≡ on the host: losses at rtol 1e-4, params
+    within half the summed lr everywhere and 1e-3 of it (plus rtol 1e-5)
+    in all but 0.1% of elements, as ``tests/test_torch_train.py`` holds
+    the port to the reference; no kernel launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.pipeline import select_kernel_plan
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import cosine_schedule
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(arch).reduced()
+        plan, _ = select_kernel_plan({"accelerator": "cuda"})
+        assert plan.linked_matmul == "cuda"
+        (hm, hs), (dm, ds) = _train_states(cfg, plan)
+        sched = lambda s: cosine_schedule(s, peak_lr=1e-3, warmup_steps=1,
+                                          total_steps=10)
+        rng = np.random.default_rng(0)
+        before = dict(kernels.LAUNCHES)
+        lr_sum = 0.0
+        for i in range(3):
+            toks = rng.integers(0, cfg.vocab, (4, 17)).astype(np.int32)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            hs, hmet = hm.train_step(hs, batch, lr_schedule=sched)
+            ds, dmet = dm.train_step(ds, batch, lr_schedule=sched)
+            lr_sum += float(sched(i))
+            assert float(dmet["loss"]) == pytest.approx(
+                float(hmet["loss"]), rel=1e-4)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == before
+        off = total = 0
+        for a, b in zip(tree_leaves(hs.params), tree_leaves(ds.params)):
+            err = (a.detach() - b.detach().cpu()).abs() - 1e-5 * a.abs()
+            assert err.max().item() <= 0.5 * lr_sum
+            off += int((err > 1e-3 * lr_sum).sum())
+            total += err.numel()
+        assert off <= 1e-3 * total, (off, total)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_train_step_launches_no_kernel_under_the_cuda_plan(card):
+    """The training forward reaches no kernel site the reference's does
+    not: under ``select_kernel_plan``'s ``cuda`` plan a reduced qwen3
+    ``train_step`` (its MLP a ``linked_matmul`` site) launches nothing,
+    and the same plan's serving forward without grad does launch
+    ``linked_mlp``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.pipeline import select_kernel_plan
+    cfg = get_config("qwen3-1.7b").reduced()
+    plan, _ = select_kernel_plan({"accelerator": "cuda"})
+    (_, _), (dm, ds) = _train_states(cfg, plan)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 9))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    kernels.reset_launches()
+    for _ in range(2):
+        ds, met = dm.train_step(ds, batch)
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert np.isfinite(float(met["loss"]))
+    with torch.no_grad():
+        dm.forward(dm.cast_params(ds.params),
+                   {"tokens": torch.from_numpy(batch["tokens"])})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linked_mlp"] == cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_a_cuda_input_that_requires_grad(card):
+    """A kernel's output has no ``grad_fn``: ``linked_mlp`` on CUDA
+    inputs that require grad raises under grad mode (nothing launches)
+    and runs under ``no_grad``."""
+    x = _rnd(card, torch.bfloat16, 8, 256).requires_grad_(True)
+    w = [_rnd(card, torch.bfloat16, *s) for s in ((256, 512), (256, 512),
+                                                   (512, 256))]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="linked_mlp: an input requires"):
+        t_lm.linked_mlp(x, *w)
+    assert kernels.LAUNCHES["linked_mlp"] == 0
+    with torch.no_grad():
+        out = t_lm.linked_mlp(x, *w)
+    assert out.shape == x.shape and kernels.LAUNCHES["linked_mlp"] == 1

@@ -36,6 +36,27 @@ def test_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["repro_torch.optim",
+                                    "repro_torch.checkpoint",
+                                    "repro_torch.launch.train"])
+def test_training_modules_import_alone(module):
+    """The training slice (optimizer, checkpoints, the train driver)
+    imports on its own, first in a fresh process, with ``jax`` and
+    ``repro`` blocked, and names no jax module once imported."""
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
+            "print('ok' if not bad else bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
