@@ -200,7 +200,32 @@ Phases (any failure exits non-zero before the result line):
    with int8 moments, their step ms and moment bytes; (d) reduced
    qwen3's train state with int8 moments saved from the card and loaded
    back onto it, equal bit for bit.  ``LAUNCHES`` must not move across
-   the phase.
+   the phase.  Before it, the bytes still allocated on the card are
+   printed: the serving phases' weights are gone once their callers drop
+   them (``Model._layers``' memo holds none of them);
+7. measured kernel-site routing and the d-Xenos collectives: (a)
+   ``launch.autotune.bench_kernel_sites`` at the reference's defaults
+   (fp32), qwen3-1.7b's served geometry and hymba-1.5b's attention over
+   its 1024-slot window (both bf16; ``BENCH_GEOMETRIES``), every
+   ``site:backend`` time printed beside the plan ``select_kernel_plan``
+   derives from it and the heuristic plan; each of ``gqa_decode``,
+   ``gqa_decode_paged`` and ``fused_mask`` must launch 24 times a
+   geometry (each candidate is timed as a CUDA graph's replays); (b) a
+   graphed full-width qwen3-1.7b paged engine built with
+   ``kernel_timings=`` (qwen3's timings) must take that plan and serve
+   8 of phase 3's sampled requests (32 new tokens) with the streams, bit
+   for bit, of an engine given the plan explicitly, each launching the
+   kernels its plan routes to and no other; an engine built with
+   ``kernel_plan="off"`` must launch none; the timings survive
+   ``save_timings`` / ``load_timings``; (c) ``python -m
+   repro_torch.launch.kernel_tune`` once at the reference's defaults,
+   its cache in ``chiprun_out/kernel_timings.json``; (d)
+   ``ring_allreduce`` and ``ps_sync`` on 8 ranks spawned on this card
+   (gloo, staged through the host), in groups of 2, 4 and 8 ranks on
+   2^20 fp32 a rank (Fig. 11's size) and of 4 on resnet18's parameter
+   vector: each equal bit for bit to the numpy sum in its schedule's
+   order and to ``dist.all_reduce`` within fp32 rounding; prints each
+   schedule's median time and the bytes a rank sends.
 
 Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
 by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32), twice (the
@@ -3466,6 +3491,350 @@ def training_phase(torch, kernels, Model, get_config, plan, card: str
     return out
 
 
+#: phase 7 (a): the kernel-site bench's geometries (bench_kernel_sites
+#: keywords): the reference's defaults in fp32; qwen3-1.7b's served
+#: geometry and hymba-1.5b's attention over its window, both in bf16
+BENCH_GEOMETRIES = {
+    "reference": dict(slots=4, max_len=64, q_heads=8, kv_heads=2,
+                      head_dim=64, kv_block_size=8, vocab=512),
+    "qwen3": dict(slots=SLOTS, max_len=MAX_LEN, q_heads=H, kv_heads=K,
+                  head_dim=D, kv_block_size=32, vocab=VOCAB,
+                  dtype="bfloat16"),
+    "hymba": dict(slots=SLOTS, max_len=HY_WINDOW, q_heads=HY_H,
+                  kv_heads=HY_K, head_dim=HY_D, kv_block_size=32,
+                  vocab=HY_VOCAB, dtype="bfloat16"),
+}
+#: the bench's kernels and its launches of each a geometry (the capture's
+#: warm-up, 3 warm-up replays, 20 timed)
+BENCH_KERNELS = ("gqa_decode", "gqa_decode_paged", "fused_mask")
+BENCH_CALLS = 24
+#: phase 7 (b): the routed engine's traffic (phase 3's paged sampled
+#: requests, fewer and shorter) and the off engine's
+ROUTED_RUN = dict(kv="paged", requests=8, max_new=32, temperature=0.8,
+                  top_k=50, top_p=0.95)
+OFF_RUN = dict(ROUTED_RUN, requests=4, max_new=16)
+#: phase 7 (d): group sizes, Fig. 11's per-rank size (2^20 fp32), the
+#: group that syncs resnet18's parameter vector, timed calls, time limit
+SYNC_GROUPS = (2, 4, 8)
+SYNC_N = 1 << 20
+SYNC_RESNET_P = 4
+SYNC_ITERS = 5
+SYNC_TIMEOUT = 300.0
+
+
+def plan_options(geo: dict, timings=None) -> dict:
+    """``select_kernel_plan``'s options for a bench geometry on the card
+    (its pool: every slot's horizon in blocks)."""
+    out = {k: geo[k] for k in ("slots", "max_len", "q_heads", "kv_heads",
+                               "head_dim", "kv_block_size")}
+    out.update(accelerator="cuda", kv_pool_blocks=geo["slots"] * (
+        geo["max_len"] // geo["kv_block_size"]))
+    if timings:
+        out["timings"] = timings
+    return out
+
+
+def bench_phase(torch, kernels, pipeline, card: str) -> dict:
+    """Phase 7 (a): ``bench_kernel_sites`` at each BENCH_GEOMETRIES entry
+    on the card: every site's three candidates (the kernel's among them)
+    timed, the plan ``select_kernel_plan`` derives from them beside the
+    heuristic one.  Each kernel must launch BENCH_CALLS times a
+    geometry."""
+    from repro_torch.launch.autotune import bench_kernel_sites
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out: dict = {}
+    t0 = time.perf_counter()
+    for label, geo in BENCH_GEOMETRIES.items():
+        t = bench_kernel_sites(**geo)
+        want = {f"{site}:{b}"
+                for site in ("decode_dense", "decode_paged", "sampler")
+                for b in pipeline.KERNEL_SITE_BACKENDS[site]}
+        if set(t) != want or not all(0 < v < 1 for v in t.values()):
+            fail(f"bench {label}: timings {t}, want every key of {want}")
+        plan, detail = pipeline.select_kernel_plan(plan_options(geo, t))
+        heuristic, _ = pipeline.select_kernel_plan(plan_options(geo))
+        differs = {site: (b, heuristic.as_dict()[site])
+                   for site, b in plan.items()
+                   if b != heuristic.as_dict()[site]}
+        print(f"bench {label} ({geo.get('dtype', 'float32')}, "
+              f"{card}): " + ", ".join(
+                  f"{k} {v * 1e6:.1f} us" for k, v in sorted(t.items())))
+        print(f"  measured plan {plan.as_dict()}; differs from the "
+              f"heuristic plan at {differs or 'no site'} (measured, "
+              "heuristic)")
+        out[label] = {"timings": t, "plan": plan.as_dict(),
+                      "heuristic": heuristic.as_dict(), "differs": differs,
+                      "measured_s": {k: v for k, v in detail.items()
+                                     if k.endswith("_measured_s")}}
+    launches = dict(kernels.LAUNCHES)
+    want = BENCH_CALLS * len(BENCH_GEOMETRIES)
+    for name in BENCH_KERNELS:
+        if launches[name] != want:
+            fail(f"bench: {name} launched {launches[name]} times, want "
+                 f"{want} ({BENCH_CALLS} a geometry)")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 7 (a) in {out['wall_s']:.1f} s; launches {launches}")
+    return out
+
+
+def check_routed_launches(label, run, model, plan) -> None:
+    """A routed paged qwen3 run launches each kernel its plan routes to
+    as often as its steps ask (``gqa_decode_paged`` n_layers a decode
+    step, ``fused_mask`` once a sampler dispatch, ``linked_mlp`` at
+    least once, each capture's warm-up a replay's worth) and no kernel
+    of a site the plan keeps in torch."""
+    ln, warm = run["launches"], run["warmup"]
+    want = {
+        "gqa_decode": 0,
+        "gqa_decode_paged": model.cfg.n_layers * run["kernel_steps"]
+        + warm.get("gqa_decode_paged", 0)
+        if plan.decode_paged == "cuda" else 0,
+        "fused_mask": run["sampler_calls"] + warm.get("fused_mask", 0)
+        if plan.sampler == "cuda" else 0,
+        "cbr_avgpool": 0, "split_matmul": 0}
+    for name, n in want.items():
+        if ln.get(name, 0) != n:
+            fail(f"{label}: {name} launched {ln.get(name, 0)} times, want "
+                 f"{n} under {plan.as_dict()}")
+    if (ln.get("linked_mlp", 0) > 0) != (plan.linked_matmul == "cuda"):
+        fail(f"{label}: linked_mlp launched {ln.get('linked_mlp', 0)} "
+             f"times under {plan.as_dict()}")
+    print(f"{label}: launches {ln} as the plan routes")
+
+
+def routed_phase(torch, kernels, serve, pipeline, Model, get_config,
+                 timings: dict, card: str) -> dict:
+    """Phase 7 (b): a graphed full-width qwen3-1.7b paged engine built
+    with ``kernel_timings`` (phase 7 (a)'s qwen3 timings) takes the plan
+    ``select_kernel_plan`` gives on them and serves ROUTED_RUN's
+    requests, the same token streams, bit for bit, as an engine given
+    that plan explicitly; an engine built with ``kernel_plan="off"``
+    launches no kernel."""
+    from repro_torch.launch import autotune
+    cfg = get_config("qwen3-1.7b")
+    model = Model(cfg, device=DEV)
+    params = model.cast_params(model.init(
+        torch.Generator(device=DEV).manual_seed(0)))
+    args = serve_args(serve, **ROUTED_RUN)
+    engine = serve.build_engine(args, model, params,
+                                kernel_timings=timings)
+    opts = {"accelerator": engine.device.type, "slots": engine.slots,
+            "max_len": engine.max_len, "q_heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "kv_block_size": engine.pool.cfg.block_size,
+            "kv_pool_blocks": engine.pool.cfg.pool_blocks,
+            "timings": timings}
+    plan, _ = pipeline.select_kernel_plan(opts)
+    if engine.kernel_plan != plan:
+        fail(f"routed engine: plan {engine.kernel_plan}, select_kernel_plan "
+             f"gives {plan} on the same timings")
+    report = engine.stats()["kernel_report"]["passes"][-1]["summary"]
+    measured = {k: v for k, v in report.items() if k.endswith("_measured_s")}
+    print(f"routed engine (block {engine.pool.cfg.block_size}, "
+          f"{engine.pool.cfg.pool_blocks} blocks; the bench's block 32): "
+          f"plan {plan.as_dict()}, measured {measured} ({card})")
+    runs = {}
+    runs["routed_timed"] = serve_phase(
+        torch, kernels, serve, engine, args, "routed_timed", 14, window=None)
+    del engine
+    runs["routed_explicit"] = serve_phase(
+        torch, kernels, serve,
+        serve.build_engine(args, model, params, kernel_plan=plan), args,
+        "routed_explicit", 14, window=None)
+    for label in ("routed_timed", "routed_explicit"):
+        check_routed_launches(label, runs[label], model, plan)
+    same_streams("routed by measurement vs the explicit plan",
+                 runs["routed_timed"], runs["routed_explicit"])
+    off_args = serve_args(serve, **OFF_RUN)
+    off = serve.build_engine(off_args, model, params, kernel_plan="off")
+    if off.kernel_plan != pipeline.KernelPlan():
+        fail(f"kernel_plan='off' gave {off.kernel_plan}")
+    runs["routed_off"] = serve_phase(torch, kernels, serve, off, off_args,
+                                     "routed_off", 14, window=None)
+    if any(runs["routed_off"]["launches"].values()):
+        fail(f"kernel_plan='off' launched {runs['routed_off']['launches']}")
+    print("routed_off: no kernel launched")
+    # the timings cache round trip
+    path = REPO / "chiprun_out" / "kernel_timings_qwen3.json"
+    autotune.save_timings(str(path), timings, meta={"card": card})
+    if autotune.load_timings(str(path)) != timings:
+        fail("save_timings then load_timings changed the timings")
+    print(f"timings cache {path.name}: load_timings gives back the dict")
+    return runs
+
+
+def tune_phase(torch, kernels, card: str) -> dict:
+    """Phase 7 (c): ``python -m repro_torch.launch.kernel_tune`` at the
+    reference's defaults (fp32, every block size that tiles 64), its
+    cache written to ``chiprun_out/kernel_timings.json`` and read back."""
+    from repro_torch.launch import autotune, kernel_tune
+    path = REPO / "chiprun_out" / "kernel_timings.json"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if kernel_tune.main(["--out", str(path)]) != 0:
+        fail("kernel_tune exited non-zero")
+    wall = time.perf_counter() - t0
+    data = json.loads(path.read_text())
+    timings = autotune.load_timings(str(path))
+    if not timings or timings != data["timings"] \
+            or len(data["meta"]["by_block_size"]) != 3:
+        fail(f"kernel_tune's cache {path}: {data}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"kernel_tune ({card}): {len(data['meta']['by_block_size'])} "
+          f"block sizes in {wall:.1f} s, plan {data['meta']['plan']}; "
+          f"launches {launches}")
+    return {"launches": launches, "timings": timings, "wall_s": wall,
+            "plan": data["meta"]["plan"]}
+
+
+def sync_inputs(torch, kind: str, p: int, device) -> list:
+    """The ranks' inputs of a phase 7 (d) workload, every rank's: Fig.
+    11's size, 2^20 fp32 a rank, drawn from normal(0, 1) with rank r's
+    generator at seed r (Fig. 11's ones would sum exactly in any order);
+    or resnet18's parameter vector (the zoo's ResNet18 at 224, width 64,
+    1000 classes: every leaf of ``init_params(seed=0)`` in graph order),
+    times r + 1 on rank r."""
+    if kind == "fig11":
+        return [torch.randn(SYNC_N, device=device, generator=torch.Generator(
+            device=device).manual_seed(r)) for r in range(p)]
+    from repro_torch.configs import cnn_zoo
+    from repro_torch.core.engine import init_params
+    g = cnn_zoo.resnet18(res=224, width=64, n_classes=1000)
+    leaves = init_params(g, seed=0, device=device)
+    vec = torch.cat([t.reshape(-1).float() for t in leaves.values()])
+    return [vec * (r + 1) for r in range(p)]
+
+
+def sync_rank(mesh):
+    """One rank of phase 7 (d): in each SYNC_GROUPS group of the first p
+    ranks (and the resnet18 group), ``ring_allreduce``, ``ps_sync`` and
+    ``dist.all_reduce`` of this rank's input: each schedule must equal
+    the numpy sum in its order (``schedule_sum``) bit for bit and
+    ``all_reduce`` within fp32 rounding.  Times each (SYNC_ITERS calls
+    after one, synchronized, a barrier before each) and returns, on the
+    group's rank 0, the times and sizes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import ps_sync, ring_allreduce
+    cases = [("fig11", p) for p in SYNC_GROUPS] + [("resnet18",
+                                                     SYNC_RESNET_P)]
+    groups = {p: dist.new_group(list(range(p)))
+              for p in sorted({p for _, p in cases})}
+    out = {}
+    for kind, p in cases:
+        if mesh.rank >= p:
+            continue
+        group = groups[p]
+        xs = sync_inputs(torch, kind, p, mesh.device)
+        x = xs[mesh.rank]
+        rows = np.stack([t.cpu().numpy() for t in xs])
+        fns = {"ring": lambda: ring_allreduce(x, group),
+               "ps": lambda: ps_sync(x, group)}
+
+        def all_reduce():
+            y = x.clone()
+            dist.all_reduce(y, group=group)
+            return y
+        fns["all_reduce"] = all_reduce
+        got = {name: fn().cpu().numpy() for name, fn in fns.items()}
+        for name in ("ring", "ps"):
+            want = schedule_sum(rows, name)
+            if got[name].tobytes() != want.tobytes():
+                bad = int((got[name] != want).sum())
+                raise AssertionError(
+                    f"{kind} p={p} rank {mesh.rank}: {name} differs from "
+                    f"the numpy sum in its order at {bad} elements")
+            # fp32 rounding: p - 1 adds in any order part by at most
+            # 2 (p - 1) eps of the sum of magnitudes, element by element
+            bound = 2 * (p - 1) * np.finfo(np.float32).eps * np.abs(
+                rows).sum(0)
+            if not (np.abs(got[name] - got["all_reduce"]) <= bound).all():
+                raise AssertionError(
+                    f"{kind} p={p} rank {mesh.rank}: {name} parts from "
+                    "all_reduce past fp32 rounding")
+        times = {}
+        for name, fn in fns.items():
+            ts = []
+            for _ in range(SYNC_ITERS):
+                dist.barrier(group=group)
+                t0 = time.perf_counter()
+                fn().sum().item()   # waits for the device
+                ts.append(time.perf_counter() - t0)
+            times[name] = sorted(ts)[len(ts) // 2]
+        diff = float(np.abs(got["ring"] - got["all_reduce"]).max())
+        if mesh.rank == 0:
+            out[f"{kind}/{p}"] = {"n": int(x.numel()), "median_s": times,
+                                  "ring_vs_all_reduce_max": diff,
+                                  "backend": mesh.backend}
+    return out
+
+
+def sync_phase(torch, card: str) -> dict:
+    """Phase 7 (d): ``sync_rank`` on 8 ranks spawned on this card (gloo:
+    NCCL refuses two ranks on one card), printing each schedule's median
+    time, labelled as gloo through the host, and the bytes a rank sends
+    under each."""
+    from repro_torch.launch.mesh import spawn_ranks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(sync_rank, max(SYNC_GROUPS),
+                            devices=["cuda:0"] * max(SYNC_GROUPS),
+                            timeout_s=SYNC_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"sync: {e}")
+    out = ranks[0]
+    for key, r in out.items():
+        p, n = int(key.split("/")[1]), r["n"]
+        ring_b = 2 * (p - 1) * (-(-n // p)) * 4
+        ps_b = (p - 1) * n * 4
+        r.update(ring_bytes_a_rank=ring_b, ps_root_link_bytes=ps_b)
+        print(f"sync {key} ({n} fp32 a rank; {r['backend']} staged through "
+              f"the host, not card to card; {card}): median ring "
+              f"{r['median_s']['ring'] * 1e3:.2f} ms, ps "
+              f"{r['median_s']['ps'] * 1e3:.2f} ms, all_reduce "
+              f"{r['median_s']['all_reduce'] * 1e3:.2f} ms; ring and ps "
+              f"equal the numpy sums in their orders bit for bit, ring "
+              f"vs all_reduce max |diff| {r['ring_vs_all_reduce_max']:.3g}; "
+              f"bytes a rank sends: ring 2(p-1)/p n = {ring_b / 1e6:.3f} "
+              f"MB, ps (p-1) n through the root's link = "
+              f"{ps_b / 1e6:.3f} MB")
+    wall = time.perf_counter() - t0
+    print(f"phase 7 (d) in {wall:.1f} s (8 ranks spawned)")
+    return {"cases": out, "wall_s": wall}
+
+
+def schedule_sum(rows, kind: str):
+    """The numpy oracle of phase 7 (d): rows (p, n) fp32, one a rank ->
+    the (n,) sum each element gets under ``kind``'s schedule
+    (``repro_torch.distributed.collectives``), one fp32 add at a time in
+    the schedule's order.  ``ps``: rank 0 adds ranks 1, 2, ... to its own
+    row in turn.  ``ring``: chunk c (of p, the row padded to a multiple
+    of p) starts at rank c and each next rank round the ring adds its own
+    chunk c to what it received."""
+    import numpy as np
+    p, n = rows.shape
+    if kind == "ps":
+        acc = rows[0].copy()
+        for j in range(1, p):
+            acc = acc + rows[j]
+        return acc
+    if kind != "ring":
+        raise ValueError(f"unknown schedule {kind!r}")
+    chunks = np.pad(rows, ((0, 0), (0, (-n) % p))).reshape(p, p, -1)
+    out = np.empty_like(chunks[0])
+    for c in range(p):
+        acc = chunks[c, c].copy()
+        for j in range(1, p):
+            acc = chunks[(c + j) % p, c] + acc
+        out[c] = acc
+    return out.reshape(-1)[:n]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3652,13 +4021,22 @@ def main() -> int:
     result["cnn"] = cnn_phase(
         torch, kernels, core, plan,
         cnn_graphs(cnn_zoo, optimize_graph, DeviceSpec.tms320c6678()))
-    # the serving models' per-layer view memos (``Model._views``) still
-    # pin phase 3's weights: drop them, so phase 6 measures the trainer
-    for m in (model, g3_model):
-        m._views.clear()
     torch.cuda.empty_cache()
+    print(f"held before phase 6: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated ({card})")
     result["training"] = training_phase(torch, kernels, Model, get_config,
                                         plan, card)
+
+    # phase 7: measured kernel-site routing and the d-Xenos collectives
+    torch.cuda.empty_cache()
+    result["bench"] = bench_phase(torch, kernels, pipeline, card)
+    runs["autotune_bench"] = result["bench"]
+    runs.update(routed_phase(torch, kernels, serve, pipeline, Model,
+                             get_config, result["bench"]["qwen3"]["timings"],
+                             card))
+    torch.cuda.empty_cache()
+    runs["kernel_tune"] = result["tune"] = tune_phase(torch, kernels, card)
+    result["sync"] = sync_phase(torch, card)
 
     table = []
     for name in ("gqa_decode", "gqa_decode_paged", "fused_mask",

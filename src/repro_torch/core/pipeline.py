@@ -851,36 +851,61 @@ def select_kernel_plan(options: dict[str, Any] | None = None,
                        ) -> tuple[KernelPlan, dict[str, Any]]:
     """Decide the per-site backends.  Returns ``(plan, decision detail)``.
 
-    ``accelerator == "cuda"`` (the engine's device type) routes dense and
-    paged decode attention, the linked ``cbra`` op and SwiGLU MLP, the
-    DOS-split matmul and the sampler to the hand-written CUDA kernels, the
-    way the reference routes ``tpu`` to Pallas; a host keeps
-    plain-torch attention, the gather/fold roofline choice and the
-    one-sort ``fused`` sampler.  The reference's measured-timings
-    override comes with the autotuner that measures them.
+    ``options``:
+
+      * ``accelerator`` — the engine's device type (default ``"cpu"``);
+        ``"cuda"`` routes dense and paged decode attention, the linked
+        ``cbra`` op and SwiGLU MLP, the DOS-split matmul and the sampler
+        to the hand-written CUDA kernels, the way the reference routes
+        ``tpu`` to Pallas; a host keeps plain-torch attention, the
+        gather/fold roofline choice and the one-sort ``fused`` sampler;
+      * ``slots`` / ``q_heads`` / ``kv_heads`` / ``head_dim`` /
+        ``max_len`` / ``kv_block_size`` / ``kv_pool_blocks`` /
+        ``mesh_shards`` — geometry for the gather-vs-fold roofline
+        (:func:`_modeled_decode_paged`);
+      * ``timings`` — ``{"site:backend": seconds}`` measured on the live
+        device (``launch/autotune.py::bench_kernel_sites``, cached by
+        ``launch/kernel_tune.py``); a site with measured candidates takes
+        the argmin and skips the heuristics entirely, as in the
+        reference.  Keys of another site or backend are ignored.
 
     Port-only rule: under a concat-TP mesh (``mesh_shards`` > 1)
-    ``linked_matmul`` stays ``torch``.  ``linked_mlp`` fuses ``down`` over
-    the hidden width, and a rank holds ``ff / shards`` columns of h: it
-    would return a partial sum, not the output (the sharded MLP gathers
-    h before a plain ``down``).  The reference routes no caller to its
-    linked kernel, so the rule changes no result of the reference's."""
+    ``linked_matmul`` stays ``torch``, measured or not.  ``linked_mlp``
+    fuses ``down`` over the hidden width, and a rank holds ``ff /
+    shards`` columns of h: it would return a partial sum, not the output
+    (the sharded MLP gathers h before a plain ``down``).  The reference
+    routes no caller to its linked kernel, so the rule changes no result
+    of the reference's."""
     o = dict(options or {})
     acc = str(o.get("accelerator", "cpu"))
+    timings = dict(o.get("timings") or {})
     cuda = acc == "cuda"
     sharded = int(o.get("mesh_shards", 1)) > 1
     detail: dict[str, Any] = {"accelerator": acc}
+
+    def measured(site: str) -> str | None:
+        seen = {b: float(timings[f"{site}:{b}"])
+                for b in KERNEL_SITE_BACKENDS[site]
+                if f"{site}:{b}" in timings}
+        if not seen:
+            return None
+        detail[f"{site}_measured_s"] = {b: round(v, 9)
+                                        for b, v in sorted(seen.items())}
+        return min(seen, key=seen.get)
+
     paged_default, paged_detail = _modeled_decode_paged(o)
     detail.update(paged_detail)
+    linked = measured("linked_matmul") or ("cuda" if cuda else "torch")
     plan = KernelPlan(
-        decode_dense="cuda" if cuda else "torch",
-        decode_paged="cuda" if cuda else paged_default,
-        decode_ring="gather",
-        prefill_chunk="torch",
-        linked_matmul="cuda" if cuda and not sharded else "torch",
-        split_matmul="cuda" if cuda else "torch",
-        sampler="cuda" if cuda else "fused",
-        ssm_scan="torch",
+        decode_dense=measured("decode_dense") or ("cuda" if cuda else "torch"),
+        decode_paged=measured("decode_paged")
+        or ("cuda" if cuda else paged_default),
+        decode_ring=measured("decode_ring") or "gather",
+        prefill_chunk=measured("prefill_chunk") or "torch",
+        linked_matmul="torch" if sharded else linked,
+        split_matmul=measured("split_matmul") or ("cuda" if cuda else "torch"),
+        sampler=measured("sampler") or ("cuda" if cuda else "fused"),
+        ssm_scan=measured("ssm_scan") or "torch",
     )
     return plan, detail
 

@@ -142,13 +142,14 @@ def build_draft(cfg, device, seed: int):
 
 def build_engine(args, model=None, params=None, kernel_plan=None,
                  graphed: bool | None = None, draft=None,
-                 mesh=None) -> ServingEngine:
+                 mesh=None, kernel_timings=None) -> ServingEngine:
     """The engine the flags describe (``model``/``params`` may be given
     to share weights across engines, ``draft`` a ``(model, params)``
     proposer for ``--spec draft``; ``kernel_plan`` pins the routing,
-    None lets ``kernel_select`` choose; ``graphed=False`` runs the
-    per-tick steps eagerly, for timing and parity, None takes the
-    engine's default; ``mesh``: this rank's concat-TP mesh, with
+    None lets ``kernel_select`` choose, from ``kernel_timings`` where
+    given (a ``launch.autotune.load_timings`` cache); ``graphed=False``
+    runs the per-tick steps eagerly, for timing and parity, None takes
+    the engine's default; ``mesh``: this rank's concat-TP mesh, with
     ``params`` the full tree each rank slices)."""
     if model is None:
         device = mesh.device if mesh is not None else args.device
@@ -174,7 +175,8 @@ def build_engine(args, model=None, params=None, kernel_plan=None,
                          replan_every=args.replan_every, kv=args.kv,
                          kv_block_size=args.kv_block_size,
                          kv_pool_blocks=args.kv_pool_blocks,
-                         kernel_plan=kernel_plan, graphed=graphed,
+                         kernel_plan=kernel_plan,
+                         kernel_timings=kernel_timings, graphed=graphed,
                          mesh=mesh, **spec_kw)
 
 

@@ -37,6 +37,7 @@ Differences of idiom, not of result:
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, NamedTuple
 
 import torch
@@ -61,6 +62,46 @@ class TrainState(NamedTuple):
     step: torch.Tensor   # int32, 0-dim
 
 
+def _storage_alias(t: torch.Tensor) -> torch.Tensor:
+    """A tensor over ``t``'s storage at its offset, sizes and strides that
+    is not a view of ``t``: views of the alias keep the storage alive, not
+    ``t`` (a view of ``t`` itself would keep ``t``, and with it any
+    finalizer on ``t``, alive)."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+
+
+class _ViewMemo:
+    """One param tree's per-layer views in ``Model._views``: weak
+    references to its stacked leaves, the views (of storage aliases), and
+    a finalizer on each leaf that removes this entry from ``memo`` once
+    the caller drops the leaf."""
+
+    def __init__(self, memo: dict, key: int, stacked, leaves: list):
+        self.refs = [weakref.ref(t) for t in leaves]
+        aliases = tree_map(_storage_alias, stacked)
+        self.views = T.layer_views(aliases, leaves[0].shape[0])
+        self.finalizers = [weakref.finalize(t, _ViewMemo._drop, memo, key,
+                                            self) for t in leaves]
+
+    def holds(self, leaves: list) -> bool:
+        return len(self.refs) == len(leaves) and all(
+            r() is t for r, t in zip(self.refs, leaves))
+
+    def detach(self) -> None:
+        """Cancel the finalizers (they hold this entry: dropping them
+        leaves no cycle for the collector to find)."""
+        for f in self.finalizers:
+            f.detach()
+        self.finalizers = []
+
+    @staticmethod
+    def _drop(memo: dict, key: int, entry: "_ViewMemo") -> None:
+        if memo.get(key) is entry:
+            del memo[key]
+        entry.detach()
+
+
 class Model:
     def __init__(self, cfg, kernel_plan=None, device="cuda",
                  opt_cfg: AdamWConfig | None = None):
@@ -76,7 +117,7 @@ class Model:
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
         self.opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.opt_dtype)
-        self._views: dict[int, tuple[Any, list]] = {}
+        self._views: dict[int, _ViewMemo] = {}
         #: the per-layer cache dataflow: a layer-pattern config takes the
         #: per-layer path (tuple caches, a window and a RoPE theta a
         #: layer); other configs keep the stacked cache
@@ -130,20 +171,28 @@ class Model:
         leaf was replaced.  Under grad, with leaves that require it, the
         views are made afresh on every call: they belong to this call's
         graph (a memoized view's graph is freed by the backward that used
-        it, and the optimizer's in-place step outdates its version)."""
+        it, and the optimizer's in-place step outdates its version).
+
+        The memo holds no reference to the caller's tensors: its views
+        are views of storage aliases (:func:`_storage_alias`), and a
+        finalizer on each stacked leaf drops the entry when the caller
+        drops the leaf, so a dropped param tree frees its memory while
+        the model lives."""
         stacked = params[key]
         leaves = tree_leaves(stacked)
         if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
             return T.unbind_layers(stacked, leaves[0].shape[0])
-        hit = self._views.get(id(stacked))
-        if hit is not None and len(hit[0]) == len(leaves) \
-                and all(a is b for a, b in zip(hit[0], leaves)):
-            return hit[1]
-        views = T.layer_views(stacked, leaves[0].shape[0])
+        memo = self._views.get(id(stacked))
+        if memo is not None and memo.holds(leaves):
+            return memo.views
         if len(self._views) >= 4:
-            self._views.pop(next(iter(self._views)))
-        self._views[id(stacked)] = (leaves, views)
-        return views
+            # a finalizer may have dropped the entry since it was seen
+            oldest = self._views.pop(next(iter(self._views)), None)
+            if oldest is not None:
+                oldest.detach()
+        memo = _ViewMemo(self._views, id(stacked), stacked, leaves)
+        self._views[id(stacked)] = memo
+        return memo.views
 
     def _head(self, params, x):
         x = rms_norm(x, params["final_norm"])

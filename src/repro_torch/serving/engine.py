@@ -20,8 +20,10 @@ recurrent scan would run through the padded tail).
 
 Every hot-path dispatch routes through a :class:`KernelPlan`: by default
 the ``kernel_select`` pass picks per site — the hand-written CUDA
-kernels on a CUDA engine, plain torch on the host.  The reference's
-jitted entries become a per-model table of step bodies
+kernels on a CUDA engine, plain torch on the host — and measured
+``kernel_timings`` (``launch/kernel_tune.py``) override it site by site;
+``kernel_plan="off"`` pins the seed path, an explicit plan pins one.
+The reference's jitted entries become a per-model table of step bodies
 (:func:`_serving_calls`).  With ``graphed=True`` (one device's default) the
 entries that run every decode tick — ``serve`` (reference sampler),
 ``serve_sample`` (decode, ``fused_mask`` and the draw: tokens out) and
@@ -189,7 +191,8 @@ class ServingEngine:
                  chunk: int = 32, replan_every: int = 32, kv: str = "dense",
                  kv_block_size: int | None = None,
                  kv_pool_blocks: int | None = None,
-                 kernel_plan: KernelPlan | None = None,
+                 kernel_plan: KernelPlan | str | None = None,
+                 kernel_timings: dict | None = None,
                  spec: SpecParams | None = None, spec_k_max: int = 16,
                  draft_model=None, draft_params=None,
                  graphed: bool | None = None, mesh=None):
@@ -332,7 +335,8 @@ class ServingEngine:
             else "mixed" if self.scheduler.kv_mixed
             else "window" if self.scheduler.kv_window else "linear")
         self._kernel_report = None  # PassReport when the plan was routed
-        self.kernel_plan = self._resolve_kernel_plan(kernel_plan)
+        self.kernel_plan = self._resolve_kernel_plan(kernel_plan,
+                                                     kernel_timings)
         self.scheduler.kernel_plan = self.kernel_plan.as_dict()
         #: the token each slot feeds its next decode step (host copy)
         self._last_tokens = np.zeros((slots, 1), np.int64)
@@ -377,14 +381,22 @@ class ServingEngine:
                 + " (rollback across an evicted window block or recurrent "
                 "state is undefined)")
 
-    def _resolve_kernel_plan(self, kernel_plan) -> KernelPlan:
-        """``None`` runs the ``kernel_select`` pass (the decision lands in
-        ``stats()["kernel_report"]``); an explicit :class:`KernelPlan`
-        (``KernelPlan()`` is the plain-torch seed path) is honored."""
+    def _resolve_kernel_plan(self, kernel_plan, timings) -> KernelPlan:
+        """Resolve the engine's per-site kernel routing.
+
+        ``None`` (the default) runs the ``kernel_select`` pass over the
+        scheduler's proxy graph — the heuristics plus any measured
+        ``{"site:backend": seconds}`` timings (``launch/kernel_tune.py``)
+        pick a backend per site, and the decision lands in a PassReport
+        (``stats()["kernel_report"]``).  ``"off"`` pins the seed path
+        (``KernelPlan()``, plain torch at every site); an explicit
+        :class:`KernelPlan` is honored as given."""
+        if kernel_plan == "off":
+            return KernelPlan()
         if kernel_plan is not None:
             if not isinstance(kernel_plan, KernelPlan):
                 raise ValueError(
-                    f"kernel_plan must be a KernelPlan or None, "
+                    f"kernel_plan must be a KernelPlan, 'off' or None, "
                     f"got {kernel_plan!r}")
             return kernel_plan
         from ..core import pipeline
@@ -400,6 +412,8 @@ class ServingEngine:
         if self.pool is not None:
             options["kv_block_size"] = self.pool.cfg.block_size
             options["kv_pool_blocks"] = self.pool.cfg.pool_blocks
+        if timings:
+            options["timings"] = dict(sorted(timings.items()))
         _, report = pipeline.optimize(self.scheduler.plan_graph,
                                       passes=("kernel_select",),
                                       options=options)

@@ -1093,17 +1093,19 @@ def _serve_trace(seed, sampled, vocab):
 
 
 def _serve_trace_run(model, params, trace, kv, graphed, spec=None,
-                     replan_every=10_000):
-    """The trace through a fresh engine.  A replanning engine plans from
-    fixed timings (a 10 ms decode step, 0.1 ms a prefill token), so two
-    engines adopt the same plans whatever their own timings."""
+                     replan_every=10_000, **engine_kw):
+    """The trace through a fresh engine (``engine_kw``: more engine
+    keywords).  A replanning engine plans from fixed timings (a 10 ms
+    decode step, 0.1 ms a prefill token), so two engines adopt the same
+    plans whatever their own timings."""
     from repro_torch.serving import Request, ServingEngine
     eng = ServingEngine(model, params, slots=SERVE_SLOTS,
                         max_len=SERVE_MAX_LEN, chunk=SERVE_CHUNK,
                         prefill_mode="chunked", replan_every=replan_every,
                         kv=kv,
                         kv_block_size=SERVE_BLOCK if kv == "paged" else None,
-                        graphed=graphed, spec=spec, spec_k_max=4)
+                        graphed=graphed, spec=spec, spec_k_max=4,
+                        **engine_kw)
     replan = eng.scheduler.maybe_replan
     eng.scheduler.maybe_replan = lambda decode_step_s, prefill_token_s, \
         **kw: replan(0.01, 1e-4, **kw)
@@ -1978,3 +1980,92 @@ def test_wrapper_refuses_a_cuda_input_that_requires_grad(card):
     with torch.no_grad():
         out = t_lm.linked_mlp(x, *w)
     assert out.shape == x.shape and kernels.LAUNCHES["linked_mlp"] == 1
+
+
+# -- measured kernel-site routing and the collectives ------------------------------
+
+@pytest.mark.cuda
+def test_bench_kernel_sites_times_every_candidate(card):
+    """On the card the bench times all eight candidates, each as a CUDA
+    graph: each kernel launched by the capture's warm-up and once a
+    replay (3 warm-ups and ``iters``), in fp32 and bf16."""
+    import math
+
+    from repro_torch.launch.autotune import bench_kernel_sites
+    for dtype in ("float32", "bfloat16"):
+        kernels.reset_launches()
+        t = bench_kernel_sites(iters=4, dtype=dtype)
+        assert set(t) == {"decode_dense:torch", "decode_dense:cuda",
+                          "decode_paged:gather", "decode_paged:fold",
+                          "decode_paged:cuda", "sampler:reference",
+                          "sampler:fused", "sampler:cuda"}
+        assert all(math.isfinite(v) and v > 0 for v in t.values())
+        for name in ("gqa_decode", "gqa_decode_paged", "fused_mask"):
+            assert kernels.LAUNCHES[name] == 8, (dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_engine_with_timings_serves_the_explicit_plans_streams(card, kv):
+    """Timings that keep the paged site and the sampler off their kernels
+    route the graphed engine so (its plan is ``select_kernel_plan``'s),
+    and it serves an engine's streams given that plan explicitly;
+    ``kernel_plan="off"`` launches no kernel."""
+    from repro_torch.core.pipeline import KernelPlan
+    model, params = _serve_model()
+    trace = _serve_trace(5, True, model.cfg.vocab)
+    t = {"decode_paged:fold": 1e-6, "decode_paged:cuda": 1e-3,
+         "sampler:fused": 1e-6, "sampler:cuda": 1e-3,
+         "decode_dense:cuda": 1e-6, "decode_dense:torch": 1e-3}
+    kernels.reset_launches()
+    timed, eng = _serve_trace_run(model, params, trace, kv, True,
+                                  kernel_timings=t)
+    plan = eng.kernel_plan
+    assert (plan.decode_paged, plan.sampler, plan.decode_dense) == \
+        ("fold", "fused", "cuda")
+    assert plan.linked_matmul == "cuda"
+    assert kernels.LAUNCHES["fused_mask"] == 0
+    assert kernels.LAUNCHES["gqa_decode_paged"] == 0
+    assert (kernels.LAUNCHES["gqa_decode"] > 0) == (kv == "dense")
+    explicit, _ = _serve_trace_run(model, params, trace, kv, True,
+                                   kernel_plan=plan)
+    assert timed == explicit
+    kernels.reset_launches()
+    _, off = _serve_trace_run(model, params, trace, kv, True,
+                              kernel_plan="off")
+    assert off.kernel_plan == KernelPlan()
+    assert not any(kernels.LAUNCHES.values())
+
+
+def _collectives_rank(mesh, n):
+    """Rank ``mesh.rank``'s normal(0, 1) row of ``n`` fp32 on the card
+    (seed = rank) through both schedules and ``dist.all_reduce``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import ps_sync, ring_allreduce
+    x = torch.randn(n, device=mesh.device, generator=torch.Generator(
+        device=mesh.device).manual_seed(mesh.rank))
+    ring, ps = ring_allreduce(x), ps_sync(x)
+    summed = x.clone()
+    dist.all_reduce(summed)
+    return {"x": x.cpu().numpy(), "ring": ring.cpu().numpy(),
+            "ps": ps.cpu().numpy(), "all_reduce": summed.cpu().numpy(),
+            "on_card": ring.is_cuda and ps.is_cuda}
+
+
+@pytest.mark.cuda
+def test_collectives_equal_all_reduce_on_card_ranks(card, tmp_path):
+    """Two gloo ranks on one card, CUDA inputs (1001 elements: the ring
+    pads): both schedules return CUDA tensors equal to x0 + x1 bit for
+    bit (one add, in either order) and to ``dist.all_reduce``."""
+    from repro_torch.launch.mesh import spawn_ranks
+    ranks = spawn_ranks(_collectives_rank, 2, args=(1001,),
+                        devices=["cuda:0"] * 2, timeout_s=180.0,
+                        store_dir=tmp_path)
+    want = ranks[0]["x"] + ranks[1]["x"]
+    for r in ranks:
+        assert r["on_card"]
+        for kind in ("ring", "ps"):
+            assert r[kind].tobytes() == want.tobytes(), kind
+            np.testing.assert_allclose(r[kind], r["all_reduce"], rtol=1e-6,
+                                       atol=1e-6)

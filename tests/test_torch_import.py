@@ -38,11 +38,16 @@ def test_import_with_jax_blocked():
 
 @pytest.mark.parametrize("module", ["repro_torch.optim",
                                     "repro_torch.checkpoint",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.autotune",
+                                    "repro_torch.launch.kernel_tune",
+                                    "repro_torch.distributed.collectives"])
 def test_training_modules_import_alone(module):
-    """The training slice (optimizer, checkpoints, the train driver)
-    imports on its own, first in a fresh process, with ``jax`` and
-    ``repro`` blocked, and names no jax module once imported."""
+    """The training slice (optimizer, checkpoints, the train driver) and
+    the measured routing and collectives (the kernel-site bench, the
+    ``kernel_tune`` command, the ring and parameter-server schedules)
+    import on their own, first in a fresh process, with ``jax`` and
+    ``repro`` blocked, and name no jax module once imported."""
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -1,6 +1,6 @@
 """Rank bodies of the port's multi-rank tests (``test_torch_tp.py``,
-``test_torch_router.py``), and the trace runner they share with the
-one-device runs they are compared with.
+``test_torch_router.py``, ``test_torch_collectives.py``), and the trace
+runner they share with the one-device runs they are compared with.
 
 A spawned rank imports the module of the function it runs; this one
 imports torch, numpy and ``repro_torch`` only (no jax, no reference), so
@@ -14,7 +14,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.pipeline import StageTimer, _Stage
-from repro_torch.distributed import tp
+from repro_torch.distributed import ps_sync, ring_allreduce, tp
 from repro_torch.models.model import Model
 from repro_torch.serving import (ReplicaRouter, Request, SamplingParams,
                                  ServingEngine)
@@ -237,3 +237,28 @@ def fail_on_rank_1(mesh):
     if mesh.rank == 1:
         raise ValueError("planted")
     return mesh.gather(torch.ones(1), dim=0).tolist()
+
+
+def collectives_rank(mesh, cases: dict):
+    """``cases`` maps a group size p to its ranks' inputs (p rows); the
+    ranks below p form one group each (every rank joins every group, as
+    ``new_group`` asks).  Returns, for each p this rank belongs to, its
+    ``ring_allreduce``, ``ps_sync`` and ``dist.all_reduce`` results as
+    numpy, whether its input came back unchanged, and whether p = 1
+    returned the input itself."""
+    import torch.distributed as dist
+    out = {}
+    for p, rows in sorted(cases.items()):
+        group = dist.new_group(list(range(p)))
+        if mesh.rank >= p:
+            continue
+        x = torch.as_tensor(rows[mesh.rank])
+        keep = x.clone()
+        ring, ps = ring_allreduce(x, group), ps_sync(x, group)
+        summed = x.clone()
+        dist.all_reduce(summed, group=group)
+        out[p] = {"ring": ring.numpy(), "ps": ps.numpy(),
+                  "all_reduce": summed.numpy(),
+                  "input_kept": bool(torch.equal(x, keep)),
+                  "identity": ring is x and ps is x}
+    return out

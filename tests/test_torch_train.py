@@ -548,6 +548,33 @@ def test_repeated_steps_take_fresh_layer_views():
     assert m._layers(state.params) is not views
 
 
+def test_dropped_params_are_freed_while_the_model_lives():
+    """A reduced model serves a step through an engine; once the caller
+    drops the engine and its param tree, every stacked leaf is collected
+    though the model (and its per-layer view memo) lives on.  The memo
+    once held the leaves through the views it kept: after a full-width
+    card run's ``del params`` the card still held the weights."""
+    import gc
+    import weakref
+    cfg = get_config("qwen3-1.7b").reduced()
+    m = Model(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    eng = ServingEngine(m, params, slots=2, max_len=32, chunk=8)
+    eng.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                       max_new_tokens=3))
+    while eng.scheduler.pending():
+        eng.step()
+    with torch.no_grad():
+        views = m._layers(eng.params)
+        assert m._layers(eng.params) is views and m._views
+    refs = [weakref.ref(t) for t in tree_leaves(eng.params["layers"])]
+    refs += [weakref.ref(t) for t in tree_leaves(params["layers"])]
+    del eng, params, views
+    gc.collect()
+    assert all(r() is None for r in refs)
+    assert not m._views
+
+
 def _wrapper_calls():
     """One call of each kernel wrapper on CPU tensors, the first input of
     each made to require grad."""
