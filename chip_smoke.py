@@ -225,7 +225,24 @@ Phases (any failure exits non-zero before the result line):
    2^20 fp32 a rank (Fig. 11's size) and of 4 on resnet18's parameter
    vector: each equal bit for bit to the numpy sum in its schedule's
    order and to ``dist.all_reduce`` within fp32 rounding; prints each
-   schedule's median time and the bytes a rank sends.
+   schedule's median time and the bytes a rank sends;
+8. the d-Xenos planning tools, in a process of their own started after
+   phase 2 (host work only: fake ranks, no card), read after phase 7:
+   (a) the fake-rank dry run (``launch/dryrun.py``) of qwen3-1.7b at
+   ``train_4k``, ``prefill_32k`` and ``decode_32k``, olmoe-1b-7b at
+   ``decode_32k`` and mamba2-370m at ``long_500k`` on the 16x16
+   production mesh, full width, each printed as its dominant term,
+   bound, per-rank FLOPs, bytes and collective bytes, peak and whether it
+   fits; (b) ``launch.autotune.tune`` of qwen3-1.7b at ``decode_32k``
+   over the seven rule sets, its ranking (``baseline_outC`` must score a
+   finite bound); (c) ``launch.hillclimb.run_pair("chameleon_decode")``,
+   chameleon-34b's three variants; (d) the roofline anchored to this
+   card on a 1-rank mesh: the dry run's bound for qwen3-1.7b's served
+   decode step (8 slots, 2048, bf16 weights) beside phase 3's graphed
+   dense step, and its FLOPs and peak for phase 6's full-width train step
+   (8 x 512, remat on) beside phase 6's executed FLOPs (the HFU
+   numerator) and ``max_memory_allocated``, reported side by side, not
+   gated.  Any dry run that raises fails the run.  No kernel launches.
 
 Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
 by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32), twice (the
@@ -261,6 +278,7 @@ The line before last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import subprocess
@@ -384,6 +402,15 @@ SM_FRAMES, SM_NEW, SM_WINDOW = 512, 64, (20, 28)
 #: the self-attention span of seamless's decode: the 4-token prompt and
 #: the 64 new tokens, plus one
 SM_SELF = 69
+#: phase 8: the full-width dry runs on the 16x16 production mesh, the
+#: tuned (arch, shape), the hillclimb pair, and the time the phase's
+#: process may take past phase 7's end
+PLAN_RUNS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+             ("qwen3-1.7b", "decode_32k"), ("olmoe-1b-7b", "decode_32k"),
+             ("mamba2-370m", "long_500k"))
+PLAN_TUNE = ("qwen3-1.7b", "decode_32k")
+PLAN_PAIR = "chameleon_decode"
+PLAN_TIMEOUT = 300.0
 
 
 def fail(msg: str) -> None:
@@ -3835,11 +3862,199 @@ def schedule_sum(rows, kind: str):
     return out.reshape(-1)[:n]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the d-Xenos planning tools (fake ranks, in a process of its own)
+# ---------------------------------------------------------------------------
+
+def _plan_line(rec: dict) -> dict:
+    """The numbers phase 8 prints of one dry-run record."""
+    return {k: rec.get(k) for k in (
+        "dominant", "bound_s", "compute_s", "memory_s", "collective_s",
+        "flops_per_device", "bytes_per_device",
+        "collective_bytes_per_device", "collectives", "fits_hbm",
+        "compile_s")} | {"peak_bytes": rec["memory"]["peak_estimate"],
+                         "notes": rec.get("notes")}
+
+
+def planning_child(out_path: str) -> int:
+    """Phase 8's work, run as ``chip_smoke.py --planning OUT``: host work
+    alone (a fake process group, fake tensors), written to OUT as JSON.
+    A dry run that raises is recorded under ``errors``."""
+    import os
+    import traceback
+    os.environ.pop("REPRO_DRYRUN_DEVICES", None)   # the production mesh
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.core import costmodel as cm
+    from repro_torch.launch import autotune, dryrun, hillclimb
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    out: dict = {"runs": {}, "errors": {}}
+    for arch, shape in PLAN_RUNS:
+        key = f"{arch}/{shape}"
+        try:
+            out["runs"][key] = _plan_line(dryrun.run_one(
+                arch, shape, "single", verbose=True, calibrate=False))
+        except Exception as e:  # noqa: BLE001 - recorded, fails the run
+            traceback.print_exc()
+            out["errors"][key] = f"{type(e).__name__}: {e}"
+    best, results, _ = autotune.tune(*PLAN_TUNE)
+    out["tune"] = {"best": best, "results": {
+        name: {k: r.get(k) for k in ("bound_s", "dominant", "error",
+                                     "collective_bytes_per_device")}
+        for name, r in results.items()}}
+    out["pair"] = []
+    for rec in hillclimb.run_pair(PLAN_PAIR, None):
+        if "error" in rec:
+            out["errors"][f"{PLAN_PAIR}/{rec['variant']}"] = rec["error"]
+            continue
+        out["pair"].append({"variant": rec["variant"],
+                            "calibrated": rec["calibrated"],
+                            "peak_bytes": rec["memory"]["peak_estimate"],
+                            "fits_hbm": rec["fits_hbm"]})
+    one = mesh_lib.make_debug_mesh(1)
+    qwen = get_config("qwen3-1.7b")
+    anchors = {
+        # phase 3's served decode step: 8 slots over a 2048-slot dense
+        # ring, the weights cast to bf16 once as the engine's are
+        "serve_decode": (dataclasses.replace(qwen, param_dtype="bfloat16"),
+                         InputShape("serve_decode", MAX_LEN, SLOTS,
+                                    "decode")),
+        # phase 6's full-width train step: fp32 params and moments, bf16
+        # compute, remat on, 8 x 512 tokens
+        "train_step": (qwen, InputShape("train_step", FULL_SEQ, FULL_BATCH,
+                                        "train"))}
+    out["anchors"] = {}
+    for name, (cfg, shape) in anchors.items():
+        try:
+            trace, _, _ = dryrun.lower_one("qwen3-1.7b", shape, one, cfg=cfg)
+        except Exception as e:  # noqa: BLE001 - recorded, fails the run
+            traceback.print_exc()
+            out["errors"][f"anchor/{name}"] = f"{type(e).__name__}: {e}"
+            continue
+        coll = cm.collective_bytes_from_trace(trace.collectives)["total"]
+        out["anchors"][name] = {
+            "flops": trace.flops, "bytes": trace.bytes,
+            "collective_bytes": coll, "peak_bytes":
+                trace.memory["peak_estimate"],
+            **cm.roofline(trace.flops, trace.bytes, coll).as_dict()}
+    out["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out, default=str))
+    return 0
+
+
+def start_planning(out_dir: Path):
+    """Start phase 8's process (its log in ``chiprun_out/phase8.log``),
+    killed at exit if it still runs (a failing phase exits early)."""
+    log = open(out_dir / "phase8.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--planning",
+         str(out_dir / "phase8.json")], stdout=log, stderr=subprocess.STDOUT,
+        cwd=str(REPO))
+    log.close()
+    atexit.register(stop_process, proc)
+    return proc, time.perf_counter()
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def planning_phase(proc, started: float, out_dir: Path, runs: dict,
+                   training: dict, card: str) -> dict:
+    """Phase 8: wait for its process, then print its dry runs, the
+    tuner's ranking, the hillclimb pair and the card anchors.  Fails if
+    the process fails, overruns ``PLAN_TIMEOUT`` past this call, or any
+    dry run raised, or ``baseline_outC`` scored +inf."""
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=PLAN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        fail(f"phase 8 ran past {PLAN_TIMEOUT:.0f} s after phase 7 "
+             "(chiprun_out/phase8.log)")
+    waited = time.perf_counter() - t_wait
+    if rc != 0:
+        fail(f"phase 8 exited {rc} (chiprun_out/phase8.log)")
+    out = json.loads((out_dir / "phase8.json").read_text())
+    if out["errors"]:
+        fail(f"phase 8: dry runs raised: {out['errors']}")
+    model = "priced at the H100 SXM data-sheet peaks (700 W), fake ranks"
+    for key, r in out["runs"].items():
+        print(f"plan {key} 16x16: dominant {r['dominant']}, bound "
+              f"{r['bound_s'] * 1e3:.3f} ms (compute "
+              f"{r['compute_s'] * 1e3:.3f}, memory {r['memory_s'] * 1e3:.3f},"
+              f" collective {r['collective_s'] * 1e3:.3f}); per rank "
+              f"{r['flops_per_device']:.4e} FLOPs, "
+              f"{r['bytes_per_device']:.4e} bytes, "
+              f"{r['collective_bytes_per_device']:.4e} collective bytes "
+              f"{r['collectives']}; peak {r['peak_bytes'] / 1e9:.2f} GB, "
+              f"fits {r['fits_hbm']}; replicated ops "
+              f"{r['notes']['replicated_ops']}; top collective ops "
+              f"{r['notes']['top_collective_ops']}; traced in "
+              f"{r['compile_s']} s ({model})")
+    tune = out["tune"]["results"]
+    base = tune.get("baseline_outC", {}).get("bound_s")
+    if base is None or base == float("inf"):
+        fail(f"phase 8: baseline_outC scored {base}: {tune}")
+    ranking = sorted(tune.items(), key=lambda kv: kv[1]["bound_s"])
+    print(f"plan tune {'/'.join(PLAN_TUNE)}: best {out['tune']['best']}; "
+          + "; ".join(f"{name} {r['bound_s'] * 1e3:.3f} ms {r['dominant']}"
+                      for name, r in ranking) + f" ({model})")
+    for r in out["pair"]:
+        c = r["calibrated"]
+        print(f"plan {PLAN_PAIR}.{r['variant']}: dominant {c['dominant']}, "
+              f"bound {c['bound_s'] * 1e3:.3f} ms (compute "
+              f"{c['compute_s'] * 1e3:.3f}, memory {c['memory_s'] * 1e3:.3f},"
+              f" collective {c['collective_s'] * 1e3:.3f}), peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB, fits {r['fits_hbm']} "
+              f"({model})")
+    a = out["anchors"]["serve_decode"]
+    step = runs["dense_greedy"]["mean_decode_ms"]
+    print(f"plan anchor decode (qwen3-1.7b, 1 rank, 8 slots x {MAX_LEN}, "
+          f"bf16): dry-run bound {a['bound_s'] * 1e3:.3f} ms ({a['dominant']};"
+          f" compute {a['compute_s'] * 1e3:.3f}, memory "
+          f"{a['memory_s'] * 1e3:.3f}; {a['flops']:.4e} FLOPs, "
+          f"{a['bytes']:.4e} bytes) beside phase 3's graphed dense step "
+          f"{step:.3f} ms: bound / step {a['bound_s'] * 1e3 / step:.3f} "
+          f"({card})")
+    t = out["anchors"]["train_step"]
+    fw = training["full_width"]
+    print(f"plan anchor train (qwen3-1.7b, 1 rank, {FULL_BATCH} x "
+          f"{FULL_SEQ}, remat): dry-run {t['flops']:.4e} FLOPs beside phase "
+          f"6's executed {fw['executed_flops']:.4e} (ratio "
+          f"{t['flops'] / fw['executed_flops']:.3f}); dry-run peak "
+          f"{t['peak_bytes'] / 1e9:.2f} GB beside max_memory_allocated "
+          f"{fw['max_memory_gb']:.2f} GB (ratio "
+          f"{t['peak_bytes'] / 1e9 / fw['max_memory_gb']:.3f}); dry-run "
+          f"bound {t['bound_s'] * 1e3:.1f} ms ({t['dominant']}) beside the "
+          f"{fw['median_step_ms']:.1f} ms step ({card})")
+    out["anchor_ratios"] = {
+        "decode_bound_over_step": a["bound_s"] * 1e3 / step,
+        "train_flops_over_executed": t["flops"] / fw["executed_flops"],
+        "train_peak_over_max_allocated":
+            t["peak_bytes"] / 1e9 / fw["max_memory_gb"]}
+    out["waited_s"] = waited
+    print(f"phase 8 in {out['wall_s']:.1f} s in its own process beside "
+          f"phases 3-7 (waited {waited:.1f} s after phase 7); no kernel "
+          "launched")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build and kernel checks)")
+    ap.add_argument("--planning", metavar="OUT",
+                    help="run phase 8's host work alone, writing OUT")
     cli = ap.parse_args()
+    if cli.planning:
+        return planning_child(cli.planning)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
@@ -3954,6 +4169,8 @@ def main() -> int:
         print(json.dumps(result, default=str))
         return 1   # a partial run is never a passing result
 
+    # phase 8's host work runs beside phases 3-7, in its own process
+    planning, plan_t0 = start_planning(out_dir)
     decode_tc = mlp_plan(torch, lm_ops, mlp_inputs(
         torch, SLOTS, D_MODEL, D_FF, torch.bfloat16, gen)).path == "tc"
     del paged_engine
@@ -4037,6 +4254,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["kernel_tune"] = result["tune"] = tune_phase(torch, kernels, card)
     result["sync"] = sync_phase(torch, card)
+    result["planning"] = planning_phase(planning, plan_t0, out_dir, runs,
+                                        result["training"], card)
 
     table = []
     for name in ("gqa_decode", "gqa_decode_paged", "fused_mask",

@@ -5,8 +5,10 @@ to the card the port runs on.  The constants are the data-sheet figures
 of one H100 SXM at its full 700 W power limit (NVIDIA H100 data sheet
 and Hopper architecture white paper); a card capped lower runs slower
 under load.  The analytic per-op counts (:func:`op_flops`,
-:func:`op_bytes`) are the reference's, unchanged; its HLO collective
-parser has no counterpart yet (ROADMAP queue 1 item 11).
+:func:`op_bytes`) are the reference's, unchanged.  The reference reads
+collective bytes from XLA's HLO text (``collective_bytes_from_hlo``);
+the port reads them from the collectives a dry-run trace issued
+(:func:`collective_bytes_from_trace`, fed by ``launch/dryrun.py``).
 
 Terms (seconds):
     compute    = FLOPs            / (chips * PEAK_FLOPS)
@@ -16,6 +18,7 @@ Terms (seconds):
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Iterable
 
 # -- H100 SXM hardware constants (per card, data sheet) ----------------------
 PEAK_FLOPS = 989e12          # H100: dense bf16 tensor-core FLOP/s
@@ -32,9 +35,25 @@ class RooflineTerms:
     collective_s: float
 
     @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)  # type: ignore[arg-type]
+
+    @property
+    def bound_s(self) -> float:
+        """Roofline lower bound on step time (terms overlap perfectly)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
     def serial_s(self) -> float:
         """Upper bound (no overlap at all)."""
         return self.compute_s + self.memory_s + self.collective_s
+
+    def as_dict(self) -> dict[str, Any]:
+        return {"compute_s": self.compute_s, "memory_s": self.memory_s,
+                "collective_s": self.collective_s, "dominant": self.dominant,
+                "bound_s": self.bound_s}
 
 
 def roofline(flops: float, hbm_bytes: float, collective_bytes: float,
@@ -108,3 +127,39 @@ def _conv_out_shape(node, tensors):
         n, oh, ow, oc = out.shape
         return n, oh * s, ow * s, oc
     return out.shape
+
+
+# -- collectives of a dry-run trace -------------------------------------------
+
+#: ``torch.distributed`` functional-collective op names -> the reference's
+#: HLO collective kinds
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def collective_bytes_from_trace(events: Iterable[tuple[str, float]]
+                                ) -> dict[str, float]:
+    """Sum the result bytes of every collective a traced step issued.
+
+    ``events``: ``(op, bytes)`` pairs, ``op`` a functional-collective op
+    name (``all_gather_into_tensor``, ...) or already one of the
+    reference's kinds, ``bytes`` the size of the collective's result on
+    one rank (for all-gather the gathered size; for all-reduce the
+    reduced tensor).  Returns {kind: bytes, ..., 'total': bytes} under
+    the reference's kind names (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``all-to-all``, ``collective-permute``): the
+    proxy of ``collective_bytes_from_hlo``, consistent across schemes,
+    which is what the planner needs."""
+    out: dict[str, float] = {}
+    for op, nbytes in events:
+        kind = COLLECTIVE_KINDS.get(op, op)
+        out[kind] = out.get(kind, 0.0) + float(nbytes)
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out

@@ -1,7 +1,21 @@
-"""The kernel-site leg of the d-Xenos autotuner, on PyTorch (the
-counterpart of ``repro.launch.autotune``'s micro-benchmarks).
+"""The d-Xenos autotuner (paper §5, Algorithm 1 on transformers), on
+PyTorch: the counterpart of ``repro.launch.autotune``.
 
-:func:`bench_kernel_sites` times each serving kernel site's candidate
+Its sharding-rule leg enumerates candidate rule sets
+(:data:`CANDIDATE_RULESETS`: the Figure-6 schemes translated to
+mesh-axis assignments), traces each with the fake-rank dry run
+(``launch/dryrun.py``), scores it by the three-term roofline of the
+trace (the stand-in for on-device profiling of a production mesh), and
+returns the argmin through ``core.planner.algorithm1``, one
+``PassRecord`` a candidate::
+
+    PYTHONPATH=src python -m repro_torch.launch.autotune --arch qwen3-1.7b \
+        --shape decode_32k
+
+This is also the §Perf hillclimbing harness: each candidate is one
+hypothesis, the roofline delta is the measurement.
+
+Its kernel-site leg: :func:`bench_kernel_sites` times each serving kernel site's candidate
 backends on the live device, and the resulting ``{"site:backend":
 seconds}`` dict (persisted by ``launch/kernel_tune.py``, reloaded with
 :func:`load_timings`) overrides the ``kernel_select`` pass's heuristics
@@ -11,13 +25,10 @@ engine's ``kernel_timings``)::
     PYTHONPATH=src python -m repro_torch.launch.kernel_tune --out t.json
     # ... later ...
     ServingEngine(..., kernel_timings=load_timings("t.json"))
-
-The reference's sharding-rule half (``CANDIDATE_RULESETS``, ``score``,
-``tune`` and its ``main``) is not here yet: it scores rule sets with the
-fake-rank dry run (``launch/dryrun.py``), which the port does not have.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import time
@@ -26,6 +37,71 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.pipeline import PassRecord, PassReport
+from ..core.planner import algorithm1
+
+#: candidate rule overrides, named.  Baseline = {} (the paper-faithful
+#: outC-first DOS rules in distributed/sharding.py).
+CANDIDATE_RULESETS: dict[str, dict] = {
+    "baseline_outC": {},
+    "kv_replicated": {"kv_heads": None},
+    "mlp_on_data": {"mlp": "data"},
+    "embed_fsdp": {"embed": "data"},
+    "vocab_replicated": {"vocab": None},
+    "experts_2d": {"expert_mlp": "data"},
+    "heads_replicated": {"heads": None, "kv_heads": None, "mlp": "model"},
+}
+
+
+def score(arch: str, shape: str, mesh_name: str, rules: dict) -> dict:
+    """The dry run's record of (arch, shape) under ``rules`` on the
+    ``mesh_name`` mesh (``"single"`` or ``"multi"``)."""
+    from . import dryrun
+    mesh = dryrun.build_mesh(multi_pod=(mesh_name == "multi"))
+    trace, model, _ = dryrun.lower_one(arch, shape, mesh, rules or None)
+    return dryrun.analyze(arch, shape, mesh_name, trace, model)
+
+
+def tune(arch: str, shape: str, mesh_name: str = "single",
+         rulesets: dict[str, dict] | None = None,
+         objective: str = "bound_s",
+         ) -> tuple[str, dict[str, dict], PassReport]:
+    """Algorithm-1 search over rulesets, instrumented as a PassReport.
+
+    Each candidate scores as one pass record (wall time + objective), so the
+    tuner's output is the same structured artifact ``pipeline.optimize``
+    produces for the graph passes.  A candidate that raises scores +inf
+    with its error.  Returns ``(best_name, per-candidate results,
+    report)``.
+    """
+    rulesets = rulesets or CANDIDATE_RULESETS
+    results: dict[str, dict] = {}
+    report = PassReport(graph_name=f"{arch}/{shape}", device=mesh_name)
+
+    def profiling(name: str) -> float:
+        t0 = time.perf_counter()
+        try:
+            rec = score(arch, shape, mesh_name, rulesets[name])
+        except Exception as e:  # noqa: BLE001 - invalid scheme = +inf
+            rec = {"error": f"{type(e).__name__}: {e}", objective: float("inf"),
+                   "bound_s": float("inf")}
+        results[name] = rec
+        val = rec.get(objective, float("inf"))
+        summary = {objective: round(val, 6)}
+        if "dominant" in rec:
+            summary["dominant"] = rec["dominant"]
+        if "error" in rec:
+            summary["error"] = rec["error"]
+        report.record(PassRecord(
+            name=f"plan:{name}", wall_s=time.perf_counter() - t0,
+            nodes_before=0, nodes_after=0, edges_before=0, edges_after=0,
+            verified=False, summary=summary))
+        return val
+
+    best, best_t = algorithm1(list(rulesets), profiling)
+    print(report.format())
+    print(f"best scheme: {best} ({objective}={best_t:.6f})")
+    return best, results, report
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -183,3 +259,25 @@ def load_timings(path: str) -> dict[str, float]:
     with open(path) as f:
         data = json.load(f)
     return {str(k): float(v) for k, v in data.get("timings", {}).items()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--objective", default="bound_s")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    best, results, report = tune(args.arch, args.shape, args.mesh,
+                                 objective=args.objective)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(json.dumps({"arch": args.arch, "shape": args.shape,
+                                "mesh": args.mesh, "best": best,
+                                "results": results,
+                                "report": report.as_dict()}) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,27 @@
-"""The serving mesh of the port, and the processes that hold its ranks.
+"""The meshes of the port, and the processes that hold their ranks.
 
-The counterpart of ``repro.launch.mesh.make_serving_mesh``.  The
-reference builds a 1-D ``("model",)`` device mesh inside one process and
-``shard_map``s the serving step over it; the port runs one process per
-rank, joined by a ``torch.distributed`` process group, and each rank
-computes its own shard of every step (``repro_torch.distributed.tp``).
+The counterpart of ``repro.launch.mesh``.  The reference builds a 1-D
+``("model",)`` device mesh inside one process and ``shard_map``s the
+serving step over it; the port runs one process per rank, joined by a
+``torch.distributed`` process group, and each rank computes its own
+shard of every step (``repro_torch.distributed.tp``).
 
 :func:`make_serving_mesh` joins the group from inside a rank;
 :func:`spawn_ranks` starts the ranks (``torch.multiprocessing``, the
 ``spawn`` context), runs one function on each and returns what each
 returned, failing if a rank fails or outlives its timeout.
+
+The production and debug meshes (:func:`make_production_mesh`,
+:func:`make_debug_mesh`) are the reference's axis names and sizes
+(:class:`~repro_torch.distributed.sharding.MeshShape`); the dry run
+(``launch/dryrun.py``) holds their ranks as *fake* ones:
+:func:`fake_mesh` joins this process, as rank 0, to a ``"fake"``
+process group of the mesh's world size, whose collectives move no data,
+and yields its ``DeviceMesh``.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -24,7 +33,59 @@ import traceback
 import torch
 
 from .. import resolve_device
+from ..distributed.sharding import MeshShape
 from ..distributed.tp import ServingMesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MeshShape(dict(zip(axes, shape)))
+
+
+def make_debug_mesh(n_devices: int, *, multi_pod: bool = False) -> MeshShape:
+    """Small-rank-count analogue for CI/tests (same axis names)."""
+    if multi_pod:
+        if n_devices % 2:
+            raise ValueError(f"a multi-pod mesh needs an even rank count, "
+                             f"got {n_devices}")
+        d = _split(n_devices // 2)
+        return MeshShape(dict(zip(("pod", "data", "model"), (2,) + d)))
+    return MeshShape(dict(zip(("data", "model"), _split(n_devices))))
+
+
+def _split(n: int) -> tuple[int, int]:
+    a = 1
+    for c in range(int(n ** 0.5), 0, -1):
+        if n % c == 0:
+            a = c
+            break
+    return (n // a, a)
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: MeshShape):
+    """Join a ``"fake"`` process group of ``mesh.size`` ranks as rank 0
+    and yield its ``DeviceMesh`` (device type ``"cpu"``, the mesh's axis
+    names): collectives on it return at once and move nothing, so one
+    process can trace a rank of a production mesh.  The group is
+    destroyed on exit, error or not.  Refuses to run while this process
+    is in a process group already: the group is process-global."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: this process is in a process group "
+                           "already")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.shape.values()),
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_serving_mesh(shards: int, *, rank: int = 0, devices=None,

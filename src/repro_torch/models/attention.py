@@ -37,7 +37,6 @@ step never copies the cache.  The returned cache is the argument cache.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -58,18 +57,23 @@ def rope_frequencies(head_dim: int, fraction: float, theta: float,
                      device=None) -> torch.Tensor:
     """Inverse frequencies for the rotary dims (fraction < 1 => partial
     RoPE: only the first fraction*head_dim dims rotate).  Memoized per
-    device: every layer of every step asks for the same constants."""
-    return _inv_freq(head_dim, fraction, theta, str(torch.device(
-        device if device is not None else "cpu")))
+    device: every layer of every step asks for the same constants.  A
+    fake tensor (made under the dry run's ``FakeTensorMode``) is never
+    memoized: a later real step would read it."""
+    key = (head_dim, fraction, theta,
+           str(torch.device(device if device is not None else "cpu")))
+    inv = _INV_FREQ.get(key)
+    if inv is None:
+        rot = int(head_dim * fraction)
+        rot -= rot % 2
+        inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
+                                            device=key[3]) / rot))
+        if type(inv) is torch.Tensor:
+            _INV_FREQ[key] = inv
+    return inv
 
 
-@functools.lru_cache(maxsize=32)
-def _inv_freq(head_dim: int, fraction: float, theta: float,
-              device: str) -> torch.Tensor:
-    rot = int(head_dim * fraction)
-    rot -= rot % 2
-    return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
-                                         device=device) / rot))
+_INV_FREQ: dict[tuple, torch.Tensor] = {}
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -33,6 +33,16 @@ Differences of idiom, not of result:
   :func:`~repro_torch.optim.adamw.adamw_update`): the returned state holds
   the same tensors as the one passed in.  Training runs on one device;
   sharded training is ROADMAP queue 1 item 10b.
+
+With a ``mesh`` (``Model(cfg, mesh=..., rules=...)``, as the
+reference's), the model holds the d-Xenos sharding rules
+(``distributed.sharding.rules_for``): :meth:`partition_specs` gives each
+parameter's ``PartitionSpec``, :meth:`abstract` and :meth:`input_specs`
+the parameter tree and the step inputs as fake tensors (shapes and
+dtypes, never allocated), and on a ``DeviceMesh`` the caches a step
+makes are DTensors placed by ``state_sharding.cache_partition_specs``.
+The dry run (``launch/dryrun.py``) traces the steps over DTensor
+parameters on a fake-rank mesh this way.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import Any, NamedTuple
 import torch
 
 from .. import resolve_device
+from ..distributed import sharding as SH
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from . import attention as A
 from . import cache_family as CF
@@ -103,11 +114,17 @@ class _ViewMemo:
 
 
 class Model:
-    def __init__(self, cfg, kernel_plan=None, device="cuda",
+    def __init__(self, cfg, mesh=None, rules: dict | None = None,
+                 kernel_plan=None, device="cuda",
                  opt_cfg: AdamWConfig | None = None):
         from ..core.pipeline import KernelPlan
         T.check_supported(cfg)
         self.cfg = cfg
+        #: a ``DeviceMesh``, or a ``MeshShape`` (axis names and sizes:
+        #: the rules and specs without a process group), or None
+        self.mesh = mesh
+        self.rules = SH.rules_for(cfg, SH.mesh_shape(mesh), rules) \
+            if mesh is not None else {}
         self.device = resolve_device(device)
         #: per-site backend routing; the default is the plain-torch seed
         #: path.  prefill_step, prefill_chunk and serve_step accept a
@@ -153,6 +170,23 @@ class Model:
     def param_count(self) -> int:
         return param_count(self.param_specs())
 
+    def partition_specs(self):
+        """Each parameter's ``PartitionSpec`` under the model's rules and
+        mesh (replicated everywhere without a mesh)."""
+        ms = SH.mesh_shape(self.mesh) if self.mesh is not None else None
+        return SH.param_partition_specs(self.param_specs(), self.rules, ms)
+
+    def abstract(self, fake_mode=None):
+        """The parameter tree as fake tensors (``param_dtype``, on the
+        model's device) under ``fake_mode`` (default: a fresh
+        ``FakeTensorMode``): shapes and dtypes, never allocated."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with fake_mode or FakeTensorMode():
+            return tree_map(lambda s: torch.empty(s.shape,
+                                                  dtype=self.param_dtype,
+                                                  device=self.device),
+                            self.param_specs())
+
     def cast_params(self, params):
         """The serving copy: every floating leaf in ``cfg.dtype`` on the
         model's device (leaves already there are returned as they are).
@@ -180,7 +214,11 @@ class Model:
         the model lives."""
         stacked = params[key]
         leaves = tree_leaves(stacked)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        if (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
+                or type(leaves[0]) not in (torch.Tensor,
+                                           torch.nn.Parameter)):
+            # a fake or DTensor leaf (the dry run's) is not memoized: the
+            # memo's storage aliases are of plain tensors
             return T.unbind_layers(stacked, leaves[0].shape[0])
         memo = self._views.get(id(stacked))
         if memo is not None and memo.holds(leaves):
@@ -327,16 +365,28 @@ class Model:
         layer's spans the horizon (masked slots add exact zero terms, so
         the widths leave the softmax's bits alone).  ``shards``: a
         concat-TP rank's caches, at ``n_kv_heads / shards`` kv heads;
-        ``src_len``: an encoder-decoder's source frames (its cross K/V)."""
+        ``src_len``: an encoder-decoder's source frames (its cross K/V).
+        On a ``DeviceMesh`` each leaf is a DTensor placed by
+        ``cache_partition_specs`` (its local shard alone is allocated)."""
+        if not hasattr(self.mesh, "mesh_dim_names"):
+            return self._new_caches(batch, seq_len, shards, src_len,
+                                    self.device)
+        from ..distributed import state_sharding as SS
+        caches = self._new_caches(batch, seq_len, shards, src_len, "meta")
+        specs = SS.cache_partition_specs(caches, SH.mesh_shape(self.mesh),
+                                         global_batch=batch)
+        return SS.place_caches(caches, specs, self.mesh, self.device)
+
+    def _new_caches(self, batch, seq_len, shards, src_len, device):
         if self.hetero:
             return tuple(
                 T.init_layer_cache(self.cfg, batch,
                                    min(w, seq_len) if w else seq_len,
-                                   self.dtype, self.device, shards, src_len)
+                                   self.dtype, device, shards, src_len)
                 for w in self.layer_windows)
         return self._stack(T.init_layer_cache(
-            self.cfg, batch, self.cache_width(seq_len), self.dtype,
-            self.device, shards, src_len))
+            self.cfg, batch, self.cache_width(seq_len), self.dtype, device,
+            shards, src_len))
 
     def init_paged_caches(self, batch: int, *, pool_blocks: int,
                           block_size: int, max_blocks: int,
@@ -622,6 +672,43 @@ class Model:
                 clear(c.ssm.state, 0)
                 clear(c.ssm.conv, 0)
         return caches
+
+
+    # ------------------------------------------------------------ input specs
+    def input_specs(self, shape, fake_mode=None) -> dict[str, Any]:
+        """Fake stand-ins (shapes and dtypes, never allocated, under
+        ``fake_mode``: default a fresh ``FakeTensorMode``) for every input
+        of the step an ``INPUT_SHAPES`` entry names, as the reference's:
+        ``tokens`` (and ``labels`` to train) int32 (B, S); an
+        encoder-decoder's ``src`` frame embeddings (B, S/2, d) in
+        ``cfg.dtype`` beside S/2 tokens (the audio frontend's stub);
+        decode: one token a row and the caches of a horizon of S (an
+        encoder-decoder's cross K/V over S/2 frames), unplaced."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(b, s):
+            return torch.empty((b, s), dtype=torch.int32, device=self.device)
+        with fake_mode or FakeTensorMode():
+            if shape.kind in ("train", "prefill"):
+                if cfg.is_encoder_decoder:
+                    half = S // 2
+                    out = {"src": torch.empty((B, half, cfg.d_model),
+                                              dtype=self.dtype,
+                                              device=self.device),
+                           "tokens": tok(B, half)}
+                    if shape.kind == "train":
+                        out["labels"] = tok(B, half)
+                    return out
+                out = {"tokens": tok(B, S)}
+                if shape.kind == "train":
+                    out["labels"] = tok(B, S)
+                return out
+            src_len = S // 2 if cfg.is_encoder_decoder else 0
+            return {"tokens": tok(B, 1),
+                    "caches": self._new_caches(B, S, 1, src_len,
+                                               self.device)}
 
 
 def _chunk_fn(kv):

@@ -3,10 +3,11 @@
 The counterpart of ``repro.models.moe``'s one-device path: a router in
 fp32, the top-k experts of each token with softmax-renormalised weights,
 a SwiGLU expert FFN, and the weighted sum of each token's k outputs.  The
-reference's expert-parallel path (a ``shard_map`` whose partial outputs
-combine with a ``psum``) is not ported: the port's concat tensor
-parallelism moves concatenations only, and ``validate_serving_tp``
-refuses MoE stacks.
+port's concat tensor parallelism moves concatenations only, and
+``validate_serving_tp`` refuses MoE stacks.  The reference's
+expert-parallel path (a ``shard_map`` whose partial outputs combine with
+a ``psum``) has the dry run's counterpart, :func:`_moe_expert_parallel`,
+which :func:`moe_block` takes for DTensor inputs (``launch/dryrun.py``).
 
 Two forms of one function:
 
@@ -36,6 +37,7 @@ lower expert index, as ``lax.top_k``'s do.  Keep TF32 off on the card
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -117,6 +119,86 @@ def _moe_local(x: torch.Tensor, router: torch.Tensor, gate: torch.Tensor,
     return _combine(placed.reshape(T, top_k, d), w)
 
 
+def _moe_capacity(x: torch.Tensor, router: torch.Tensor, gate: torch.Tensor,
+                  up: torch.Tensor, down: torch.Tensor, *, top_k: int,
+                  e_local: int, lo: int, k_max: int) -> torch.Tensor:
+    """The routed FFN of the experts ``[lo, lo + e_local)`` at a static
+    capacity, in fixed shapes (no host read): each expert takes up to
+    ``C = ceil(k_max / e_local)`` of its assignments, in token order, in
+    an (e_local, C, d) buffer, and three batched matmuls compute the
+    SwiGLU over the buffer: ``6 * e_local * C * d * ff`` FLOPs, the
+    ``k_max`` rows of :func:`_moe_local`'s grouped FFN (GShard's form of
+    its capacity).  It drops what :func:`_moe_local` drops only where no
+    expert overflows its C rows: a full expert drops its later
+    assignments here, the sorted cut drops the last experts' there.
+    x: (T, d) -> the partial output (T, d)."""
+    T, d = x.shape
+    w, top_i = route(x, router, top_k)
+    local_e = top_i.reshape(-1) - lo
+    is_local = (local_e >= 0) & (local_e < e_local)
+    key = torch.where(is_local, local_e, e_local)      # e_local = trash
+    C = -(-k_max // e_local)
+    onehot = F.one_hot(key, e_local + 1)
+    rank = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=-1)
+    keep = is_local & (rank < C)
+    slot = torch.where(keep, key * C + rank, e_local * C)  # last row: trash
+    tok = torch.arange(T * top_k, device=x.device) // top_k
+    buf = x.new_zeros((e_local * C + 1, d))
+    buf[slot] = x[tok]
+    xs = buf[:-1].reshape(e_local, C, d)
+    h = F.silu(torch.bmm(xs, gate.to(x.dtype))) \
+        * torch.bmm(xs, up.to(x.dtype))
+    y = torch.bmm(h, down.to(x.dtype)).reshape(e_local * C, d)
+    y = torch.cat([y, y.new_zeros((1, d))])[slot]
+    return _combine(y.reshape(T, top_k, d), w)
+
+
+def _is_dtensor(t) -> bool:
+    """Without importing DTensor's module on the served path: no tensor
+    is a DTensor before that module is loaded."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _moe_expert_parallel(p: dict[str, torch.Tensor], xf, *, cfg):
+    """The reference's expert-parallel ``shard_map`` over a DTensor mesh:
+    the tokens xf (T, d) keep their batch shards and are replicated over
+    ``"model"``, the router is replicated, each ``"model"`` rank holds
+    ``E / model`` whole experts and runs :func:`_moe_capacity` over its
+    local tokens at the reference's capacity ``k_max = round8(ceil(cf *
+    t_local * k * e_local / E))``, and the partial outputs are summed
+    over ``"model"`` (the reference's ``psum``).  Each redistribution
+    and the sum are DTensor collectives."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = xf.device_mesh
+    names = list(mesh.mesh_dim_names)
+    md = names.index("model") if "model" in names else None
+    m = mesh.size(md) if md is not None else 1
+    E, k = cfg.n_experts, cfg.top_k
+    if E % m:
+        raise ValueError(f"{E} experts over a {m}-way model axis")
+    e_local = E // m
+    xpl = [pl if isinstance(pl, Shard) and pl.dim == 0 and i != md
+           else Replicate() for i, pl in enumerate(xf.placements)]
+    epl = [Shard(0) if i == md else Replicate() for i in range(mesh.ndim)]
+    rep = [Replicate()] * mesh.ndim
+    xl = xf.redistribute(mesh, xpl).to_local()
+    gate, up, down = (p[n].redistribute(mesh, epl).to_local()
+                      for n in ("gate", "up", "down"))
+    t_local = xl.shape[0]
+    k_max = _round8(int(math.ceil(cfg.capacity_factor * t_local * k
+                                  * e_local / E)))
+    lo = mesh.get_local_rank(md) * e_local if md is not None else 0
+    out = _moe_capacity(xl, p["router"].redistribute(mesh, rep).to_local(),
+                        gate, up, down, top_k=k, e_local=e_local, lo=lo,
+                        k_max=k_max)
+    opl = [Partial() if i == md else pl for i, pl in enumerate(xpl)]
+    return DTensor.from_local(out, mesh, opl, run_check=False,
+                              shape=xf.shape, stride=xf.stride()
+                              ).redistribute(mesh, xpl)
+
+
 def moe_dense(p: dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int
               ) -> torch.Tensor:
     """Every expert on every row, then each token's top-k outputs
@@ -152,7 +234,8 @@ def moe_block(p: dict[str, torch.Tensor], x: torch.Tensor, *, cfg,
     load-balance loss, or None unless ``aux``: the serving paths discard
     it).  The reference's capacity ``k_max = round8(ceil(cf * T * k))``:
     where it holds every assignment the fixed form :func:`moe_dense`
-    runs, else the capacity path :func:`_moe_local`."""
+    runs, else the capacity path :func:`_moe_local`.  A DTensor x (the
+    dry run's) takes :func:`_moe_expert_parallel`."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, d)
@@ -160,7 +243,9 @@ def moe_block(p: dict[str, torch.Tensor], x: torch.Tensor, *, cfg,
         if aux else None
     t = B * S
     k_max = _round8(int(math.ceil(cfg.capacity_factor * t * k)))
-    if k_max >= t * k:
+    if _is_dtensor(xf):
+        out = _moe_expert_parallel(p, xf, cfg=cfg)
+    elif k_max >= t * k:
         out = moe_dense(p, xf, top_k=k)
     else:
         out = _moe_local(xf, p["router"], p["gate"], p["up"], p["down"],

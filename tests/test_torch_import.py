@@ -41,12 +41,17 @@ def test_import_with_jax_blocked():
                                     "repro_torch.launch.train",
                                     "repro_torch.launch.autotune",
                                     "repro_torch.launch.kernel_tune",
-                                    "repro_torch.distributed.collectives"])
+                                    "repro_torch.distributed.collectives",
+                                    "repro_torch.distributed.sharding",
+                                    "repro_torch.distributed.state_sharding",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.hillclimb"])
 def test_training_modules_import_alone(module):
-    """The training slice (optimizer, checkpoints, the train driver) and
-    the measured routing and collectives (the kernel-site bench, the
-    ``kernel_tune`` command, the ring and parameter-server schedules)
-    import on their own, first in a fresh process, with ``jax`` and
+    """The training slice (optimizer, checkpoints, the train driver), the
+    measured routing and collectives (the kernel-site bench, the
+    ``kernel_tune`` command, the ring and parameter-server schedules) and
+    the planning tools (the sharding rules, the dry run, the rule
+    autotuner, the hillclimb) import on their own, first in a fresh process, with ``jax`` and
     ``repro`` blocked, and name no jax module once imported."""
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
