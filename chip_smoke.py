@@ -242,7 +242,27 @@ Phases (any failure exits non-zero before the result line):
    dense step, and its FLOPs and peak for phase 6's full-width train step
    (8 x 512, remat on) beside phase 6's executed FLOPs (the HFU
    numerator) and ``max_memory_allocated``, reported side by side, not
-   gated.  Any dry run that raises fails the run.  No kernel launches.
+   gated.  Any dry run that raises fails the run.  No kernel launches;
+9. training on a mesh, after phase 8 is read: 4 ranks spawned on this
+   card (gloo, one process a rank) over the (data 2, model 2) debug
+   mesh, ``Model.train_step`` over DTensor (params and moments sharded
+   by the d-Xenos rules, each rank's rows of the batch): (a) reduced
+   qwen3-1.7b and olmoe-1b-7b (capacity factor 8, attention at one
+   layer's fan-in), 3 steps of 4 x 16 from one state, against the
+   one-device card step from the same state and batches: losses and
+   grad norms at rtol 1e-5 and the same bits on every rank, params by
+   ``close_params``, every leaf a mesh dim replicates bit-equal on the
+   ranks that share it; (b) qwen3-1.7b at full width (params drawn on
+   each rank leaf by leaf from one seed, each keeping its shard), 2
+   steps of 4 x 256 of ``SyntheticLM``, remat on; its depth cut, printed
+   with the reason, only where phase 8's dry run of that step (one rank
+   of the mesh) puts four ranks' peaks plus 3 GB, plus what this process
+   still holds on the card, past 75 GB; losses
+   finite and the same on every rank; prints each rank's
+   ``max_memory_allocated`` beside the dry run's per-rank peak, its
+   collectives by kind and count (``CommDebugMode``, the second step)
+   beside the dry run's, and its step times, gloo through the host, not
+   card to card.  No kernel launches.
 
 Phase 2 also holds ``cbr_avgpool`` against ``cbr_avgpool_plain`` element
 by element (|kernel - plain| <= 2e-5 + 2e-5 |plain|, fp32), twice (the
@@ -279,8 +299,11 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -411,6 +434,16 @@ PLAN_RUNS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
 PLAN_TUNE = ("qwen3-1.7b", "decode_32k")
 PLAN_PAIR = "chameleon_decode"
 PLAN_TIMEOUT = 300.0
+#: phase 9: the training mesh's ranks (data 2 x model 2, all on this
+#: card), the reduced runs' batch x seq and steps, the full-width run's
+#: batch x seq and steps, the card's memory the four ranks may take by
+#: phase 8's dry run (beside the 3 GB of CUDA contexts and the parent),
+#: and the time the ranks may take
+MESH_RANKS = 4
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 16, 3
+MESH_FULL_BATCH, MESH_FULL_SEQ, MESH_FULL_STEPS = 4, 256, 2
+MESH_CARD_GB, MESH_SLACK_GB = 75.0, 3.0
+MESH_TIMEOUT = 420.0
 
 
 def fail(msg: str) -> None:
@@ -3866,6 +3899,283 @@ def schedule_sum(rows, kind: str):
 # phase 8: the d-Xenos planning tools (fake ranks, in a process of its own)
 # ---------------------------------------------------------------------------
 
+def mesh_rank(mesh, reduced: dict, full: dict):
+    """One rank of phase 9: each ``reduced`` case's steps from its numpy
+    params on this rank's rows (the losses and grad norms' bits, each
+    leaf's placements and a digest of its local shard, the whole params
+    on rank 0), then ``full``'s full-width steps from the seed (the
+    losses, grad norms, synchronized step times, ``max_memory_allocated``
+    and the collectives of the second step by kind)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs.base import ModelConfig, get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import SyntheticLM, make_train_iterator
+    from repro_torch.launch.mesh import mesh_device
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import Model
+    from repro_torch.optim import cosine_schedule
+
+    from repro_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launched = dict(kernels.LAUNCHES)
+    dev = mesh_device(mesh)
+    rank = dist.get_rank()
+    d = mesh.get_local_rank("data")
+    n_data = mesh.size(0)
+
+    def bits(t) -> bytes:
+        return np.float32(float(t)).tobytes()
+    out = {}
+    for name, case in reduced.items():
+        model = Model(ModelConfig(**case["cfg"]), mesh=mesh, device=dev)
+        state = model.init_train_state(None, params=params_from_numpy(
+            case["params"], dev))
+        sched = lambda st: cosine_schedule(st, **TRAIN_SCHED)
+        losses, gnorms = [], []
+        for b in case["batches"]:
+            rows = b["tokens"].shape[0] // n_data
+            mine = {k: v[d * rows:(d + 1) * rows] for k, v in b.items()}
+            state, met = model.train_step(state, mine, lr_schedule=sched,
+                                          batch_axes=("data",))
+            losses.append(bits(met["loss"]))
+            gnorms.append(bits(met["grad_norm"]))
+        digests = [([repr(p) for p in t.placements], hashlib.sha1(
+            t.detach().to_local().cpu().numpy().tobytes()).hexdigest())
+            for t in tree_leaves(state.params)]
+        whole = model.gather_params(state.params)
+        out[name] = {"loss": losses, "grad_norm": gnorms,
+                     "digests": digests, "coord": list(
+                         mesh.get_coordinate()),
+                     "params": [t.numpy() for t in tree_leaves(whole)]
+                     if rank == 0 else None}
+        del model, state, whole
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=full["n_layers"])
+    model = Model(cfg, mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.init_train_state(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    data = make_train_iterator(SyntheticLM(cfg.vocab, MESH_FULL_SEQ, seed=0),
+                               MESH_FULL_BATCH, shard_index=d,
+                               num_shards=n_data)
+    sched = lambda st: cosine_schedule(st, peak_lr=FULL_LR,
+                                       warmup_steps=FULL_WARMUP,
+                                       total_steps=MESH_FULL_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_s, comm = [], [], [], {}
+    for i in range(MESH_FULL_STEPS):
+        batch = next(data)
+        dist.barrier()
+        t0 = time.perf_counter()
+        mode = CommDebugMode() if i == MESH_FULL_STEPS - 1 else None
+        with mode if mode is not None else contextlib.nullcontext():
+            state, met = model.train_step(state, batch, lr_schedule=sched,
+                                          batch_axes=("data",))
+        loss = float(met["loss"])           # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        losses.append(bits(loss))
+        gnorms.append(bits(met["grad_norm"]))
+        if mode is not None:
+            for op, n in mode.get_comm_counts().items():
+                key = str(op).rsplit(".", 1)[-1]
+                comm[key] = comm.get(key, 0) + n
+    if kernels.LAUNCHES != launched:
+        raise AssertionError(f"training on the mesh launched kernels: "
+                             f"{kernels.LAUNCHES}")
+    return {"reduced": out, "full": {
+        "loss": losses, "grad_norm": gnorms, "step_s": step_s,
+        "max_memory": torch.cuda.max_memory_allocated(),
+        "held_after_init": held, "init_s": init_s, "comm": comm,
+        "local_params": sum(t.to_local().numel()
+                            for t in tree_leaves(state.params))}}
+
+
+def mesh_depth(plan: dict, n_layers: int,
+               held_gb: float = 0.0) -> tuple[int, str]:
+    """Phase 9 (b)'s depth: full depth where four ranks at the dry run's
+    per-rank peak plus ``MESH_SLACK_GB`` and the ``held_gb`` this process
+    holds on the card fit in ``MESH_CARD_GB``, else the deepest stack
+    that does, on the line through the dry run's peaks at full depth and
+    at two layers; with the reason."""
+    full = plan[str(n_layers)]["peak_bytes"] / 1e9
+    two = plan["2"]["peak_bytes"] / 1e9
+    extra = MESH_SLACK_GB + held_gb
+    need = MESH_RANKS * full + extra
+    if need <= MESH_CARD_GB:
+        return n_layers, (f"{MESH_RANKS} x {full:.2f} GB + {extra:.2f} GB "
+                          f"= {need:.2f} GB fits in {MESH_CARD_GB} GB")
+    per_layer = (full - two) / (n_layers - 2)
+    fit = (MESH_CARD_GB - extra) / MESH_RANKS
+    L = max(2, min(2 + int((fit - two) // per_layer), n_layers))
+    return L, (
+        f"{MESH_RANKS} x {full:.2f} GB (the dry run's per-rank peak at "
+        f"{n_layers} layers) + {MESH_SLACK_GB} GB + {held_gb:.2f} GB held "
+        f"by this process = {need:.2f} GB passes {MESH_CARD_GB} GB; at "
+        f"{per_layer:.3f} GB a layer above {two:.2f} GB at 2 layers, a "
+        f"rank fits {fit:.2f} GB at {L} layers (the widths are full)")
+
+
+def mesh_training_phase(torch, Model, get_config, planning: dict,
+                        card: str) -> dict:
+    """Phase 9: ``mesh_rank`` on 4 ranks spawned on this card, its reduced
+    runs held against the one-device card steps, its full-width run
+    against phase 8's dry run of that step."""
+    import numpy as np
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_debug_mesh, spawn_ranks
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import cosine_schedule
+
+    t_phase = time.perf_counter()
+    gc.collect()             # engines and graphs of earlier phases in cycles
+    torch.cuda.empty_cache()
+    print(f"held before phase 9: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated ({card})")
+    sched = lambda st: cosine_schedule(st, **TRAIN_SCHED)
+    reduced, one = {}, {}
+    for name, arch, over in (("qwen3", "qwen3-1.7b", {}),
+                             ("olmoe", "olmoe-1b-7b",
+                              {"capacity_factor": 8.0})):
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        raw = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        layer_fan_in(raw, cfg)
+        np_params = tree_map(lambda t: t.numpy(), raw)
+        batches = [train_batch(cfg, seed=i, batch=MESH_BATCH, seq=MESH_SEQ)
+                   for i in range(MESH_STEPS)]
+        reduced[name] = {"cfg": dataclasses.asdict(cfg),
+                         "params": np_params, "batches": batches}
+        m = Model(cfg, device=DEV)
+        state = m.init_train_state(None, params=params_from_numpy(
+            np_params, DEV))
+        losses, gnorms = [], []
+        for b in batches:
+            state, met = m.train_step(state, b, lr_schedule=sched)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+        one[name] = (losses, gnorms, [t.detach().cpu()
+                                      for t in tree_leaves(state.params)])
+        del m, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = get_config("qwen3-1.7b")
+    plan = dict(planning["mesh_train"])
+    held = torch.cuda.memory_reserved() / 1e9
+    L, why = mesh_depth(plan, qwen.n_layers, held)
+    print(f"mesh train depth {L} of {qwen.n_layers}: {why} (phase 8's dry "
+          "run)")
+    if str(L) not in plan:      # a cut phase 8 did not trace
+        more, errors = mesh_plan((L,))
+        if errors:
+            fail(f"phase 9: the dry run at {L} layers raised: {errors}")
+        plan.update(more)
+    t0 = time.perf_counter()
+    # the ranks' allocator grows segments in place: four ranks at their
+    # peaks leave the card no room for the fragments of fixed segments
+    # (an H100 ran out at 25 layers with 1.35 GiB of them a rank)
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_ranks(mesh_rank, MESH_RANKS,
+                            args=(reduced, {"n_layers": L}),
+                            devices=["cuda:0"] * MESH_RANKS,
+                            timeout_s=MESH_TIMEOUT,
+                            train_shape=make_debug_mesh(MESH_RANKS))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"mesh training: {e}")
+    finally:
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ranks_s = time.perf_counter() - t0
+    out: dict = {"depth": L, "depth_reason": why, "reduced": {}}
+    lr_sum = sum(float(sched(i)) for i in range(MESH_STEPS))
+    for name in reduced:
+        rs = [r["reduced"][name] for r in ranks]
+        for key in ("loss", "grad_norm"):
+            if any(r[key] != rs[0][key] for r in rs):
+                fail(f"mesh {name}: the ranks' {key} bits differ")
+        got = {k: [float(np.frombuffer(b, np.float32)[0])
+                   for b in rs[0][k]] for k in ("loss", "grad_norm")}
+        losses, gnorms, params = one[name]
+        rel = max(abs(a - b) / abs(b) for k, want in
+                  (("loss", losses), ("grad_norm", gnorms))
+                  for a, b in zip(got[k], want))
+        if not rel <= 1e-5:
+            fail(f"mesh {name}: losses {got['loss']} grad norms "
+                 f"{got['grad_norm']} vs one device {losses} {gnorms}")
+        worst, off = close_params(params, [torch.from_numpy(a) for a in
+                                           rs[0]["params"]], lr_sum)
+        shared = 0
+        for i, (pls, _) in enumerate(rs[0]["digests"]):
+            split = [md for md, p in enumerate(pls) if p.startswith("Shard")]
+            for a in rs:
+                for b in rs:
+                    if all(a["coord"][md] == b["coord"][md] for md in split) \
+                            and a["digests"][i][1] != b["digests"][i][1]:
+                        fail(f"mesh {name}: leaf {i} ({pls}) differs "
+                             "between ranks that share its shard")
+            shared += len(split) < len(pls)
+        out["reduced"][name] = {"loss": got["loss"],
+                                "grad_norm": got["grad_norm"],
+                                "one_device": [losses, gnorms],
+                                "max_rel": rel, "param_worst": worst,
+                                "param_off": off}
+        print(f"mesh {name} reduced, {MESH_RANKS} gloo ranks on cuda:0 "
+              f"over (data 2, model 2), {MESH_STEPS} steps of {MESH_BATCH} "
+              f"x {MESH_SEQ}: losses {got['loss']} grad norms "
+              f"{got['grad_norm']} (the same bits on every rank) vs one "
+              f"device {losses} {gnorms}: max rel {rel:.2e}; params worst "
+              f"{worst:.4f} of the summed lr, {off} elements past 1e-3 of "
+              f"it; {shared} leaves replicated on a mesh dim, bit-equal on "
+              f"the ranks sharing them ({card})")
+    full = [r["full"] for r in ranks]
+    for key in ("loss", "grad_norm"):
+        if any(f[key] != full[0][key] for f in full):
+            fail(f"mesh full width: the ranks' {key} bits differ")
+    losses = [float(np.frombuffer(b, np.float32)[0]) for b in full[0]["loss"]]
+    gnorms = [float(np.frombuffer(b, np.float32)[0])
+              for b in full[0]["grad_norm"]]
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"mesh full width: losses {losses} grad norms {gnorms}")
+    rec = plan[str(L)]
+    for r, f in enumerate(full):
+        mem = f["max_memory"] / 1e9
+        print(f"mesh full rank {r}: max_memory_allocated {mem:.2f} GB "
+              f"(after init {f['held_after_init'] / 1e9:.2f} GB, "
+              f"{f['local_params'] / 1e9:.3f} B local params) beside the "
+              f"dry run's per-rank peak {rec['peak_bytes'] / 1e9:.2f} GB "
+              f"(ratio dry / card {rec['peak_bytes'] / 1e9 / mem:.3f}); "
+              f"collectives of step {MESH_FULL_STEPS} "
+              f"{dict(sorted(f['comm'].items()))} beside the dry run's "
+              f"{rec['collective_counts']}; step s "
+              + ", ".join(f"{t:.2f}" for t in f["step_s"])
+              + f" (gloo through the host, not card to card; {card})")
+    print(f"mesh full width qwen3-1.7b ({L} of {qwen.n_layers} layers, d "
+          f"{qwen.d_model}, vocab {qwen.vocab}), {MESH_FULL_STEPS} steps of "
+          f"{MESH_FULL_BATCH} x {MESH_FULL_SEQ}, remat on: losses {losses} "
+          f"grad norms {gnorms}, the same bits on every rank; init "
+          f"{full[0]['init_s']:.1f} s ({card})")
+    out["full"] = {"losses": losses, "grad_norms": gnorms, "ranks": full,
+                   "dry_run": rec}
+    out["ranks_s"] = ranks_s
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 9 in {out['wall_s']:.1f} s ({ranks_s:.1f} s of it the "
+          f"{MESH_RANKS} ranks, spawned); no kernel launched")
+    return out
+
+
 def _plan_line(rec: dict) -> dict:
     """The numbers phase 8 prints of one dry-run record."""
     return {k: rec.get(k) for k in (
@@ -3880,7 +4190,6 @@ def planning_child(out_path: str) -> int:
     """Phase 8's work, run as ``chip_smoke.py --planning OUT``: host work
     alone (a fake process group, fake tensors), written to OUT as JSON.
     A dry run that raises is recorded under ``errors``."""
-    import os
     import traceback
     os.environ.pop("REPRO_DRYRUN_DEVICES", None)   # the production mesh
     sys.path.insert(0, str(SRC))
@@ -3941,9 +4250,55 @@ def planning_child(out_path: str) -> int:
             "collective_bytes": coll, "peak_bytes":
                 trace.memory["peak_estimate"],
             **cm.roofline(trace.flops, trace.bytes, coll).as_dict()}
+    out["mesh_train"], errors = mesh_plan()
+    out["errors"].update(errors)
     out["wall_s"] = time.perf_counter() - t0
     Path(out_path).write_text(json.dumps(out, default=str))
     return 0
+
+
+def mesh_plan(depths=None) -> tuple[dict, dict]:
+    """Phase 9 (b)'s step traced by the dry run on one rank of its mesh
+    (a fake group: host work), at ``depths``, by default at full depth,
+    at two layers and, where :func:`mesh_depth` cuts the depth, at the
+    cut -> (records by depth: per-rank peak, argument bytes, collectives
+    by kind and count, FLOPs; errors)."""
+    import traceback
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.core import costmodel as cm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    qwen = get_config("qwen3-1.7b")
+    shape = InputShape("mesh_train", MESH_FULL_SEQ, MESH_FULL_BATCH, "train")
+    out: dict = {}
+    errors: dict = {}
+    for L in depths or (qwen.n_layers, 2, None):
+        if L is None:   # the depth phase 9 takes, where it is cut
+            if len(out) < 2:
+                break
+            L = mesh_depth(out, qwen.n_layers)[0]
+            if str(L) in out:
+                break
+        try:
+            trace, _, _ = dryrun.lower_one(
+                "qwen3-1.7b", shape, mesh_lib.make_debug_mesh(MESH_RANKS),
+                cfg=dataclasses.replace(qwen, n_layers=L))
+        except Exception as e:  # noqa: BLE001 - recorded, fails the run
+            traceback.print_exc()
+            errors[f"mesh_train/{L}"] = f"{type(e).__name__}: {e}"
+            continue
+        counts: dict = {}
+        for op, _ in trace.collectives:
+            counts[op] = counts.get(op, 0) + 1
+        out[str(L)] = {
+            "peak_bytes": trace.memory["peak_estimate"],
+            "argument_bytes": trace.memory["argument_bytes"],
+            "collective_counts": counts,
+            "collective_bytes": cm.collective_bytes_from_trace(
+                trace.collectives), "flops": trace.flops,
+            "replicated": trace.replicated, "seconds": trace.seconds}
+    return out, errors
 
 
 def start_planning(out_dir: Path):
@@ -4256,6 +4611,12 @@ def main() -> int:
     result["sync"] = sync_phase(torch, card)
     result["planning"] = planning_phase(planning, plan_t0, out_dir, runs,
                                         result["training"], card)
+    before = dict(kernels.LAUNCHES)
+    result["mesh_training"] = mesh_training_phase(
+        torch, Model, get_config, result["planning"], card)
+    if kernels.LAUNCHES != before:
+        fail(f"phase 9 launched kernels: {kernels.LAUNCHES} (before "
+             f"{before})")
 
     table = []
     for name in ("gqa_decode", "gqa_decode_paged", "fused_mask",

@@ -112,3 +112,36 @@ def ps_sync(x: torch.Tensor, group=None) -> torch.Tensor:
         if rank == i + 1:
             val = recv
     return val
+
+
+#: the op library of :func:`route_gloo_cuda_all_gather` (kept alive: the
+#: registration lasts as long as the library object)
+_ROUTES: list = []
+
+
+def route_gloo_cuda_all_gather() -> bool:
+    """Route the functional all-gather (``_c10d_functional.
+    all_gather_into_tensor``: DTensor's gather of a shard, a ``Shard`` to
+    ``Replicate`` redistribution) of CUDA tensors through c10d's
+    ``all_gather_into_tensor``, once a process.  On a gloo group torch
+    2.11's functional all-gather of CUDA tensors kills the rank
+    (SIGSEGV, an H100 with four ranks on one card), where c10d's call
+    and every other collective DTensor calls (all-reduce,
+    reduce-scatter, all-to-all) run: gloo stages CUDA tensors through
+    the host either way.  Only a process whose CUDA tensors meet gloo
+    groups alone calls this (``launch.mesh.make_train_mesh``): the route
+    is synchronous, and NCCL's own functional all-gather needs none.
+    Returns whether it registered the route now."""
+    if _ROUTES:
+        return False
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather(x: torch.Tensor, group_size: int, group_name: str):
+        out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    _ROUTES.append(lib)
+    return True

@@ -203,6 +203,19 @@ def to_placements(spec: PartitionSpec, mesh) -> list:
     return out
 
 
+def placements_to_spec(placements, ndim: int, mesh) -> PartitionSpec:
+    """The ``PartitionSpec`` of a rank-``ndim`` tensor with DTensor
+    ``placements`` on ``mesh``: :func:`to_placements`' inverse (a
+    partial placement reads as replicated)."""
+    names = list(mesh.mesh_dim_names)
+    parts: list = [[] for _ in range(ndim)]
+    for md, p in enumerate(placements):
+        if p.is_shard():
+            parts[p.dim].append(names[md])
+    return PartitionSpec(*(None if not g else g[0] if len(g) == 1
+                           else tuple(g) for g in parts))
+
+
 def param_shardings(specs_tree, mesh):
     """PartitionSpec tree -> the tree of each leaf's DTensor placements on
     ``mesh``: the counterpart of the reference's ``NamedSharding`` tree."""

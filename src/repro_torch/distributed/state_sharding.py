@@ -241,6 +241,26 @@ def place(leaf, spec: P, mesh, fill=None, device=None):
                               stride=leaf.stride())
 
 
+def place_value(value: torch.Tensor, spec: P, mesh):
+    """``value`` (the whole tensor, the same on every rank: drawn from one
+    seed, or read from one file) as a DTensor on the ``DeviceMesh``
+    ``mesh`` placed by ``spec``: the local shard is a copy of this rank's
+    chunk of it (DTensor's ``torch.chunk`` split, mesh dims in order), so
+    ``value`` may be freed at once; no collective.  The real-valued
+    counterpart of :func:`place`."""
+    from torch.distributed.tensor import DTensor
+
+    pls = to_placements(spec, mesh)
+    local = value
+    for md, p in enumerate(pls):
+        if p.is_shard():
+            local = torch.chunk(local, mesh.size(md),
+                                dim=p.dim)[mesh.get_local_rank(md)]
+    return DTensor.from_local(
+        local.clone(memory_format=torch.contiguous_format), mesh, pls,
+        run_check=False, shape=value.shape, stride=value.stride())
+
+
 def place_tree(tree, specs, mesh):
     """:func:`place` over a state tree (dicts, tuples, NamedTuples,
     QuantMoments) and its spec tree: each tensor leaf becomes a DTensor

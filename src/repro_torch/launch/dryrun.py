@@ -34,11 +34,15 @@ The ``KernelPlan`` is all ``torch``: the CUDA kernels have no fake
 implementation (their own bytes are PERF.md's kernel table).  DTensor's
 propagation differs from GSPMD's, and between torch versions, where it
 gathers what GSPMD partitions: a cache read or write by rows, a lookup
-into a row-sharded table, a reduction or scatter over a sharded
-vocabulary, a fresh tensor made for a sharded gradient, a residual add
-of a whole and a split operand.  The trace partitions those itself and
-sums a partial result at once, as GSPMD does (``_StepMode``), so the
-counts do not hang on the torch version.  Where DTensor has no strategy
+into a row-sharded table, a scatter over a sharded dim, a fresh tensor
+made for a sharded gradient, a residual add of a whole and a split
+operand.  The trace partitions those itself and sums a partial result at
+once, as GSPMD does (``_StepMode``), so the counts do not hang on the
+torch version.  The model's embedding lookup and loss over the
+vocabulary sharded on ``"model"`` are vocabulary-parallel themselves
+(``models.layers``: local work, functional collectives the trace
+counts, a backward into the rank's own shard), as in a real sharded
+step.  Where DTensor has no strategy
 for an op (or its propagation fails), the op runs again with strided
 shards read as plain ones (a relabel that moves no data: only shapes
 matter here), then, a view or a write, on the local shards, and failing
@@ -46,7 +50,8 @@ that on replicated inputs, each gathered input counted as an all-gather
 (a pending partial sum as an all-reduce) of its global bytes, as GSPMD
 would; the record's ``notes`` list those ops and the ops that issued the
 most collective bytes.  The MoE FFN runs the reference's
-expert-parallel form at its capacity (``models.moe._moe_expert_parallel``).
+expert-parallel form at GShard's capacity (``models.moe._moe_capacity``:
+fake tensors hold no group sizes for the sorted cut).
 
 Usage::
 
@@ -79,7 +84,7 @@ from ..core import costmodel as cm
 from ..core.pipeline import StageTimer
 from ..distributed import sharding as SH
 from ..distributed import state_sharding as SS
-from ..models.layers import tree_map
+from ..models.layers import contiguous_stride, tree_map
 from ..models.model import Model, TrainState
 from ..optim import adamw_init
 from ..optim.adamw import AdamWState
@@ -272,8 +277,8 @@ class _LocalMode(TorchDispatchMode):
 class _StepMode(TorchDispatchMode):
     """The step's own ops.  A DTensor op runs under a :class:`_LocalMode`
     as DTensor places it, but for the ops DTensor would answer by
-    gathering what GSPMD partitions (``_new_like``, ``_logsumexp``,
-    ``_scatter``, ``_index``, ``_align``), which run on the local shards
+    gathering what GSPMD partitions (``_new_like``, ``_scatter``,
+    ``_index``, ``_align``), which run on the local shards
     here; a partial result is summed at once (``_settle``).  Where
     DTensor cannot run an op, it runs again with strided shards read as
     plain ones, then (a view, a write) on the local shards, then on
@@ -353,10 +358,6 @@ class _StepMode(TorchDispatchMode):
         name = str(func)
         if func in _NEW_FACTORIES and isinstance(args[0], DTensor):
             return self._new_like(func, args, kwargs)
-        if func in _LSE and isinstance(args[0], DTensor):
-            out = self._logsumexp(func, args, kwargs)
-            if out is not None:
-                return out
         if func in _SCATTERS and isinstance(args[0], DTensor):
             out = self._scatter(func, args, kwargs)
             if out is not None:
@@ -543,7 +544,7 @@ class _StepMode(TorchDispatchMode):
             self.tally.partitioned.get(str(func), 0) + 1
         return DTensor.from_local(out, mesh, pls, run_check=False,
                                   shape=torch.Size(shape),
-                                  stride=_contiguous(shape))
+                                  stride=contiguous_stride(shape))
 
     def _new_like(self, func, args, kwargs):
         """``self.new_zeros(size)`` and kin: DTensor makes the new tensor
@@ -574,7 +575,7 @@ class _StepMode(TorchDispatchMode):
             out = func(a._local_tensor, local, *args[2:], **kwargs)
         return DTensor.from_local(out, mesh, pls, run_check=False,
                                   shape=torch.Size(size),
-                                  stride=_contiguous(size))
+                                  stride=contiguous_stride(size))
 
     def _scatter(self, func, args, kwargs):
         """An out-of-place scatter into a tensor sharded on the scatter dim
@@ -613,45 +614,6 @@ class _StepMode(TorchDispatchMode):
         return DTensor.from_local(out, t.device_mesh, list(t.placements),
                                   run_check=False, shape=t.shape,
                                   stride=t.stride())
-
-    def _logsumexp(self, func, args, kwargs):
-        """``logsumexp`` over a sharded dim (the loss over a vocabulary
-        sharded on the model axis): DTensor gathers the dim whole; GSPMD
-        reduces each shard and combines the shards' maxima and sums, two
-        all-reduces of the result.  None for other reductions."""
-        from torch.distributed.tensor import DTensor, Replicate, Shard
-
-        a = args[0]
-        dims = args[1] if len(args) > 1 else kwargs.get("dim")
-        keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
-        dims = [d % a.dim() for d in ((dims,) if isinstance(dims, int)
-                                      else dims)]
-        cut = [md for md, p in enumerate(a.placements)
-               if isinstance(p, Shard) and p.dim in dims]
-        if not cut or any(not (p.is_replicate() or isinstance(p, Shard))
-                          for p in a.placements):
-            return None
-        with _LocalMode(self.tally):
-            out = func(a._local_tensor, dims, keep)
-        if any(a.device_mesh.size(md) > 1 for md in cut):
-            for _ in range(2):   # the shards' maxima, then their sums
-                self.tally.collectives.append(("all_reduce",
-                                               float(_nbytes(out))))
-        pls = []
-        for md, p in enumerate(a.placements):
-            if md in cut or p.is_replicate():
-                pls.append(Replicate())
-            else:
-                pls.append(Shard(p.dim if keep else
-                                 p.dim - sum(d < p.dim for d in dims)))
-        shape = [n for d, n in enumerate(a.shape) if d not in dims] \
-            if not keep else [1 if d in dims else n
-                              for d, n in enumerate(a.shape)]
-        self.tally.partitioned[str(func)] = \
-            self.tally.partitioned.get(str(func), 0) + 1
-        return DTensor.from_local(out, a.device_mesh, pls, run_check=False,
-                                  shape=torch.Size(shape),
-                                  stride=_contiguous(shape))
 
     def _view_local(self, a, size):
         """A view DTensor cannot express on ``a``'s shards (a dim sharded
@@ -696,7 +658,7 @@ class _StepMode(TorchDispatchMode):
         self.tally.mark(out)
         return DTensor.from_local(out, mesh, pls, run_check=False,
                                   shape=torch.Size(size),
-                                  stride=_contiguous(size))
+                                  stride=contiguous_stride(size))
 
     def _write_local(self, func, args, kwargs):
         """An in-place write (``index_put_``, a scatter) into a sharded
@@ -733,21 +695,12 @@ def _prod(xs) -> int:
     return n
 
 
-def _contiguous(size) -> tuple:
-    stride, acc = [], 1
-    for n in reversed(list(size)):
-        stride.append(acc)
-        acc *= max(int(n), 1)
-    return tuple(reversed(stride))
-
-
 _aten = torch.ops.aten
 _NEW_FACTORIES = (_aten.new_zeros.default, _aten.new_empty.default,
                   _aten.new_full.default, _aten.new_ones.default)
 _VIEWS = (_aten.view.default, _aten._unsafe_view.default,
           _aten.reshape.default)
 _INDEX_READS = (_aten.index.Tensor,)
-_LSE = (_aten.logsumexp.default,)
 _SCATTERS = (_aten.scatter_add.default, _aten.scatter.src,
              _aten.scatter.value)
 _INDEX_WRITES = (_aten.index_put_.default, _aten.index_put.default)

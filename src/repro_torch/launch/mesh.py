@@ -13,7 +13,9 @@ returned, failing if a rank fails or outlives its timeout.
 
 The production and debug meshes (:func:`make_production_mesh`,
 :func:`make_debug_mesh`) are the reference's axis names and sizes
-(:class:`~repro_torch.distributed.sharding.MeshShape`); the dry run
+(:class:`~repro_torch.distributed.sharding.MeshShape`).  A training
+rank joins one as a ``DeviceMesh`` (:func:`make_train_mesh`, through
+``spawn_ranks(..., train_shape=)``); the dry run
 (``launch/dryrun.py``) holds their ranks as *fake* ones:
 :func:`fake_mesh` joins this process, as rank 0, to a ``"fake"``
 process group of the mesh's world size, whose collectives move no data,
@@ -33,6 +35,7 @@ import traceback
 import torch
 
 from .. import resolve_device
+from ..distributed.collectives import route_gloo_cuda_all_gather
 from ..distributed.sharding import MeshShape
 from ..distributed.tp import ServingMesh
 
@@ -107,6 +110,61 @@ def make_serving_mesh(shards: int, *, rank: int = 0, devices=None,
     the backend it took."""
     if shards < 1:
         raise ValueError(f"serving mesh needs >= 1 shard, got {shards}")
+    if shards == 1:
+        device = _rank_device(1, 0, devices)[0]
+        return ServingMesh(shards=1, rank=0, device=device)
+    device, backend, devs = _join(shards, rank, devices, init_method,
+                                  timeout_s)
+    import torch.distributed as dist
+    if rank == 0:
+        print(f"serving mesh: {shards} ranks on "
+              f"{[str(d) for d in devs]}, backend {backend}", flush=True)
+    return ServingMesh(shards=shards, rank=rank, device=device,
+                       group=dist.group.WORLD, backend=backend)
+
+
+def make_train_mesh(shape: MeshShape, *, rank: int = 0, devices=None,
+                    init_method: str | None = None,
+                    timeout_s: float = 600.0):
+    """Join rank ``rank`` of a training mesh of ``shape``'s axis names and
+    sizes (:func:`make_debug_mesh`'s, :func:`make_production_mesh`'s) and
+    return its ``DeviceMesh``: every rank joins a world group (even one
+    rank alone: a DTensor needs a group), ranks laid out in row-major
+    order of the shape.  ``devices``, the backend (gloo where ranks share
+    a device, NCCL with a card a rank), ``init_method`` and
+    ``timeout_s`` as :func:`make_serving_mesh` takes them; gloo with CUDA
+    tensors takes DTensor's all-gathers through
+    ``distributed.collectives.route_gloo_cuda_all_gather``.  Rank 0
+    prints the mesh and backend.  :func:`mesh_device` gives the rank's
+    device."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device, backend, devs = _join(shape.size, rank, devices, init_method,
+                                  timeout_s)
+    routed = backend == "gloo" and device.type == "cuda"
+    if routed:
+        route_gloo_cuda_all_gather()
+    if rank == 0:
+        print(f"training mesh: {dict(shape.shape)} on "
+              f"{[str(d) for d in devs]}, backend {backend}"
+              + (" (DTensor's all-gathers through c10d's "
+                 "all_gather_into_tensor)" if routed else ""), flush=True)
+    return init_device_mesh(device.type, tuple(shape.shape.values()),
+                            mesh_dim_names=shape.axis_names)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank of a ``DeviceMesh`` (its current card, or
+    the host)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _rank_device(shards: int, rank: int, devices) -> tuple:
+    """(this rank's device, every rank's) from ``devices`` (default: a card
+    a rank, :func:`default_devices`); the rank's card is made current, a
+    host rank takes its share of the host's cores."""
     if devices is None:
         devices = default_devices(shards)
     devs = [torch.device(d) for d in devices]
@@ -119,19 +177,20 @@ def make_serving_mesh(shards: int, *, rank: int = 0, devices=None,
         torch.cuda.set_device(device)
     elif shards > 1:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // shards))
-    if shards == 1:
-        return ServingMesh(shards=1, rank=0, device=device)
+    return device, devs
+
+
+def _join(shards: int, rank: int, devices, init_method, timeout_s):
+    """Join the world group as ``rank`` of ``shards`` -> (this rank's
+    device, the backend, every rank's device)."""
     import torch.distributed as dist
+    device, devs = _rank_device(shards, rank, devices)
     cards = [(d.index or 0) for d in devs if d.type == "cuda"]
     backend = "nccl" if len(set(cards)) == shards else "gloo"
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=shards,
         timeout=datetime.timedelta(seconds=timeout_s))
-    if rank == 0:
-        print(f"serving mesh: {shards} ranks on "
-              f"{[str(d) for d in devs]}, backend {backend}", flush=True)
-    return ServingMesh(shards=shards, rank=rank, device=device,
-                       group=dist.group.WORLD, backend=backend)
+    return device, backend, devs
 
 
 def default_devices(shards: int) -> list[str]:
@@ -140,19 +199,24 @@ def default_devices(shards: int) -> list[str]:
     visible = torch.cuda.device_count()
     if shards > visible:
         raise ValueError(
-            f"a {shards}-shard serving mesh needs {shards} devices, "
+            f"a {shards}-rank mesh needs {shards} devices, "
             f"{visible} visible (pass devices= to place several ranks on "
             "one device)")
     return [f"cuda:{i}" for i in range(shards)]
 
 
 def _rank_main(rank, fn, args, shards, devices, init_method, timeout_s,
-               results) -> None:
+               results, train_shape) -> None:
     import torch.distributed as dist
     try:
-        mesh = make_serving_mesh(shards, rank=rank, devices=devices,
-                                 init_method=init_method,
-                                 timeout_s=timeout_s)
+        if train_shape is None:
+            mesh = make_serving_mesh(shards, rank=rank, devices=devices,
+                                     init_method=init_method,
+                                     timeout_s=timeout_s)
+        else:
+            mesh = make_train_mesh(train_shape, rank=rank, devices=devices,
+                                   init_method=init_method,
+                                   timeout_s=timeout_s)
         results.put((rank, True, fn(mesh, *args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -162,10 +226,14 @@ def _rank_main(rank, fn, args, shards, devices, init_method, timeout_s,
 
 
 def spawn_ranks(fn, shards: int, *, args: tuple = (), devices=None,
-                timeout_s: float = 120.0, store_dir=None) -> list:
+                timeout_s: float = 120.0, store_dir=None,
+                train_shape: MeshShape | None = None) -> list:
     """Run ``fn(mesh, *args)`` on ``shards`` ranks, one spawned process
     each (``fn`` must be importable by name), and return the ranks'
-    results in rank order.
+    results in rank order.  ``mesh`` is the rank's :class:`ServingMesh`
+    (:func:`make_serving_mesh`), or with ``train_shape`` (a
+    :class:`MeshShape` of ``shards`` ranks) its training ``DeviceMesh``
+    (:func:`make_train_mesh`).
 
     The ranks meet through a ``torch.distributed.FileStore`` in a fresh
     directory under ``store_dir`` (default: the system's temporary
@@ -174,13 +242,16 @@ def spawn_ranks(fn, shards: int, *, args: tuple = (), devices=None,
     within ``timeout_s``, fail it too (``RuntimeError`` /
     ``TimeoutError``), and every rank still running is then killed.
     ``devices`` goes to :func:`make_serving_mesh`."""
+    if train_shape is not None and train_shape.size != shards:
+        raise ValueError(f"a mesh of {train_shape.size} ranks spawned on "
+                         f"{shards}")
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="serving-mesh-", dir=store_dir)
     init_method = "file://" + os.path.join(tmp, "store")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, fn, args, shards, devices, init_method,
-                               timeout_s, results))
+                               timeout_s, results, train_shape))
              for r in range(shards)]
     deadline = time.monotonic() + timeout_s
     got: dict[int, object] = {}

@@ -44,7 +44,7 @@ import torch
 
 from ..kernels import sm_count
 from ..kernels.decode_attention import ops as dec_ops
-from .layers import ParamSpec, rms_norm
+from .layers import ParamSpec, _is_dtensor, contiguous_stride, rms_norm
 
 NEG_INF = -1e30
 
@@ -120,6 +120,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys ``> q_pos - window``.  Used for every prefill length (the
     reference switches to an equal-to-tolerance flash-style scan past
     2048 tokens)."""
+    if _is_dtensor(q):
+        return _sharded_attention(q, k, v, window=window, causal=causal)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -136,6 +138,52 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, H, D)
+
+
+def _sharded_attention(q, k, v, *, window: int, causal: bool):
+    """:func:`full_attention` of DTensors, as GSPMD partitions it: each
+    rank attends its own rows (the mesh dims splitting q's batch) and its
+    own query heads (the one mesh dim splitting q's heads) on local
+    tensors, with no collective and a local backward.  A rank's kv heads
+    are those its query heads read: k and v split as q's heads where the
+    kv heads divide into the same groups, else taken whole on that mesh
+    dim and sliced (their gradient then a partial sum over it).  Other
+    splits (the sequence, head_dim, a pending sum) are gathered first.
+    DTensor's own einsum would flatten a batch and a head dim split on
+    two mesh dims, which torch 2.11's view rule refuses."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    qpl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+           for p in q.placements]
+    heads = [md for md, p in enumerate(qpl) if p == Shard(2)]
+    for md in heads[1:]:            # one mesh dim splits the heads
+        qpl[md] = Replicate()
+    kvpl = [p if p == Shard(0) else Replicate() for p in qpl]
+    kv_grad = list(kvpl)
+    lo = hi = None                  # the rank's kv heads, sliced locally
+    if heads:
+        md, m = heads[0], mesh.size(heads[0])
+        h_l = H // m
+        if H % m or (h_l % G and G % h_l):
+            qpl[md] = Replicate()
+        elif K % m == 0 and h_l % G == 0:
+            kvpl[md] = kv_grad[md] = Shard(2)
+        else:
+            h0 = mesh.get_local_rank(md) * h_l
+            lo, hi = h0 // G, (h0 + h_l - 1) // G + 1
+            kv_grad[md] = Partial()
+    q, k, v = (t.redistribute(mesh, pl) if list(t.placements) != pl else t
+               for t, pl in ((q, qpl), (k, kvpl), (v, kvpl)))
+    kl, vl = (t.to_local(grad_placements=kv_grad) for t in (k, v))
+    if lo is not None:
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    out = full_attention(q.to_local(), kl, vl, window=window, causal=causal)
+    return DTensor.from_local(out, mesh, qpl, run_check=False,
+                              shape=q.shape, stride=contiguous_stride(
+                                  q.shape))
 
 
 def rank_splits(q: torch.Tensor, K: int, W: int, shards: int):

@@ -31,18 +31,23 @@ Differences of idiom, not of result:
   CUDA without a card raises;
 * ``train_step`` updates the params and moments **in place** (see
   :func:`~repro_torch.optim.adamw.adamw_update`): the returned state holds
-  the same tensors as the one passed in.  Training runs on one device;
-  sharded training is ROADMAP queue 1 item 10b.
+  the same tensors as the one passed in.
 
 With a ``mesh`` (``Model(cfg, mesh=..., rules=...)``, as the
 reference's), the model holds the d-Xenos sharding rules
 (``distributed.sharding.rules_for``): :meth:`partition_specs` gives each
 parameter's ``PartitionSpec``, :meth:`abstract` and :meth:`input_specs`
 the parameter tree and the step inputs as fake tensors (shapes and
-dtypes, never allocated), and on a ``DeviceMesh`` the caches a step
-makes are DTensors placed by ``state_sharding.cache_partition_specs``.
-The dry run (``launch/dryrun.py``) traces the steps over DTensor
-parameters on a fake-rank mesh this way.
+dtypes, never allocated).  On a ``torch.distributed`` ``DeviceMesh``
+(one process a rank, ``launch.mesh.spawn_ranks``) the model trains
+sharded, GSPMD's semantics over DTensor: :meth:`init` and
+:meth:`place_params` give DTensor params placed by those specs (each
+rank allocating its shards alone), the moments follow
+(``optim.adamw.adamw_init``), :meth:`train_step` takes each rank's rows
+of the batch and returns one device's metrics; the caches a step makes
+are DTensors placed by ``state_sharding.cache_partition_specs``.  The
+dry run (``launch/dryrun.py``) traces the steps over DTensor parameters
+on a fake-rank mesh this way.
 """
 from __future__ import annotations
 
@@ -54,12 +59,14 @@ import torch
 
 from .. import resolve_device
 from ..distributed import sharding as SH
+from ..distributed import state_sharding as SS
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from . import attention as A
 from . import cache_family as CF
 from . import ssm as SSM
 from . import transformer as T
-from .layers import (cross_entropy, embed_lookup, embed_specs, init_params,
+from .layers import (_is_dtensor, contiguous_stride, cross_entropy,
+                     embed_lookup, embed_specs, init_leaf, init_params,
                      param_count, rms_norm, rms_norm_spec, stack_layer_specs,
                      tree_leaves, tree_map, tree_unflatten, unembed)
 
@@ -162,10 +169,37 @@ class Model:
     def init(self, generator: torch.Generator, device=None):
         """Random parameters drawn like the reference's ``_init_leaf``, in
         ``param_dtype``, on ``device`` (default: the model's device; the
-        generator must live there too)."""
+        generator must live there too).  On a ``DeviceMesh``: DTensors
+        placed by :meth:`partition_specs`, drawn leaf by leaf (each rank
+        draws a whole leaf from the same generator state, keeps its shard
+        and frees the rest), each shard bit-equal to the matching slice
+        of the one-device init from that generator."""
         device = resolve_device(device) if device is not None else self.device
-        return init_params(self.param_specs(), generator, device,
-                           self.param_dtype)
+        if not self.on_mesh:
+            return init_params(self.param_specs(), generator, device,
+                               self.param_dtype)
+        return _map2(lambda spec, pspec: SS.place_value(
+            init_leaf(spec, generator, device, self.param_dtype), pspec,
+            self.mesh), self.param_specs(), self.partition_specs())
+
+    @property
+    def on_mesh(self) -> bool:
+        """Whether the model's mesh is a ``DeviceMesh`` (a process group's:
+        its params and steps are DTensors)."""
+        return hasattr(self.mesh, "mesh_dim_names")
+
+    def place_params(self, params):
+        """Whole params (the same on every rank) as DTensors on the model's
+        ``DeviceMesh``, placed by :meth:`partition_specs` leaf by leaf on
+        the model's device; no collective."""
+        return _map2(lambda t, pspec: SS.place_value(
+            t.to(self.device), pspec, self.mesh), params,
+            self.partition_specs())
+
+    def gather_params(self, params):
+        """The whole params of DTensor ones, on the host (a collective:
+        every rank calls it; a checkpoint's leaves)."""
+        return tree_map(lambda t: t.detach().full_tensor().cpu(), params)
 
     def param_count(self) -> int:
         return param_count(self.param_specs())
@@ -274,14 +308,47 @@ class Model:
         ce = cross_entropy(logits, batch["labels"], self.cfg.vocab)
         return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
-    def init_train_state(self, generator: torch.Generator) -> TrainState:
-        """Fresh params (:meth:`init`, leaves that require grad), zero
-        AdamW moments and step 0."""
-        params = tree_map(lambda t: t.requires_grad_(True),
-                          self.init(generator))
+    def init_train_state(self, generator: torch.Generator,
+                         params=None) -> TrainState:
+        """Fresh params (:meth:`init`; or ``params``, placed on a mesh by
+        :meth:`place_params`), leaves that require grad, zero AdamW
+        moments (on a mesh placed as ``opt_partition_specs`` says) and
+        step 0."""
+        if params is None:
+            params = self.init(generator)
+        elif self.on_mesh:
+            params = self.place_params(params)
+        params = tree_map(lambda t: t.requires_grad_(True), params)
         return TrainState(params=params, opt=adamw_init(params, self.opt_cfg),
                           step=torch.zeros((), dtype=torch.int32,
                                            device=self.device))
+
+    def shard_batch(self, batch, batch_axes=()) -> dict:
+        """This rank's rows of a batch as DTensors of the whole batch on the
+        model's ``DeviceMesh``, placed by ``activation_spec(batch_axes)``:
+        the rows split over the mesh axes ``batch_axes`` (in mesh order),
+        whole on the others (every rank holds every row when
+        ``batch_axes`` is empty).  DTensor entries pass unchanged."""
+        from torch.distributed.tensor import DTensor
+
+        sizes = SH.mesh_shape(self.mesh).shape
+        n = 1
+        for a in batch_axes:
+            n *= sizes[a]
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, DTensor):
+                out[k] = v
+                continue
+            t = torch.as_tensor(v).to(self.device)
+            shape = (t.shape[0] * n,) + tuple(t.shape[1:])
+            out[k] = DTensor.from_local(
+                t.contiguous(), self.mesh,
+                SH.to_placements(SH.activation_spec(tuple(batch_axes),
+                                                    t.dim()), self.mesh),
+                run_check=False, shape=torch.Size(shape),
+                stride=contiguous_stride(shape))
+        return out
 
     def _grads(self, params, batch):
         """(loss, its parts, the gradient of every leaf in
@@ -294,7 +361,8 @@ class Model:
                                         materialize_grads=True)
         return loss.detach(), parts, list(grads)
 
-    def train_step(self, state: TrainState, batch, lr_schedule=None):
+    def train_step(self, state: TrainState, batch, lr_schedule=None,
+                   batch_axes=()):
         """One optimizer step -> (new state, metrics).  ``batch``:
         ``tokens`` / ``labels`` (B, S) (and ``src`` for an
         encoder-decoder), tensors or numpy arrays.  ``lr_schedule``: step
@@ -305,39 +373,63 @@ class Model:
         reference's accumulation; the metrics then hold no ``ce`` /
         ``aux``.  Metrics: ``loss``, ``ce``, ``aux``, ``grad_norm``,
         ``step`` (the optimizer's new count).  The params and moments are
-        updated in place."""
+        updated in place.
+
+        On a ``DeviceMesh`` (a state of :meth:`init_train_state` there):
+        the batch entries are this rank's rows of the batch split over the
+        mesh axes ``batch_axes`` (:meth:`shard_batch`; the reference's
+        argument), the step runs over DTensors (plain tensors meeting them
+        replicated), each gradient is summed to its parameter's placements
+        before the update (the sum over the batch's axes), and the metrics
+        are plain tensors with the same bits on every rank.  A microbatch
+        takes ``microbatch / n`` rows of each rank's ``B / n`` (n the
+        ranks splitting the batch): the slices group other rows than one
+        device's, the same mean wherever every label counts."""
+        from contextlib import nullcontext
+
         cfg = self.cfg
-        batch = {k: torch.as_tensor(v).to(self.device)
-                 for k, v in batch.items()}
+        if self.on_mesh:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            batch = self.shard_batch(batch, batch_axes)
+            scope = implicit_replication()
+        else:
+            batch = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in batch.items()}
+            scope = nullcontext()
         params = state.params
         mb = cfg.microbatch
         B = batch["tokens"].shape[0]
-        if mb and B > mb:
-            if B % mb:
-                raise ValueError(f"batch {B} is not a multiple of the "
-                                 f"microbatch {mb}")
-            n_mb = B // mb
-            loss = torch.zeros((), device=self.device)
-            grads = None
-            for i in range(n_mb):
-                l, _, g = self._grads(
-                    params, {k: v[i * mb:(i + 1) * mb]
-                             for k, v in batch.items()})
-                loss = loss + l
-                grads = g if grads is None else \
-                    [a + b for a, b in zip(grads, g)]
-            loss = loss / n_mb
-            grads = [g / n_mb for g in grads]
-            metrics = {}
-        else:
-            loss, parts, grads = self._grads(params, batch)
-            metrics = {k: v.detach() for k, v in parts.items()}
-        lr = lr_schedule(state.step) if lr_schedule else self.opt_cfg.lr
-        params, opt, opt_metrics = adamw_update(
-            params, tree_unflatten(params, grads), state.opt, self.opt_cfg,
-            lr)
-        return TrainState(params, opt, state.step + 1), \
-            {"loss": loss, **metrics, **opt_metrics}
+        with scope:
+            if mb and B > mb:
+                if B % mb:
+                    raise ValueError(f"batch {B} is not a multiple of the "
+                                     f"microbatch {mb}")
+                n_mb = B // mb
+                loss, grads = 0.0, None
+                for i in range(n_mb):
+                    l, _, g = self._grads(params, _rows(batch, i, mb))
+                    loss = loss + l
+                    grads = g if grads is None else \
+                        [a + b for a, b in zip(grads, g)]
+                loss = loss / n_mb
+                grads = [g / n_mb for g in grads]
+                metrics = {}
+            else:
+                loss, parts, grads = self._grads(params, batch)
+                metrics = {k: v.detach() for k, v in parts.items()}
+            if self.on_mesh:
+                # one leaf at a time: its partial sum is freed at once
+                for i, p in enumerate(tree_leaves(params)):
+                    grads[i] = grads[i].redistribute(p.device_mesh,
+                                                     p.placements)
+            lr = lr_schedule(state.step) if lr_schedule else self.opt_cfg.lr
+            params, opt, opt_metrics = adamw_update(
+                params, tree_unflatten(params, grads), state.opt,
+                self.opt_cfg, lr)
+        metrics = {k: _plain(v) for k, v in
+                   {"loss": loss, **metrics, **opt_metrics}.items()}
+        return TrainState(params, opt, state.step + 1), metrics
 
     # ---------------------------------------------------------------- serving
     def cache_width(self, seq_len: int) -> int:
@@ -368,7 +460,7 @@ class Model:
         ``src_len``: an encoder-decoder's source frames (its cross K/V).
         On a ``DeviceMesh`` each leaf is a DTensor placed by
         ``cache_partition_specs`` (its local shard alone is allocated)."""
-        if not hasattr(self.mesh, "mesh_dim_names"):
+        if not self.on_mesh:
             return self._new_caches(batch, seq_len, shards, src_len,
                                     self.device)
         from ..distributed import state_sharding as SS
@@ -709,6 +801,44 @@ class Model:
             return {"tokens": tok(B, 1),
                     "caches": self._new_caches(B, S, 1, src_len,
                                                self.device)}
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over a nested dict and one of its
+    structure, in ``tree``'s key order (:func:`init_params`' order)."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _rows(batch: dict, i: int, mb: int) -> dict:
+    """Microbatch ``i`` of ``mb`` rows: plain entries' rows ``[i mb, (i +
+    1) mb)``; a DTensor's, split over n ranks, each rank's local rows
+    ``[i mb / n, (i + 1) mb / n)``."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, DTensor):
+            out[k] = v[i * mb:(i + 1) * mb]
+            continue
+        local = v.to_local()
+        n = v.shape[0] // local.shape[0]
+        if mb % n:
+            raise ValueError(f"a microbatch of {mb} rows does not split "
+                             f"over the {n} ranks holding the batch")
+        m = mb // n
+        shape = (mb,) + tuple(v.shape[1:])
+        out[k] = DTensor.from_local(local[i * m:(i + 1) * m], v.device_mesh,
+                                    v.placements, run_check=False,
+                                    shape=torch.Size(shape),
+                                    stride=contiguous_stride(shape))
+    return out
+
+
+def _plain(v):
+    """A metric as a plain tensor (a replicated DTensor's local value)."""
+    return v.full_tensor() if _is_dtensor(v) else v
 
 
 def _chunk_fn(kv):

@@ -1,13 +1,14 @@
-"""Mixture-of-Experts FFN on one device, in PyTorch.
+"""Mixture-of-Experts FFN, in PyTorch.
 
-The counterpart of ``repro.models.moe``'s one-device path: a router in
-fp32, the top-k experts of each token with softmax-renormalised weights,
-a SwiGLU expert FFN, and the weighted sum of each token's k outputs.  The
-port's concat tensor parallelism moves concatenations only, and
+The counterpart of ``repro.models.moe``: a router in fp32, the top-k
+experts of each token with softmax-renormalised weights, a SwiGLU expert
+FFN, and the weighted sum of each token's k outputs.  The port's concat
+tensor parallelism moves concatenations only, and
 ``validate_serving_tp`` refuses MoE stacks.  The reference's
 expert-parallel path (a ``shard_map`` whose partial outputs combine with
-a ``psum``) has the dry run's counterpart, :func:`_moe_expert_parallel`,
-which :func:`moe_block` takes for DTensor inputs (``launch/dryrun.py``).
+a ``psum``) is :func:`_moe_expert_parallel`, which :func:`moe_block`
+takes for DTensor inputs: a sharded train step on a mesh, and the dry
+run's trace (``launch/dryrun.py``).
 
 Two forms of one function:
 
@@ -37,12 +38,11 @@ lower expert index, as ``lax.top_k``'s do.  Keep TF32 off on the card
 from __future__ import annotations
 
 import math
-import sys
 
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamSpec
+from .layers import ParamSpec, _is_dtensor
 
 
 def moe_specs(d: int, ff: int, n_experts: int) -> dict[str, ParamSpec]:
@@ -153,22 +153,26 @@ def _moe_capacity(x: torch.Tensor, router: torch.Tensor, gate: torch.Tensor,
     return _combine(y.reshape(T, top_k, d), w)
 
 
-def _is_dtensor(t) -> bool:
-    """Without importing DTensor's module on the served path: no tensor
-    is a DTensor before that module is loaded."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(t, mod.DTensor)
-
-
 def _moe_expert_parallel(p: dict[str, torch.Tensor], xf, *, cfg):
     """The reference's expert-parallel ``shard_map`` over a DTensor mesh:
     the tokens xf (T, d) keep their batch shards and are replicated over
     ``"model"``, the router is replicated, each ``"model"`` rank holds
-    ``E / model`` whole experts and runs :func:`_moe_capacity` over its
-    local tokens at the reference's capacity ``k_max = round8(ceil(cf *
-    t_local * k * e_local / E))``, and the partial outputs are summed
-    over ``"model"`` (the reference's ``psum``).  Each redistribution
-    and the sum are DTensor collectives."""
+    ``E / model`` whole experts and runs the reference's sorted cut
+    (:func:`_moe_local`) over its local tokens at the reference's
+    capacity ``k_max = round8(ceil(cf * t_local * k * e_local / E))``,
+    and the partial outputs are summed over ``"model"`` (the reference's
+    ``psum``).  Each redistribution and the sum are DTensor collectives.
+
+    The local tensors' gradients are partial sums, each summed where
+    DTensor meets them (``grad_placements``): the tokens' over
+    ``"model"`` (each rank's experts contribute theirs), the experts'
+    over the mesh dims that split the tokens (the batch), the router's
+    over both.
+
+    Fake tensors (the dry run's trace) take :func:`_moe_capacity`
+    instead: the sorted cut reads its group sizes on the host, which a
+    fake tensor does not hold."""
+    from torch._subclasses.fake_tensor import is_fake
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = xf.device_mesh
@@ -183,16 +187,27 @@ def _moe_expert_parallel(p: dict[str, torch.Tensor], xf, *, cfg):
            else Replicate() for i, pl in enumerate(xf.placements)]
     epl = [Shard(0) if i == md else Replicate() for i in range(mesh.ndim)]
     rep = [Replicate()] * mesh.ndim
-    xl = xf.redistribute(mesh, xpl).to_local()
-    gate, up, down = (p[n].redistribute(mesh, epl).to_local()
-                      for n in ("gate", "up", "down"))
+    split = [not pl.is_replicate() for pl in xpl]     # the batch's dims
+    xl = xf.redistribute(mesh, xpl).to_local(
+        grad_placements=[Partial() if i == md else pl
+                         for i, pl in enumerate(xpl)])
+    gate, up, down = (p[n].redistribute(mesh, epl).to_local(
+        grad_placements=[Partial() if split[i] else pl
+                         for i, pl in enumerate(epl)])
+        for n in ("gate", "up", "down"))
+    router = p["router"].redistribute(mesh, rep).to_local(
+        grad_placements=[Partial() if i == md or split[i] else Replicate()
+                         for i in range(mesh.ndim)])
     t_local = xl.shape[0]
     k_max = _round8(int(math.ceil(cfg.capacity_factor * t_local * k
                                   * e_local / E)))
     lo = mesh.get_local_rank(md) * e_local if md is not None else 0
-    out = _moe_capacity(xl, p["router"].redistribute(mesh, rep).to_local(),
-                        gate, up, down, top_k=k, e_local=e_local, lo=lo,
-                        k_max=k_max)
+    if is_fake(xl):
+        out = _moe_capacity(xl, router, gate, up, down, top_k=k,
+                            e_local=e_local, lo=lo, k_max=k_max)
+    else:
+        out = _moe_local(xl, router, gate, up, down, n_experts=E, top_k=k,
+                         e_local=e_local, lo=lo, k_max=k_max)
     opl = [Partial() if i == md else pl for i, pl in enumerate(xpl)]
     return DTensor.from_local(out, mesh, opl, run_check=False,
                               shape=xf.shape, stride=xf.stride()
@@ -234,8 +249,8 @@ def moe_block(p: dict[str, torch.Tensor], x: torch.Tensor, *, cfg,
     load-balance loss, or None unless ``aux``: the serving paths discard
     it).  The reference's capacity ``k_max = round8(ceil(cf * T * k))``:
     where it holds every assignment the fixed form :func:`moe_dense`
-    runs, else the capacity path :func:`_moe_local`.  A DTensor x (the
-    dry run's) takes :func:`_moe_expert_parallel`."""
+    runs, else the capacity path :func:`_moe_local`.  A DTensor x (a
+    sharded step's) takes :func:`_moe_expert_parallel`."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, d)

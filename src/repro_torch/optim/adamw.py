@@ -27,7 +27,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..models.layers import tree_leaves, tree_map
+from ..models.layers import _is_dtensor, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,9 +118,12 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     """Zero moments of ``cfg.moment_dtype`` beside each param, step 0 (on
-    the params' device)."""
+    the params' device).  DTensor params (a mesh's) get DTensor moments
+    placed by ``state_sharding.opt_partition_specs``."""
     _check_dtype(cfg.moment_dtype)
     first = tree_leaves(params)[0]
+    if _is_dtensor(first):
+        return _placed_init(params, cfg)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         m=tree_map(lambda p: _zeros_moment(p, cfg.moment_dtype), params),
@@ -128,12 +131,94 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
                    params))
 
 
+def _placed_init(params, cfg: AdamWConfig) -> AdamWState:
+    """:func:`adamw_init` of DTensor params: the moments' specs from each
+    param's placements (``opt_partition_specs``: a float moment mirrors
+    its param, an int8 one's ``q`` too and its per-row ``scale`` drops
+    the last dim's split), each rank allocating its shards at the zero
+    moment's value (``scale`` is then 1e-12, :func:`_quantize`'s floor)."""
+    from ..distributed import sharding as SH
+    from ..distributed import state_sharding as SS
+
+    first = tree_leaves(params)[0]
+    mesh, device = first.device_mesh, first.to_local().device
+    pspecs = tree_map(lambda p: SH.placements_to_spec(p.placements, p.dim(),
+                                                      mesh), params)
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+    dt = cfg.moment_dtype
+    abstract = AdamWState(step=None,
+                          m=tree_map(lambda p: _zeros_moment(p, dt), meta),
+                          v=tree_map(lambda p: _zeros_moment(p, dt, True),
+                                     meta))
+    specs = SS.opt_partition_specs(abstract, pspecs, SH.mesh_shape(mesh))
+
+    def zeros(tree, spec):
+        if isinstance(tree, dict):
+            return {k: zeros(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, QuantMoment):
+            return QuantMoment(
+                q=SS.place(tree.q, spec.q, mesh, 0, device),
+                scale=SS.place(tree.scale, spec.scale, mesh, 1e-12, device),
+                shape=tree.shape)
+        return SS.place(tree, spec, mesh, 0, device)
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        m=zeros(abstract.m, specs.m), v=zeros(abstract.v, specs.v))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the summed squares of every leaf, in fp32, the leaves in
-    sorted-key order (``jax.tree.leaves``' order)."""
+    sorted-key order (``jax.tree.leaves``' order).  DTensor leaves: see
+    :func:`_sharded_norm`."""
+    leaves = tree_leaves(tree)
+    if leaves and _is_dtensor(leaves[0]):
+        return _sharded_norm(leaves)
     total = 0
-    for leaf in tree_leaves(tree):
+    for leaf in leaves:
         total = total + leaf.to(torch.float32).square().sum()
+    return torch.sqrt(total)
+
+
+def _sharded_norm(leaves: list) -> torch.Tensor:
+    """:func:`global_norm` of DTensor leaves, a plain 0-dim tensor with
+    the same bits on every rank: each rank sums the squares of the local
+    shards it owns (those of a leaf replicated on a mesh dim count at
+    coordinate 0 of that dim alone) into its row of a (ranks, leaves)
+    table of zeros, one all-reduce over the whole mesh fills the table
+    (each element one rank's sum plus zeros: exact, whatever the
+    reduction's order), and every rank adds it up in one order (ranks,
+    then leaves).  Summing a replicated scalar with an all-reduce a mesh
+    dim at a time could leave the ranks' bits apart."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+
+    mesh = leaves[0].device_mesh
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}: the norm reduces over "
+                         "the world")
+    coord = mesh.get_coordinate()
+    sums = []
+    for t in leaves:
+        if any(p.is_partial() for p in t.placements):
+            t = t.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in t.placements])
+        s = t.to_local().to(torch.float32).square().sum()
+        own = all(c == 0 for c, p in zip(coord, t.placements)
+                  if p.is_replicate())
+        sums.append(s if own else torch.zeros_like(s))
+    table = torch.zeros((mesh.size(), len(sums)), dtype=torch.float32,
+                        device=sums[0].device)
+    table[dist.get_rank()] = torch.stack(sums)
+    if mesh.size() > 1:
+        table = funcol.wait_tensor(funcol.all_reduce(table, "sum",
+                                                     dist.group.WORLD))
+    total = 0
+    for row in table:
+        for s in row:
+            total = total + s
     return torch.sqrt(total)
 
 

@@ -2069,3 +2069,94 @@ def test_collectives_equal_all_reduce_on_card_ranks(card, tmp_path):
             assert r[kind].tobytes() == want.tobytes(), kind
             np.testing.assert_allclose(r[kind], r["all_reduce"], rtol=1e-6,
                                        atol=1e-6)
+
+
+def _mesh_cases(rng) -> dict:
+    """Reduced qwen3's host init and three global batches of 4 x 16 (a
+    ``test_torch_ranks.mesh_train_run`` case), and a vocabulary-parallel
+    case (``test_torch_ranks.vocab_parallel_run``)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab, (4, 17))
+        batches.append({"tokens": toks[:, :-1].astype(np.int32),
+                        "labels": toks[:, 1:].astype(np.int32)})
+    labels = rng.integers(0, 13, (4, 5))
+    labels[1, 2] = -1
+    return {
+        "train": {"kind": "train", "cfg": dataclasses.asdict(cfg),
+                  "params": tree_map(lambda t: t.numpy(), params),
+                  "batches": batches, "batch_axes": ("data",),
+                  "sched": dict(peak_lr=1e-3, warmup_steps=1,
+                                total_steps=10)},
+        "vocab": {"kind": "vocab", "vocab": 13,
+                  "table": rng.normal(size=(16, 6)).astype(np.float32),
+                  "ids": rng.integers(0, 13, (4, 5)),
+                  "emb_weight": rng.normal(size=(4, 5, 6)).astype(
+                      np.float32),
+                  "logits": rng.normal(size=(4, 5, 16)).astype(np.float32),
+                  "labels": labels}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(2, 1), (1, 2)])
+def test_mesh_train_step_on_card_ranks(card, tmp_path, sizes):
+    """Two gloo ranks on one card over a (data, model) mesh of ``sizes``
+    (DTensor's all-gathers routed through c10d's
+    ``all_gather_into_tensor``: torch 2.11's functional one kills a gloo
+    rank holding CUDA tensors): reduced qwen3's three train steps over
+    DTensor equal the one-device card step (losses and grad norms at
+    rtol 1e-5, the same bits on both ranks), and the
+    vocabulary-parallel lookup and loss equal the one-device forms."""
+    import test_torch_ranks as R
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed.sharding import MeshShape
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.layers import cross_entropy, embed_lookup
+    from repro_torch.models.model import Model
+    from repro_torch.optim import cosine_schedule
+
+    cases = _mesh_cases(np.random.default_rng(0))
+    ranks = spawn_ranks(R.train_mesh_rank, 2, args=(cases,),
+                        devices=["cuda:0"] * 2, timeout_s=300.0,
+                        store_dir=tmp_path, train_shape=MeshShape(
+                            {"data": sizes[0], "model": sizes[1]}))
+    case = cases["train"]
+    model = Model(ModelConfig(**case["cfg"]), device="cuda")
+    state = model.init_train_state(None, params=params_from_numpy(
+        case["params"], "cuda"))
+    losses, gnorms = [], []
+    for b in case["batches"]:
+        state, met = model.train_step(
+            state, b, lr_schedule=lambda s: cosine_schedule(s, **case[
+                "sched"]))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    got = [r["train"] for r in ranks]
+    for key in ("loss", "grad_norm"):
+        assert got[0][key].tobytes() == got[1][key].tobytes(), key
+    np.testing.assert_allclose(got[0]["loss"], losses, rtol=1e-5)
+    np.testing.assert_allclose(got[0]["grad_norm"], gnorms, rtol=1e-5)
+    v = cases["vocab"]
+    table = torch.tensor(v["table"], requires_grad=True)
+    logits = torch.tensor(v["logits"], requires_grad=True)
+    emb = embed_lookup(table, torch.as_tensor(v["ids"]), torch.float32)
+    ce = cross_entropy(logits, torch.as_tensor(v["labels"]), v["vocab"])
+    (emb * torch.as_tensor(v["emb_weight"])).sum().backward()
+    ce.backward()
+    for r in ranks:
+        np.testing.assert_array_equal(r["vocab"]["emb"], emb.detach().numpy())
+        np.testing.assert_allclose(r["vocab"]["ce"], ce.detach().numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(r["vocab"]["table_grad"],
+                                   table.grad.numpy(), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(r["vocab"]["logits_grad"],
+                                   logits.grad.numpy(), rtol=1e-5, atol=1e-8)

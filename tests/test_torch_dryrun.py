@@ -327,6 +327,95 @@ def test_to_placements_local_shard():
         dist.destroy_process_group()
 
 
+def test_place_value_is_distribute_tensor_at_rank_5():
+    """``state_sharding.place_value`` (a whole tensor to this rank's
+    shard, no collective) gives ``distribute_tensor``'s local block at
+    rank 5 of a (4, 2) mesh, and ``placements_to_spec`` inverts
+    ``to_placements``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    t = torch.arange(8 * 6 * 4, dtype=torch.float32).reshape(8, 6, 4)
+    dist.init_process_group("fake", store=FakeStore(), rank=5, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (4, 2),
+                                mesh_dim_names=("data", "model"))
+        for spec in (SH.P("data", "model", None), SH.P(None, None, "model"),
+                     SH.P(("data", "model"), None, None), SH.P()):
+            pls = SH.to_placements(spec, mesh)
+            got = SS.place_value(t, spec, mesh)
+            want = distribute_tensor(t, mesh, pls, src_data_rank=None)
+            assert list(got.placements) == pls
+            assert got.to_local().is_contiguous()
+            assert torch.equal(got.to_local(), want.to_local()), spec
+            assert got.to_local().untyped_storage().data_ptr() \
+                != t.untyped_storage().data_ptr()
+            assert SH.placements_to_spec(pls, 3, mesh) \
+                == SH.P(*(list(spec) + [None] * (3 - len(spec))))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_vocab_parallel_lookup_and_loss_count_locally():
+    """The model's embedding lookup and loss over a vocabulary sharded on
+    ``"model"`` (``models.layers``' vocabulary-parallel forms), forward
+    and backward, on a fake group of 8: nothing replicated, no
+    all-gather (neither the table nor the logits gathered), the
+    all-reduces a few rows' scalars and the lookup's output; the lookup's
+    accumulating backward writes the rank's own rows (its gradient the
+    shard's shape)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.layers import cross_entropy, embed_lookup
+
+    with mesh_lib.fake_mesh(mesh_lib.make_debug_mesh(8)) as dm, \
+            FakeTensorMode():
+        table = SS.place(torch.empty(16, 6), SH.P("model", None), dm
+                         ).requires_grad_(True)
+        logits = SS.place(torch.empty(8, 3, 16), SH.P("data", None, "model"),
+                          dm).requires_grad_(True)
+        ids = SS.place(torch.empty(8, 3, dtype=torch.long),
+                       SH.P("data", None), dm)
+        labels = SS.place(torch.empty(8, 3, dtype=torch.long),
+                          SH.P("data", None), dm)
+
+        def step():
+            emb = embed_lookup(table, ids, torch.float32)
+            gt, gl = torch.autograd.grad(
+                emb.sum() + cross_entropy(logits, labels, 13),
+                (table, logits))
+            return emb, gt, gl
+        (emb, gt, gl), trace = dryrun.trace_step(
+            step, hold=(table, logits, ids, labels))
+    assert trace.replicated == {}
+    assert tuple(emb.to_local().shape) == (2, 3, 6)
+    assert tuple(gt.to_local().shape) == (8, 6)      # the rank's rows
+    assert list(gl.placements) == list(logits.placements)
+    kinds = {k for k, _ in trace.collectives}
+    assert kinds == {"all_reduce"}, kinds
+    # the lookup's (2, 3, 6) output is the largest thing summed
+    assert max(b for _, b in trace.collectives) == 2 * 3 * 6 * 4
+
+
+def test_qwen3_train_record_is_pinned(monkeypatch):
+    """Full-width qwen3-1.7b ``train_4k`` on one rank of the 16 x 16 mesh:
+    the record phase 8 prints, pinned (FLOPs, collective bytes by kind,
+    peak).  Nothing is replicated: the embedding gradient's accumulating
+    write is the rank's own (before the vocabulary-parallel lookup, torch
+    2.11 found no DTensor strategy for it and replicated it: 1.791e11
+    collective bytes against 1.661e11 on 2.13), the loss reduces rows'
+    scalars and the attention runs on each rank's heads."""
+    monkeypatch.delenv("REPRO_DRYRUN_DEVICES", raising=False)
+    rec = dryrun.run_one("qwen3-1.7b", "train_4k", "single", verbose=False,
+                         calibrate=False)
+    assert rec["flops_per_device"] == 80771154968576.0
+    assert rec["collectives"] == {"all-reduce": 68965242888.0,
+                                  "all-gather": 7516192768.0}
+    assert rec["collective_bytes_per_device"] == 76481435656.0
+    assert rec["memory"]["peak_estimate"] == 16153231372
+    assert rec["notes"]["replicated_ops"] == {}
+
+
 def test_fake_mesh_lifetime():
     """The fake group lives inside the context only, on error too, and
     cannot be opened inside another group."""

@@ -1,6 +1,7 @@
 """Rank bodies of the port's multi-rank tests (``test_torch_tp.py``,
-``test_torch_router.py``, ``test_torch_collectives.py``), and the trace
-runner they share with the one-device runs they are compared with.
+``test_torch_router.py``, ``test_torch_collectives.py``,
+``test_torch_train_mesh.py``), and the trace runner they share with the
+one-device runs they are compared with.
 
 A spawned rank imports the module of the function it runs; this one
 imports torch, numpy and ``repro_torch`` only (no jax, no reference), so
@@ -8,6 +9,8 @@ a rank starts in seconds.  Traces, requests and weights arrive as plain
 data: ``plain_trace`` in ``test_torch_tp.py`` flattens a
 ``test_serving_fuzz.Trace``.  No test lives here.
 """
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -15,7 +18,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.pipeline import StageTimer, _Stage
 from repro_torch.distributed import ps_sync, ring_allreduce, tp
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import state_sharding as SS
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.models import layers
 from repro_torch.models.model import Model
+from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 from repro_torch.serving import (ReplicaRouter, Request, SamplingParams,
                                  ServingEngine)
 from repro_torch.serving.speculative import SpecParams
@@ -262,3 +270,167 @@ def collectives_rank(mesh, cases: dict):
                   "input_kept": bool(torch.equal(x, keep)),
                   "identity": ring is x and ps is x}
     return out
+
+
+def _by_path(tree, fn) -> dict:
+    """``fn`` of every leaf of a nested dict, keyed by its path (an int8
+    moment's ``q`` and ``scale`` apart)."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif hasattr(t, "q"):
+            walk(t.q, path + ".q")
+            walk(t.scale, path + ".scale")
+        else:
+            out[path] = fn(t)
+    walk(tree, "")
+    return out
+
+
+def _local(tree) -> dict:
+    """A DTensor tree's local shards as fp32 numpy."""
+    return _by_path(tree, lambda t: t.detach().to_local().cpu().float()
+                    .numpy())
+
+
+def _placements(tree) -> dict:
+    """A DTensor tree's placements as strings."""
+    return _by_path(tree, lambda t: [repr(p) for p in t.placements])
+
+
+def _rank_rows(mesh, batch: dict, batch_axes: tuple) -> dict:
+    """This rank's rows of a global numpy batch split over ``batch_axes``
+    (``make_train_iterator``'s contiguous blocks)."""
+    n, i = 1, 0
+    for a in batch_axes:
+        size = mesh.size(list(mesh.mesh_dim_names).index(a))
+        i = i * size + mesh.get_local_rank(a)
+        n *= size
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0] // n
+        out[k] = v[i * rows:(i + 1) * rows]
+    return out
+
+
+def mesh_train_run(mesh, case: dict) -> dict:
+    """``case["steps"]`` train steps of ``case["cfg"]`` from the numpy
+    params ``case["params"]`` on this rank's rows of each
+    ``case["batches"]`` entry; the losses and grad norms as fp32 bits
+    and the params' local shards after."""
+    dev = mesh_device(mesh)
+    model = Model(ModelConfig(**case["cfg"]), mesh=mesh, device=dev)
+    state = model.init_train_state(None, params=params_from_numpy(
+        case["params"], dev))
+    sched = partial(cosine_schedule, **case["sched"])
+    losses, gnorms = [], []
+    for batch in case["batches"]:
+        state, met = model.train_step(
+            state, _rank_rows(mesh, batch, case["batch_axes"]),
+            lr_schedule=sched, batch_axes=case["batch_axes"])
+        losses.append(met["loss"].cpu().numpy().astype(np.float32))
+        gnorms.append(met["grad_norm"].cpu().numpy().astype(np.float32))
+        assert all(type(v) is torch.Tensor for v in met.values())
+    return {"loss": np.stack(losses), "grad_norm": np.stack(gnorms),
+            "params": _local(state.params),
+            "placements": _placements(state.params)}
+
+
+def vocab_parallel_run(mesh, case: dict) -> dict:
+    """The vocabulary-parallel ``cross_entropy`` and ``embed_lookup`` on
+    placed inputs (logits sharded (batch, -, vocab) over (data, model), a
+    (vocab, d) table over model, ids over data): the values and the
+    gradients' local shards."""
+    from torch.distributed.tensor import DTensor
+
+    dev = mesh_device(mesh)
+    table = SS.place_value(torch.as_tensor(case["table"]).to(dev),
+                           SH.P("model", None), mesh).requires_grad_(True)
+    logits = SS.place_value(torch.as_tensor(case["logits"]).to(dev),
+                            SH.P("data", None, "model"),
+                            mesh).requires_grad_(True)
+    ids = SS.place_value(torch.as_tensor(case["ids"]).to(dev),
+                         SH.P("data", None), mesh)
+    labels = SS.place_value(torch.as_tensor(case["labels"]).to(dev),
+                            SH.P("data", None), mesh)
+    emb = layers.embed_lookup(table, ids, torch.float32)
+    ce = layers.cross_entropy(logits, labels, case["vocab"])
+    w = SS.place_value(torch.as_tensor(case["emb_weight"]).to(dev),
+                       SH.P("data", None, None), mesh)
+    (emb * w).sum().backward()
+    ce.backward()
+    assert isinstance(emb, DTensor) and isinstance(ce, DTensor)
+    return {"emb": emb.detach().full_tensor().cpu().numpy(),
+            "ce": ce.detach().full_tensor().cpu().numpy(),
+            "emb_placements": [repr(p) for p in emb.placements],
+            "table_grad": table.grad.full_tensor().cpu().numpy(),
+            "logits_grad": logits.grad.full_tensor().cpu().numpy()}
+
+
+def placement_run(mesh, case: dict) -> dict:
+    """The model's init from ``case["seed"]`` on the mesh (each rank's
+    local shards, :meth:`Model.init`) and ``adamw_init``'s moment
+    placements beside ``opt_partition_specs``' in each moment dtype."""
+    dev = mesh_device(mesh)
+    model = Model(ModelConfig(**case["cfg"]), mesh=mesh, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(case["seed"]))
+    out = {"params": _local(params), "placements": _placements(params),
+           "specs": {}, "moments": {}}
+    pspecs = model.partition_specs()
+    for dt in ("float32", "bfloat16", "int8"):
+        cfg = AdamWConfig(moment_dtype=dt)
+        opt = adamw_init(params, cfg)
+        meta = layers.tree_map(lambda t: torch.empty(t.shape, device="meta"),
+                               params)
+        want = SS.opt_partition_specs(adamw_init(meta, cfg), pspecs,
+                                      SH.mesh_shape(mesh))
+        got = _placements({"m": opt.m, "v": opt.v})
+        out["specs"][dt] = _by_path(
+            {"m": want.m, "v": want.v},
+            lambda sp: [repr(p) for p in SH.to_placements(sp, mesh)])
+        out["moments"][dt] = {"placements": got, "m": _local(opt.m),
+                              "v": _local(opt.v),
+                              "step": int(opt.step)}
+    return out
+
+
+def moe_block_run(mesh, case: dict) -> dict:
+    """``moe_block`` on placed inputs (the router whole, the experts split
+    over ``"model"``, the tokens over ``"data"``): its output at
+    ``case["cf_drop"]``; at ``case["cf_all"]`` its output and the
+    gradients of ``sum(out * w)`` by every param and the tokens, whole."""
+    from repro_torch.models.moe import moe_block
+
+    dev = mesh_device(mesh)
+    specs = {"router": SH.P(None, None), "gate": SH.P("model", None, None),
+             "up": SH.P("model", None, None),
+             "down": SH.P("model", None, None)}
+
+    def placed(a, spec):
+        return SS.place_value(torch.as_tensor(a).to(dev), spec, mesh)
+    out = {}
+    for key in ("cf_drop", "cf_all"):
+        cfg = ModelConfig(**{**case["cfg"], "capacity_factor": case[key]})
+        p = {k: placed(v, specs[k]).requires_grad_(True)
+             for k, v in case["p"].items()}
+        x = placed(case["x"], SH.P("data", None, None)).requires_grad_(True)
+        y, _ = moe_block(p, x, cfg=cfg)
+        out[key] = y.detach().full_tensor().cpu().numpy()
+        if key == "cf_all":
+            (y * placed(case["w"], SH.P("data", None, None))).sum().backward()
+            out["grads"] = {k: t.grad.full_tensor().cpu().numpy()
+                            for k, t in {**p, "x": x}.items()}
+    return out
+
+
+def train_mesh_rank(mesh, cases: dict) -> dict:
+    """Every case of ``test_torch_train_mesh.py`` on this rank: ``kind``
+    names the body (:func:`mesh_train_run`, :func:`vocab_parallel_run`,
+    :func:`placement_run`, :func:`moe_block_run`)."""
+    bodies = {"train": mesh_train_run, "vocab": vocab_parallel_run,
+              "placement": placement_run, "moe": moe_block_run}
+    return {name: bodies[case["kind"]](mesh, case)
+            for name, case in cases.items()}

@@ -250,13 +250,15 @@ def test_train_cli_runs(capsys):
 
 
 @pytest.mark.parametrize("mesh", ["single", "auto"])
-def test_train_cli_refuses_a_mesh(mesh):
-    """Sharded training is not ported: ``--mesh`` exits non-zero naming
-    ROADMAP queue 1 item 10b."""
+def test_train_cli_refuses_a_mesh(mesh, capsys):
+    """``--mesh`` over more ranks than the visible cards (no device list,
+    no ``--device cpu``) exits 2 with ``FAIL: ...``, as the reference's
+    refuses a mesh it cannot build: never a silent one-device run."""
     with pytest.raises(SystemExit) as e:
         train_cli.main(["--arch", ARCH, "--reduced", "--mesh", mesh,
-                        "--device", "cpu"])
-    assert e.value.code not in (0, None) and "item 10b" in str(e.value.code)
+                        "--ranks", str(torch.cuda.device_count() + 2)])
+    assert e.value.code == 2
+    assert capsys.readouterr().err.startswith("FAIL: ")
 
 
 def test_train_cli_checkpoints_load_in_the_reference(tmp_path):
