@@ -94,17 +94,19 @@ Phases (any failure exits non-zero before the result line):
    dense KV, greedy, streams equal bit for bit.  Prints each run's
    steady step, busy share, profiled kernels and KV bytes beside the
    dense full-attention KV;
-3d. the recurrent cache families at full width (random weights, seed 0,
-   bf16, dense KV, chunked prefill at chunk 32, replanning off):
-   hymba-1.5b (32 layers, d 1600, attention and Mamba2 heads in
-   parallel, window 1024, SSM 50 heads x 64 x state 16) serving 16
-   requests of 1100-1600-token prompts (every ring wraps in prefill) and
-   64 new tokens, greedy and sampled (T 0.8, top-k 50, top-p 0.95), and
-   mamba2-370m (48 layers, d 1024, SSM 32 heads x 64 x state 128)
-   serving 16 requests of 480-544-token prompts, greedy; each run
+3d. the recurrent cache families at full width, depth cut for time
+   (random weights, seed 0, bf16, dense KV, chunked prefill at chunk 32,
+   replanning off): hymba-1.5b (8 of its 32 layers, d 1600, attention
+   and Mamba2 heads in parallel, window 1024, SSM 50 heads x 64 x state
+   16) serving 16 requests of 1100-1600-token prompts (every ring wraps
+   in prefill) and 64 new tokens, greedy and sampled (T 0.8, top-k 50,
+   top-p 0.95), and mamba2-370m (12 of its 48 layers, d 1024, SSM 32
+   heads x 64 x state 128) serving 16 requests of 480-544-token
+   prompts, greedy (16 requests: two waves over the 8 slots, the second
+   admitted into slots the first freed); each run
    graphed beside its eager twin, streams equal bit for bit, the plan's
    ``kv_growth`` "constant"; a hymba decode replay launches
-   ``gqa_decode`` and ``linked_mlp_tc`` 32 times and ``fused_mask``
+   ``gqa_decode`` and ``linked_mlp_tc`` once a layer and ``fused_mask``
    once, a mamba2 one ``fused_mask`` alone (no attention or MLP kernel
    ever).  Prints each run's steady step, busy share and cache bytes
    (ring KV, SSM state, conv register) beside hymba's full-attention KV;
@@ -152,6 +154,24 @@ Phases (any failure exits non-zero before the result line):
    ``gqa_decode`` a step (24 self, 24 cross), one ``fused_mask`` a
    sampled step, no ``linked_mlp``; prints the encoder's device ms, the
    decode step, busy share and cross-KV bytes;
+3g. long context at full width (random weights, seed 0, bf16, one slot,
+   a 32,768-slot horizon): qwen3-1.7b and gemma3-1b (its sliding layers
+   on the banded scan) each serve one greedy request of a 31,744-token
+   prompt (31 x 1024, so ``chunked_attention``'s 512 / 1024 blocks divide
+   it) and 64 new tokens, (i) with ``prefill_mode="batched"`` (one
+   one-shot ``prefill_step``: the scan on every attention layer, a spy
+   counts it) and (ii) with ``prefill_mode="chunked"`` at chunk 512
+   (qwen3 dense, gemma3 the mixed pool: its global layers decode through
+   ``gqa_decode_paged`` over 32,768 slots), both graphed; (i)'s one-shot
+   prefill measured inside the engine (wall and device ms, profiler;
+   ``max_memory_allocated`` beside the bytes held and its caches); from
+   a copy of its caches, the eager decode step at the model level; an
+   exact path teacher-forced along (i)'s stream (qwen3: the
+   chunked prefill; gemma3: a one-shot ``full_attention`` prefill, as its
+   chunks into 512-slot sliding rings are lossy) holds the prefill and
+   first decode step's logits within the bf16 tolerance and every token
+   by phase 4's margin rule; (i) ≡ (ii) by the same rule for qwen3,
+   reported for gemma3;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth (qwen3 at 2
    layers; gemma3 at 6, five sliding and one global, 600-token
@@ -291,6 +311,12 @@ bits), timing the kernel, its plain version and ``torch.addmm``.  Phase
 instantiations of the two GEMM kernels, ``fused_mask`` and
 ``cbr_avgpool``.
 
+Phase 2 also holds both decode kernels over 32,768 slots (qwen3's dense
+and gemma3's heads, gemma3's paged global layers; 8 rows of mixed
+lengths and one row, fp32 and bf16), timed at one row beside SDPA, and
+``linked_mlp`` at the one-shot prefill's M 31,744 against the
+fp64-summed MLP (as at batched prefill's shape), timed.
+
 The line before last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of everything measured goes to
 ``chiprun_out/chip_smoke.json``.
@@ -386,6 +412,9 @@ G3_WINDOW_TICKS = (40, 45)
 HY_H, HY_K, HY_D, HY_WINDOW = 25, 5, 64, 1024
 HY_D_MODEL, HY_D_FF, HY_VOCAB, HY_ROW = 1600, 5504, 32001, 32256
 M2_VOCAB, M2_ROW = 50280, 50432
+#: phase 3d's depths (of 32 and 48): cut so the smoke keeps its two waves
+#: of requests inside its time limit on a slow host
+RECURRENT_DEPTH = {"hymba-1.5b": 8, "mamba2-370m": 12}
 #: phase 3d's prompts: hymba's past its window (every ring wraps in
 #: prefill), mamba2's phase 3's
 HY_PROMPT_LENS = (1100, 1600)
@@ -425,6 +454,15 @@ SM_FRAMES, SM_NEW, SM_WINDOW = 512, 64, (20, 28)
 #: the self-attention span of seamless's decode: the 4-token prompt and
 #: the 64 new tokens, plus one
 SM_SELF = 69
+#: phase 3g: long context, one slot over a 32,768-slot horizon.  The
+#: prompt is 31,744 tokens (31 x 1024): the chunked scan's 512 / 1024
+#: blocks divide it (at a length they do not divide, the one-shot prefill
+#: falls back to full attention, as the reference's does, and qwen3's
+#: scores alone would not fit the card), 64 new tokens; the chunked
+#: twin's chunk, the prompt's seed and the model-level eager decode steps
+#: timed
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 31744, 64, 32768
+LONG_CHUNK, LONG_SEED, LONG_EAGER_STEPS = 512, 41, 8
 #: phase 8: the full-width dry runs on the 16x16 production mesh, the
 #: tuned (arch, shape), the hillclimb pair, and the time the phase's
 #: process may take past phase 7's end
@@ -983,6 +1021,73 @@ def check_decode_g1(torch, ops, gen, bs, report):
                      f"({row['splits']} splits)", **row})
 
 
+def check_decode_long(torch, ops, gen, g3_bs, report):
+    """Both decode kernels over phase 3g's 32,768-slot horizon: qwen3's
+    ``gqa_decode`` (16 q / 8 kv heads of 128) and gemma3's global layers'
+    ``gqa_decode_paged`` (4 / 1 of 256, the mixed pool's block size
+    ``g3_bs``), plus ``gqa_decode`` at gemma3's heads (its dense global
+    layers); element by element against the plain version in fp32 and
+    bf16 at 8 rows of mixed lengths (full, the phase's prompt, 1, 0,
+    mid-horizon) and at one row (the phase's slot, at the B = 1 split
+    count), then timed at the served shape (bf16, one row holding the
+    prompt and half the new tokens) beside SDPA and the bytes bound:
+    rows ``qwen3_w32768`` / ``gemma3_w32768`` of each kernel."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    W = LONG_MAX_LEN
+    mixed = [W, LONG_PROMPT, 1, 0, W // 2 + 3, W - 1, 100, 20000]
+    live = LONG_PROMPT + LONG_NEW // 2
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        key = "max_abs_err" if name == "bfloat16" else "max_abs_err_fp32"
+        for lengths in (mixed, [live]):
+            for heads, tag in (((H, K, D), "qwen3"),
+                               ((G3_H, G3_K, G3_D), "gemma3")):
+                nh, nk, hd = heads
+                gt, S = ops.decode_grid(len(lengths), nk, nh // nk, W, sms,
+                                        hd)
+                q, k, v, valid = g3_decode_case(
+                    torch, dtype, W, [(0, n) for n in lengths], gen, heads)
+                err = check_close(
+                    f"gqa_decode {tag} {name} W={W} B={len(lengths)} (GT "
+                    f"{gt}, {S} splits)", ops.gqa_decode(q, k, v, valid),
+                    ops.gqa_decode_plain(q, k, v, valid), name)
+                report["gqa_decode"][key] = max(report["gqa_decode"][key],
+                                                err)
+                del q, k, v, valid
+            args = g3_paged_case(torch, dtype, W, g3_bs, lengths, gen)
+            err = check_close(
+                f"gqa_decode_paged gemma3 {name} W={W} bs={g3_bs} "
+                f"B={len(lengths)}", ops.gqa_decode_paged(*args),
+                ops.gqa_decode_paged_plain(*args), name)
+            report["gqa_decode_paged"][key] = max(
+                report["gqa_decode_paged"][key], err)
+            del args
+    torch.cuda.empty_cache()
+    # timed at the served shape: one row, its K/V read once a call
+    sets = [g3_decode_case(torch, torch.bfloat16, W, [(0, live)], gen)
+            for _ in range(ROTATE)]
+    nbytes = 2 * live * K * D * 2 + 2 * H * D * 2 + W
+    row = report["gqa_decode"]["qwen3_w32768"] = time_decode_row(
+        torch, ops, sets, nbytes, 4 * live * H * D,
+        shape=[1, H, K, D, W], live=live,
+        splits=ops.decode_grid(1, K, H // K, W, sms, D)[1])
+    print_share({"name": f"gqa_decode qwen3 {live} of {W} slots, B 1 "
+                 f"({row['splits']} splits)", **row})
+    del sets
+    psets = [g3_paged_case(torch, torch.bfloat16, W, g3_bs, [live], gen)
+             for _ in range(ROTATE)]
+    nbytes = (2 * live * G3_K * G3_D * 2 + 2 * G3_H * G3_D * 2
+              + psets[0][3].numel() * 4 + 4)
+    row = report["gqa_decode_paged"]["gemma3_w32768"] = time_decode_row(
+        torch, ops, psets, nbytes, 4 * live * G3_H * G3_D, paged=True,
+        shape=[1, G3_H, G3_K, G3_D, W], live=live, block_size=g3_bs,
+        splits=ops.decode_grid(1, G3_K, G3_H // G3_K, W, sms, G3_D)[1])
+    print_share({"name": f"gqa_decode_paged gemma3 {live} of {W} slots, "
+                 f"B 1, bs {g3_bs} ({row['splits']} splits)", **row})
+    del psets
+    torch.cuda.empty_cache()
+
+
 def print_share(row) -> None:
     """A kernel's time beside its bound, its share of the bound and the
     library call's time."""
@@ -1401,29 +1506,31 @@ def linked_mlp_case(torch, ops, gen, label, shape, row, timed):
     time_mlp_case(torch, ops, gen, label, args, row)
 
 
-def linked_mlp_batched(torch, ops, gen, row):
+def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
+                       label: str = "batched_prefill", n_sets: int = 3):
     """Batched prefill's shape: the engine pads a group of ``SLOTS``
-    admitted prompts to the longest, so M = SLOTS x PROMPT_LENS[1].  In
+    admitted prompts to the longest, so M = SLOTS x PROMPT_LENS[1] (and
+    phase 3g's one-shot prefill of one ``LONG_PROMPT``-token prompt, M =
+    LONG_PROMPT, under ``label`` "long_prefill", one input set).  In
     bf16 at thousands of rows the kernel and the plain version (each a
     correct fp32 summation order, each rounding h to bf16) can land a few
     ulps apart, past the element-wise limit.  So each is held against the
-    fp64-summed MLP instead: on 3 input sets the kernel's worst error must stay within ``MLP_ORDER_FACTOR`` times the
-    plain version's on the same inputs.  Two planted faults, launched
-    through the kernel, must fail the same test: one up-projection term
-    (the last of d) and one ff column (the last) left out."""
-    M = SLOTS * PROMPT_LENS[1]
+    fp64-summed MLP instead: on ``n_sets`` input sets the kernel's worst
+    error must stay within ``MLP_ORDER_FACTOR`` times the plain
+    version's on the same inputs.  Two planted faults, launched through
+    the kernel, must fail the same test: one up-projection term (the
+    last of d) and one ff column (the last) left out."""
     tol = MLP_TOL["bfloat16"]
     worst = {"kernel": 0.0, "plain": 0.0, "ratio": 0.0}
-    for i in range(3):
+    for i in range(n_sets):
         args = mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen)
         plan = mlp_plan(torch, ops, args)
         if plan.path != "tc":
-            fail(f"linked_mlp batched_prefill: planned {plan}, want the "
+            fail(f"linked_mlp {label}: planned {plan}, want the "
                  "tensor-core kernel")
         got = ops.linked_mlp(*args)
         if not torch.equal(got, ops.linked_mlp(*args)):
-            fail("linked_mlp batched_prefill: two launches gave different "
-                 "bits")
+            fail(f"linked_mlp {label}: two launches gave different bits")
         ref = mlp_fp64(torch, args)
         plain = ops.linked_mlp_plain(*args)
         e_k, e_p = mlp_err(got, ref, tol), mlp_err(plain, ref, tol)
@@ -1437,17 +1544,17 @@ def linked_mlp_batched(torch, ops, gen, row):
                                     tol),
                   "ff_column": mlp_err(ops.linked_mlp(x, wg, wu, wd_cut),
                                        ref, tol)}
-        print(f"linked_mlp batched_prefill set {i} ({M},{D_MODEL})@"
+        print(f"linked_mlp {label} set {i} ({M},{D_MODEL})@"
               f"({D_MODEL},{D_FF}) bf16, worst err / (atol + rtol |fp64|): "
               f"kernel {e_k:.3f}, plain {e_p:.3f} (kernel vs plain "
               f"{e_kp:.3f}); planted faults "
               + ", ".join(f"{k} {v:.3f}" for k, v in faults.items()))
         if not e_k <= MLP_ORDER_FACTOR * e_p:
-            fail(f"linked_mlp batched_prefill set {i}: kernel {e_k:.3f} > "
+            fail(f"linked_mlp {label} set {i}: kernel {e_k:.3f} > "
                  f"{MLP_ORDER_FACTOR} x plain {e_p:.3f} from the fp64 sum")
         for k, v in faults.items():
             if v <= MLP_ORDER_FACTOR * e_p:
-                fail(f"linked_mlp batched_prefill set {i}: the planted "
+                fail(f"linked_mlp {label} set {i}: the planted "
                      f"fault {k} ({v:.3f}) passes the test")
         worst = {"kernel": max(worst["kernel"], e_k),
                  "plain": max(worst["plain"], e_p),
@@ -1456,8 +1563,8 @@ def linked_mlp_batched(torch, ops, gen, row):
                                  (got.float() - plain.float()).abs().max()
                                  .item())
         del args, got, ref, plain, x_cut, wd_cut
-    row["per_shape"]["batched_prefill"] = {"vs_fp64": worst}
-    time_mlp_case(torch, ops, gen, "batched_prefill",
+    row["per_shape"][label] = {"vs_fp64": worst}
+    time_mlp_case(torch, ops, gen, label,
                   mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen),
                   row)
 
@@ -1505,6 +1612,9 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
             fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
                  f"kernel on a cluster of {-(-d // ops.TC_DS)}")
     linked_mlp_batched(torch, ops, gen, row)
+    linked_mlp_batched(torch, ops, gen, row, M=LONG_PROMPT,
+                       label="long_prefill", n_sets=1)
+    torch.cuda.empty_cache()
     head = row["per_shape"]["decode"]
     row.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "unlinked_ms", "shape")})
@@ -2816,6 +2926,326 @@ def seamless_phase(torch, kernels, Model, card: str) -> dict:
     del params
     torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: long context
+# ---------------------------------------------------------------------------
+
+def long_prompt(vocab: int):
+    """Phase 3g's prompt: ``LONG_PROMPT`` tokens from ``LONG_SEED``,
+    drawn as :func:`ragged_prompts` draws a request's (the engines' runs
+    draw it the same way)."""
+    import types
+    r = types.SimpleNamespace()
+    ragged_prompts([r], vocab, LONG_SEED, (LONG_PROMPT, LONG_PROMPT))
+    return r.prompt
+
+
+def logits_close(label: str, got, want) -> float:
+    """Logits of two correct bf16 paths: fail unless max |got - want| <=
+    rtol * max(1, max |want|) (the bf16 rtol at the scale phase 4's
+    margin rule takes); return the max abs difference."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    tol = TOL["bfloat16"]["rtol"] * max(1.0, want.abs().max().item())
+    print(f"{label}: max_abs_diff {err:.4e} (tol {tol:.4e}, argmax "
+          f"{int(got.argmax())} / {int(want.argmax())})")
+    if not err <= tol:
+        fail(f"{label}: the logits differ past the bf16 tolerance")
+    return err
+
+
+def cache_bytes(caches) -> int:
+    from torch.utils._pytree import tree_leaves
+    import torch
+    return sum(t.numel() * t.element_size() for t in tree_leaves(caches)
+               if isinstance(t, torch.Tensor))
+
+
+def long_context_run(torch, kernels, serve, Model, cfg, twin_kv: str,
+                     exact: str, card: str) -> dict:
+    """Phase 3g for one model at full width (bf16, seed 0): one request of
+    the ``LONG_PROMPT``-token prompt and ``LONG_NEW`` new tokens, one
+    slot, a ``LONG_MAX_LEN`` horizon.
+
+    (i) ``prefill_mode="batched"``, dense KV, graphed: one one-shot
+    ``prefill_step`` (``chunked_attention`` on every attention layer),
+    then decode steps over the 32,768-slot caches; (ii) the same request
+    under ``prefill_mode="chunked"`` at ``LONG_CHUNK`` with ``twin_kv``
+    KV, graphed.  (i)'s one ``prefill_step`` call is measured inside the
+    engine (so its 'admit' stage holds the measuring): wall ms and
+    device ms (the profiler's kernel time), ``max_memory_allocated``
+    beside the bytes held before it and its fresh caches, the kernels it
+    launched, the scan's calls (a spy: every attention layer, blocks
+    dividing S and T), and a copy of its logits and caches.  From that
+    copy, at the model level under (i)'s kernel plan: the first decode
+    step's logits and the eager decode step (``model.serve_step`` at B
+    1, synchronized).  Then an exact path teacher-forced along (i)'s
+    stream (``exact``: "chunked", the prompt in ``LONG_CHUNK`` chunks,
+    exact where every layer is full attention; "full", one one-shot
+    prefill with ``use_chunked=False``): its prefill logits and first decode
+    step's logits against the scan's within the bf16 tolerance, and
+    phase 4's rule at every step: (i)'s token is the exact path's top-1
+    or that top-1 / top-2 margin is under the bf16 tolerance.  (i) ≡ (ii)
+    by the same rule up to the first parting, gated where the twin is
+    exact (``exact`` "chunked"), reported otherwise (a sliding layer's
+    chunks are lossy)."""
+    gate_twin = exact == "chunked"
+    import numpy as np
+    from torch.utils._pytree import tree_map
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import tree_leaves
+    model = Model(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.cast_params(model.init(
+        torch.Generator(device=DEV).manual_seed(0)))
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    label = cfg.name
+    n_attn = sum(f.kv != "none" for f in model.families)
+    print(f"{label} full width for phase 3g ({cfg.n_layers} layers, "
+          f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, window {cfg.sliding_window} "
+          f"{cfg.layer_pattern or ''}): {weights / 1e9:.2f} GB of weights "
+          f"in {time.perf_counter() - t0:.1f} s; prompt {LONG_PROMPT}, "
+          f"{LONG_NEW} new, horizon {LONG_MAX_LEN}")
+    prompt = long_prompt(cfg.vocab)
+    base = dict(requests=1, prompt_len=LONG_PROMPT, max_new=LONG_NEW,
+                slots=1, max_len=LONG_MAX_LEN, chunk=LONG_CHUNK)
+    out = {}
+
+    # (i) the one-shot prefill through the engine, its one prefill_step
+    # call measured where it runs: wall and device ms, the peak, the
+    # kernels it launched, the scan's calls (a spy), and its logits and a
+    # copy of its caches for the model-level decode below
+    args = serve_args(serve, **base, prefill_mode="batched", kv="dense")
+    engine = serve.build_engine(args, model, params)
+    plan = engine.kernel_plan
+    if plan.decode_dense != "cuda":
+        fail(f"{label} phase 3g: the engine's plan {plan}")
+    scans, seen = [], []
+    real_scan, real_prefill = A.chunked_attention, model.prefill_step
+
+    def spy(q, k, v, **kw):
+        scans.append(q.shape[1] % kw.get("q_chunk", 512) == 0
+                     and k.shape[1] % kw.get("kv_chunk", 1024) == 0)
+        return real_scan(q, k, v, **kw)
+
+    def measured_prefill(p, batch, **kw):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.LAUNCHES)
+        A.chunked_attention = spy
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits, fresh = real_prefill(p, batch, **kw)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            A.chunked_attention = real_scan
+        seen.append({
+            "tokens": tuple(batch["tokens"].shape), "wall_ms": wall_ms,
+            "peak": torch.cuda.max_memory_allocated(), "held": held,
+            "launches": {k: n - before.get(k, 0)
+                         for k, n in kernels.LAUNCHES.items()},
+            "profiled": profile_window(torch, prof, 1),
+            "cache_bytes": cache_bytes(fresh),
+            "logits": logits[0, :cfg.vocab].clone(),
+            "caches": tree_map(torch.clone, fresh)})
+        return logits, fresh
+    model.prefill_step = measured_prefill
+    try:
+        run_i = serve_phase(torch, kernels, serve, engine, args,
+                            f"{label} long batched", LONG_SEED, window=None,
+                            lens=(LONG_PROMPT, LONG_PROMPT))
+    finally:
+        del model.prefill_step
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(seen) != 1 or seen[0]["tokens"] != (1, LONG_PROMPT):
+        fail(f"{label} long batched: prefill_step calls "
+             f"{[m['tokens'] for m in seen]}, want one of (1, "
+             f"{LONG_PROMPT})")
+    pre = seen.pop()
+    if len(scans) != n_attn or not all(scans):
+        fail(f"{label}: the one-shot prefill's attention calls {scans}, "
+             f"want the scan on all {n_attn} attention layers")
+    stream = run_i["streams"][0]
+    got = run_i["launches"].get("gqa_decode", 0)
+    print(f"{label} long batched: gqa_decode launches {got} ({n_attn} a "
+          f"decode step, {run_i['kernel_steps']} steps, warm-ups and "
+          f"captures)")
+    if got < n_attn * (LONG_NEW - 1):
+        fail(f"{label} long batched: gqa_decode launched {got} times, "
+             f"want at least {n_attn * (LONG_NEW - 1)}")
+    out["batched"] = run_i
+
+    # the first decode step and eager decode steps at the model level,
+    # from the copy of the one-shot prefill's caches
+    logits1, caches = pre.pop("logits"), pre.pop("caches")
+    tok = torch.tensor([[stream[0]]], device=DEV)
+    if int(logits1.argmax()) != stream[0]:
+        fail(f"{label} long batched: the first token {stream[0]} is not "
+             f"the prefill logits' argmax {int(logits1.argmax())}")
+    with torch.no_grad():
+        first1, caches = model.serve_step(params, caches, tok, plan=plan)
+        first1 = first1[0, :cfg.vocab].clone()
+        t, eager = first1.argmax()[None, None].to(torch.int64), []
+        for _ in range(LONG_EAGER_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = model.serve_step(params, caches, t, plan=plan)
+            torch.cuda.synchronize()
+            eager.append((time.perf_counter() - t0) * 1e3)
+            t = lg[:, :cfg.vocab].argmax(-1)[:, None]
+    del caches, lg
+    torch.cuda.empty_cache()
+    wall_ms, peak, before = pre["wall_ms"], pre["peak"], pre["held"]
+    dev_ms = pre["profiled"]["device_ms_per_tick"]
+    kv = pre["cache_bytes"]
+    out["prefill"] = {
+        "wall_ms": wall_ms, "device_ms": dev_ms, "peak_bytes": peak,
+        "held_before_bytes": before, "own_peak_bytes": peak - before,
+        "weight_bytes": weights, "cache_bytes": kv, "scans": len(scans),
+        "launches": pre["launches"],
+        "top_kernels": pre["profiled"]["top_kernels"],
+        "eager_decode_ms": eager,
+        "graphed_decode_ms": run_i["mean_decode_ms"]}
+    print(f"{label} one-shot prefill of {LONG_PROMPT} tokens in the engine "
+          f"({card}): wall {wall_ms:.1f} ms, device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.1f} ms'}; "
+          f"chunked_attention scanned on {len(scans)} of {n_attn} "
+          f"attention layers; max_memory_allocated {peak / 1e9:.2f} GB, "
+          f"{before / 1e9:.2f} GB held before it (weights "
+          f"{weights / 1e9:.2f} GB, the engine's caches and graphs), the "
+          f"prefill's own {(peak - before) / 1e9:.2f} GB beside its fresh "
+          f"caches {kv / 1e9:.2f} GB; kernel launches {pre['launches']}")
+    for k in pre["profiled"]["top_kernels"][:5]:
+        print(f"    {k['ms_per_tick']:.2f} ms {k['calls_per_tick']:.0f} "
+              f"calls  {k['name']}")
+    print(f"{label} decode step over {LONG_MAX_LEN} slots ({card}): graphed "
+          f"{run_i['mean_decode_ms']:.2f} ms (engine, steady); eager "
+          f"{sum(eager) / len(eager):.2f} ms (model.serve_step, mean of "
+          f"{len(eager)}: {[round(x, 2) for x in eager]})")
+
+    # (ii) the chunked twin through the engine
+    args = serve_args(serve, **base, prefill_mode="chunked", kv=twin_kv)
+    engine = serve.build_engine(args, model, params)
+    out["chunked"] = run_ii = serve_phase(
+        torch, kernels, serve, engine, args, f"{label} long chunked "
+        f"{twin_kv}", LONG_SEED, window=None,
+        lens=(LONG_PROMPT, LONG_PROMPT))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_global = sum(f.kv == "full" for f in model.families)
+    paged = run_ii["launches"].get("gqa_decode_paged", 0)
+    if twin_kv == "paged" and paged < n_global * (LONG_NEW - 1):
+        fail(f"{label} long chunked paged: gqa_decode_paged launched "
+             f"{paged} times, want at least {n_global * (LONG_NEW - 1)}")
+
+    # the exact path at the model level, teacher-forced along (i): the
+    # prompt in LONG_CHUNK chunks (a full-attention layer's cache holds
+    # every position: exact), or, where a sliding layer's window-wide
+    # ring makes chunks lossy (the reference's chunked prefill writes a
+    # chunk before it attends: ROADMAP queue 3), one one-shot prefill
+    # through full_attention
+    toks = torch.from_numpy(prompt[None].astype(np.int64)).to(DEV)
+    with torch.no_grad():
+        if exact == "chunked":
+            caches = model.init_caches(1, LONG_MAX_LEN)
+            for start in range(0, LONG_PROMPT, LONG_CHUNK):
+                logits2, caches = model.prefill_chunk(
+                    params, caches, toks[:, start:start + LONG_CHUNK],
+                    torch.tensor([start], dtype=torch.int32),
+                    torch.tensor([LONG_CHUNK], dtype=torch.int32),
+                    plan=plan)
+        else:
+            logits2, caches = model.prefill_step(
+                params, {"tokens": toks}, max_len=LONG_MAX_LEN, plan=plan,
+                use_chunked=False)
+        plain = [logits2[0, :cfg.vocab].float()]
+        for t in stream[:-1]:
+            lg, caches = model.serve_step(
+                params, caches, torch.tensor([[t]], device=DEV), plan=plan)
+            plain.append(lg[0, :cfg.vocab].float())
+    del caches, logits2, lg
+    torch.cuda.empty_cache()
+    what = {"chunked": f"chunked prefill ({LONG_CHUNK})",
+            "full": "one-shot full_attention prefill"}[exact]
+    out["exact_path"] = what
+    out["prefill_logits_diff"] = logits_close(
+        f"{label} prefill logits, one-shot scan vs {what}",
+        logits1, plain[0])
+    out["first_decode_logits_diff"] = logits_close(
+        f"{label} first decode step's logits, one-shot scan vs {what}",
+        first1, plain[1])
+
+    def held(x, j):
+        """Phase 4's rule at step j: ``x`` is the exact path's top-1, or
+        its top-1 / top-2 margin is under the bf16 tolerance."""
+        top = torch.topk(plain[j], 2)
+        margin = (top.values[0] - top.values[1]).item()
+        tol = TOL["bfloat16"]["rtol"] * max(1.0, abs(top.values[0].item()))
+        return int(top.indices[0]) == x or margin <= tol, margin, tol
+    low = []
+    for j, x in enumerate(stream):
+        ok, margin, tol = held(x, j)
+        if not ok:
+            fail(f"{label} long: (i)'s token {x} at step {j} is not the "
+                 f"{what}'s top-1 {int(plain[j].argmax())} at margin "
+                 f"{margin:.4f} > tol {tol:.4f}")
+        if int(plain[j].argmax()) != x:
+            low.append((j, round(margin, 4)))
+    compared, parted = 0, None
+    for j, (x, y) in enumerate(zip(stream, run_ii["streams"][0])):
+        if x != y:
+            _, margin, tol = held(x, j)
+            parted = (j, margin, tol)
+            if gate_twin and margin > tol:
+                fail(f"{label} long: the batched and chunked streams differ "
+                     f"at step {j} where the plain margin {margin:.4f} > "
+                     f"tol {tol:.4f}")
+            break
+        compared += 1
+    out["streams"] = {"compared": compared, "parted": parted,
+                      "off_top1_low_margin": low}
+    print(f"{label} long: (i)'s {len(stream)} tokens the {what}'s top-1 "
+          "at every step"
+          + (f" but {low} (step, margin: under the bf16 tolerance)" if low
+             else "") + f"; (i) ≡ (ii) over {compared} of {LONG_NEW} tokens, "
+          + ("equal streams" if parted is None else
+             f"parted at step {parted[0]}, plain margin {parted[1]:.4f} "
+             f"(bf16 tolerance {parted[2]:.4f})")
+          + ("" if gate_twin else "; not gated: the twin's chunks into "
+             "the sliding layers' window-wide rings are lossy"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_context_phase(torch, kernels, serve, Model, get_config,
+                       card: str) -> dict:
+    """Phase 3g: qwen3-1.7b (a dense twin, held against its chunked
+    prefill) and gemma3-1b (its sliding layers on the banded scan; the
+    mixed pool's twin; held against a one-shot ``full_attention``
+    prefill, which fits at its 4 q heads) at a 31,744-token prompt
+    (:func:`long_context_run`)."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, twin, exact in (("qwen3-1.7b", "dense", "chunked"),
+                              ("gemma3-1b", "paged", "full")):
+        out[arch] = long_context_run(torch, kernels, serve, Model,
+                                     get_config(arch), twin, exact, card)
+    print(f"phase 3g in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def parity_translate(torch, pipeline, Model, cfg, n_layers: int = 2,
@@ -4505,6 +4935,7 @@ def main() -> int:
     check_decode_gemma3(torch, dec_ops, gen, g3_bs, report)
     check_decode_hymba(torch, dec_ops, gen, report)
     check_decode_g1(torch, dec_ops, gen, bs, report)
+    check_decode_long(torch, dec_ops, gen, g3_bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
     check_fused_mask_rows(torch, fs_ops, gen, report, "gemma3", G3_VOCAB,
                           G3_VOCAB + 256)
@@ -4541,14 +4972,16 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     recurrent = {}
-    for arch in ("hymba-1.5b", "mamba2-370m"):
+    for arch, depth in RECURRENT_DEPTH.items():
         rcfg = get_config(arch)
+        full_depth = rcfg.n_layers
+        rcfg = dataclasses.replace(rcfg, n_layers=depth)
         rmodel = Model(rcfg, device=DEV)
         t0 = time.perf_counter()
         recurrent[arch] = (rmodel, rmodel.cast_params(rmodel.init(
             torch.Generator(device=DEV).manual_seed(0))))
         torch.cuda.synchronize()
-        print(f"{arch} full width ({rcfg.n_layers} layers, d "
+        print(f"{arch} full width ({depth} of {full_depth} layers, d "
               f"{rcfg.d_model}, {rcfg.n_heads} q / {rcfg.n_kv_heads} kv "
               f"heads, window {rcfg.sliding_window}, SSM {rcfg.ssm_heads} "
               f"heads x {rcfg.ssm_head_dim} x state {rcfg.ssm_state}, conv "
@@ -4563,6 +4996,13 @@ def main() -> int:
     runs.update(moe_phase(torch, kernels, serve, Model, card))
     runs.update(arctic_phase(torch, kernels, serve, Model, lm_ops, gen))
     runs.update(seamless_phase(torch, kernels, Model, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["long_context"] = long_context_phase(torch, kernels, serve,
+                                                Model, get_config, card)
+    for arch, r in result["long_context"].items():
+        runs[f"long_{arch}_batched"] = r["batched"]
+        runs[f"long_{arch}_chunked"] = r["chunked"]
     result["serve"] = runs
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
     # gemma3 at six layers (five sliding, one global), prompts past the

@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 from . import costmodel as cm
 from . import dos, linking, patterns, planner
@@ -169,6 +169,24 @@ def register_pass(p: Pass) -> Pass:
         raise PipelineError(f"pass {p.name!r} is already registered")
     REGISTRY[p.name] = p
     return p
+
+
+def unregister_pass(name: str) -> None:
+    REGISTRY.pop(name, None)
+
+
+def graph_pass(name: str, description: str, *,
+               invariants: Iterable[tuple[str, Callable[[Graph], bool]]] = (),
+               summarize: Callable[[Graph, Graph], dict[str, Any]] | None
+               = None):
+    """Decorator form of :func:`register_pass` for drop-in stages."""
+
+    def wrap(fn: Callable[[Graph, PassContext], Graph]):
+        register_pass(Pass(name, fn, description, tuple(invariants),
+                           summarize))
+        return fn
+
+    return wrap
 
 
 def resolve_passes(level: int | None = None,
@@ -341,6 +359,8 @@ def graph_fingerprint(g: Graph) -> str:
     return h.hexdigest()
 
 
+#: (graph_fingerprint, pass identities, options, device, verify) ->
+#: (optimized graph, report)
 _OPTIMIZE_CACHE: dict[tuple, tuple[Graph, PassReport]] = {}
 _OPTIMIZE_CACHE_MAX = 128
 
@@ -350,11 +370,11 @@ def clear_optimize_cache() -> None:
 
 
 def _cache_key(g: Graph, plist: list[Pass], options: dict[str, Any],
-               device: DeviceSpec) -> tuple:
+               device: DeviceSpec, verify: bool) -> tuple:
     return (graph_fingerprint(g),
             tuple((p.name, id(p.fn)) for p in plist),
             repr(sorted(options.items(), key=lambda kv: kv[0])),
-            repr(device))
+            repr(device), verify)
 
 
 def _modeled_serial_s(g: Graph, device: DeviceSpec, linked: bool) -> float:
@@ -365,17 +385,18 @@ def _modeled_serial_s(g: Graph, device: DeviceSpec, linked: bool) -> float:
 
 def optimize(g: Graph, device: DeviceSpec | None = None, *,
              level: int | None = None, passes: Sequence[str] | None = None,
-             options: dict[str, Any] | None = None, cache: bool = True
-             ) -> tuple[Graph, PassReport]:
+             options: dict[str, Any] | None = None, verify: bool = True,
+             cache: bool = True) -> tuple[Graph, PassReport]:
     """Run the pipeline; returns ``(optimized_graph, report)``.
 
     ``level`` selects a cumulative pass prefix (default ``O3`` = fuse +
     link + DOS split); ``passes`` overrides it with an explicit ordered
     list of registered pass names.  ``options`` is pass-visible
     configuration (e.g. ``n_devices``/``sync`` for ``dxenos_plan``).
-    Every pass's output is checked by :func:`verify_graph` plus the
-    pass's declared invariants, and results are
-    memoized on ``(graph_fingerprint, passes, options, device)`` — a
+    With ``verify`` (the default) every pass's output is checked by
+    :func:`verify_graph` plus the pass's declared invariants, and results
+    are memoized on ``(graph_fingerprint, passes, options, device,
+    verify)`` — a
     repeated call returns clones with ``cache_hit=True``, which is what
     lets the serving scheduler re-plan every N ticks for free."""
     device = device or DeviceSpec()
@@ -384,7 +405,7 @@ def optimize(g: Graph, device: DeviceSpec | None = None, *,
 
     key: tuple | None = None
     if cache:
-        key = _cache_key(g, plist, ctx.options, device)
+        key = _cache_key(g, plist, ctx.options, device, verify)
         hit = _OPTIMIZE_CACHE.get(key)
         if hit is not None:
             cached_graph, cached_report = hit
@@ -393,9 +414,10 @@ def optimize(g: Graph, device: DeviceSpec | None = None, *,
                 cache_hit=True)
 
     report = PassReport(graph_name=g.name, device=device.name)
-    pre = verify_graph(g)
-    if pre:
-        raise PassVerificationError("<input>", pre)
+    if verify:
+        pre = verify_graph(g)
+        if pre:
+            raise PassVerificationError("<input>", pre)
     report.modeled_before_s = _modeled_serial_s(g, device, linked=False)
     out = g
     for p in plist:
@@ -404,19 +426,21 @@ def optimize(g: Graph, device: DeviceSpec | None = None, *,
         t0 = time.perf_counter()
         out = p.fn(before, ctx)
         wall = time.perf_counter() - t0
-        problems = verify_graph(out)
-        for inv_name, pred in p.invariants:
-            if not pred(out):
-                problems.append(f"declared invariant violated: {inv_name}")
-        if problems:
-            raise PassVerificationError(p.name, problems)
+        if verify:
+            problems = verify_graph(out)
+            for inv_name, pred in p.invariants:
+                if not pred(out):
+                    problems.append(
+                        f"declared invariant violated: {inv_name}")
+            if problems:
+                raise PassVerificationError(p.name, problems)
         summary = dict(p.summarize(before, out)) if p.summarize else {}
         summary.update(ctx.artifacts)
         report.record(PassRecord(
             name=p.name, wall_s=wall,
             nodes_before=before.num_ops(), nodes_after=out.num_ops(),
             edges_before=_edge_count(before), edges_after=_edge_count(out),
-            verified=True, summary=summary))
+            verified=verify, summary=summary))
     report.modeled_after_s = _modeled_serial_s(out, device, linked=True)
     if key is not None:
         if len(_OPTIMIZE_CACHE) >= _OPTIMIZE_CACHE_MAX:
@@ -940,10 +964,10 @@ MODE_PASSES: dict[str, tuple[str, ...]] = {
 
 
 def optimize_for_mode(g: Graph, mode: str,
-                      device: DeviceSpec | None = None
-                      ) -> tuple[Graph, PassReport]:
+                      device: DeviceSpec | None = None,
+                      verify: bool = True) -> tuple[Graph, PassReport]:
     """Pipeline entry keyed by engine execution mode (vanilla/ho/xenos)."""
     if mode not in MODE_PASSES:
         raise PipelineError(f"unknown engine mode {mode!r}; "
                             f"have {sorted(MODE_PASSES)}")
-    return optimize(g, device, passes=MODE_PASSES[mode])
+    return optimize(g, device, passes=MODE_PASSES[mode], verify=verify)

@@ -22,8 +22,9 @@ Per rank, the trace counts:
   * ``flops_per_device``: matmul, attention and convolution FLOPs on
     ``torch.utils.flop_counter``'s formulas, over the local shapes;
   * ``bytes_per_device``: the input plus output bytes of every local op
-    but views: an unfused upper bound (XLA's fusions keep intermediates
-    on chip; eager torch writes each one);
+    but views and ops with no tensor output (``prim.device``, sizes): an
+    unfused upper bound (XLA's fusions keep intermediates on chip; eager
+    torch writes each one);
   * the collectives' result bytes by kind
     (``core.costmodel.collective_bytes_from_trace``);
   * ``memory``: the rank's live fake-tensor bytes at their peak, beside
@@ -96,8 +97,8 @@ SKIPS: dict[tuple[str, str], str] = {
 }
 
 #: what ``bytes_per_device`` counts (the record's ``notes``)
-BYTES_NOTE = ("input plus output bytes of every local op but views: an "
-              "unfused upper bound")
+BYTES_NOTE = ("input plus output bytes of every local op but views and "
+              "ops with no tensor output: an unfused upper bound")
 
 
 def _devices() -> int:
@@ -237,7 +238,8 @@ class _Tally:
         if packet in flop_registry:
             self.flops += float(flop_registry[packet](*args, **kwargs,
                                                       out_val=out))
-        if func._schema.is_mutable or not _aliases(ins, outs):
+        # an op with no tensor out (``prim.device``, a size) reads no data
+        if outs and (func._schema.is_mutable or not _aliases(ins, outs)):
             self.bytes += float(sum(_nbytes(t) for t in ins + outs))
         return out
 
@@ -368,6 +370,8 @@ class _StepMode(TorchDispatchMode):
                 return out
         if torch.Tag.pointwise in func.tags:
             args = self._align(args)
+        if func in _MATMULS:
+            args = self._fsdp(args)
         key = (func, _signature((args, kwargs)))
         stage = self.stage.get(key, "dtensor")
         if stage == "dtensor":
@@ -426,6 +430,27 @@ class _StepMode(TorchDispatchMode):
                 return a
             return self._whole(a, whole)
         return tuple(gather(a) for a in args)
+
+    def _fsdp(self, args):
+        """A matmul whose weight (the second operand) is split on a mesh
+        dim that also splits the input's rows (the batch: a rule set that
+        puts a weight dim on ``"data"``, FSDP) takes the weight gathered
+        whole there, an all-gather of the weight, the rows staying split,
+        as FSDP computes.  DTensor gathers either operand by its cost
+        model, and torch 2.11 and 2.13 choose differently (2.11 the
+        rows)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        x, w = args[0], args[1]
+        if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+            return args
+        mds = [md for md, (p, q) in enumerate(zip(x.placements,
+                                                  w.placements))
+               if _plain_shard(p) == Shard(0) and isinstance(
+                   _plain_shard(q), Shard)]
+        if not mds:
+            return args
+        return (x, self._whole(w, mds)) + tuple(args[2:])
 
     def _settle(self, out):
         """A partial sum (a matmul over a split contraction) is summed at
@@ -701,6 +726,7 @@ _NEW_FACTORIES = (_aten.new_zeros.default, _aten.new_empty.default,
 _VIEWS = (_aten.view.default, _aten._unsafe_view.default,
           _aten.reshape.default)
 _INDEX_READS = (_aten.index.Tensor,)
+_MATMULS = (_aten.mm.default,)
 _SCATTERS = (_aten.scatter_add.default, _aten.scatter.src,
              _aten.scatter.value)
 _INDEX_WRITES = (_aten.index_put_.default, _aten.index_put.default)

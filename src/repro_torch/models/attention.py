@@ -2,10 +2,16 @@
 window and its caches, in PyTorch.
 
 The counterpart of ``repro.models.attention`` for full and sliding-window
-attention.  Three execution paths, as in the reference:
+attention.  Four execution paths, as in the reference:
 
-  * ``full_attention`` — materialized masked scores; the prefill path
-    (plain torch, as the reference leaves it to XLA);
+  * ``full_attention`` — materialized masked scores, for sequences up to
+    ``CHUNKED_ABOVE`` tokens (plain torch, as the reference leaves it to
+    XLA);
+  * ``chunked_attention`` — the reference's flash-style online softmax
+    over (512 x 1024) blocks, banded for sliding windows, never building
+    (S, T); training, the encoder and the one-shot prefill take it past
+    ``CHUNKED_ABOVE`` tokens (plain torch: one step a kv block, every
+    q block at once);
   * chunked prefill against a cache (``prefill_chunk_into_cache`` and its
     paged and ring-paged variants) — chunk queries over the whole cache
     view;
@@ -37,6 +43,7 @@ step never copies the cache.  The returned cache is the argument cache.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -47,6 +54,10 @@ from ..kernels.decode_attention import ops as dec_ops
 from .layers import ParamSpec, _is_dtensor, contiguous_stride, rms_norm
 
 NEG_INF = -1e30
+
+#: whole-sequence attention over more tokens than this runs
+#: :func:`chunked_attention` (the reference's switch, ``S > 2048``)
+CHUNKED_ABOVE = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -114,20 +125,22 @@ def attention_specs(d: int, n_heads: int, n_kv: int, head_dim: int,
 # ---------------------------------------------------------------------------
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   window: int = 0, causal: bool = True) -> torch.Tensor:
+                   window: int = 0, causal: bool = True,
+                   q_offset: int = 0) -> torch.Tensor:
     """Attention over a whole sequence.  q: (B,S,H,D), k/v: (B,T,K,D) ->
-    (B,S,H,D); ``causal`` keeps keys ``<= q_pos``, ``window`` > 0 only
-    keys ``> q_pos - window``.  Used for every prefill length (the
-    reference switches to an equal-to-tolerance flash-style scan past
-    2048 tokens)."""
+    (B,S,H,D); query ``i`` sits at position ``i + q_offset``; ``causal``
+    keeps keys ``<= q_pos``, ``window`` > 0 only keys ``> q_pos -
+    window``.  Builds the whole (B, K, G, S, T) fp32 score tensor: past
+    ``CHUNKED_ABOVE`` tokens callers take :func:`chunked_attention`."""
     if _is_dtensor(q):
-        return _sharded_attention(q, k, v, window=window, causal=causal)
+        return _sharded_attention(q, k, v, functools.partial(
+            full_attention, window=window, causal=causal, q_offset=q_offset))
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, S, K, G, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(D)
-    q_pos = torch.arange(S, device=q.device)
+    q_pos = torch.arange(S, device=q.device) + q_offset
     k_pos = torch.arange(T, device=q.device)
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
@@ -140,17 +153,110 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, D)
 
 
-def _sharded_attention(q, k, v, *, window: int, causal: bool):
-    """:func:`full_attention` of DTensors, as GSPMD partitions it: each
-    rank attends its own rows (the mesh dims splitting q's batch) and its
-    own query heads (the one mesh dim splitting q's heads) on local
-    tensors, with no collective and a local backward.  A rank's kv heads
-    are those its query heads read: k and v split as q's heads where the
-    kv heads divide into the same groups, else taken whole on that mesh
-    dim and sliced (their gradient then a partial sum over it).  Other
-    splits (the sequence, head_dim, a pending sum) are gathered first.
-    DTensor's own einsum would flatten a batch and a head dim split on
-    two mesh dims, which torch 2.11's view rule refuses."""
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 512, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Flash-style online-softmax attention that never builds (S, T): the
+    reference's double scan, with its numerics.  q: (B,S,H,D), k/v:
+    (B,T,K,D) -> (B,S,H,D).
+
+    Falls back to :func:`full_attention` unless ``q_chunk`` divides S and
+    ``kv_chunk`` divides T.  Each q block folds in kv blocks 0 .. nk-1
+    in order; with a causal window, from its diagonal block down, for the
+    ``ceil((q_chunk + window) / kv_chunk) + 1`` blocks its band can reach
+    (blocks before 0 masked whole), the fully masked tail skipped.  The
+    running max ``m``, sum ``l`` and output ``acc`` are fp32; the result
+    is ``acc / max(l, 1e-30)``.  One Python step a kv block runs every q
+    block at once (the banded step gathers each q block's kv block by
+    its own index), so a step's live scores are (B, H, S, kv_chunk) fp32
+    and a layer issues nk steps, not nq x nk.  Gradients flow through the
+    steps by autograd, as the reference differentiates its scan, but for
+    the running max: the output does not depend on it, so it is held
+    constant (its terms, which cancel in the reference's gradient, are
+    not formed)."""
+    if _is_dtensor(q):
+        return _sharded_attention(q, k, v, functools.partial(
+            chunked_attention, causal=causal, window=window,
+            q_chunk=q_chunk, kv_chunk=kv_chunk))
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    if S % q_chunk or T % kv_chunk:
+        return full_attention(q, k, v, causal=causal, window=window)
+    nq, nk = S // q_chunk, T // kv_chunk
+    dev = q.device
+    qg = q.reshape(B, nq, q_chunk, K, G, D)
+    kc = k.reshape(B, nk, kv_chunk, K, D)
+    vc = v.reshape(B, nk, kv_chunk, K, D)
+    scale = 1.0 / math.sqrt(D)
+    banded = bool(window) and causal
+    nk_needed = min(nk, -(-(q_chunk + window) // kv_chunk) + 1) if banded \
+        else nk
+    q_pos = torch.arange(S, device=dev).reshape(nq, q_chunk, 1)
+    t_pos = torch.arange(kv_chunk, device=dev)
+    hi_block = (torch.arange(nq, device=dev) * q_chunk + q_chunk - 1) \
+        // kv_chunk
+    m = torch.full((B, nq, K, G, q_chunk), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nq, K, G, q_chunk), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nq, K, G, q_chunk, D), dtype=torch.float32,
+                      device=dev)
+    for rel in range(nk_needed):
+        if banded:
+            kidx = hi_block - rel                           # (nq,)
+            kb = kc[:, kidx.clamp(min=0)]                   # (B,nq,kvc,K,D)
+            vb = vc[:, kidx.clamp(min=0)]
+            s = torch.einsum("bnqkgd,bntkd->bnkgqt", qg, kb)
+            mask = (kidx >= 0)[:, None, None]
+        else:
+            kidx = torch.full((nq,), rel, device=dev)
+            kb, vb = kc[:, rel], vc[:, rel]                 # (B,kvc,K,D)
+            s = torch.einsum("bnqkgd,btkd->bnkgqt", qg, kb)
+            mask = torch.ones((1, 1, 1), dtype=torch.bool, device=dev)
+        # fp32 scores, masked and exponentiated in place: one fresh
+        # (B, nq, K, G, qc, kvc) tensor a step
+        s = s.float().mul_(scale)
+        k_pos = (kidx[:, None] * kv_chunk + t_pos)[:, None, :]  # (nq,1,kvc)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window:
+            mask = mask & (k_pos > q_pos - window)
+        s = s.masked_fill_(~mask[:, None, None], NEG_INF)
+        # the running max only steadies exp: the output does not depend
+        # on it, so no gradient flows through it (nor does autograd keep
+        # each step's scores for it)
+        m_new = torch.maximum(m, s.detach().amax(-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bnkgqt,bntkd->bnkgqd", p.to(vb.dtype), vb) \
+            if banded else torch.einsum("bnkgqt,btkd->bnkgqd",
+                                        p.to(vb.dtype), vb)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    # (B, nq, K, G, qc, D) -> (B, S, H, D)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, D)
+
+
+def _sharded_attention(q, k, v, attend):
+    """Whole-sequence attention of DTensors (``attend``: the plain
+    :func:`full_attention` or :func:`chunked_attention` with its
+    options bound), as GSPMD partitions it: each rank attends its own
+    rows (the mesh dims splitting q's batch) and its own query heads (the
+    one mesh dim splitting q's heads) on local tensors, with no
+    collective in the forward; the rank runs what one device runs at its
+    local shapes (the sequence is whole on every rank).  A rank's kv
+    heads are those its query heads read: k and v split as q's heads
+    where the kv heads divide into the same groups, else taken whole on
+    that mesh dim and sliced; the slice's gradient, a partial sum over
+    that dim, is summed there before it leaves (GSPMD's all-reduce of
+    the cotangent), so the kv projections' weight gradients stay split
+    as their weights are.  Other splits (the sequence, head_dim, a
+    pending sum) are gathered first.  DTensor's own einsum would flatten
+    a batch and a head dim split on two mesh dims, which torch 2.11's
+    view rule refuses."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = q.device_mesh
@@ -177,13 +283,36 @@ def _sharded_attention(q, k, v, *, window: int, causal: bool):
             kv_grad[md] = Partial()
     q, k, v = (t.redistribute(mesh, pl) if list(t.placements) != pl else t
                for t, pl in ((q, qpl), (k, kvpl), (v, kvpl)))
+    if lo is not None:
+        k, v = _SumCotangent.apply(k), _SumCotangent.apply(v)
     kl, vl = (t.to_local(grad_placements=kv_grad) for t in (k, v))
     if lo is not None:
         kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
-    out = full_attention(q.to_local(), kl, vl, window=window, causal=causal)
+    out = attend(q.to_local(), kl, vl)
     return DTensor.from_local(out, mesh, qpl, run_check=False,
                               shape=q.shape, stride=contiguous_stride(
                                   q.shape))
+
+
+class _SumCotangent(torch.autograd.Function):
+    """Identity on a DTensor; its gradient's pending sums (a rank's
+    sliced kv heads' cotangent, partial over the heads' mesh dim) are
+    summed in the backward, an all-reduce, before they reach the
+    projection that made the tensor.  Left partial, DTensor would compute
+    that projection's whole weight gradient on every rank and reduce it
+    afterwards."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        pl = [Replicate() if p.is_partial() else p for p in g.placements]
+        if pl == list(g.placements):
+            return g
+        return g.redistribute(g.device_mesh, pl)
 
 
 def rank_splits(q: torch.Tensor, K: int, W: int, shards: int):
@@ -420,8 +549,37 @@ def rollback_paged_kv_cache(cache: PagedKVCache, keep_len: torch.Tensor,
 def _project(p, x, name):
     """x (B,S,d) @ w (d, heads, hd) -> (B,S,heads,hd)."""
     w = p[name].to(x.dtype)
-    return (x @ w.reshape(w.shape[0], -1)).reshape(
-        *x.shape[:-1], w.shape[1], w.shape[2])
+    w2 = w.reshape(w.shape[0], -1)
+    y = _split_contraction(x, w2) if _is_dtensor(w2) else x @ w2
+    return y.reshape(*x.shape[:-1], w.shape[1], w.shape[2])
+
+
+def _split_contraction(x, w):
+    """``x @ w`` of DTensors as GSPMD partitions a projection whose weight
+    splits its d rows over a mesh dim (a kv projection whose heads do not
+    split over it): ``x`` split on d there too (a free slice where it is
+    whole, a reduce-scatter where it is a pending sum), each rank's rows
+    multiplied into a partial sum, summed at once.  The backward then
+    takes a whole cotangent into each rank's own weight rows.  Left to
+    DTensor, the saved input stays whole or partial, the sum pending, and
+    the weight gradient is computed whole on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = list(x.placements)
+    split = False
+    for md, wp in enumerate(w.placements):
+        if wp == Shard(0):
+            split = True
+            if not pl[md].is_shard():
+                pl[md] = Shard(x.dim() - 1)
+    if not split:
+        return x @ w
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    y = x @ w
+    whole = [Replicate() if q.is_partial() else q for q in y.placements]
+    return y if whole == list(y.placements) else \
+        y.redistribute(y.device_mesh, whole)
 
 
 def _out_project(p, out, shard_axis=None):
@@ -454,12 +612,15 @@ def _rope(cfg, theta: float, device):
 
 def attention_block(p, x, *, cfg, window: int | None = None,
                     rope_theta: float | None = None, causal: bool = True,
-                    kv: tuple[torch.Tensor, torch.Tensor] | None = None
-                    ) -> torch.Tensor:
+                    kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    use_chunked: bool | None = None) -> torch.Tensor:
     """Attention over a whole sequence.  x: (B,S,d).  ``causal`` False:
     bidirectional (the encoder's).  ``kv`` overrides K/V (cross-attention
     over the encoder's, :func:`~.transformer.cross_kv`): then no mask, no
-    RoPE on either side and no k-norm, as in the reference."""
+    RoPE on either side and no k-norm, as in the reference.
+    ``use_chunked`` (None: ``S > CHUNKED_ABOVE``) runs self-attention,
+    causal or not, through :func:`chunked_attention`; cross-attention is
+    always :func:`full_attention`."""
     S = x.shape[1]
     window, theta = _layer_args(cfg, window, rope_theta)
     q = _project(p, x, "wq")
@@ -477,10 +638,15 @@ def attention_block(p, x, *, cfg, window: int | None = None,
         positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-    if kv is not None:
-        causal, window = False, 0
-    return _out_project(p, full_attention(q, k, v, window=window,
-                                          causal=causal))
+    if use_chunked is None:
+        use_chunked = S > CHUNKED_ABOVE
+    if use_chunked and kv is None:
+        out = chunked_attention(q, k, v, causal=causal, window=window)
+    elif kv is None:
+        out = full_attention(q, k, v, window=window, causal=causal)
+    else:
+        out = full_attention(q, k, v, window=0, causal=False)
+    return _out_project(p, out)
 
 
 def _window_valid(positions: torch.Tensor, pos: torch.Tensor,
@@ -619,11 +785,14 @@ def _ring_decode_write_attend(q, k_new, v_new, cache: PagedRingKVCache,
 def prefill_into_cache(p, x, cache: KVCache, *, cfg,
                        lengths: torch.Tensor | None = None,
                        window: int | None = None,
-                       rope_theta: float | None = None):
-    """Prefill: full-sequence attention AND populate a (fresh) cache in
-    place.  ``lengths`` (B,) makes this a right-padded batch: positions at
-    or past a row's length are recorded empty (-1) and each row's length
-    is its own.  A ring narrower than the prompt (a sliding layer's)
+                       rope_theta: float | None = None,
+                       use_chunked: bool | None = None):
+    """Prefill: full-sequence attention (:func:`chunked_attention` where
+    ``use_chunked``, None: past ``CHUNKED_ABOVE`` tokens, as the
+    reference's; else :func:`full_attention`) AND populate a (fresh)
+    cache in place.  ``lengths`` (B,) makes this a right-padded batch:
+    positions at or past a row's length are recorded empty (-1) and each
+    row's length is its own.  A ring narrower than the prompt (a sliding layer's)
     keeps the last ``min(W, S)`` positions at their slots."""
     B, S, _ = x.shape
     W = cache.k.shape[1]
@@ -639,7 +808,10 @@ def prefill_into_cache(p, x, cache: KVCache, *, cfg,
         inv = _rope(cfg, theta, x.device)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-    out = full_attention(q, k, v, window=window)
+    if use_chunked is None:
+        use_chunked = S > CHUNKED_ABOVE
+    attend = chunked_attention if use_chunked else full_attention
+    out = attend(q, k, v, causal=True, window=window)
     take = min(W, S)
     tail_pos = torch.arange(S - take, S, device=x.device)
     slots = tail_pos % W

@@ -298,18 +298,24 @@ class _LookupFn(torch.autograd.Function):
 
 def _vocab_parallel_lookup(table, ids):
     """``table[ids]`` for a DTensor table sharded on its rows over one mesh
-    dim (and on no other dim), the ids not split on that mesh dim: the
-    rank's rows looked up locally, the partial results summed over the
-    mesh dim (one all-reduce of the output).  The table's gradient is the
-    rank's rows' alone, a partial sum over the mesh dims that split the
-    ids (the batch: the train step sums it over ``"data"``).  None where
-    the table is placed otherwise (DTensor's own indexing then runs)."""
+    dim, the ids not split on that mesh dim: the rank's rows looked up
+    locally, the partial results summed over the mesh dim (one all-reduce
+    of the output).  A table also split on its columns (the embedding
+    dim, on other mesh dims: FSDP) is gathered whole on them first, an
+    all-gather whose backward reduce-scatters the gradient, so the
+    output keeps the ids' placements (the rows where the batch split
+    puts them); DTensor's own indexing keeps the columns split and the
+    rows whole in one torch version and gathers the table in another.
+    The table's gradient is the rank's rows' alone, a partial sum over
+    the mesh dims that split the ids (the batch: the train step sums it
+    over ``"data"``).  None where the table is placed otherwise
+    (DTensor's own indexing then runs)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = table.device_mesh
     md, lo = _vocab_dim(table, 0)
-    if md is None or any(isinstance(p, Shard) and p.dim != 0 or p.is_partial()
-                         for p in table.placements):
+    if md is None or any(isinstance(p, Shard) and p.dim not in (0, 1)
+                         or p.is_partial() for p in table.placements):
         return None
     if isinstance(ids, DTensor):
         if not ids.placements[md].is_replicate() or any(
@@ -318,6 +324,9 @@ def _vocab_parallel_lookup(table, ids):
         id_pls, ids_local = list(ids.placements), ids.to_local()
     else:
         id_pls, ids_local = [Replicate()] * mesh.ndim, ids
+    whole = [Replicate() if p == Shard(1) else p for p in table.placements]
+    if whole != list(table.placements):
+        table = table.redistribute(mesh, whole)
     grad_pls = [Shard(0) if i == md else
                 (Partial() if not id_pls[i].is_replicate() else p)
                 for i, p in enumerate(table.placements)]

@@ -568,7 +568,8 @@ class Model:
             x = x + y
         return x
 
-    def prefill_step(self, params, batch, max_len: int = 0, plan=None):
+    def prefill_step(self, params, batch, max_len: int = 0, plan=None,
+                     use_chunked: bool | None = None):
         """Run the prompt -> (last-position logits (B, V), fresh caches).
 
         ``max_len`` sizes the cache for the decode horizon.
@@ -576,7 +577,10 @@ class Model:
         prefill: per-row logits come from position ``lengths[b]-1``;
         attention-only families alone (a recurrent scan cannot stop at a
         per-row length: the engine groups equal-length prompts instead).
-        ``plan`` overrides ``self.kernel_plan`` for this call."""
+        ``plan`` overrides ``self.kernel_plan`` for this call;
+        ``use_chunked`` is every attention layer's switch (see
+        :func:`~.attention.prefill_into_cache`; None: the scan past
+        ``CHUNKED_ABOVE`` tokens)."""
         cfg = self.cfg
         plan = plan if plan is not None else self.kernel_plan
         tokens = batch["tokens"].to(self.device)
@@ -611,7 +615,8 @@ class Model:
         x = self._run_layers(
             params, caches, x,
             lambda p, h, kv, **kw: A.prefill_into_cache(
-                p, h, kv, cfg=cfg, lengths=lengths, **kw)[0],
+                p, h, kv, cfg=cfg, lengths=lengths, use_chunked=use_chunked,
+                **kw)[0],
             ssm, plan.linked_matmul, cross=cross)
         if lengths is None:
             x = x[:, -1:]

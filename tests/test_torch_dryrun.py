@@ -12,9 +12,9 @@ shape; zero collective bytes on 1 rank, non-zero wherever the
 reference's are.  FLOPs are held to a band: torch's counter counts
 matmuls and attention, XLA's cost analysis elementwise work too (the
 port counts up to 20% less), and XLA counts a ``lax.scan`` body once:
-the reference's attention past 2048 tokens is ``chunked_attention``, a
-scan over 8 x 4 blocks of 512 x 1024 at 4096 tokens, of which it counts
-one, where the port's ``full_attention`` is counted whole.
+past 2048 tokens both packages' attention is ``chunked_attention``, at
+4096 tokens 8 x 4 blocks of 512 x 1024, of which XLA counts one block,
+where the port's trace counts every block as it runs.
 """
 import dataclasses
 import json
@@ -404,16 +404,52 @@ def test_qwen3_train_record_is_pinned(monkeypatch):
     write is the rank's own (before the vocabulary-parallel lookup, torch
     2.11 found no DTensor strategy for it and replicated it: 1.791e11
     collective bytes against 1.661e11 on 2.13), the loss reduces rows'
-    scalars and the attention runs on each rank's heads."""
+    scalars and the attention runs on each rank's heads, through the
+    chunked scan at 4096 tokens.  The 8 kv heads do not split 16 ways:
+    their projections split d instead, and each rank computes its own d
+    rows of their weight gradients from the cotangent summed over
+    ``"model"`` (an all-reduce of the rank's slice, before the
+    projection), not the whole weights' on every rank (8.0771e13 FLOPs
+    before, 1.4431e13 more: 15/16 of 28 layers x 2 x 2 x 65,536 tokens x
+    2048 x 1024)."""
     monkeypatch.delenv("REPRO_DRYRUN_DEVICES", raising=False)
     rec = dryrun.run_one("qwen3-1.7b", "train_4k", "single", verbose=False,
                          calibrate=False)
-    assert rec["flops_per_device"] == 80771154968576.0
-    assert rec["collectives"] == {"all-reduce": 68965242888.0,
-                                  "all-gather": 7516192768.0}
-    assert rec["collective_bytes_per_device"] == 76481435656.0
+    assert rec["flops_per_device"] == 66340064854016.0
+    assert 80771154968576.0 - rec["flops_per_device"] == \
+        28 * 2 * 2 * 65536 * 2048 * 1024 * 15 / 16
+    assert rec["collectives"] == {"all-reduce": 68745041928.0,
+                                  "all-gather": 15032385536.0}
+    assert rec["collective_bytes_per_device"] == 83777427464.0
     assert rec["memory"]["peak_estimate"] == 16153231372
     assert rec["notes"]["replicated_ops"] == {}
+
+
+def test_qwen3_embed_fsdp_decode_record_is_pinned(monkeypatch):
+    """``tune``'s ``embed_fsdp`` candidate at qwen3-1.7b ``decode_32k`` on
+    the 16 x 16 mesh, pinned, beside the baseline's record (the ranking
+    phase 8 prints, the same on the card machine's torch).  Three things
+    made it depend on the torch version: the embedding lookup of a
+    table whose columns sit on ``"data"`` (DTensor's own indexing: 2.13
+    kept the columns split and the batch whole, 2.11 gathered the
+    table), now the vocabulary-parallel lookup after gathering the
+    columns; a matmul whose weight is split on the mesh dim that splits
+    its rows (2.13 gathered the weight, 2.11 the rows), now the weight
+    gathered (FSDP); and the bytes of ``prim.device`` queries (about
+    half the record's bytes, a count that differs by version), now not
+    counted.  Before: 7.630 ms on 2.13, 8.772 on 2.11."""
+    monkeypatch.delenv("REPRO_DRYRUN_DEVICES", raising=False)
+    rec = autotune.score("qwen3-1.7b", "decode_32k", "single",
+                         autotune.CANDIDATE_RULESETS["embed_fsdp"])
+    assert rec["bound_s"] == 0.003918249346865672
+    assert rec["flops_per_device"] == 7240417280.0
+    assert rec["bytes_per_device"] == 13126135312.0
+    assert rec["collectives"] == {"all-gather": 514297856.0,
+                                  "all-reduce": 236781568.0}
+    assert rec["memory"]["peak_estimate"] == 2196448672
+    base = autotune.score("qwen3-1.7b", "decode_32k", "single", {})
+    assert base["bytes_per_device"] == 13313037072.0
+    assert base["bound_s"] == 0.003974040917014926 > rec["bound_s"]
 
 
 def test_fake_mesh_lifetime():

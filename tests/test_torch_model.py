@@ -255,13 +255,12 @@ def test_port_init_draws_the_reference_distributions():
 
 @pytest.mark.parametrize("S,scan", [(2080, False), (3072, True)])
 def test_one_shot_prefill_past_2048_matches_reference(S, scan, monkeypatch):
-    """Past 2048 tokens the reference's one-shot prefill calls
-    ``chunked_attention`` (``attention.py:686``), which falls back to
-    ``full_attention`` unless S is a multiple of its 512 / 1024 chunks: at
-    2080 both packages run full attention, at 3072 the reference runs its
-    flash-style double scan and the port full attention.  Narrow
-    two-layer config; logits of the last position and the cache agree at
-    the model tolerance."""
+    """Past 2048 tokens both packages' one-shot prefill calls
+    ``chunked_attention`` (the reference's ``attention.py:686``), which
+    falls back to ``full_attention`` unless S is a multiple of its 512 /
+    1024 chunks: at 2080 both run full attention, at 3072 both their
+    flash-style scans (spies on both).  Narrow two-layer config; logits
+    of the last position and the cache agree at the model tolerance."""
     jcfg = dataclasses.replace(
         jax_get_config("qwen3-1.7b").reduced(), d_model=64, n_heads=2,
         n_kv_heads=1, head_dim=32, d_ff=128, max_len=S)
@@ -273,18 +272,24 @@ def test_one_shot_prefill_past_2048_matches_reference(S, scan, monkeypatch):
     toks = np.random.default_rng(S).integers(0, jcfg.vocab, (1, S)) \
         .astype(np.int32)
     from repro.models import attention as ref_attention
-    seen = []
-    real = ref_attention.chunked_attention
+    from repro_torch.models import attention as port_attention
+    seen, port_seen = [], []
 
-    def spy(q, k, *a, **kw):
-        seen.append(q.shape[1] % 512 == 0 and k.shape[1] % 1024 == 0)
-        return real(q, k, *a, **kw)
+    def spy(real, out):
+        def f(q, k, *a, **kw):
+            out.append(q.shape[1] % 512 == 0 and k.shape[1] % 1024 == 0)
+            return real(q, k, *a, **kw)
+        return f
 
-    monkeypatch.setattr(ref_attention, "chunked_attention", spy)
+    monkeypatch.setattr(ref_attention, "chunked_attention",
+                        spy(ref_attention.chunked_attention, seen))
+    monkeypatch.setattr(port_attention, "chunked_attention",
+                        spy(port_attention.chunked_attention, port_seen))
     lj, cj = jm.prefill_step(jp, {"tokens": jnp.asarray(toks)}, max_len=S)
     lt, ct = tm.prefill_step(tp, {"tokens": torch.from_numpy(toks)},
                              max_len=S)
     assert seen and set(seen) == {scan}   # traced once: layers are scanned
+    assert port_seen == [scan] * jcfg.n_layers
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **RTOL)
     nt = np.asarray([[7]], np.int32)
     lj, _ = jm.serve_step(jp, cj, jnp.asarray(nt))

@@ -1,7 +1,8 @@
 """Rank bodies of the port's multi-rank tests (``test_torch_tp.py``,
 ``test_torch_router.py``, ``test_torch_collectives.py``,
-``test_torch_train_mesh.py``), and the trace runner they share with the
-one-device runs they are compared with.
+``test_torch_train_mesh.py``, ``test_torch_long_context.py``), and the
+trace runner they share with the one-device runs they are compared
+with.
 
 A spawned rank imports the module of the function it runs; this one
 imports torch, numpy and ``repro_torch`` only (no jax, no reference), so
@@ -27,6 +28,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 from repro_torch.serving import (ReplicaRouter, Request, SamplingParams,
                                  ServingEngine)
 from repro_torch.serving.speculative import SpecParams
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def build_model(cfg: dict, np_params, device="cpu"):
@@ -424,6 +426,67 @@ def moe_block_run(mesh, case: dict) -> dict:
             out["grads"] = {k: t.grad.full_tensor().cpu().numpy()
                             for k, t in {**p, "x": x}.items()}
     return out
+
+
+class LocalMatmuls(TorchDispatchMode):
+    """The ``aten.mm`` ops a rank runs on its own tensors, at their local
+    shapes, with ``torch.utils.flop_counter``'s FLOPs for each: DTensor
+    ops are declined (DTensor runs them and issues the local ops, which
+    come back here); its sharding propagation, on meta or fake tensors,
+    is not counted.  (``FlopCounterMode`` counts a DTensor op at its
+    global shapes, whatever each rank computes.)"""
+
+    def __init__(self):
+        super().__init__()
+        self.mms: list[tuple[tuple, float]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func._overloadpacket is torch.ops.aten.mm and not any(
+                a.device.type == "meta" or isinstance(a, FakeTensor)
+                for a in args[:2]):
+            self.mms.append((tuple(out.shape), float(
+                flop_registry[func._overloadpacket](*args, out_val=out))))
+        return out
+
+
+def kv_grad_run(mesh, case: dict) -> dict:
+    """The loss and every gradient of ``case["cfg"]`` from the numpy params
+    ``case["params"]`` on the batch ``case["batch"]`` (whole on every
+    rank), the gradients gathered whole; and the shapes and FLOPs of the
+    ``mm`` ops with ``K * hd`` output columns (:class:`LocalMatmuls`):
+    the kv projections, forward and backward, whose weight gradients are
+    the ones with d rows, whole or split."""
+    dev = mesh_device(mesh)
+    cfg = ModelConfig(**case["cfg"])
+    model = Model(cfg, mesh=mesh, device=dev)
+    params = model.place_params(params_from_numpy(case["params"], dev))
+    params = layers.tree_map(lambda t: t.requires_grad_(True), params)
+    batch = model.shard_batch(case["batch"])
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication(), LocalMatmuls() as counter:
+        loss, _, grads = model._grads(params, batch)
+    kv_cols = cfg.n_kv_heads * cfg.resolved_head_dim
+    wk = params["layers"]["attn"]["wk"]
+    return {"loss": float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                          else loss),
+            "grads": [g.full_tensor().detach().cpu().numpy()
+                      if hasattr(g, "full_tensor") else
+                      g.detach().cpu().numpy() for g in grads],
+            "kv_mms": [(shape, f) for shape, f in counter.mms
+                       if shape[1] == kv_cols],
+            "wk_placements": [repr(p) for p in wk.placements]}
+
+
+def kv_grad_rank(mesh, cases: dict) -> dict:
+    """Every case of ``test_torch_long_context.py``'s mesh tests."""
+    return {name: kv_grad_run(mesh, case) for name, case in cases.items()}
 
 
 def train_mesh_rank(mesh, cases: dict) -> dict:
