@@ -42,7 +42,18 @@ Phases (any failure exits non-zero before the result line):
    at seamless-m4t-large-v2's 16 / 16 of 64 over a 512-frame cross span
    with every slot valid and over its 69-slot self span, each timed
    beside SDPA; ``fused_mask`` at (8, 50304) in 50,432-wide rows and at
-   (8, 256206) in 256,256-wide rows, served and greedy;
+   (8, 256206) in 256,256-wide rows, served and greedy; and at the large
+   dense decoders': ``linked_mlp`` at chatglm3-6b's, granite-8b's,
+   internlm2-20b's and chameleon-34b's widths (d 4096-8192, where
+   clusters split d) at decode and a 32-token chunk of the slots,
+   arctic-480b's dense residual (d 7168) at decode, batched prefill's
+   4352 rows at chatglm3's and internlm2's widths (against the fp64 sum),
+   each timed beside the unlinked form, the FFMA kernel forced by its
+   plan, the plain version and the bound, and untimed at the ragged
+   ownership edges (d 2056, 4104, 6152, ff no multiple of 64): the
+   tensor-core kernel planned at every one, the same bits twice; both
+   decode kernels at 32 q / 2 kv (G 16), 48 / 8 and 64 / 8 heads of 128,
+   element by element, then timed beside SDPA;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
    seeded) through ``repro_torch.launch.serve``'s engine: 16 requests of
    ~512-token prompts, 64 new tokens each, once with dense KV greedy and
@@ -80,14 +91,14 @@ Phases (any failure exits non-zero before the result line):
    over the three.  Prints each run's acceptance, verify calls, verify
    ms by width K1, its graphs' pool and decode tokens/s beside its
    twin's;
-3c. the attention cache families at full width: gemma3-1b (26 layers
-   ``SSSSSG``, window 512, RoPE theta 10k / 1M; random weights, seed 0,
-   bf16) serving 16 requests of 600-1100-token prompts (past the
+3c. the attention cache families at full width: gemma3-1b (12 of its
+   26 layers, ``G3_DEPTH``, cut for time: ``SSSSSG`` twice, window 512,
+   RoPE theta 10k / 1M; random weights, seed 0, bf16) serving 16 requests of 600-1100-token prompts (past the
    window: every sliding ring wraps in prefill) and 64 new tokens, dense
    KV greedy and the mixed pool sampled (T 0.8, top-k 50, top-p 0.95),
    each graphed beside its eager twin, streams equal bit for bit; a
-   decode tick launches ``gqa_decode`` 26 times (dense) or 22 times plus
-   ``gqa_decode_paged`` 4 times (mixed), ``linked_mlp_tc`` 26 times and
+   decode tick launches ``gqa_decode`` 12 times (dense) or 10 times plus
+   ``gqa_decode_paged`` twice (mixed), ``linked_mlp_tc`` 12 times and
    ``fused_mask`` once; every request holds a classic and a ring lease,
    the ring lease window / block size blocks whatever its context; then
    qwen3-1.7b with a 512-token window, 8 requests, ring-paged beside
@@ -172,6 +183,23 @@ Phases (any failure exits non-zero before the result line):
    first decode step's logits within the bf16 tolerance and every token
    by phase 4's margin rule; (i) ≡ (ii) by the same rule for qwen3,
    reported for gemma3;
+3h. the reference's large dense decoders at full width (random weights,
+   seed 0, drawn leaf by leaf into bf16 by ``launch/serve.py``'s
+   ``init_params``, whose peak must stay within the bf16 tree plus the
+   largest leaf's fp32 draw plus 1 GB; 8 slots over 2048, dense KV,
+   chunk 32, 32 new tokens, replanning off): chatglm3-6b (28 layers, 32
+   q / 2 kv heads, partial RoPE) serving 16 greedy requests of
+   480-544-token prompts (two waves), then 8 paged and sampled (T 0.8,
+   top-k 50, top-p 0.95); granite-8b (36 layers) and internlm2-20b (48)
+   8 greedy; chameleon-34b at 12 of its 48 layers (``LARGE_DEPTH``: its
+   full depth does not fit one card), 8 greedy.  Each run graphed beside
+   its eager twin, streams equal bit for bit; every ``linked_mlp``
+   launch, prefill and decode, a ``linked_mlp_tc`` one; a decode replay
+   launches ``linked_mlp_tc`` and the decode-attention kernel once a
+   layer and ``fused_mask`` once.  Prints each model's init peak beside
+   its bf16 and largest-leaf fp32 bytes, steady step, device ms a tick,
+   busy share, weights and KV bytes and the MLP's device ms a tick
+   beside its weights' bytes bound; each model is freed before the next;
 4. hold the routed ``cuda`` plan against the plain-torch plan (every
    site) on the same weights and prompts at reduced depth (qwen3 at 2
    layers; gemma3 at 6, five sliding and one global, 600-token
@@ -182,7 +210,10 @@ Phases (any failure exits non-zero before the result line):
    engine's computation replayed for one request) exceeds the bf16
    tolerance; an olmoe stream may also part after a routing decision
    within the bf16 tolerance of its top-k boundary (a bf16 difference
-   in a layer's input can swap an expert: ``routing_margins``);
+   in a layer's input can swap an expert: ``routing_margins``); the
+   same rule for chatglm3-6b and internlm2-20b at 2 layers and full
+   width (attention at one layer's fan-in) and chameleon-34b at 2 (its
+   qk-norm);
 5. the paper's CNN path: the zoo's MobileNet (224, width 1.0, 1000
    classes) and ResNet18 (224, width 64, 1000 classes) at the zoo's depth,
    the Figure-5 graph, both Table-4 CBRA graphs, and the zoo's
@@ -406,6 +437,9 @@ G3_D_MODEL, G3_D_FF, G3_VOCAB = 1152, 6912, 262144
 G3_PROMPT_LENS = (600, 1100)
 #: phase 3c's profiled decode ticks (the first wave's decode)
 G3_WINDOW_TICKS = (40, 45)
+#: phase 3c's gemma3-1b depth (of 26): two SSSSSG periods, both layer
+#: kinds, cut for time as phase 3d's (its runs are host-bound a layer)
+G3_DEPTH = 12
 #: hymba-1.5b (configs/hymba_1_5b.py): 25 q / 5 kv heads of 64 over a
 #: 1024-token window, d 1600, ff 5504, vocab 32,001 in a 32,256-wide
 #: padded row; mamba2-370m's vocab 50,280 in a 50,432-wide row
@@ -463,6 +497,25 @@ SM_SELF = 69
 #: timed
 LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 31744, 64, 32768
 LONG_CHUNK, LONG_SEED, LONG_EAGER_STEPS = 512, 41, 8
+#: phase 2 / 3h: the reference's large dense decoders, each at full
+#: width; LARGE_DEPTH cuts a depth (chameleon-34b: its 48 layers' bf16
+#: weights beside its largest leaf's fp32 draw do not fit one card)
+LARGE_ARCHS = ("chatglm3-6b", "granite-8b", "internlm2-20b", "chameleon-34b")
+LARGE_DEPTH = {"chameleon-34b": 12}
+#: phase 3h's new tokens a request and its profiled decode ticks (the
+#: first wave's decode, whether the prompts were admitted in chunks or
+#: at once)
+LARGE_NEW, LARGE_WINDOW = 32, (20, 25)
+#: phase 2: the tensor-core kernel's column ownership at ragged widths (a
+#: d just past 2048, d that no cluster's 256-column ranks divide) with ff
+#: no multiple of 64: (M, d, ff)
+MLP_RAGGED_WIDE = {"ragged_d2056": (37, 2056, 6144),
+                   "ragged_d4104": (8, 4104, 13704),
+                   "ragged_d6152": (65, 6152, 16392)}
+#: phase 2: the decode kernels at the large decoders' head layouts (q
+#: heads, kv heads) of 128
+LARGE_HEADS = {"chatglm3": (32, 2), "internlm2": (48, 8),
+               "chameleon": (64, 8)}
 #: phase 8: the full-width dry runs on the 16x16 production mesh, the
 #: tuned (arch, shape), the hillclimb pair, and the time the phase's
 #: process may take past phase 7's end
@@ -1455,10 +1508,12 @@ def mlp_plan(torch, ops, args):
         slots=ops.cluster_slots(x.device))
 
 
-def time_mlp_case(torch, ops, gen, label, args, row):
+def time_mlp_case(torch, ops, gen, label, args, row, ffma=False):
     """The kernel's, plain and unlinked times at ``args``' shape, rotating
     over two weight sets (151 MB at the served widths, past the 50 MB L2:
-    serving reads each layer's weights cold)."""
+    serving reads each layer's weights cold); ``ffma`` also times the
+    FFMA kernel, forced by its plan (the route bf16 widths past d 2048
+    took before clusters split d)."""
     (M, d), ff = args[0].shape, args[1].shape[1]
     sets = [args, mlp_inputs(torch, M, d, ff, args[0].dtype, gen)]
     nbytes = 2 * (3 * d * ff + 2 * M * d)
@@ -1472,16 +1527,44 @@ def time_mlp_case(torch, ops, gen, label, args, row):
                              for a in sets]),
         "unlinked_ms": cuda_ms([lambda a=a: unlinked_mlp(*a) for a in sets]),
         "bound_ms": b_ms, "bound_by": b_by})
+    if ffma:
+        x = args[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        fplan = ops.mlp_plan(M, d, ff, x.dtype, True, sms, path="ffma")
+        r["ffma_plan"] = fplan._asdict()
+        # at batched prefill's rows a call takes 0.2-0.4 s: fewer calls
+        n = 24 if M < 1024 else 4
+        r["ffma_ms"] = cuda_ms([lambda a=a: ops.linked_mlp(*a, plan=fplan)
+                                for a in sets], iters=n, warmup=min(3, n))
+        # the cluster sizes the planner weighed and did not choose
+        r["other_clusters"] = {}
+        for cl in ops.tc_clusters(d):
+            if cl == r["plan"]["cl"]:
+                continue
+            alt = ops.mlp_plan(M, d, ff, x.dtype, True, sms, path="tc",
+                               slots=ops.cluster_slots(x.device), cl=cl)
+            r["other_clusters"][cl] = {
+                "S": alt.S, "ms": cuda_ms([lambda a=a: ops.linked_mlp(
+                    *a, plan=alt) for a in sets])}
     print(f"linked_mlp {label} ({M},{d})@({d},{ff}): {r['ms']:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
-          f"unlinked {r['unlinked_ms']:.4f} ms")
+          f"unlinked {r['unlinked_ms']:.4f} ms"
+          + (f", FFMA kernel {r['ffma_ms']:.4f} ms (plan "
+             f"{r['ffma_plan']}): tensor-core faster "
+             f"{r['ms'] < r['ffma_ms']}, unlinked faster "
+             f"{r['unlinked_ms'] < r['ms']}; the planned cluster of "
+             f"{r['plan']['cl']} (S {r['plan']['S']}) beside the others "
+             + ", ".join(f"{c} (S {o['S']}) {o['ms']:.4f} ms"
+                         for c, o in r["other_clusters"].items())
+             if ffma else ""))
 
 
-def linked_mlp_case(torch, ops, gen, label, shape, row, timed):
+def linked_mlp_case(torch, ops, gen, label, shape, row, timed, ffma=False):
     """Hold ``linked_mlp`` against its plain version at ``shape`` (M, d,
     ff, dtype), twice (the same bits both times), and fold the error into
     ``row``; ``timed`` also prints how far the plain version lands from
-    the fp64-summed one and times the shape."""
+    the fp64-summed one and times the shape (``ffma``: the FFMA kernel
+    too)."""
     M, d, ff, dt = shape
     name = str(dt).split(".")[-1]
     args = mlp_inputs(torch, M, d, ff, dt, gen)
@@ -1503,11 +1586,12 @@ def linked_mlp_case(torch, ops, gen, label, shape, row, timed):
     print(f"linked_mlp {label}: fp32 plain vs fp64-summed plain, worst "
           f"err / (atol + rtol |fp64|) {noise:.3f}")
     row["per_shape"][label] = {"order_noise": noise}
-    time_mlp_case(torch, ops, gen, label, args, row)
+    time_mlp_case(torch, ops, gen, label, args, row, ffma)
 
 
 def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
-                       label: str = "batched_prefill", n_sets: int = 3):
+                       label: str = "batched_prefill", n_sets: int = 3,
+                       d: int = D_MODEL, ff: int = D_FF, ffma=False):
     """Batched prefill's shape: the engine pads a group of ``SLOTS``
     admitted prompts to the longest, so M = SLOTS x PROMPT_LENS[1] (and
     phase 3g's one-shot prefill of one ``LONG_PROMPT``-token prompt, M =
@@ -1519,11 +1603,13 @@ def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
     error must stay within ``MLP_ORDER_FACTOR`` times the plain
     version's on the same inputs.  Two planted faults, launched through
     the kernel, must fail the same test: one up-projection term (the
-    last of d) and one ff column (the last) left out."""
+    last of d) and one ff column (the last) left out.  ``d`` / ``ff``:
+    the width (qwen3-1.7b's by default); ``ffma`` times the FFMA kernel
+    too."""
     tol = MLP_TOL["bfloat16"]
     worst = {"kernel": 0.0, "plain": 0.0, "ratio": 0.0}
     for i in range(n_sets):
-        args = mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen)
+        args = mlp_inputs(torch, M, d, ff, torch.bfloat16, gen)
         plan = mlp_plan(torch, ops, args)
         if plan.path != "tc":
             fail(f"linked_mlp {label}: planned {plan}, want the "
@@ -1544,8 +1630,8 @@ def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
                                     tol),
                   "ff_column": mlp_err(ops.linked_mlp(x, wg, wu, wd_cut),
                                        ref, tol)}
-        print(f"linked_mlp {label} set {i} ({M},{D_MODEL})@"
-              f"({D_MODEL},{D_FF}) bf16, worst err / (atol + rtol |fp64|): "
+        print(f"linked_mlp {label} set {i} ({M},{d})@({d},{ff}) bf16, "
+              f"plan {plan._asdict()}, worst err / (atol + rtol |fp64|): "
               f"kernel {e_k:.3f}, plain {e_p:.3f} (kernel vs plain "
               f"{e_kp:.3f}); planted faults "
               + ", ".join(f"{k} {v:.3f}" for k, v in faults.items()))
@@ -1565,8 +1651,8 @@ def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
         del args, got, ref, plain, x_cut, wd_cut
     row["per_shape"][label] = {"vs_fp64": worst}
     time_mlp_case(torch, ops, gen, label,
-                  mlp_inputs(torch, M, D_MODEL, D_FF, torch.bfloat16, gen),
-                  row)
+                  mlp_inputs(torch, M, d, ff, torch.bfloat16, gen), row,
+                  ffma)
 
 
 def check_linked_mlp(torch, ops, gen, chunks, report):
@@ -1618,6 +1704,97 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
     head = row["per_shape"]["decode"]
     row.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "unlinked_ms", "shape")})
+
+
+def check_linked_mlp_large(torch, ops, gen, get_config, report):
+    """The tensor-core kernel past d 2048, where clusters split d
+    (``tc_columns``).  Each large decoder's SwiGLU (``LARGE_ARCHS``) at
+    decode (slots rows) and a 32-token chunk of the slots, arctic-480b's
+    dense residual at decode, batched prefill's rows at chatglm3-6b's
+    and internlm2-20b's widths (held against the fp64-summed MLP, as at
+    qwen3's), each timed beside the unlinked form, the FFMA kernel (the
+    route of every bf16 width past 2048 before), the plain version and
+    the bound; the ragged ownership edges (``MLP_RAGGED_WIDE``).  Every
+    one must plan the tensor-core kernel; the rows go under
+    ``per_shape``."""
+    bf16 = torch.bfloat16
+    row = report["linked_mlp"]
+    widths = {arch.split("-")[0]: (get_config(arch).d_model,
+                                   get_config(arch).d_ff)
+              for arch in LARGE_ARCHS}
+    arctic = get_config("arctic-480b")
+    timed = {}
+    for name, (d, ff) in widths.items():
+        timed[f"{name}_decode"] = (SLOTS, d, ff, bf16)
+        timed[f"{name}_prefill_c32"] = (SLOTS * 32, d, ff, bf16)
+    timed["arctic_residual_decode"] = (SLOTS, arctic.d_model, arctic.d_ff,
+                                       bf16)
+    cases = {**timed, **{k: (M, d, ff, bf16)
+                         for k, (M, d, ff) in MLP_RAGGED_WIDE.items()}}
+    for label, shape in cases.items():
+        linked_mlp_case(torch, ops, gen, label, shape, row,
+                        timed=label in timed, ffma=True)
+        plan = mlp_plan(torch, ops, mlp_inputs(torch, 1, shape[1], shape[2],
+                                               bf16, gen))
+        if plan.path != "tc":
+            fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
+                 "kernel")
+        torch.cuda.empty_cache()
+    for name in ("chatglm3", "internlm2"):
+        d, ff = widths[name]
+        linked_mlp_batched(torch, ops, gen, row, label=f"{name}_batched",
+                           n_sets=1, d=d, ff=ff, ffma=True)
+        torch.cuda.empty_cache()
+    faster = {k: r["ms"] < r["ffma_ms"] for k, r in row["per_shape"].items()
+              if "ffma_ms" in r}
+    print(f"linked_mlp past d 2048: the tensor-core kernel faster than the "
+          f"FFMA kernel at {sum(faster.values())} of {len(faster)} timed "
+          f"shapes (slower at {[k for k, v in faster.items() if not v]})")
+    row["large_faster_than_ffma"] = faster
+
+
+def check_decode_large(torch, ops, gen, bs, report):
+    """Both decode kernels at the large decoders' head layouts
+    (``LARGE_HEADS``, head_dim 128): chatglm3-6b's 32 q / 2 kv (G 16, so
+    GT 2 and each K/V row read 8 times), internlm2-20b's 48 / 8 (G 6)
+    and chameleon-34b's 64 / 8 (G 8); element by element against the
+    plain version in fp32 and bf16, dense and paged (block size ``bs``),
+    then timed over ~560 live of 2048 slots beside SDPA (``enable_gqa``)
+    and the bound.  Rows go under each kernel's ``large``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
+    kernels = (("gqa_decode", ops.gqa_decode, ops.gqa_decode_plain, None),
+               ("gqa_decode_paged", ops.gqa_decode_paged,
+                ops.gqa_decode_paged_plain, bs))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        key = "max_abs_err" if name == "bfloat16" else "max_abs_err_fp32"
+        for arch, heads in LARGE_HEADS.items():
+            for label, fn, plain, pbs in kernels:
+                args = shard_decode_inputs(torch, dtype, heads, lengths, gen,
+                                           pbs)
+                err = check_close(f"{label} {arch} {name} (G "
+                                  f"{heads[0] // heads[1]}, D {D})",
+                                  fn(*args), plain(*args), name)
+                report[label][key] = max(report[label][key], err)
+    ls = [560, 512, 600, 540, 580, 530, 590, 520]
+    rows = sum(ls)
+    for arch, (h, k) in LARGE_HEADS.items():
+        for label, _, _, pbs in kernels:
+            sets = [shard_decode_inputs(torch, torch.bfloat16, (h, k), ls,
+                                        gen, pbs) for _ in range(ROTATE)]
+            nbytes = 2 * rows * k * D * 2 + 2 * SLOTS * h * D * 2 \
+                + (SLOTS * MAX_LEN if pbs is None
+                   else sets[0][3].numel() * 4 + SLOTS * 4)
+            r = report[label].setdefault("large", {})[arch] = time_decode_row(
+                torch, ops, sets, nbytes, 4 * rows * h * D,
+                paged=pbs is not None, shape=[SLOTS, h, k, D, MAX_LEN],
+                splits=ops.decode_grid(SLOTS, k, h // k, MAX_LEN, sms, D)[1])
+            print_share({"name": f"{label} {arch} ({h} q / {k} kv, G "
+                         f"{h // k}) ~560 of {MAX_LEN} slots ({r['splits']} "
+                         f"splits)", **r})
+            print(f"{label} {arch}: faster than SDPA "
+                  f"{r['ms'] < r['library_ms']}")
 
 
 def check_split_matmul(torch, ops, gen, report):
@@ -1707,7 +1884,12 @@ def profile_window(torch, prof, ticks: int) -> dict:
     total = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     dec = [(us, n) for us, key, n in rows if "decode_kernel" in key]
+    mlp = [(us, n) for us, key, n in rows if "linked_mlp" in key]
     return {"device_ms_per_tick": total / 1e3 / ticks if total else None,
+            # both linked_mlp kernels and their split reduce
+            "linked_mlp": {
+                "ms_per_tick": sum(us for us, _ in mlp) / 1e3 / ticks,
+                "calls_per_tick": sum(n for _, n in mlp) / ticks},
             "top_kernels": [{"name": k[:80], "ms_per_tick": us / 1e3 / ticks,
                              "calls_per_tick": n / ticks}
                             for us, k, n in rows[:8]],
@@ -2227,6 +2409,146 @@ def recurrent_phase(torch, kernels, serve, hymba, mamba2) -> dict:
               f"(busy {e['busy_share']}), graphed {g['mean_decode_ms']:.2f} "
               f"ms (busy {g['busy_share']}); cache {state_mb(g)}")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the reference's large dense decoders at full width
+# ---------------------------------------------------------------------------
+
+def tree_bytes(params) -> tuple[int, int]:
+    """A param tree's bytes and its largest leaf's elements."""
+    from repro_torch.models.layers import tree_leaves
+    leaves = tree_leaves(params)
+    return (sum(t.numel() * t.element_size() for t in leaves),
+            max(t.numel() for t in leaves))
+
+
+def large_run(torch, kernels, serve, model, params, label, args, seed):
+    """One phase 3h run: graphed, then its eager twin on the same
+    requests (each engine freed before the next is built), streams equal
+    bit for bit.  Every ``linked_mlp`` launch, prefill and decode, is a
+    ``linked_mlp_tc`` one; a decode replay launches ``linked_mlp_tc`` and
+    the KV layout's decode-attention kernel once a layer and
+    ``fused_mask`` once."""
+    cfg = model.cfg
+    attn = decode_kernels(model, args.kv)
+    runs = {}
+    for graphed in (True, False):
+        name = label if graphed else f"{label}_eager"
+        engine = serve.build_engine(args, model, params, graphed=graphed)
+        runs[name] = serve_phase(torch, kernels, serve, engine, args, name,
+                                 seed, window=LARGE_WINDOW)
+        runs[name]["kv_bytes"] = kv_bytes(engine)
+        del engine
+        ln = runs[name]["launches"]
+        check_launches(name, runs[name], cfg, True, attn)
+        if ln["linked_mlp"] != ln["linked_mlp_tc"]:
+            fail(f"{name}: {ln['linked_mlp'] - ln['linked_mlp_tc']} "
+                 "linked_mlp launches went to the FFMA kernel")
+        if graphed:
+            want = {**attn, "linked_mlp_tc": cfg.n_layers, "fused_mask": 1}
+            got = runs[name]["graphs"]["serve_sample"]["launches"]
+            if {k: got.get(k, 0) for k in want} != want:
+                fail(f"{name}: a decode replay launches {got}, want {want}")
+    same_streams(f"{label} graphed vs eager", runs[label],
+                 runs[f"{label}_eager"])
+    return runs
+
+
+def large_dense_phase(torch, kernels, serve, Model, get_config,
+                      card: str) -> dict:
+    """Phase 3h: chatglm3-6b, granite-8b and internlm2-20b at full
+    width and depth, chameleon-34b at full width and ``LARGE_DEPTH``
+    layers; random weights from seed 0 drawn leaf by leaf into bf16
+    through ``launch/serve.py``'s ``init_params`` (the init's peak, held
+    to the bf16 tree + the largest leaf's fp32 draw + 1 GB, printed
+    beside both), 8 slots over 2048, dense KV, chunk 32, ``LARGE_NEW``
+    new tokens.  chatglm3-6b: 16 greedy requests of 480-544-token
+    prompts (two waves: the second admitted into slots the first freed),
+    then 8 paged and sampled (T 0.8, top-k 50, top-p 0.95); the others 8
+    greedy.  Each run graphed beside its eager twin (:func:`large_run`).
+    Prints each model's steady step, device ms a tick, busy share,
+    weights and KV bytes, and the MLP's device ms a tick beside the
+    bytes bound of its weights.  Each model, its engines and graphs are
+    freed before the next is built."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 3h starts with {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"reserved ({card})")
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.95)
+    out, models = {}, {}
+    for i, arch in enumerate(LARGE_ARCHS):
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=LARGE_DEPTH.get(arch, full))
+        model = Model(cfg, device=DEV)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        params = serve.init_params(model, 0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - held
+        nbytes, largest = tree_bytes(params)
+        limit = nbytes + 4 * largest + 1e9
+        cut = f"{cfg.n_layers} of {full} layers" if cfg.n_layers != full \
+            else f"{full} layers"
+        print(f"{arch} full width ({cut}, d {cfg.d_model}, "
+              f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+              f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, rope_fraction "
+              f"{cfg.rope_fraction}, qk_norm {cfg.qk_norm}, vocab "
+              f"{cfg.vocab}): {model.param_count() / 1e9:.3f} B params "
+              f"drawn leaf by leaf into {cfg.dtype} in {init_s:.1f} s; "
+              f"weights {nbytes / 1e9:.2f} GB, largest leaf's fp32 draw "
+              f"{4 * largest / 1e9:.2f} GB, init peak "
+              f"(max_memory_allocated less the {held / 1e9:.2f} GB held) "
+              f"{peak / 1e9:.2f} GB against {limit / 1e9:.2f} GB ({card})")
+        if peak > limit:
+            fail(f"{arch}: the init's peak {peak / 1e9:.2f} GB exceeds the "
+                 f"bf16 tree + one fp32 leaf + 1 GB ({limit / 1e9:.2f})")
+        short = arch.split("-")[0]
+        plan = [(f"{short}_greedy", dict(kv="dense",
+                                         requests=16 if i == 0 else SLOTS))]
+        if i == 0:
+            plan.append((f"{short}_paged_sampled",
+                         dict(kv="paged", requests=SLOTS, **sampled)))
+        info = {"layers": cfg.n_layers, "full_layers": full,
+                "weights_bytes": nbytes, "init_peak_bytes": peak,
+                "init_limit_bytes": limit, "init_s": init_s}
+        mlp_bound = bound_ms(2 * 3 * cfg.d_model * cfg.d_ff * cfg.n_layers,
+                             0, "bfloat16")[0]
+        for j, (label, over) in enumerate(plan):
+            args = serve_args(serve, max_new=LARGE_NEW, **over)
+            runs = large_run(torch, kernels, serve, model, params,
+                             f"large_{label}", args, 60 + 2 * i + j)
+            g = runs[f"large_{label}"]
+            e = runs[f"large_{label}_eager"]
+            prof = g["profile"] or {}
+            mlp = prof.get("linked_mlp", {})
+            kvb = g["kv_bytes"]
+            print(f"{label}: steady decode step graphed "
+                  f"{g['mean_decode_ms']:.2f} ms, eager "
+                  f"{e['mean_decode_ms']:.2f}; device "
+                  f"{prof.get('device_ms_per_tick')} ms a tick, busy "
+                  f"{g['busy_share']} (eager {e['busy_share']}); weights "
+                  f"{nbytes / 1e9:.2f} GB, KV "
+                  + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in kvb.items())
+                  + f"; linked_mlp {mlp.get('ms_per_tick')} ms a tick "
+                  f"({mlp.get('calls_per_tick')} calls) beside its weights' "
+                  f"bytes bound {mlp_bound:.3f} ms; wall {g['wall_s']:.1f} / "
+                  f"{e['wall_s']:.1f} s ({card})")
+            info[label] = {"mlp_bound_ms": mlp_bound,
+                           "mlp_ms_per_tick": mlp.get("ms_per_tick")}
+            out.update(runs)
+        models[arch] = info
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 3h in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    return {"runs": out, "models": models}
 
 
 # ---------------------------------------------------------------------------
@@ -4840,6 +5162,7 @@ def main() -> int:
     cli = ap.parse_args()
     if cli.planning:
         return planning_child(cli.planning)
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
@@ -4905,12 +5228,13 @@ def main() -> int:
         fail(f"the engine's chunk {paged_engine.scheduler.cfg.chunk} is not "
              f"one of {pipeline.SERVE_CHUNK_SIZES}")
     g3cfg = get_config("gemma3-1b")
-    g3_model = Model(g3cfg, device=DEV)
+    g3_model = Model(dataclasses.replace(g3cfg, n_layers=G3_DEPTH),
+                     device=DEV)
     t0 = time.perf_counter()
     g3_params = g3_model.cast_params(g3_model.init(
         torch.Generator(device=DEV).manual_seed(0)))
     torch.cuda.synchronize()
-    print(f"gemma3-1b full width ({g3cfg.n_layers} layers "
+    print(f"gemma3-1b full width ({G3_DEPTH} of {g3cfg.n_layers} layers "
           f"{g3cfg.layer_pattern} at window {g3cfg.sliding_window}, d "
           f"{g3cfg.d_model}, {g3cfg.n_heads} q / {g3cfg.n_kv_heads} kv heads "
           f"of {g3cfg.resolved_head_dim}, vocab {g3cfg.vocab}): "
@@ -4936,6 +5260,7 @@ def main() -> int:
     check_decode_hymba(torch, dec_ops, gen, report)
     check_decode_g1(torch, dec_ops, gen, bs, report)
     check_decode_long(torch, dec_ops, gen, g3_bs, report)
+    check_decode_large(torch, dec_ops, gen, bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
     check_fused_mask_rows(torch, fs_ops, gen, report, "gemma3", G3_VOCAB,
                           G3_VOCAB + 256)
@@ -4949,6 +5274,7 @@ def main() -> int:
                           SM_ROW)
     check_cbr_avgpool(torch, cb_ops, gen, report)
     check_linked_mlp(torch, lm_ops, gen, pipeline.SERVE_CHUNK_SIZES, report)
+    check_linked_mlp_large(torch, lm_ops, gen, get_config, report)
     check_split_matmul(torch, sm_ops, gen, report)
     result["kernels"] = report
     if cli.kernels_only:
@@ -5003,6 +5329,11 @@ def main() -> int:
     for arch, r in result["long_context"].items():
         runs[f"long_{arch}_batched"] = r["batched"]
         runs[f"long_{arch}_chunked"] = r["chunked"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    large = large_dense_phase(torch, kernels, serve, Model, get_config, card)
+    runs.update(large["runs"])
+    result["large_dense"] = large["models"]
     result["serve"] = runs
     result["parity"] = parity_phase(torch, serve, pipeline, Model, cfg)
     # gemma3 at six layers (five sliding, one global), prompts past the
@@ -5024,6 +5355,15 @@ def main() -> int:
         per_layer_fan_in=True)
     result["parity_seamless"] = parity_translate(
         torch, pipeline, Model, get_config("seamless-m4t-large-v2"))
+    # the large dense decoders at 2 layers, full width: chatglm3-6b (G 16,
+    # partial RoPE) and internlm2-20b without qk-norm, so at one layer's
+    # fan-in as olmoe's; chameleon-34b with it
+    for arch, fan_in in (("chatglm3-6b", True), ("internlm2-20b", True),
+                         ("chameleon-34b", False)):
+        result[f"parity_{arch.split('-')[0]}"] = parity_phase(
+            torch, serve, pipeline, Model, get_config(arch),
+            per_layer_fan_in=fan_in)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
     plan, _ = pipeline.select_kernel_plan({"accelerator": "cuda"})
@@ -5073,8 +5413,10 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     result["table"] = table
+    result["smoke_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1,
                                                         default=str))
+    print(f"smoke in {result['smoke_s']:.1f} s ({card})")
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@
 // 2048 * 6144 * 2 B = 75.5 MB of weights against 0.60 GFLOP: ~22.5 us at
 // 3.35 TB/s (bytes).  Batched prefill, M = 8 x 544 = 4352: 329 GFLOP,
 // ~0.33 ms at the bf16 tensor-core peak (operations); on the fp32 FFMA
-// pipes (67 TFLOP/s) the same work takes 4.9 ms.
+// pipes (67 TFLOP/s) the same work takes 4.9 ms.  The large dense
+// decoders: chatglm3-6b's (d 4096, ff 13696) 0.1005 ms at decode (bytes),
+// 1.48 ms at M 4352 (operations); chameleon-34b's (8192, 22016) 0.323 /
+// 4.76 ms.
 //
 // Two kernels, chosen per call by ops.py's planner (``mlp_plan``), which
 // also picks every grid size from the shapes, the device's SM count and
@@ -29,13 +32,25 @@
 // Both keep the operator linking: the hidden activation h (M x ff) is
 // produced and consumed on chip and never written to device memory.
 //
-// linked_mlp_tc (bf16, d and ff multiples of 8, 16-byte aligned tensors,
-// d <= 2048): the tensor cores, through wgmma (bf16 in, fp32 out), both
-// operands read from shared memory by descriptor.
-//   * Grid: (C CTAs, a cluster splitting d) x (M tiles of 64 rows) x (S
-//     splits of ff).  Cluster rank c owns y's columns [256 c, 256 c + 256)
-//     and keeps that 64 x 256 fp32 block in registers (two warpgroups,
-//     64 x 128 each) over the whole ff walk.  (A 128-row tile over 16
+// linked_mlp_tc (bf16, d and ff multiples of 8, 16-byte aligned tensors):
+// the tensor cores, through wgmma (bf16 in, fp32 out), both operands read
+// from shared memory by descriptor.
+//   * Grid: (column blocks of y, grouped C to a cluster) x (M tiles of 64
+//     rows) x (S splits of ff).  CTA x along the first axis owns y's
+//     columns [256 x, 256 x + 256) and keeps that 64 x 256 fp32 block in
+//     registers (two warpgroups, 64 x 128 each) over the whole ff walk;
+//     cluster rank c of cluster q is CTA x = q C + c.  The grid's first
+//     axis is ceil(d / 256) rounded up to a multiple of C (a CTA past d
+//     owns no column but still computes its h blocks for its cluster).
+//     With n = ceil(d / (256 C)) > 1 clusters split d, each computing
+//     every h block of its split again: (2n + 1) / 3 of the FLOPs, and
+//     Wg / Wu read n times (the n clusters of a split are adjacent in the
+//     grid, so they run together and share those reads through L2).  C
+//     is at most 16, a non-portable cluster size past 8 (H100 SXM: one
+//     such cluster a GPC), so n can stay at 2 up to d 8192; ops.py's
+//     planner chooses C (n from 1 up to the portable clusters' ceil(d /
+//     2048)) by its model of waves x rounds x steps a round, from the
+//     occupancy calculator's clusters a wave.  (A 128-row tile over 16
 //     ranks of 128 columns spilled and timed slower: PERF.md.)
 //   * The split's ff blocks (64 columns) are dealt to the cluster's CTAs
 //     round robin.  In a round each CTA computes [g | u] for its block
@@ -45,8 +60,9 @@
 //     the round's h blocks through distributed shared memory, two buffers
 //     deep (block j + 1 loads while block j multiplies), and adds h_blk @
 //     Wd[blk, its columns] into its y block, in block order.  So each
-//     weight byte is read once per M tile, and h stays in shared memory
-//     (two buffers of the CTA's own, so one cluster barrier a round).
+//     Wd byte is read once per M tile (Wg and Wu n times), and h stays in
+//     shared memory (two buffers of the CTA's own, so one cluster barrier
+//     a round).
 //   * x, Wg, Wu (64 x 64 tiles) and Wd (64 x 256, as four 64 x 64 blocks)
 //     stream through a 4-stage ring of 32 KB stages filled by 16-byte
 //     cp.async copies, zero-filled past M, d and ff; each thread's copy
@@ -454,7 +470,7 @@ constexpr int kStage = 64 * 256;    // bf16 elements of a ring stage (32 KB)
 // rank's slice.
 constexpr int kBM = 64;
 constexpr int kDS = 256;
-constexpr int kMaxCluster = 8;              // portable cluster size
+constexpr int kMaxCluster = 16;             // non-portable past 8
 constexpr int kH = kBM * kBF;               // bf16 elements of an h block
 static_assert((kBM + 2 * kBK) * kBF <= kStage && kBF * kDS <= kStage,
               "a ring stage holds either step's tiles");
@@ -549,12 +565,12 @@ struct Cursor {
 };
 
 // x (M,d), wg/wu (d,ff), wd (ff,d) bf16; part (S,M,d) fp32 (S > 1) or out
-// (M,d) bf16 (S == 1).  gridDim = (C, M tiles, S), cluster (C, 1, 1).
+// (M,d) bf16 (S == 1).  gridDim = (n C, M tiles, S), cluster (C, 1, 1).
 __global__ void __launch_bounds__(kThreads, 1)
 linked_mlp_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
               const bf16* __restrict__ wu, const bf16* __restrict__ wd,
               float* __restrict__ part, bf16* __restrict__ out, int M, int d,
-              int ff, int S) {
+              int ff, int C, int S) {
   constexpr int kKS = kBK / 16;               // k16 slices a step
   static_assert(kBF == kBK, "up and down steps are both 64 deep");
   extern __shared__ __align__(1024) unsigned char tc_smem_raw[];
@@ -565,8 +581,7 @@ linked_mlp_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   bf16* hall = hbuf + 2 * kH;                 // [2][64][64]: the round's
   float* ex = reinterpret_cast<float*>(hall + 2 * kH);   // [32][128]: u
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(gridDim.x);
-  const int rank = static_cast<int>(blockIdx.x);
+  const int rank = static_cast<int>(blockIdx.x) % C;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -574,7 +589,7 @@ linked_mlp_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int wgi = warp >> 2, w4 = warp & 3, tg = tid & 127;
   const int m0 = blockIdx.y * kBM;
   const int s = blockIdx.z;
-  const int col0 = rank * kDS;
+  const int col0 = static_cast<int>(blockIdx.x) * kDS;
   const int nb = (ff + kBF - 1) / kBF;
   const int jb0 = static_cast<int>(static_cast<long long>(s) * nb / S);
   const int jb1 = static_cast<int>(static_cast<long long>(s + 1) * nb / S);
@@ -810,12 +825,19 @@ linked_mlp_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   }
 }
 
-// Launch configuration of an (M, C, S) call; numAttrs 1 (the cluster).
+// CTAs along the grid's first axis: d's column blocks, rounded up to
+// whole clusters of C
+int grid_x(int d, int C) {
+  const int blocks = (d + kDS - 1) / kDS;
+  return (blocks + C - 1) / C * C;
+}
+
+// Launch configuration of a (gx, M, C, S) call; numAttrs 1 (the cluster).
 struct Config {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  Config(int M, int C, int S, cudaStream_t stream) {
-    cfg.gridDim = dim3(C, (M + kBM - 1) / kBM, S);
+  Config(int gx, int M, int C, int S, cudaStream_t stream) {
+    cfg.gridDim = dim3(gx, (M + kBM - 1) / kBM, S);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = kSmemBytes;
     cfg.stream = stream;
@@ -829,11 +851,15 @@ struct Config {
 };
 
 cudaError_t prepare() {
-  static bool attr_set = false;     // once: max opt-in shared memory
+  // once: max opt-in shared memory, and clusters past the portable 8
+  static bool attr_set = false;
   if (attr_set) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       linked_mlp_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        linked_mlp_tc, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) attr_set = true;
   return err;
 }
@@ -843,9 +869,9 @@ cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu,
                    int ff, int C, int S, cudaStream_t stream) {
   cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
-  Config c(M, C, S, stream);
+  Config c(grid_x(d, C), M, C, S, stream);
   err = cudaLaunchKernelEx(&c.cfg, linked_mlp_tc, x, wg, wu, wd, part, out,
-                           M, d, ff, S);
+                           M, d, ff, C, S);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return err;
   return reduce<bf16>(part, out, static_cast<size_t>(M) * d, S, stream);
@@ -854,7 +880,7 @@ cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu,
 // clusters of C CTAs the current device runs at once; -1 on error
 int max_clusters(int C) {
   if (prepare() != cudaSuccess) return -1;
-  Config c(kBM, C, 1, nullptr);
+  Config c(C, kBM, C, 1, nullptr);
   int n = 0;
   if (cudaOccupancyMaxActiveClusters(&n, linked_mlp_tc, &c.cfg) !=
       cudaSuccess)
@@ -890,9 +916,11 @@ extern "C" int repro_linked_mlp(int dtype, const void* x, const void* wg,
 
 // The tensor-core kernel: bf16 x (M,d), wg/wu (d,ff), wd (ff,d), out
 // (M,d), contiguous and 16-byte aligned on one device, d and ff multiples
-// of 8; cl = ceil(d / 256) <= 8 CTAs a cluster; S ff splits (1 <= S <=
-// ceil(ff / 64)); part: an (S, M, d) fp32 workspace when S > 1 (unused,
-// may be null, when S == 1).  Returns the cudaError_t of the launches.
+// of 8; cl CTAs a cluster (1 <= cl <= 16, at most d's ceil(d / 256)
+// column blocks), ceil(d / (256 cl)) clusters splitting d; S ff splits
+// (1 <= S <= ceil(ff / 64)); part: an (S, M, d) fp32 workspace when S > 1
+// (unused, may be null, when S == 1).  Returns the cudaError_t of the
+// launches.
 extern "C" int repro_linked_mlp_tc(const void* x, const void* wg,
                                    const void* wu, const void* wd, void* part,
                                    void* out, int M, int d, int ff, int cl,
@@ -902,7 +930,8 @@ extern "C" int repro_linked_mlp_tc(const void* x, const void* wg,
                       reinterpret_cast<size_t>(wu) |
                       reinterpret_cast<size_t>(wd);
   if (M <= 0 || d <= 0 || ff <= 0 || d % 8 || ff % 8 || (addr & 15) ||
-      cl != (d + tc::kDS - 1) / tc::kDS || cl > tc::kMaxCluster || S < 1 ||
+      cl < 1 || cl > (d + tc::kDS - 1) / tc::kDS || cl > tc::kMaxCluster ||
+      S < 1 ||
       S > (ff + tc::kBF - 1) / tc::kBF || (S > 1 && part == nullptr) ||
       (M + tc::kBM - 1) / tc::kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

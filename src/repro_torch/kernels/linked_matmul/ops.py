@@ -31,18 +31,20 @@ from .. import (CTA_SMEM_MAX, check_launch, count_launch, library,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the tensor-core kernel: rows an M tile, ff columns a block, y columns a
-#: cluster rank owns, and the largest (portable) cluster
-TC_BM, TC_BF, TC_DS, TC_MAX_CLUSTER = 64, 64, 256, 8
+#: CTA owns, the largest cluster (non-portable past TC_PORTABLE) and the
+#: largest portable one
+TC_BM, TC_BF, TC_DS, TC_MAX_CLUSTER, TC_PORTABLE = 64, 64, 256, 16, 8
 #: the FFMA kernel: ff columns a block, warps a CTA
 FFMA_BF, FFMA_WARPS = 64, 8
 
 
 class MlpPlan(NamedTuple):
     """How one call runs.  ``path``: "tc" or "ffma".  ``bm``: rows an M
-    tile.  ``cl``: CTAs a cluster, splitting d (tc; 1 for ffma).  ``S``:
-    splits of ff.  ``v``: elements an FFMA lane loads at once (16 bytes or
-    2; 8 for tc).  ``workspace``: fp32 elements of the (S, M, d) partial-y
-    workspace (0: y is stored directly)."""
+    tile.  ``cl``: CTAs a cluster, sharing h (tc, whose
+    ``ceil(d / (TC_DS cl))`` clusters split d: :func:`tc_columns`; 1 for
+    ffma).  ``S``: splits of ff.  ``v``: elements an FFMA lane loads at
+    once (16 bytes or 2; 8 for tc).  ``workspace``: fp32 elements of the
+    (S, M, d) partial-y workspace (0: y is stored directly)."""
     path: str
     bm: int
     cl: int
@@ -68,16 +70,28 @@ def ffma_smem_bytes(bm: int, d: int) -> int:
 
 def tc_takes(dtype: torch.dtype, d: int, ff: int, aligned: bool) -> bool:
     """Whether the tensor-core kernel takes these shapes: bf16, d and ff
-    multiples of 8 (16-byte rows), 16-byte aligned tensors, and d split
-    over a cluster of at most TC_MAX_CLUSTER ranks of TC_DS columns."""
+    multiples of 8 (16-byte rows) and 16-byte aligned tensors.  Any d:
+    past one cluster's TC_MAX_CLUSTER x TC_DS columns, clusters split d
+    (:func:`tc_columns`)."""
     return (dtype == torch.bfloat16 and d % 8 == 0 and ff % 8 == 0
-            and aligned and -(-d // TC_DS) <= TC_MAX_CLUSTER)
+            and aligned)
+
+
+def tc_clusters(d: int) -> list[int]:
+    """The cluster sizes the planner weighs for width d, largest first:
+    ``ceil(nd / n)`` for n clusters splitting d's ``nd = ceil(d / TC_DS)``
+    column blocks, from the fewest clusters of at most TC_MAX_CLUSTER
+    CTAs up to those of at most TC_PORTABLE.  One size, ``nd``, up to
+    d 2048."""
+    nd = -(-d // TC_DS)
+    lo, hi = -(-nd // TC_MAX_CLUSTER), -(-nd // TC_PORTABLE)
+    return sorted({-(-nd // n) for n in range(lo, hi + 1)}, reverse=True)
 
 
 def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
              sms: int, path: str | None = None,
-             slots: Callable[[int], int] | None = None
-             ) -> MlpPlan | None:
+             slots: Callable[[int], int] | None = None,
+             cl: int | None = None) -> MlpPlan | None:
     """Choose the kernel and its grid for an (M, d, ff) call.
 
     ``aligned``: all four tensors 16-byte aligned.  ``sms``: the device's
@@ -88,14 +102,21 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
     ``path`` forces a kernel ("tc" raises where it does not take the
     shapes); by default bf16 calls that the tensor-core kernel takes go to
     it (decode too: it timed faster there than the FFMA kernel), the rest
-    to the FFMA kernel.
+    to the FFMA kernel.  ``cl`` (tc) forces one of :func:`tc_clusters`'
+    sizes (for timing the others).
     Returns None where the FFMA kernel cannot fit one row of d.
 
-    tc: TC_BM-row tiles; cl = ceil(d / TC_DS) CTAs a cluster.  S = 1
-    where the M tiles fill a wave of clusters (y is stored directly, no
-    workspace); else S, the ff splits, is the fewest that minimise waves
-    x rounds, where waves = ceil(M tiles x S / clusters a wave) and
-    rounds = ceil(ff blocks a split / cl).
+    tc: TC_BM-row tiles; a cluster of cl CTAs of TC_DS columns, and
+    n = ceil(d / (TC_DS cl)) clusters splitting d, each computing its
+    split's h again (cl from :func:`tc_clusters`: one size up to d 2048).
+    For each cl: S = 1 where the n x M tiles' clusters fill a wave (y is
+    stored directly, no workspace); else S, the ff splits, is the fewest
+    that minimise waves x rounds, where waves = ceil(n x M tiles x S /
+    clusters a wave) and rounds = ceil(ff blocks a split / cl).  Of the
+    sizes, the least waves x rounds x (d's 64-deep up-projection steps +
+    cl down-projection steps a round), ties to the larger cl (fewer
+    FLOPs).
+
     ffma: the tallest row tile of 8, 4, 2, 1 whose shared memory fits,
     and S splits filling the SMs; its partials always go through the
     workspace.  S never exceeds the ff blocks."""
@@ -108,12 +129,33 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
             raise ValueError(f"linked_mlp: the tensor-core kernel does not "
                              f"take d={d}, ff={ff}, {dtype}, aligned="
                              f"{aligned}")
-        cl = -(-d // TC_DS)
-        wave = max(1, slots(cl) if slots is not None else sms // cl - 1)
         m_tiles = -(-M // TC_BM)
-        S = 1 if m_tiles >= wave else min(
-            range(1, n_blocks + 1), key=lambda S: (
-                -(-m_tiles * S // wave) * -(-(-(-n_blocks // S)) // cl), S))
+        n_up = -(-d // TC_BF)
+        sizes = tc_clusters(d)
+        if cl is not None:
+            if cl not in sizes:
+                raise ValueError(f"linked_mlp: d={d} splits over clusters "
+                                 f"of {sizes} CTAs, not {cl}")
+            sizes = [cl]
+        best = None
+        for cl in sizes:
+            n = -(-(-(-d // TC_DS)) // cl)
+            wave = slots(cl) if slots is not None else max(1, sms // cl - 1)
+            if wave <= 0:
+                continue            # the device runs no cluster of cl
+
+            def cost(S):
+                return (-(-n * m_tiles * S // wave)
+                        * -(-(-(-n_blocks // S)) // cl))
+            S = 1 if n * m_tiles >= wave else min(
+                range(1, n_blocks + 1), key=lambda S: (cost(S), S))
+            key = cost(S) * (n_up + cl)
+            if best is None or key < best[0]:
+                best = (key, cl, S)
+        if best is None:
+            raise ValueError(f"linked_mlp: this device runs no cluster of "
+                             f"{sizes} CTAs of the tensor-core kernel")
+        _, cl, S = best
         return MlpPlan("tc", TC_BM, cl, S, 8, S * M * d if S > 1 else 0)
     if path != "ffma":
         raise ValueError(f"linked_mlp: unknown path {path!r}")
@@ -135,6 +177,19 @@ def split_blocks(n_blocks: int, S: int, s: int) -> tuple[int, int]:
     return s * n_blocks // S, (s + 1) * n_blocks // S
 
 
+def tc_columns(d: int, cl: int) -> list[tuple[int, int, int, int]]:
+    """The tensor-core kernel's ownership of y's columns: ``(cluster,
+    rank, c0, c1)`` for every CTA along the grid's first axis.  CTA x
+    (cluster x // cl, rank x % cl) owns ``[TC_DS x, TC_DS (x + 1))``
+    clipped to d; the axis is ``ceil(d / TC_DS)`` rounded up to whole
+    clusters, so a last cluster's last CTAs may own nothing
+    (``c0 == c1``)."""
+    nd = -(-d // TC_DS)
+    gx = -(-nd // cl) * cl
+    return [(x // cl, x % cl, min(d, TC_DS * x), min(d, TC_DS * (x + 1)))
+            for x in range(gx)]
+
+
 def _lib():
     lib = library("linked_mlp")
     if lib.repro_linked_mlp.argtypes is None:
@@ -154,17 +209,17 @@ _SLOTS: dict[tuple[int, int], int] = {}
 
 def cluster_slots(device: torch.device) -> Callable[[int], int]:
     """``slots(cl)`` for ``device``: clusters of cl CTAs of the tensor-core
-    kernel it runs at once, from the CUDA occupancy calculator (cached)."""
+    kernel it runs at once, from the CUDA occupancy calculator (cached; 0
+    where none fits, as a non-portable size may not)."""
     def slots(cl: int) -> int:
         key = (device.index, cl)
         n = _SLOTS.get(key)
         if n is None:
             with torch.cuda.device(device):
                 n = _lib().repro_linked_mlp_tc_clusters(cl)
-            if n <= 0:
-                raise RuntimeError(f"linked_mlp: clusters of {cl} CTAs of "
-                                   "the tensor-core kernel do not fit this "
-                                   "device")
+            if n < 0:
+                raise RuntimeError(f"linked_mlp: the occupancy calculator "
+                                   f"failed for clusters of {cl} CTAs")
             _SLOTS[key] = n
         return n
     return slots

@@ -4,6 +4,9 @@ batching on one device (the card by default).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 16 --prompt-len 512 --max-new 64 --slots 8 --max-len 2048
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b \
+        --requests 8 --prompt-len 512 --max-new 32 --slots 8 --max-len 2048
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --reduced --device cpu
 
@@ -27,7 +30,9 @@ batching on one device (the card by default).
 
 The same flags as ``python -m repro.launch.serve``, plus ``--device``
 and ``--rank-timeout``.  Weights are random, drawn on the device from
-``--seed`` (``Model.init``); ``--spec draft`` drafts with the arch's
+``--seed`` leaf by leaf into the serving dtype (:func:`init_params`:
+internlm2-20b's peak is its bf16 tree plus one fp32 leaf, not its 77 GB
+fp32 tree); ``--spec draft`` drafts with the arch's
 reduced config (at the target's vocabulary, weights from ``--seed`` +
 1).  The decode and verify steps run as CUDA graphs on the card
 (``ServingEngine``'s ``graphed``).  Throughput counts the tokens
@@ -68,6 +73,7 @@ import time
 import numpy as np
 import torch
 
+from .. import kernels
 from ..configs.base import get_config
 from ..models.model import Model
 from ..serving import (ReplicaRouter, Request, SamplingParams,
@@ -140,6 +146,15 @@ def build_draft(cfg, device, seed: int):
     return draft, draft.init(gen)
 
 
+def init_params(model: Model, seed: int):
+    """The serving copy of ``model``'s random weights from ``seed``, drawn
+    on its device leaf by leaf into ``cfg.dtype`` (``Model.init(dtype=)``:
+    bit-equal to ``cast_params(init(...))``, with a peak of the serving
+    tree plus one leaf's fp32 draw)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return model.init(gen, dtype=model.dtype)
+
+
 def build_engine(args, model=None, params=None, kernel_plan=None,
                  graphed: bool | None = None, draft=None,
                  mesh=None, kernel_timings=None) -> ServingEngine:
@@ -155,8 +170,7 @@ def build_engine(args, model=None, params=None, kernel_plan=None,
         device = mesh.device if mesh is not None else args.device
         model = Model(build_config(args), device=device)
     if params is None:
-        gen = torch.Generator(device=model.device).manual_seed(args.seed)
-        params = model.init(gen)
+        params = init_params(model, args.seed)
     prefill_mode = args.prefill_mode
     if (args.kv == "paged" or args.mesh_shards > 1) and prefill_mode is None:
         # the only mode a block pool can execute, and the only
@@ -231,8 +245,13 @@ def run(args, mesh=None) -> int:
     if cfg.is_encoder_decoder:
         raise SystemExit("serve.py drives decoder-only archs; for seamless "
                          "see src/repro_torch/launch/translate_audio.py")
-    params = model.init(torch.Generator(device=model.device)
-                        .manual_seed(args.seed))
+    if model.device.type == "cuda":
+        # every kernel library built (or found built) before the clock
+        # starts: a first launch would build its own inside the run
+        t0 = time.perf_counter()
+        kernels.build()
+        say(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    params = init_params(model, args.seed)
     draft = build_draft(cfg, model.device, args.seed + 1) \
         if args.spec == "draft" else None
     engines = [build_engine(args, model, params, draft=draft, mesh=mesh)

@@ -74,15 +74,16 @@ def init_leaf(spec: ParamSpec, generator: torch.Generator, device,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    # scaled in place (the values of ``x * scale``): one fp32 draw live
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
     if spec.init == "embed":
-        return (x * 0.02).to(dtype)
+        return x.mul_(0.02).to(dtype)
     fan_in = spec.shape[0] if len(spec.shape) > 1 else spec.shape[-1]
     if len(spec.shape) == 3:  # stacked experts / layers: fan-in is dim 1
         fan_in = spec.shape[1]
     scale = spec.scale or (1.0 / math.sqrt(max(fan_in, 1)))
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def init_params(specs, generator: torch.Generator, device,

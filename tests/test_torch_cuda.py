@@ -763,10 +763,14 @@ MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
     ("float32", 8, 6000, 70), ("bfloat16", 1, 1, 1),
     ("bfloat16", 5, 136, 200), ("float32", 37, 64, 136),
     ("bfloat16", 37, 256, 208), ("float32", 1100, 256, 512),
-    ("bfloat16", 8, 1152, 6912), ("bfloat16", 256, 1152, 6912)])
+    ("bfloat16", 8, 1152, 6912), ("bfloat16", 256, 1152, 6912),
+    ("bfloat16", 8, 4096, 13696), ("bfloat16", 8, 6144, 16384),
+    ("bfloat16", 8, 8192, 22016)])
 def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     """The serving shapes (decode M = 8, prefill M = 8 x 32, M = 1; qwen3's
-    d 2048 and gemma3's d 1152, ff 6912), fp32,
+    d 2048, gemma3's d 1152, ff 6912, and the large decoders' decode:
+    chatglm3-6b's d 4096, internlm2-20b's 6144, chameleon-34b's 8192,
+    where clusters split d), fp32,
     ragged M, d and ff with 16-byte loads where rows are aligned (a last
     ff block of 8 or 16 columns) and scalar loads where not, a d wide
     enough to shrink the row tile, and more row tiles than SMs (one ff
@@ -797,14 +801,21 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     (129, 2048, 6144), (8, 2048, 6144), (200, 2048, 320),
     (70, 136, 200), (300, 1000, 520), (17, 8, 8), (129, 2040, 1032),
     (4352, 2048, 1032), (8, 1152, 6912), (256, 1152, 6912),
-    (65, 1152, 6912)])
+    (65, 1152, 6912), (256, 4096, 14336), (256, 6144, 16384),
+    (256, 8192, 22016), (8, 7168, 4864), (37, 2056, 6144),
+    (8, 4104, 13704), (65, 6152, 16392), (4352, 4096, 13696)])
 def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
     """The tensor-core kernel on either side of its 16-row m16 tiles, its
     64-row M tiles and its 64-column ff blocks; d and ff multiples of 8
     but not of 64 (a partial last slice of y, a last ff block of 8
     columns); S > 1 (partials through the workspace) and S = 1 (y stored
     directly, M = 4352); a cluster dealt fewer ff blocks than it has
-    CTAs (ff 320: 5 blocks over 8 ranks).  The planner sends each of
+    CTAs (ff 320: 5 blocks over 8 ranks).  Past d 2048 clusters split d
+    (``tc_columns``): 32-token chunks of the large decoders (d 4096, 6144,
+    8192), arctic-480b's dense residual (d 7168), and the ragged
+    ownership: d 2056 (one column block past 2048), 4104 and 6152 (no
+    cluster's 256-column ranks divide them), with ff no multiple of 64;
+    chatglm3-6b's batched prefill.  The planner sends each of
     these to the tensor-core kernel; two launches give the same bits.
     Element-wise against the plain version up to 1024 rows; past that, as
     for batched prefill, two correct fp32 summation orders that each round
@@ -847,6 +858,32 @@ def test_linked_mlp_tc_splits_ff_where_the_m_tiles_do_not_fill(card):
     assert few.path == many.path == "tc"
     assert few.S > 1 and few.workspace == few.S * 256 * 2048
     assert many.S == 1 and many.workspace == 0
+
+
+@pytest.mark.cuda
+def test_linked_mlp_tc_batched_at_internlm2_width_on_real_clusters(card):
+    """internlm2-20b's batched prefill, M 4352 at d 6144, ff 16384: the
+    occupancy calculator's cluster counts (non-portable sizes past 8
+    included) plan the tensor-core kernel on clusters that split d, and
+    the launch holds against the fp64-summed MLP as batched prefill's
+    shapes are held; the same bits twice."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = t_lm.cluster_slots(torch.device("cuda", 0))
+    x, wg, wu, wd = _mlp(card, 4352, 6144, 16384, torch.bfloat16)
+    plan = _plan(x, wg, wu, wd)
+    assert plan == t_lm.mlp_plan(4352, 6144, 16384, torch.bfloat16, True,
+                                 sms, slots=slots)
+    assert plan.path == "tc" and plan.cl in t_lm.tc_clusters(6144)
+    assert slots(plan.cl) > 0 and plan.cl * t_lm.TC_DS < 6144
+    kernels.reset_launches()
+    got = t_lm.linked_mlp(x, wg, wu, wd)
+    again = t_lm.linked_mlp(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["linked_mlp_tc"] == 2
+    assert torch.equal(got, again)
+    ref = _mlp_fp64(x, wg, wu, wd)
+    plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
+    assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * _mlp_err(plain, ref)
 
 
 #: batched prefill's shape, bf16: the kernel's worst error from the

@@ -175,7 +175,7 @@ def test_mlp_plan_follows_the_sm_count():
     (256, 2047, 6144, torch.bfloat16, True),     # allowed at its 2e-5)
     (256, 2048, 6140, torch.bfloat16, True),
     (256, 2048, 6144, torch.bfloat16, False),
-    (256, 2056, 6144, torch.bfloat16, True),     # d over 8 ranks of 256
+    (256, 4100, 13696, torch.bfloat16, True),    # a wide d, not 16-byte rows
     (256, 136, 204, torch.bfloat16, True)])
 def test_mlp_shapes_the_tc_kernel_does_not_take_go_to_ffma(M, d, ff, dtype,
                                                             aligned):
