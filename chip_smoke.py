@@ -339,14 +339,17 @@ bert_s's two plan tiles, inC splits (one with a cluster split inside
 each of its K tiles), M = 1 and ragged cases, twice each (the same
 bits), timing the kernel, its plain version and ``torch.addmm``.  Phase
 1 prints the registers and spills ``nvcc -Xptxas -v`` reports for the
-instantiations of the two GEMM kernels, ``fused_mask`` and
-``cbr_avgpool``.
+instantiations of the two GEMM kernels, ``fused_mask``, ``cbr_avgpool``
+and the decode kernels' group body.
 
 Phase 2 also holds both decode kernels over 32,768 slots (qwen3's dense
 and gemma3's heads, gemma3's paged global layers; 8 rows of mixed
-lengths and one row, fp32 and bf16), timed at one row beside SDPA, and
-``linked_mlp`` at the one-shot prefill's M 31,744 against the
-fp64-summed MLP (as at batched prefill's shape), timed.
+lengths and one row, fp32 and bf16, two calls the same bits), timed at
+one row beside SDPA; both decode kernels at G 3, 5, 6, 7, 8 and 16 (the
+group body in bf16), two calls the same bits, and the bf16 kernel's
+distance to an fp64 oracle at most ``DECODE_ORDER_FACTOR`` times the
+plain version's; and ``linked_mlp`` at the one-shot prefill's M 31,744
+against the fp64-summed MLP (as at batched prefill's shape), timed.
 
 The line before last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of everything measured goes to
@@ -512,6 +515,12 @@ LARGE_NEW, LARGE_WINDOW = 32, (20, 25)
 MLP_RAGGED_WIDE = {"ragged_d2056": (37, 2056, 6144),
                    "ragged_d4104": (8, 4104, 13704),
                    "ragged_d6152": (65, 6152, 16392)}
+#: phase 2: the group sizes the decode kernels are held at (7: arctic-480b
+#: at full width; 3, the least G the group body takes, serves no arch)
+GROUP_GS = (3, 5, 6, 7, 8, 16)
+#: the bf16 decode kernel's worst distance to the fp64 oracle, at most
+#: this many times the plain version's
+DECODE_ORDER_FACTOR = 2.0
 #: phase 2: the decode kernels at the large decoders' head layouts (q
 #: heads, kv heads) of 128
 LARGE_HEADS = {"chatglm3": (32, 2), "internlm2": (48, 8),
@@ -581,18 +590,20 @@ def check_close(label: str, got, want, dtype: str,
 #: kernels whose registers and spills phase 1 prints, by the pattern of
 #: their mangled names: the tensor-core linked_mlp, split_matmul (rows a
 #: CTA, k halves, cluster size, 16-byte copies), fused_mask (cluster
-#: size, 16-byte copies) and cbr_avgpool (thread columns and rows, k
-#: parts, squares a thread, cluster size, 16-byte copies)
+#: size, 16-byte copies), cbr_avgpool (thread columns and rows, k parts,
+#: squares a thread, cluster size, 16-byte copies) and the decode
+#: kernels' group body (head dim, 8-head blocks, paged)
 PTXAS_KERNELS = {
     r"linked_mlp_tcE": "linked_mlp_tc",
     r"split_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
         "split_matmul_kernel<BM={},KH={},CL={},VEC={}>",
     r"fused_mask_kernelILi(\d+)ELb(\d)E": "fused_mask_kernel<CL={},VEC={}>",
     r"cbr_avgpool_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
-        "cbr_avgpool_kernel<TXN={},TYN={},KH={},TSQ={},CL={},VEC={}>"}
+        "cbr_avgpool_kernel<TXN={},TYN={},KH={},TSQ={},CL={},VEC={}>",
+    r"group_kernelILi(\d+)ELi(\d+)ELb(\d)E": "group_kernel<D={},NB={},PAGED={}>"}
 #: the sources whose kernels those are
 PTXAS_SOURCES = ("linked_mlp", "split_matmul", "fused_sampler",
-                 "linked_cbr_pool")
+                 "linked_cbr_pool", "decode_attention")
 
 
 def ptxas_report(log: str) -> dict:
@@ -667,7 +678,7 @@ def split_edges(torch, ops):
     full row, S, 16 S, 32 S and 64 S (pieces of one slot, half a 32-slot
     tile, one tile, two tiles) and W, each with one slot either side."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, S = ops.decode_grid(SLOTS, K, H // K, MAX_LEN, sms, D)
+    S = ops.decode_grid(SLOTS, K, H // K, MAX_LEN, sms, D).splits
     edges = {ops.split_range(0, MAX_LEN, S, s)[0] for s in range(1, S)}
     edges |= {S, 16 * S, 32 * S, 64 * S, MAX_LEN}
     ls = sorted({min(MAX_LEN, max(0, e + d)) for e in edges
@@ -743,7 +754,8 @@ def check_dense(torch, ops, gen, report):
                              for s in sets]),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in sets]),
-        "splits": S,
+        "splits": S, "plan": plan_of(torch, ops, SLOTS, K, H // K, MAX_LEN,
+                                      D),
     }
     print_share(report["gqa_decode"])
 
@@ -810,17 +822,16 @@ def check_decode_shards(torch, ops, gen, bs, report):
             (q, ops.paged_view(kp, bt), ops.paged_view(vp, bt),
              torch.arange(MAX_LEN, device=DEV)[None, :] < ln[:, None])
             for q, kp, vp, bt, ln in sets]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = plan_of(torch, ops, SLOTS, k, h // k, MAX_LEN, D)
         row = report[label]["k4"] = {
-            "heads": [h, k], "splits": ops.decode_grid(
-                SLOTS, k, h // k, MAX_LEN, sms, D)[1],
+            "heads": [h, k], "splits": plan[2], "plan": plan,
             "ms": cuda_ms([lambda s=s: fn(*s) for s in sets]),
             "plain_ms": cuda_ms([lambda s=s: plain(*s) for s in sets]),
             "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in views]),
             "bound_ms": b_ms, "bound_by": b_by}
         print(f"{label} at a rank's {h} q / {k} kv heads, ~560 of "
-              f"{MAX_LEN} slots: {row['ms']:.4f} ms ({row['splits']} "
-              f"splits; bound {b_ms:.4f} by {b_by}, share "
+              f"{MAX_LEN} slots: {row['ms']:.4f} ms (plan "
+              f"{row['plan']}; bound {b_ms:.4f} by {b_by}, share "
               f"{b_ms / row['ms']:.3f}), plain {row['plain_ms']:.4f}, "
               f"SDPA {row['library_ms']:.4f}")
 
@@ -874,11 +885,12 @@ def check_decode_gemma3(torch, ops, gen, bs, report):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for W, sp in spans.items():
-            gt, S = ops.decode_grid(SLOTS, G3_K, G3_H // G3_K, W, sms, G3_D)
+            plan = ops.decode_grid(SLOTS, G3_K, G3_H // G3_K, W, sms, G3_D,
+                                   dtype)
             q, k, v, valid = g3_decode_case(torch, dtype, W, sp, gen)
             err = check_close(
-                f"gqa_decode gemma3 {name} W={W} wrapped spans (GT {gt}, "
-                f"{S} splits)", ops.gqa_decode(q, k, v, valid),
+                f"gqa_decode gemma3 {name} W={W} wrapped spans (plan "
+                f"{tuple(plan)})", ops.gqa_decode(q, k, v, valid),
                 ops.gqa_decode_plain(q, k, v, valid), name)
             w = worst["gqa_decode"]
             w[name] = max(w.get(name, 0.0), err)
@@ -891,16 +903,24 @@ def check_decode_gemma3(torch, ops, gen, bs, report):
                     ops.gqa_decode_paged_plain(*args), name)
                 w = worst["gqa_decode_paged"]
                 w[name] = max(w.get(name, 0.0), err)
-    # B = 1: a row at the D = 256 split cap, the merge filling the ring
-    gt, S = ops.decode_grid(1, G3_K, G3_H // G3_K, MAX_LEN, sms, G3_D)
-    if S != ops.max_splits(G3_D, gt):
-        fail(f"gqa_decode gemma3 B=1: {S} splits, want the cap "
-             f"{ops.max_splits(G3_D, gt)}")
-    q, k, v, valid = g3_decode_case(torch, torch.bfloat16, MAX_LEN,
-                                    [(100, 1900)], gen)
-    check_close(f"gqa_decode gemma3 B=1 at the {S}-split cap",
-                ops.gqa_decode(q, k, v, valid),
-                ops.gqa_decode_plain(q, k, v, valid), "bfloat16")
+    # B = 1: bf16's row past the group body's one-merge cap (two merge
+    # levels), fp32's at the heads body's (the merge filling the ring);
+    # the fp32 row draws from a generator of its own, so every later
+    # check draws what it drew before the fp32 row was added
+    for dtype, g in ((torch.bfloat16, gen), (torch.float32, new_gen(torch))):
+        name = str(dtype).split(".")[-1]
+        plan = ops.decode_grid(1, G3_K, G3_H // G3_K, MAX_LEN, sms, G3_D,
+                               dtype)
+        cap = ops.merge_cap(plan.body, G3_D, plan.gt)
+        if (plan.splits == cap) != (dtype == torch.float32) \
+                or plan.splits < cap:
+            fail(f"gqa_decode gemma3 B=1 {name}: plan {tuple(plan)}, one "
+                 f"merge's cap {cap}")
+        q, k, v, valid = g3_decode_case(torch, dtype, MAX_LEN,
+                                        [(100, 1900)], g)
+        check_close(f"gqa_decode gemma3 B=1 {name} (plan {tuple(plan)}, "
+                    f"cap {cap})", ops.gqa_decode(q, k, v, valid),
+                    ops.gqa_decode_plain(q, k, v, valid), name)
     # timing at the served shapes
     timed = {"sliding_w512": (512, [(s, 512) for s in
                                     (137, 0, 300, 480, 64, 7, 211, 400)]),
@@ -914,9 +934,9 @@ def check_decode_gemma3(torch, ops, gen, bs, report):
         nbytes = (2 * rows * G3_K * G3_D * 2 + 2 * SLOTS * G3_H * G3_D * 2
                   + SLOTS * W)
         b_ms, b_by = bound_ms(nbytes, 4 * rows * G3_H * G3_D, "bfloat16")
+        plan = plan_of(torch, ops, SLOTS, G3_K, G3_H // G3_K, W, G3_D)
         row = {"shape": [SLOTS, G3_H, G3_D, W], "dtype": "bfloat16",
-               "splits": ops.decode_grid(SLOTS, G3_K, G3_H // G3_K, W, sms,
-                                         G3_D)[1],
+               "splits": plan[2], "plan": plan,
                "ms": cuda_ms([lambda s=s: ops.gqa_decode(*s) for s in sets]),
                "plain_ms": cuda_ms([lambda s=s: ops.gqa_decode_plain(*s)
                                     for s in sets]),
@@ -934,7 +954,7 @@ def check_decode_gemma3(torch, ops, gen, bs, report):
                   + psets[0][3].numel() * 4 + SLOTS * 4)
         b_ms, b_by = bound_ms(nbytes, 4 * rows * G3_H * G3_D, "bfloat16")
         prow = {"shape": [SLOTS, G3_H, G3_D, W], "dtype": "bfloat16",
-                "block_size": bs,
+                "block_size": bs, "plan": plan,
                 "ms": cuda_ms([lambda s=s: ops.gqa_decode_paged(*s)
                                for s in psets]),
                 "plain_ms": cuda_ms([lambda s=s: ops.gqa_decode_paged_plain(
@@ -951,7 +971,8 @@ def check_decode_gemma3(torch, ops, gen, bs, report):
 
 def check_decode_hymba(torch, ops, gen, report):
     """``gqa_decode`` at hymba's shapes: 25 q / 5 kv heads of 64 (G = 5:
-    one query head a CTA, 200 work units at B = 8) over its 1024-slot
+    in bf16 the group body, 40 units at B = 8; in fp32 one query head a
+    CTA, 200 units) over its 1024-slot
     sliding rings, element by element in fp32 and bf16 (full windows
     whose span starts mid-row, short, empty, prefix rows), then timed at
     the served shape (bf16, every window full, as after a prefill past
@@ -959,7 +980,6 @@ def check_decode_hymba(torch, ops, gen, report):
     heads = (HY_H, HY_K, HY_D)
     W = HY_WINDOW
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    gt, S = ops.decode_grid(SLOTS, HY_K, HY_H // HY_K, W, sms, HY_D)
     worst = {}
     cases = {"wrapped": [(137, W), (0, W), (W - 3, 3), (300, 200), (1, 1),
                          (0, 0), (64, 1000), (W - 1, W)],
@@ -968,10 +988,12 @@ def check_decode_hymba(torch, ops, gen, report):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for label, sp in cases.items():
+            plan = ops.decode_grid(SLOTS, HY_K, HY_H // HY_K, W, sms, HY_D,
+                                   dtype)
             q, k, v, valid = g3_decode_case(torch, dtype, W, sp, gen, heads)
             err = check_close(
-                f"gqa_decode hymba {name} W={W} {label} (GT {gt}, {S} "
-                "splits)", ops.gqa_decode(q, k, v, valid),
+                f"gqa_decode hymba {name} W={W} {label} (plan "
+                f"{tuple(plan)})", ops.gqa_decode(q, k, v, valid),
                 ops.gqa_decode_plain(q, k, v, valid), name)
             worst[name] = max(worst.get(name, 0.0), err)
     sp = [(s0, W) for s0 in (137, 0, 300, 480, 64, 7, 211, 1000)]
@@ -981,8 +1003,9 @@ def check_decode_hymba(torch, ops, gen, report):
     nbytes = 2 * rows * HY_K * HY_D * 2 + 2 * SLOTS * HY_H * HY_D * 2 \
         + SLOTS * W
     b_ms, b_by = bound_ms(nbytes, 4 * rows * HY_H * HY_D, "bfloat16")
+    plan = plan_of(torch, ops, SLOTS, HY_K, HY_H // HY_K, W, HY_D)
     row = {"shape": [SLOTS, HY_H, HY_K, HY_D, W], "dtype": "bfloat16",
-           "gt": gt, "splits": S,
+           "gt": plan[1], "splits": plan[2], "plan": plan,
            "ms": cuda_ms([lambda s=s: ops.gqa_decode(*s) for s in sets]),
            "plain_ms": cuda_ms([lambda s=s: ops.gqa_decode_plain(*s)
                                 for s in sets]),
@@ -993,6 +1016,26 @@ def check_decode_hymba(torch, ops, gen, report):
     report["gqa_decode"]["max_abs_err"] = max(
         report["gqa_decode"]["max_abs_err"], worst["bfloat16"])
     print_share({"name": "gqa_decode hymba w1024", **row})
+
+
+def new_gen(torch, seed: int = 29):
+    """A generator for inputs a check added after the others: the shared
+    one keeps drawing what it drew for every earlier check."""
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def plan_of(torch, ops, B, K, G, W, D) -> list:
+    """The bf16 plan (body, query heads a CTA, splits) a decode launch of
+    these shapes takes on this card, as a JSON list."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return list(ops.decode_grid(B, K, G, W, sms, D))
+
+
+def same_bits(torch, label: str, a, b) -> None:
+    """Fail unless two calls on the same inputs gave the same bits."""
+    if not torch.equal(a, b):
+        fail(f"{label}: two calls differ (max "
+             f"{(a.float() - b.float()).abs().max().item():.3e})")
 
 
 def time_decode_row(torch, ops, sets, nbytes, flops, paged=False, **info):
@@ -1021,7 +1064,6 @@ def check_decode_g1(torch, ops, gen, bs, report):
     fp32 and bf16, then timed at the served shapes (~560 live of 2048
     slots for olmoe; full spans for seamless) beside SDPA and the bound.
     Rows go under ``olmoe`` / ``seamless_cross`` / ``seamless_self``."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
     heads = {"olmoe": (OL_H, OL_K, OL_D)}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1056,9 +1098,9 @@ def check_decode_g1(torch, ops, gen, bs, report):
         row = report[label]["olmoe"] = time_decode_row(
             torch, ops, sets, nbytes, 4 * rows * OL_H * OL_D,
             paged=pbs is not None, shape=[SLOTS, OL_H, OL_K, OL_D, MAX_LEN],
-            splits=ops.decode_grid(SLOTS, OL_K, 1, MAX_LEN, sms, OL_D)[1])
+            plan=plan_of(torch, ops, SLOTS, OL_K, 1, MAX_LEN, OL_D))
         print_share({"name": f"{label} olmoe ~560 of {MAX_LEN} slots "
-                     f"({row['splits']} splits)", **row})
+                     f"(plan {row['plan']})", **row})
     for key, W in (("seamless_cross", SM_FRAMES), ("seamless_self", SM_SELF)):
         sets = [g3_decode_case(torch, torch.bfloat16, W, [(0, W)] * SLOTS,
                                gen, (SM_H, SM_K, SM_D))
@@ -1069,9 +1111,9 @@ def check_decode_g1(torch, ops, gen, bs, report):
         row = report["gqa_decode"][key] = time_decode_row(
             torch, ops, sets, nbytes, 4 * rows * SM_H * SM_D,
             shape=[SLOTS, SM_H, SM_K, SM_D, W],
-            splits=ops.decode_grid(SLOTS, SM_K, 1, W, sms, SM_D)[1])
+            plan=plan_of(torch, ops, SLOTS, SM_K, 1, W, SM_D))
         print_share({"name": f"gqa_decode {key} W={W} all valid "
-                     f"({row['splits']} splits)", **row})
+                     f"(plan {row['plan']})", **row})
 
 
 def check_decode_long(torch, ops, gen, g3_bs, report):
@@ -1084,7 +1126,9 @@ def check_decode_long(torch, ops, gen, g3_bs, report):
     mid-horizon) and at one row (the phase's slot, at the B = 1 split
     count), then timed at the served shape (bf16, one row holding the
     prompt and half the new tokens) beside SDPA and the bytes bound:
-    rows ``qwen3_w32768`` / ``gemma3_w32768`` of each kernel."""
+    rows ``qwen3_w32768`` and ``gemma3_w32768`` (its dense global layers)
+    of ``gqa_decode``, ``gemma3_w32768`` of ``gqa_decode_paged``; two
+    calls give the same bits."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     W = LONG_MAX_LEN
     mixed = [W, LONG_PROMPT, 1, 0, W // 2 + 3, W - 1, 100, 20000]
@@ -1096,37 +1140,51 @@ def check_decode_long(torch, ops, gen, g3_bs, report):
             for heads, tag in (((H, K, D), "qwen3"),
                                ((G3_H, G3_K, G3_D), "gemma3")):
                 nh, nk, hd = heads
-                gt, S = ops.decode_grid(len(lengths), nk, nh // nk, W, sms,
-                                        hd)
+                plan = ops.decode_grid(len(lengths), nk, nh // nk, W, sms,
+                                       hd, dtype)
                 q, k, v, valid = g3_decode_case(
                     torch, dtype, W, [(0, n) for n in lengths], gen, heads)
+                got = ops.gqa_decode(q, k, v, valid)
                 err = check_close(
-                    f"gqa_decode {tag} {name} W={W} B={len(lengths)} (GT "
-                    f"{gt}, {S} splits)", ops.gqa_decode(q, k, v, valid),
+                    f"gqa_decode {tag} {name} W={W} B={len(lengths)} (plan "
+                    f"{tuple(plan)})", got,
                     ops.gqa_decode_plain(q, k, v, valid), name)
+                same_bits(torch, f"gqa_decode {tag} {name} W={W}", got,
+                          ops.gqa_decode(q, k, v, valid))
                 report["gqa_decode"][key] = max(report["gqa_decode"][key],
                                                 err)
                 del q, k, v, valid
             args = g3_paged_case(torch, dtype, W, g3_bs, lengths, gen)
+            plan = ops.decode_grid(len(lengths), G3_K, G3_H // G3_K, W, sms,
+                                   G3_D, dtype)
+            got = ops.gqa_decode_paged(*args)
             err = check_close(
                 f"gqa_decode_paged gemma3 {name} W={W} bs={g3_bs} "
-                f"B={len(lengths)}", ops.gqa_decode_paged(*args),
+                f"B={len(lengths)} (plan {tuple(plan)})", got,
                 ops.gqa_decode_paged_plain(*args), name)
+            same_bits(torch, f"gqa_decode_paged gemma3 {name} W={W}", got,
+                      ops.gqa_decode_paged(*args))
             report["gqa_decode_paged"][key] = max(
                 report["gqa_decode_paged"][key], err)
             del args
     torch.cuda.empty_cache()
-    # timed at the served shape: one row, its K/V read once a call
-    sets = [g3_decode_case(torch, torch.bfloat16, W, [(0, live)], gen)
-            for _ in range(ROTATE)]
-    nbytes = 2 * live * K * D * 2 + 2 * H * D * 2 + W
-    row = report["gqa_decode"]["qwen3_w32768"] = time_decode_row(
-        torch, ops, sets, nbytes, 4 * live * H * D,
-        shape=[1, H, K, D, W], live=live,
-        splits=ops.decode_grid(1, K, H // K, W, sms, D)[1])
-    print_share({"name": f"gqa_decode qwen3 {live} of {W} slots, B 1 "
-                 f"({row['splits']} splits)", **row})
-    del sets
+    # timed at the served shape: one row, its K/V read once a call.
+    # gemma3's dense row draws from the shared generator (every later
+    # check's inputs follow from its draws), qwen3's from one of its own
+    for tag, heads, g in (("gemma3_w32768", (G3_H, G3_K, G3_D), gen),
+                          ("qwen3_w32768", (H, K, D), new_gen(torch, 30))):
+        nh, nk, hd = heads
+        sets = [g3_decode_case(torch, torch.bfloat16, W, [(0, live)], g,
+                               heads) for _ in range(ROTATE)]
+        nbytes = 2 * live * nk * hd * 2 + 2 * nh * hd * 2 + W
+        row = report["gqa_decode"][tag] = time_decode_row(
+            torch, ops, sets, nbytes, 4 * live * nh * hd,
+            shape=[1, nh, nk, hd, W], live=live,
+            plan=plan_of(torch, ops, 1, nk, nh // nk, W, hd))
+        print_share({"name": f"gqa_decode {tag.split('_')[0]} {live} of "
+                     f"{W} slots, B 1 (plan {row['plan']})", **row})
+        del sets
+        torch.cuda.empty_cache()
     psets = [g3_paged_case(torch, torch.bfloat16, W, g3_bs, [live], gen)
              for _ in range(ROTATE)]
     nbytes = (2 * live * G3_K * G3_D * 2 + 2 * G3_H * G3_D * 2
@@ -1134,9 +1192,9 @@ def check_decode_long(torch, ops, gen, g3_bs, report):
     row = report["gqa_decode_paged"]["gemma3_w32768"] = time_decode_row(
         torch, ops, psets, nbytes, 4 * live * G3_H * G3_D, paged=True,
         shape=[1, G3_H, G3_K, G3_D, W], live=live, block_size=g3_bs,
-        splits=ops.decode_grid(1, G3_K, G3_H // G3_K, W, sms, G3_D)[1])
+        plan=plan_of(torch, ops, 1, G3_K, G3_H // G3_K, W, G3_D))
     print_share({"name": f"gqa_decode_paged gemma3 {live} of {W} slots, "
-                 f"B 1, bs {g3_bs} ({row['splits']} splits)", **row})
+                 f"B 1, bs {g3_bs} (plan {row['plan']})", **row})
     del psets
     torch.cuda.empty_cache()
 
@@ -1211,6 +1269,7 @@ def check_paged(torch, ops, gen, bs, report):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms([lambda s=s: sdpa(*s) for s in views]),
         "block_size": bs, "splits": S,
+        "plan": plan_of(torch, ops, SLOTS, K, H // K, MAX_LEN, D),
     }
     print_share(report["gqa_decode_paged"])
 
@@ -1753,15 +1812,84 @@ def check_linked_mlp_large(torch, ops, gen, get_config, report):
     row["large_faster_than_ffma"] = faster
 
 
+def attention_fp64(torch, q, k, v, valid):
+    """The masked softmax attention of ``gqa_decode_plain`` in fp64 on the
+    same (bf16) inputs: the oracle the kernel's P.V form is measured
+    against."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    qg = q.double().reshape(B, K, H // K, D)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k.double()) / D ** 0.5
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    out = torch.einsum("bkgw,bwkd->bkgd", torch.softmax(s, dim=-1),
+                       v.double())
+    return out.reshape(B, H, D)
+
+
+def check_decode_groups(torch, ops, gen, bs, report):
+    """Both decode kernels at every G the group body serves or may serve
+    (``GROUP_GS``: 8 rows of 2048 slots, 2 kv heads of 128), fp32 (the
+    heads body) and bf16 (the group body), dense and paged (block size
+    ``bs``), element by element against the plain version, two calls the
+    same bits; then, in bf16 at the served G (4, 5, 6, 8, 16) and at
+    gemma3's one row over 32,768 slots, the kernel's and the plain
+    version's worst distance to the fp64 oracle, the kernel's at most
+    ``DECODE_ORDER_FACTOR`` times the plain version's (P.V carries P as
+    two bf16 terms: ``pv_fp64`` in the row)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
+    kernels = (("gqa_decode", ops.gqa_decode, ops.gqa_decode_plain, None),
+               ("gqa_decode_paged", ops.gqa_decode_paged,
+                ops.gqa_decode_paged_plain, bs))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        key = "max_abs_err" if name == "bfloat16" else "max_abs_err_fp32"
+        for G in GROUP_GS:
+            plan = ops.decode_grid(SLOTS, 2, G, MAX_LEN, sms, D, dtype)
+            want = "group" if dtype == torch.bfloat16 else "heads"
+            if plan.body != want:
+                fail(f"decode plan at G {G} {name}: {tuple(plan)}, want "
+                     f"the {want} body")
+            for label, fn, plain, pbs in kernels:
+                args = shard_decode_inputs(torch, dtype, (2 * G, 2), lengths,
+                                           gen, pbs)
+                got = fn(*args)
+                err = check_close(f"{label} {name} G {G} (plan "
+                                  f"{tuple(plan)})", got, plain(*args), name)
+                same_bits(torch, f"{label} {name} G {G}", got, fn(*args))
+                report[label][key] = max(report[label][key], err)
+    pv = report["gqa_decode"]["pv_fp64"] = {}
+    cases = [(f"G{G}", (2 * G, 2, D), MAX_LEN,
+              [(0, n) for n in (560, 512, 600, 540, 580, 530, 590, 520)])
+             for G in (4, 5, 6, 8, 16)]
+    cases.append(("gemma3_w32768", (G3_H, G3_K, G3_D), LONG_MAX_LEN,
+                  [(0, LONG_PROMPT + LONG_NEW // 2)]))
+    for tag, heads, W, spans in cases:
+        q, k, v, valid = g3_decode_case(torch, torch.bfloat16, W, spans, gen,
+                                        heads)
+        want = attention_fp64(torch, q, k, v, valid)
+        got = (ops.gqa_decode(q, k, v, valid).double() - want).abs().max()
+        ref = (ops.gqa_decode_plain(q, k, v, valid).double()
+               - want).abs().max()
+        pv[tag] = {"kernel": got.item(), "plain": ref.item()}
+        print(f"gqa_decode {tag} bf16 vs fp64: kernel {got.item():.3e}, "
+              f"plain {ref.item():.3e}")
+        if not got <= DECODE_ORDER_FACTOR * ref:
+            fail(f"gqa_decode {tag}: the kernel's distance to fp64 "
+                 f"{got.item():.3e} is past {DECODE_ORDER_FACTOR} x the "
+                 f"plain version's {ref.item():.3e}")
+        del q, k, v, valid, want
+    torch.cuda.empty_cache()
+
+
 def check_decode_large(torch, ops, gen, bs, report):
     """Both decode kernels at the large decoders' head layouts
-    (``LARGE_HEADS``, head_dim 128): chatglm3-6b's 32 q / 2 kv (G 16, so
-    GT 2 and each K/V row read 8 times), internlm2-20b's 48 / 8 (G 6)
-    and chameleon-34b's 64 / 8 (G 8); element by element against the
+    (``LARGE_HEADS``, head_dim 128): chatglm3-6b's 32 q / 2 kv (G 16: in
+    bf16 the group body, each K/V row read once), internlm2-20b's 48 / 8
+    (G 6) and chameleon-34b's 64 / 8 (G 8); element by element against the
     plain version in fp32 and bf16, dense and paged (block size ``bs``),
     then timed over ~560 live of 2048 slots beside SDPA (``enable_gqa``)
     and the bound.  Rows go under each kernel's ``large``."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     lengths = [600, 512, 0, 2048, 1, 530, 777, 1500]
     kernels = (("gqa_decode", ops.gqa_decode, ops.gqa_decode_plain, None),
                ("gqa_decode_paged", ops.gqa_decode_paged,
@@ -1789,10 +1917,10 @@ def check_decode_large(torch, ops, gen, bs, report):
             r = report[label].setdefault("large", {})[arch] = time_decode_row(
                 torch, ops, sets, nbytes, 4 * rows * h * D,
                 paged=pbs is not None, shape=[SLOTS, h, k, D, MAX_LEN],
-                splits=ops.decode_grid(SLOTS, k, h // k, MAX_LEN, sms, D)[1])
+                plan=plan_of(torch, ops, SLOTS, k, h // k, MAX_LEN, D))
             print_share({"name": f"{label} {arch} ({h} q / {k} kv, G "
-                         f"{h // k}) ~560 of {MAX_LEN} slots ({r['splits']} "
-                         f"splits)", **r})
+                         f"{h // k}) ~560 of {MAX_LEN} slots (plan "
+                         f"{r['plan']})", **r})
             print(f"{label} {arch}: faster than SDPA "
                   f"{r['ms'] < r['library_ms']}")
 
@@ -1883,7 +2011,10 @@ def profile_window(torch, prof, ticks: int) -> dict:
         rows.append((us, e.key, e.count))
     total = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    dec = [(us, n) for us, key, n in rows if "decode_kernel" in key]
+    # the decode kernels' two bodies (heads: decode_kernel, group:
+    # group_kernel)
+    dec = [(us, n) for us, key, n in rows
+           if "decode_kernel" in key or "group_kernel" in key]
     mlp = [(us, n) for us, key, n in rows if "linked_mlp" in key]
     return {"device_ms_per_tick": total / 1e3 / ticks if total else None,
             # both linked_mlp kernels and their split reduce
@@ -2823,8 +2954,8 @@ def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
     one card (``devices=["cuda:0", "cuda:0"]``, gloo, eager; both load
     the kernels this process built), dense greedy and paged sampled,
     against a one-device eager engine under the ranks' kernel plan on
-    the same requests.  The ranks' decode kernels take one device's split
-    count (``ops.rank_splits``), so the probe's logits must equal the
+    the same requests.  The ranks' decode kernels take one device's plan
+    (``ops.rank_plan``), so the probe's logits must equal the
     one-device logits bit for bit and every stream, greedy and sampled
     (top-p included), the one-device stream; the probe also prints
     whether cuBLAS gives a rank's half of each projection the one-device
@@ -5261,6 +5392,7 @@ def main() -> int:
     check_decode_g1(torch, dec_ops, gen, bs, report)
     check_decode_long(torch, dec_ops, gen, g3_bs, report)
     check_decode_large(torch, dec_ops, gen, bs, report)
+    check_decode_groups(torch, dec_ops, new_gen(torch, 31), bs, report)
     check_fused_mask(torch, fs_ops, gen, report)
     check_fused_mask_rows(torch, fs_ops, gen, report, "gemma3", G3_VOCAB,
                           G3_VOCAB + 256)

@@ -315,17 +315,17 @@ class _SumCotangent(torch.autograd.Function):
         return g.redistribute(g.device_mesh, pl)
 
 
-def rank_splits(q: torch.Tensor, K: int, W: int, shards: int):
-    """The decode kernels' split count for a concat-TP rank holding ``K``
-    of ``K * shards`` kv heads: one device's at the full kv heads
-    (``dec_ops.rank_splits``), so the rank's heads take the one-device
-    pieces and merge order.  None (the grid's own) on one device or off
-    the card."""
+def rank_plan(q: torch.Tensor, K: int, W: int, shards: int):
+    """The decode kernels' plan (body, query heads a CTA, split count) for
+    a concat-TP rank holding ``K`` of ``K * shards`` kv heads: one
+    device's at the full kv heads (``dec_ops.rank_plan``), so the rank's
+    heads take the one-device body, pieces and merge order.  None (the
+    shapes' own) on one device or off the card."""
     if shards == 1 or not q.is_cuda:
         return None
     B, H, D = q.shape
-    return dec_ops.rank_splits(B, K, H // K, W, sm_count(q.device), D,
-                               shards)
+    return dec_ops.rank_plan(B, K, H // K, W, sm_count(q.device), D, shards,
+                             q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -337,12 +337,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``decode_dense`` site of a ``KernelPlan``: ``"torch"`` (einsum +
     softmax, the reference's XLA path) or ``"cuda"`` (flash-decode kernel).
     ``shards``: the concat-TP mesh's ranks when the cache holds one
-    rank's kv heads (:func:`rank_splits`).
+    rank's kv heads (:func:`rank_plan`).
     """
     if backend == "cuda":
         return dec_ops.gqa_decode(
             q, k_cache, v_cache, valid,
-            rank_splits(q, k_cache.shape[2], k_cache.shape[1], shards))
+            rank_plan(q, k_cache.shape[2], k_cache.shape[1], shards))
     if backend != "torch":
         raise ValueError(f"unknown decode_dense backend {backend!r}")
     B, H, D = q.shape
@@ -390,8 +390,8 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if backend == "cuda":
         return dec_ops.gqa_decode_paged(
             q, k_pool, v_pool, block_tables, lengths,
-            rank_splits(q, k_pool.shape[2],
-                        block_tables.shape[1] * k_pool.shape[1], shards))
+            rank_plan(q, k_pool.shape[2],
+                      block_tables.shape[1] * k_pool.shape[1], shards))
     if backend == "fold":
         return _paged_fold_attention(q, k_pool, v_pool, block_tables,
                                      lengths)
@@ -679,8 +679,7 @@ def attention_decode_block(p, x, cache, *, cfg, dense_backend: str = "torch",
     cache's type picks one (a ring attends its gathered view through the
     dense one).  ``shard_axis`` (concat-TP): the params hold this rank's
     heads and the cache its kv heads; see :func:`_out_project`; the
-    decode kernels then take one device's split count
-    (:func:`rank_splits`).
+    decode kernels then take one device's plan (:func:`rank_plan`).
 
     ``cross_kv`` ((B, Ssrc, K, D) K and V): cross-attention over the
     encoder's static K/V through the ``decode_dense`` site, every slot

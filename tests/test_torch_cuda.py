@@ -121,7 +121,7 @@ def _main_edges():
     W."""
     B, K, G, W, D = 8, 8, 2, 2048, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, S = t_da.decode_grid(B, K, G, W, sms, D)
+    S = t_da.decode_grid(B, K, G, W, sms, D).splits
     edges = {t_da.split_range(0, W, S, s)[0] for s in range(1, S)}
     edges |= {S, 16 * S, 32 * S, 64 * S, W}
     return S, sorted({min(W, max(0, e + d)) for e in edges
@@ -192,13 +192,17 @@ def test_decode_kernels_at_gemma3_shapes(card, dtype, B):
     """gemma3-1b's decode: one kv head of 256, G = 4.  A sliding layer's
     512-slot ring (full, wrapped with its span starting mid-row, short)
     and a global layer's 2048-slot horizon, dense and paged at block
-    sizes 16 and 32.  B = 1 puts a row at the D = 256 split cap (24),
-    where the merge fills the ring's 48 KB."""
+    sizes 16 and 32.  B = 1 puts fp32's row at the heads body's D = 256
+    one-merge cap (24, the merge filling the ring's 48 KB) and bf16's past
+    the group body's (16): two merge levels."""
     K, G, D = 1, 4, 256
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if B == 1:
-        assert t_da.decode_grid(B, K, G, 2048, sms, D)[1] == \
-            t_da.max_splits(D, 2)
+        plan = t_da.decode_grid(B, K, G, 2048, sms, D,
+                                getattr(torch, dtype))
+        cap = t_da.merge_cap(plan.body, D, plan.gt)
+        assert plan.splits == cap if dtype == "float32" else \
+            plan.splits > cap
     for W in (512, 2048):
         pos = torch.arange(W, device="cuda")[None, :]
         start = torch.tensor([137, 0, W - 3, 300, 1, 0, 64, 511][:B],
@@ -315,8 +319,8 @@ def test_decode_graphs_of_one_layout_replay_in_any_order(card):
 
 @pytest.mark.cuda
 def test_decode_wrappers_launch_one_kernel_and_never_sync(card):
-    """One kernel per call and no host synchronization (sync debug mode
-    raises on one)."""
+    """One kernel per call (qwen3's G 2 in bf16: the group body) and no
+    host synchronization (sync debug mode raises on one)."""
     from torch.autograd import DeviceType
     dt = torch.bfloat16
     valid = _prefix([560] * 8, 2048)
@@ -338,7 +342,169 @@ def test_decode_wrappers_launch_one_kernel_and_never_sync(card):
     launched = [(e.key, e.count) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
     assert sum(n for _, n in launched) == 2, launched
-    assert all("decode_kernel" in name for name, _ in launched), launched
+    assert all("group_kernel" in name for name, _ in launched), launched
+
+
+# -- the group body and the two-level merge ------------------------------------
+
+def _both(card, dtype, valid, lengths, K, G, D, bs=16, plan=None):
+    """Both kernels (dense over ``valid``, paged at ``lengths``) against
+    their plain versions, each called twice (the same bits), at the
+    shapes' plan or ``plan``."""
+    dt = getattr(torch, dtype)
+    B, W = valid.shape
+    q = _rnd(card, dt, B, K * G, D)
+    k, v = _rnd(card, dt, B, W, K, D), _rnd(card, dt, B, W, K, D)
+    got = t_da.gqa_decode(q, k, v, valid, plan)
+    assert torch.equal(got, t_da.gqa_decode(q, k, v, valid, plan))
+    torch.testing.assert_close(got.float(),
+                               t_da.gqa_decode_plain(q, k, v, valid).float(),
+                               **TOL[dtype])
+    args = _pool_case(card, dt, lengths, -(-W // bs), bs, K, G, D)
+    got = t_da.gqa_decode_paged(*args, plan)
+    assert torch.equal(got, t_da.gqa_decode_paged(*args, plan))
+    torch.testing.assert_close(got.float(),
+                               t_da.gqa_decode_paged_plain(*args).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [3, 5, 6, 7, 8, 16])
+def test_decode_group_body_matches_plain(card, dtype, G):
+    """Every G the group body takes in bf16 (the heads body in fp32), at
+    head dims 32, 128 and 256 (where these shapes' plan takes the heads
+    body, the group body is forced too, at the planned split count): a
+    random mask with an empty row and a late window (ragged W), paged
+    rows of -1 tables, a length-0 row and a full one; the same bits
+    twice."""
+    W, K = 300, 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for D in (32, 128, 256):
+        plan = t_da.decode_grid(4, K, G, W, sms, D, getattr(torch, dtype))
+        plans = [None]
+        if dtype == "float32":
+            assert plan.body == "heads"
+        elif D <= 128:
+            assert plan.body == "group"
+        else:
+            plans.append(t_da.DecodePlan("group", G, plan.splits))
+        valid = torch.rand((4, W), generator=card, device="cuda") < 0.5
+        valid[1] = False
+        valid[2] = False
+        valid[2, 200:290] = True
+        for p in plans:
+            _both(card, dtype, valid, [W // 3, 0, W, 1], K, G, D, plan=p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 16])
+def test_decode_merge_levels_match_plain(card, dtype, G):
+    """Plans forced across the merge's shapes: one split, one merge full
+    (cap), one past it (two levels, the last group one piece), two levels
+    of ragged groups and cap^2 splits (cap groups of cap), pieces of no
+    slot among them; in bf16 both bodies, in fp32 the heads body."""
+    W, K, D = 700, 1, 64
+    bodies = ["heads"] + (["group"] if dtype == "bfloat16" else [])
+    lengths = [700, 3, 0, 451]
+    valid = _prefix(lengths, W)
+    valid[3, :100] = False
+    for body in bodies:
+        gt = G if body == "group" else 2 - G % 2
+        cap = t_da.merge_cap(body, D, gt)
+        for S in sorted({1, cap, cap + 1, 2 * cap + 3, cap * cap}):
+            plan = t_da.DecodePlan(body, gt, S)
+            assert t_da.decode_grid(4, K, G, W, 132, D, plan=plan) == plan
+            _both(card, dtype, valid, lengths, K, G, D, plan=plan)
+
+
+def _long_edges(plan, W, cap):
+    """Lengths of one row where a 32,768-slot plan's pieces and merge
+    groups change: fewer slots than splits (empty pieces, empty groups),
+    one slot a piece, the first slot of each group's first piece at a
+    full row, a slot either side, and W."""
+    S = plan.splits
+    groups = t_da.merge_groups(S, cap)
+    ls = {1, S - 1, S, S + 1, 16 * S, W - 1, W, 31776}
+    for a, _ in groups[1:]:
+        e = t_da.split_range(0, W, S, a)[0]
+        ls |= {e - 1, e, e + 1}
+    return sorted(x for x in ls if 0 < x <= W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(16, 8, 128), (4, 1, 256)],
+                         ids=["qwen3", "gemma3"])
+def test_decode_kernels_at_one_long_row(card, dtype, heads):
+    """One row over 32,768 slots (phase 3g's slot) at qwen3's heads (bf16:
+    the group body at 32 splits, one merge) and gemma3's (bf16: the group
+    body's 256 splits in 16 groups, two merge levels; fp32: the heads
+    body at both): lengths on the split boundaries and the merge groups'
+    boundaries, as dense prefixes, as a dense window starting at half the
+    length, and as paged rows (block size 32); the same bits twice."""
+    H, K, D = heads
+    G, W, bs = H // K, 32768, 32
+    dt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = t_da.decode_grid(1, K, G, W, sms, D, dt)
+    cap = t_da.merge_cap(plan.body, D, plan.gt)
+    if dtype == "bfloat16" and D == 256:
+        assert len(t_da.merge_groups(plan.splits, cap)) > 1
+    q = _rnd(card, dt, 1, H, D)
+    k, v = _rnd(card, dt, 1, W, K, D), _rnd(card, dt, 1, W, K, D)
+    kp, vp = k.reshape(W // bs, bs, K, D), v.reshape(W // bs, bs, K, D)
+    perm = torch.randperm(W // bs, generator=card, device="cuda")
+    pos = torch.arange(W, device="cuda")[None, :]
+    for n in _long_edges(plan, W, cap):
+        for valid in (pos < n, (pos >= n // 2) & (pos < n // 2 + n)):
+            got = t_da.gqa_decode(q, k, v, valid)
+            assert torch.equal(got, t_da.gqa_decode(q, k, v, valid))
+            torch.testing.assert_close(
+                got.float(), t_da.gqa_decode_plain(q, k, v, valid).float(),
+                **TOL[dtype])
+        ln = torch.tensor([n], dtype=torch.int32, device="cuda")
+        start = torch.arange(W // bs, device="cuda")[None, :] * bs
+        bt = torch.where(start < n, perm[None], -1).to(torch.int32)
+        args = (q, kp, vp, bt.contiguous(), ln)
+        got = t_da.gqa_decode_paged(*args)
+        assert torch.equal(got, t_da.gqa_decode_paged(*args))
+        torch.testing.assert_close(
+            got.float(), t_da.gqa_decode_paged_plain(*args).float(),
+            **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_decode_group_body_replays_in_a_cuda_graph(card):
+    """gemma3's heads at one row over 32,768 slots (the group body, two
+    merge levels): captured once, replayed after ``valid`` / ``lengths``
+    and the block table change in place; each replay equals an eager
+    launch and the plain version."""
+    dt, K, G, D, W, bs = torch.bfloat16, 1, 4, 256, 32768, 32
+    q = _rnd(card, dt, 1, G, D)
+    k, v = _rnd(card, dt, 1, W, K, D), _rnd(card, dt, 1, W, K, D)
+    valid = _prefix([31776], W)
+    graph, out = _graphed(lambda: t_da.gqa_decode(q, k, v, valid))
+    q2, kp, vp, bt, ln = _pool_case(card, dt, [31776], W // bs, bs, K, G, D)
+    pgraph, pout = _graphed(lambda: t_da.gqa_decode_paged(q2, kp, vp, bt,
+                                                          ln))
+    for n in (1, 300, 0, W, 20001):
+        valid.copy_(_prefix([n], W))
+        graph.replay()
+        assert torch.equal(out, t_da.gqa_decode(q, k, v, valid))
+        torch.testing.assert_close(
+            out.float(), t_da.gqa_decode_plain(q, k, v, valid).float(),
+            **TOL["bfloat16"])
+        new = _pool_case(card, dt, [n], W // bs, bs, K, G, D)
+        bt.copy_(new[3])
+        ln.copy_(new[4])
+        pgraph.replay()
+        assert torch.equal(pout, t_da.gqa_decode_paged(q2, kp, vp, bt, ln))
+        torch.testing.assert_close(
+            pout.float(),
+            t_da.gqa_decode_paged_plain(q2, kp, vp, bt, ln).float(),
+            **TOL["bfloat16"])
 
 
 #: fused_mask policies (T, k, p), cycled over a batch's rows: T = 0,
@@ -1467,7 +1633,8 @@ def test_decode_kernel_at_hymba_shapes(card, dtype):
     prefix rows."""
     K, G, D, W = 5, 5, 64, 1024
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert t_da.decode_grid(8, K, G, W, sms, D)[0] == 1
+    plan = t_da.decode_grid(8, K, G, W, sms, D, getattr(torch, dtype))
+    assert plan.gt == (1 if dtype == "float32" else 5)
     pos = torch.arange(W, device="cuda")[None, :]
     start = torch.tensor([137, 0, W - 3, 300, 1, 0, 64, 1023],
                          device="cuda")[:, None]
@@ -1844,11 +2011,12 @@ def test_decode_kernel_over_a_cross_span(card, dtype):
         assert (err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()
 
 
-def _tp_probe(mesh, max_len):
+def _tp_probe(mesh, max_len, heads=(16, 8)):
     """Teacher-forced logits of a 2-rank mesh's rank (or one device,
-    ``mesh`` None) on a wide reduced qwen3 (16 q / 8 kv heads of 64) in
-    bf16: a 16-token prefill chunk of 4 rows, then 3 greedy decode steps,
-    through the cuda decode kernel over a ``max_len``-slot cache."""
+    ``mesh`` None) on a wide reduced qwen3 (``heads``: 16 q / 8 kv heads
+    of 64, or chatglm3-6b's 32 q / 2 kv) in bf16: a 16-token prefill
+    chunk of 4 rows, then 3 greedy decode steps, through the cuda decode
+    kernel over a ``max_len``-slot cache."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -1856,8 +2024,8 @@ def _tp_probe(mesh, max_len):
     from repro_torch.distributed import tp
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
-                              dtype="bfloat16", n_heads=16, n_kv_heads=8,
-                              head_dim=64)
+                              dtype="bfloat16", n_heads=heads[0],
+                              n_kv_heads=heads[1], head_dim=64)
     device = mesh.device if mesh is not None else torch.device("cuda")
     model = Model(cfg, kernel_plan=KernelPlan(decode_dense="cuda"),
                   device=device)
@@ -1886,17 +2054,38 @@ def _tp_probe(mesh, max_len):
 
 @pytest.mark.cuda
 def test_tp_engine_decode_logits_equal_one_device(card, tmp_path):
-    """A rank's decode kernels take one device's split count (8 a row
+    """A rank's decode kernels take one device's plan (8 splits a row
     where its 4 kv heads would take 16, at 4 rows over 2048 slots on a
     132-SM card), so rank 0's decode logits equal one device's bit for
     bit, as its prefill logits do."""
     from repro_torch.launch.mesh import spawn_ranks
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert t_da.rank_splits(4, 4, 2, 2048, sms, 64, 2) == \
-        t_da.decode_grid(4, 8, 2, 2048, sms, 64)[1]
+    assert t_da.rank_plan(4, 4, 2, 2048, sms, 64, 2) == \
+        t_da.decode_grid(4, 8, 2, 2048, sms, 64)
     ranks = spawn_ranks(_tp_probe, 2, args=(2048,), devices=["cuda:0"] * 2,
                         timeout_s=300.0, store_dir=tmp_path)
     one = _tp_probe(None, 2048)
+    for step, (a, b) in enumerate(zip(ranks[0], one)):
+        assert np.array_equal(a, b), (step, np.abs(a - b).max())
+    assert all(np.array_equal(a, b) for a, b in zip(ranks[1], ranks[0]))
+
+
+@pytest.mark.cuda
+def test_tp_engine_decode_logits_equal_one_device_at_g16(card, tmp_path):
+    """chatglm3-6b's 32 q / 2 kv heads over 2 ranks (a rank's one kv head,
+    G 16): both take the group body at one device's split count (12 a
+    row, one merge, at 4 rows on a 132-SM card, where the rank's own
+    would take 66 in two merge levels), so rank 0's decode logits equal
+    one device's bit for bit."""
+    from repro_torch.launch.mesh import spawn_ranks
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = t_da.decode_grid(4, 2, 16, 2048, sms, 64)
+    assert one.body == "group" and t_da.rank_plan(
+        4, 1, 16, 2048, sms, 64, 2) == one
+    ranks = spawn_ranks(_tp_probe, 2, args=(2048, (32, 2)),
+                        devices=["cuda:0"] * 2, timeout_s=300.0,
+                        store_dir=tmp_path)
+    one = _tp_probe(None, 2048, (32, 2))
     for step, (a, b) in enumerate(zip(ranks[0], one)):
         assert np.array_equal(a, b), (step, np.abs(a - b).max())
     assert all(np.array_equal(a, b) for a, b in zip(ranks[1], ranks[0]))

@@ -16,10 +16,10 @@
   reference's ``serving_param_specs`` on qwen3-1.7b's tree, and with
   ``serving_cache_specs`` on its caches; ``shard_params`` pieces
   concatenate back to every leaf.
-* **A rank's decode grid**: the decode kernels take the split count one
-  device takes at the full kv heads (``rank_splits``), so a rank's heads
-  merge their splits in the one-device order (qwen3's and gemma3's
-  shapes on a 132-SM card).
+* **A rank's decode plan**: the decode kernels take the plan (body,
+  query heads a CTA, split count) one device takes at the full kv heads
+  (``rank_plan``), so a rank's heads merge their splits in the one-device
+  order (qwen3's, gemma3's and chatglm3's shapes on a 132-SM card).
 * **Planner**: ``serve_schedule`` / ``_plan_kv_pool`` /
   ``_modeled_decode_paged`` under ``mesh_shards`` 2 and 4 equal the
   reference's; ``select_kernel_plan`` keeps ``linked_matmul`` on
@@ -567,40 +567,64 @@ def test_serve_command_fails_past_visible_cards():
                        str(torch.cuda.device_count() + 2)]) == 2
 
 
-# -- a rank's decode split count (the decode kernels' grid on a mesh) --------
+# -- a rank's decode plan (the decode kernels' grid on a mesh) ----------------
 
 @pytest.mark.parametrize("splits", [1, 3, 8, 24, 32, 40, 0, -2])
 @pytest.mark.parametrize("D,G", [(128, 2), (256, 4), (64, 1)])
 def test_decode_grid_takes_the_split_count_asked_for(D, G, splits):
-    """An override is the split count, capped by the kernel's merge ring
-    (``max_splits``) and at least one; GT still follows G."""
-    gt, S = t_da.decode_grid(8, 4, G, 2048, 132, D, splits)
-    assert gt == t_da.decode_grid(8, 4, G, 2048, 132, D)[0]
-    assert S == max(1, min(splits, t_da.max_splits(D, gt)))
+    """An override plan keeps its body and GT (GT still follows G) and its
+    split count, capped by the kernel's two merge levels
+    (``max_splits``) and at least one; an fp32 plan caps one merge at
+    ``merge_cap``, bf16 at its square."""
+    own = t_da.decode_grid(8, 4, G, 2048, 132, D)
+    plan = t_da.decode_grid(8, 4, G, 2048, 132, D,
+                            plan=t_da.DecodePlan(own.body, own.gt, splits))
+    assert (plan.body, plan.gt) == (own.body, own.gt)
+    assert own.gt == (G if own.body == "group" else 2 - G % 2)
+    assert plan.splits == max(1, min(splits, t_da.max_splits(
+        own.body, D, own.gt)))
+    fp32 = t_da.decode_grid(8, 4, G, 2048, 132, D, torch.float32)
+    assert fp32.body == "heads"
+    assert fp32.splits <= t_da.merge_cap("heads", D, fp32.gt)
 
 
-#: (B, K, G, W, D): qwen3-1.7b's decode (8 kv heads of 128, G 2) and
+#: (B, K, G, W, D): qwen3-1.7b's decode (8 kv heads of 128, G 2),
 #: gemma3-1b's shape (G 4, head_dim 256: a global layer's horizon, a
-#: sliding layer's ring) at two kv heads
+#: sliding layer's ring) at two kv heads, and chatglm3-6b's (2 kv heads of
+#: 128, G 16: one on a rank of two)
 RANK_SHAPES = {"qwen3": (8, 8, 2, 2048, 128),
                "gemma3_global": (8, 2, 4, 2048, 256),
-               "gemma3_sliding": (8, 2, 4, 512, 256)}
+               "gemma3_sliding": (8, 2, 4, 512, 256),
+               "chatglm3": (8, 2, 16, 2048, 128)}
 
 
 @pytest.mark.parametrize("shape", RANK_SHAPES.values(), ids=RANK_SHAPES)
 def test_rank_takes_one_device_split_count(shape):
-    """On a 132-SM card a 2-rank engine's decode launches take the split
-    count one device takes at the full kv heads (qwen3: 4, where its own
-    K / 2 would take 8), so each head's row is cut into the same pieces
-    and merged in the same order; on one device and off the card the
-    grid keeps its own."""
+    """On a 132-SM card a 2-rank engine's decode launches take the whole
+    plan one device takes at the full kv heads: its body, its query heads
+    a CTA and its split count (qwen3: 4 splits, where its own K / 2 would
+    take 8; chatglm3: 6, where its own would take 33 in two merge
+    levels), in fp32 and bf16, so each head's row is cut into the same
+    pieces and merged in the same order; on one device and off the card
+    the grid keeps its own."""
     B, K, G, W, D = shape
-    one = t_da.decode_grid(B, K, G, W, 132, D)[1]
-    rank = t_da.rank_splits(B, K // 2, G, W, 132, D, 2)
-    assert rank == one
-    assert t_da.decode_grid(B, K // 2, G, W, 132, D, rank)[1] == one
+    for dtype in (torch.bfloat16, torch.float32):
+        one = t_da.decode_grid(B, K, G, W, 132, D, dtype)
+        rank = t_da.rank_plan(B, K // 2, G, W, 132, D, 2, dtype)
+        assert rank == one
+        assert t_da.decode_grid(B, K // 2, G, W, 132, D, dtype, rank) == one
+        own = t_da.decode_grid(B, K // 2, G, W, 132, D, dtype)
+        assert t_da.merge_groups(rank.splits, t_da.merge_cap(
+            rank.body, D, rank.gt)) == t_da.merge_groups(
+                one.splits, t_da.merge_cap(one.body, D, one.gt))
     if shape == RANK_SHAPES["qwen3"]:
-        assert (one, t_da.decode_grid(B, K // 2, G, W, 132, D)[1]) == (4, 8)
+        assert (one.splits, own.splits) == (4, 8)
+    if shape == RANK_SHAPES["chatglm3"]:
+        # one merge of 6 pieces on one device; the rank's own 8 units
+        # would take two merge levels of 33 splits
+        bf = t_da.rank_plan(B, K // 2, G, W, 132, D, 2)
+        assert bf == ("group", 16, 6)
+        assert t_da.decode_grid(B, K // 2, G, W, 132, D).splits == 33
     q = torch.zeros((B, K // 2 * G, D))
-    assert attention.rank_splits(q, K // 2, W, 2) is None   # a CPU tensor
-    assert attention.rank_splits(q, K // 2, W, 1) is None
+    assert attention.rank_plan(q, K // 2, W, 2) is None   # a CPU tensor
+    assert attention.rank_plan(q, K // 2, W, 1) is None
