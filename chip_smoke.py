@@ -66,8 +66,11 @@ Phases (any failure exits non-zero before the result line):
    Every request must complete with in-vocabulary tokens and each
    kernel's launch counter must rise during the runs that route through
    it (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and
-   decode; every prefill launch must go through its tensor-core kernel,
-   counted as ``linked_mlp_tc``); each run's decode-attention kernel
+   decode; every prefill launch must go through its tensor-core kernel's
+   prefill body, counted as ``linked_mlp_tc_prefill``, and every decode
+   launch through its decode body, ``linked_mlp_tc``; the replanning run
+   may also send 8-token chunks, 64 rows, to the decode body); each
+   run's decode-attention kernel
    must launch once per layer of every decode step (K1 times at a verify
    of width K1), and ``fused_mask`` once per dispatch of the engine's
    samplers (a replay of a sampling graph included), each graph's
@@ -194,7 +197,8 @@ Phases (any failure exits non-zero before the result line):
    8 greedy; chameleon-34b at 12 of its 48 layers (``LARGE_DEPTH``: its
    full depth does not fit one card), 8 greedy.  Each run graphed beside
    its eager twin, streams equal bit for bit; every ``linked_mlp``
-   launch, prefill and decode, a ``linked_mlp_tc`` one; a decode replay
+   launch a tensor-core one (prefill ``linked_mlp_tc_prefill``, decode
+   ``linked_mlp_tc``); a decode replay
    launches ``linked_mlp_tc`` and the decode-attention kernel once a
    layer and ``fused_mask`` once.  Prints each model's init peak beside
    its bf16 and largest-leaf fp32 bytes, steady step, device ms a tick,
@@ -322,8 +326,9 @@ OC = 10, N = 2, printing the plan ``cbra_plan`` picks for each, and
 times the kernel, its plain version and the unlinked form (``addmm``,
 ``relu_``, ``avg_pool2d`` over the materialized pre-pool map), printing
 at t4_8x8 whether the kernel beats either (a finding, not a gate);
-``linked_mlp`` against ``linked_mlp_plain`` (bf16 1e-3 / 2e-2, fp32
-2e-5 / 2e-5) at the serving shapes, decode (8, 2048, 6144) and prefill
+``linked_mlp`` (fp32 against ``linked_mlp_plain`` at 2e-5 / 2e-5, bf16
+against the fp64-summed MLP as below) at the serving shapes, decode
+(8, 2048, 6144) and prefill
 (8 x each chunk a replan may adopt, 8 to 64, 2048, 6144), and at fp32,
 ragged and M = 1
 shapes, printing the plan (kernel, tile, cluster, ff splits) of each;
@@ -331,9 +336,13 @@ at batched prefill's shape (8 x the longest prompt, 2048, 6144)
 bf16, which must take the tensor-core kernel, the kernel and its plain
 version each against the fp64-summed MLP
 (the kernel's worst error within ``MLP_ORDER_FACTOR`` times the plain
-version's; two planted faults must fail that test); timing the kernel,
-its plain version and the unlinked three-matmul form at the served
-shapes; and
+version's; two planted faults must fail that test); every bf16 case
+(the ragged-M one on 16 more input sets) held, kernel and plain version
+each, against the fp64-summed MLP with ``linked_matmul.ops``'s
+``mlp_reference`` limit (the h-rounding slack), both planted faults
+failing it; timing the planned body, the decode body forced at prefill
+shapes (the design before the prefill body), its plain version and the
+unlinked three-matmul form at the served shapes; and
 ``split_matmul`` against ``split_matmul_plain`` (fp32, 2e-5 / 2e-5) at
 bert_s's two plan tiles, inC splits (one with a cluster split inside
 each of its K tiles), M = 1 and ragged cases, twice each (the same
@@ -383,9 +392,14 @@ TOL = {"float32": dict(rtol=3e-5, atol=3e-5),
        "bfloat16": dict(rtol=2e-2, atol=1e-3)}
 #: cbr_avgpool: element-wise, IEEE fp32 on both sides
 CBRA_TOL = dict(rtol=2e-5, atol=2e-5)
-#: linked_mlp: element-wise (bf16: h and y rounded to bf16 on both sides)
+#: linked_mlp: fp32 element-wise against the plain version; bf16 against
+#: the fp64-summed MLP (``mlp_reference``): atol + rtol |ref| plus one bf16
+#: step of each h element a correct fp32 order can round apart, carried
+#: through |Wd|
 MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
            "bfloat16": dict(rtol=2e-2, atol=1e-3)}
+#: ragged_m_bf16's extra input sets, drawn from a generator of their own
+MLP_RAGGED_SETS, MLP_RAGGED_SEED = 16, 30
 #: linked_mlp at batched prefill's shape: the kernel's worst error from
 #: the fp64-summed MLP, at most this many times the plain version's
 MLP_ORDER_FACTOR = 2.0
@@ -588,13 +602,15 @@ def check_close(label: str, got, want, dtype: str,
 
 
 #: kernels whose registers and spills phase 1 prints, by the pattern of
-#: their mangled names: the tensor-core linked_mlp, split_matmul (rows a
+#: their mangled names: the tensor-core linked_mlp's two bodies,
+#: split_matmul (rows a
 #: CTA, k halves, cluster size, 16-byte copies), fused_mask (cluster
 #: size, 16-byte copies), cbr_avgpool (thread columns and rows, k parts,
 #: squares a thread, cluster size, 16-byte copies) and the decode
 #: kernels' group body (head dim, 8-head blocks, paged)
 PTXAS_KERNELS = {
     r"linked_mlp_tcE": "linked_mlp_tc",
+    r"linked_mlp_tc_prefillE": "linked_mlp_tc_prefill",
     r"split_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
         "split_matmul_kernel<BM={},KH={},CL={},VEC={}>",
     r"fused_mask_kernelILi(\d+)ELb(\d)E": "fused_mask_kernel<CL={},VEC={}>",
@@ -1557,6 +1573,48 @@ def mlp_err(got, ref, tol) -> float:
             ).max().item()
 
 
+def mlp_faults(torch, args) -> dict:
+    """The planted faults' inputs: the up-projection term of the largest
+    |x| left out (that column of x 0) and the ff column whose h is
+    largest left out (that row of wd 0).  The last term or column, taken
+    blindly, can carry too little to see: one row's x[:, -1] may be near
+    0, and at decode rows past d 4096 the last column's h lies under any
+    limit that passes correct orders."""
+    F = torch.nn.functional
+    x, wg, wu, wd = args
+    x_cut = x.clone()
+    x_cut[:, x.float().abs().amax(0).argmax()] = 0
+    col = (F.silu(x.float() @ wg.float()) * (x.float() @ wu.float())
+           ).abs().amax(0).argmax()
+    wd_cut = wd.clone()
+    wd_cut[col] = 0
+    return {"d_term": (x_cut, wg, wu, wd), "ff_column": (x, wg, wu, wd_cut)}
+
+
+def hold_bf16(torch, ops, label, args, got, plain) -> dict:
+    """The bf16 check (``ops.mlp_reference``): the kernel's result and the
+    plain version's each within the fp64-summed MLP's limit, and both
+    planted faults, launched through the kernel, outside it.  Fails the
+    smoke otherwise; returns each one's worst err / limit."""
+    ref, limit = ops.mlp_reference(*args)
+    out = {"kernel": ops.reference_err(got, ref, limit),
+           "plain": ops.reference_err(plain, ref, limit)}
+    for k, fa in mlp_faults(torch, args).items():
+        out[k] = ops.reference_err(ops.linked_mlp(*fa), ref, limit)
+    print(f"linked_mlp {label}: worst err / (atol + rtol |fp64| + h slack): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    for k in ("kernel", "plain"):
+        if not out[k] <= 1.0:
+            fail(f"linked_mlp {label}: the {k} result is {out[k]:.3f} of "
+                 "the fp64 limit")
+    for k in ("d_term", "ff_column"):
+        if not out[k] > 1.0:
+            fail(f"linked_mlp {label}: the planted fault {k} "
+                 f"({out[k]:.3f}) passes the fp64 limit")
+    del ref, limit
+    return out
+
+
 def mlp_plan(torch, ops, args):
     """The plan ``linked_mlp`` picks for ``args`` on this card."""
     x, wg = args[0], args[1]
@@ -1579,13 +1637,24 @@ def time_mlp_case(torch, ops, gen, label, args, row, ffma=False):
     flops = 2 * M * d * ff * 3 + 4 * M * ff    # matmuls; silu, product
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     r = row["per_shape"].setdefault(label, {})
+    plan = mlp_plan(torch, ops, args)
     r.update({
-        "shape": [M, d, ff], "plan": mlp_plan(torch, ops, args)._asdict(),
+        "shape": [M, d, ff], "plan": plan._asdict(),
         "ms": cuda_ms([lambda a=a: ops.linked_mlp(*a) for a in sets]),
         "plain_ms": cuda_ms([lambda a=a: ops.linked_mlp_plain(*a)
                              for a in sets]),
         "unlinked_ms": cuda_ms([lambda a=a: unlinked_mlp(*a) for a in sets]),
         "bound_ms": b_ms, "bound_by": b_by})
+    r["share"] = b_ms / r["ms"]
+    if plan.body == "prefill":
+        # the decode body forced at the same shape: the parent's design
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        dplan = ops.mlp_plan(M, d, ff, args[0].dtype, True, sms, path="tc",
+                             slots=ops.cluster_slots(args[0].device),
+                             body="decode")
+        r["decode_body"] = {"plan": dplan._asdict(), "ms": cuda_ms(
+            [lambda a=a: ops.linked_mlp(*a, plan=dplan) for a in sets],
+            iters=24 if M < 8192 else 6, warmup=3 if M < 8192 else 1)}
     if ffma:
         x = args[0]
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1597,17 +1666,22 @@ def time_mlp_case(torch, ops, gen, label, args, row, ffma=False):
                                 for a in sets], iters=n, warmup=min(3, n))
         # the cluster sizes the planner weighed and did not choose
         r["other_clusters"] = {}
-        for cl in ops.tc_clusters(d):
+        ds = ops.TP_DS if plan.body == "prefill" else ops.TC_DS
+        for cl in ops.tc_clusters(d, ds):
             if cl == r["plan"]["cl"]:
                 continue
             alt = ops.mlp_plan(M, d, ff, x.dtype, True, sms, path="tc",
-                               slots=ops.cluster_slots(x.device), cl=cl)
+                               slots=ops.cluster_slots(x.device), cl=cl,
+                               body=plan.body)
             r["other_clusters"][cl] = {
                 "S": alt.S, "ms": cuda_ms([lambda a=a: ops.linked_mlp(
                     *a, plan=alt) for a in sets])}
-    print(f"linked_mlp {label} ({M},{d})@({d},{ff}): {r['ms']:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
-          f"unlinked {r['unlinked_ms']:.4f} ms"
+    print(f"linked_mlp {label} ({M},{d})@({d},{ff}): {plan.body} body "
+          f"{r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+          f"{r['share']:.3f}, plain {r['plain_ms']:.4f} ms, unlinked "
+          f"{r['unlinked_ms']:.4f} ms"
+          + (f", decode body forced {r['decode_body']['ms']:.4f} ms"
+             if "decode_body" in r else "")
           + (f", FFMA kernel {r['ffma_ms']:.4f} ms (plan "
              f"{r['ffma_plan']}): tensor-core faster "
              f"{r['ms'] < r['ffma_ms']}, unlinked faster "
@@ -1618,34 +1692,39 @@ def time_mlp_case(torch, ops, gen, label, args, row, ffma=False):
              if ffma else ""))
 
 
-def linked_mlp_case(torch, ops, gen, label, shape, row, timed, ffma=False):
-    """Hold ``linked_mlp`` against its plain version at ``shape`` (M, d,
-    ff, dtype), twice (the same bits both times), and fold the error into
-    ``row``; ``timed`` also prints how far the plain version lands from
-    the fp64-summed one and times the shape (``ffma``: the FFMA kernel
-    too)."""
+def linked_mlp_case(torch, ops, gen, label, shape, row, timed, ffma=False,
+                    sets=()):
+    """Hold ``linked_mlp`` at ``shape`` (M, d, ff, dtype), twice (the same
+    bits both times), and fold the error into ``row``: fp32 element-wise
+    against its plain version; bf16 (kernel and plain version each)
+    against the fp64-summed MLP with ``hold_bf16``'s limit, both planted
+    faults failing it.  ``sets``: more input sets held the same way (each
+    a tuple of the four tensors).  ``timed`` also times the shape
+    (``ffma``: the FFMA kernel too)."""
     M, d, ff, dt = shape
     name = str(dt).split(".")[-1]
     args = mlp_inputs(torch, M, d, ff, dt, gen)
     plan = mlp_plan(torch, ops, args)
     print(f"linked_mlp {label}: plan {plan._asdict()}")
-    got = ops.linked_mlp(*args)
-    if not torch.equal(got, ops.linked_mlp(*args)):
-        fail(f"linked_mlp {label}: two launches gave different bits")
-    plain = ops.linked_mlp_plain(*args)
-    err = check_close(f"linked_mlp {label} {name} ({M},{d})@({d},{ff})",
-                      got, plain, name, MLP_TOL[name])
-    key = "max_abs_err" if name == "bfloat16" else "max_abs_err_fp32"
-    row[key] = max(row.get(key, 0.0), err)
-    if not timed:
-        return
-    # how far two correct summation orders land apart once h is rounded
-    # to bf16, in units of the limit
-    noise = mlp_err(plain, mlp_fp64(torch, args), MLP_TOL[name])
-    print(f"linked_mlp {label}: fp32 plain vs fp64-summed plain, worst "
-          f"err / (atol + rtol |fp64|) {noise:.3f}")
-    row["per_shape"][label] = {"order_noise": noise}
-    time_mlp_case(torch, ops, gen, label, args, row, ffma)
+    for i, a in enumerate((args, *sets)):
+        got = ops.linked_mlp(*a)
+        if not torch.equal(got, ops.linked_mlp(*a)):
+            fail(f"linked_mlp {label}: two launches gave different bits")
+        plain = ops.linked_mlp_plain(*a)
+        if name == "bfloat16":
+            held = hold_bf16(torch, ops, f"{label} set {i} ({M},{d})@({d},"
+                             f"{ff})", a, got, plain)
+            row["worst_vs_fp64"] = max(row.get("worst_vs_fp64", 0.0),
+                                       held["kernel"])
+            err = (got.float() - plain.float()).abs().max().item()
+            key = "max_abs_err"
+        else:
+            err = check_close(f"linked_mlp {label} {name} ({M},{d})@({d},"
+                              f"{ff})", got, plain, name, MLP_TOL[name])
+            key = "max_abs_err_fp32"
+        row[key] = max(row.get(key, 0.0), err)
+    if timed:
+        time_mlp_case(torch, ops, gen, label, args, row, ffma)
 
 
 def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
@@ -1662,17 +1741,18 @@ def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
     error must stay within ``MLP_ORDER_FACTOR`` times the plain
     version's on the same inputs.  Two planted faults, launched through
     the kernel, must fail the same test: one up-projection term (the
-    last of d) and one ff column (the last) left out.  ``d`` / ``ff``:
-    the width (qwen3-1.7b's by default); ``ffma`` times the FFMA kernel
-    too."""
+    last of d) and one ff column (the last) left out.  Both are also
+    held to ``hold_bf16``'s limit (the fp64 sum plus the h-rounding
+    slack), its planted faults failing it.  ``d`` / ``ff``: the width
+    (qwen3-1.7b's by default); ``ffma`` times the FFMA kernel too."""
     tol = MLP_TOL["bfloat16"]
     worst = {"kernel": 0.0, "plain": 0.0, "ratio": 0.0}
     for i in range(n_sets):
         args = mlp_inputs(torch, M, d, ff, torch.bfloat16, gen)
         plan = mlp_plan(torch, ops, args)
-        if plan.path != "tc":
+        if plan.path != "tc" or plan.body != "prefill":
             fail(f"linked_mlp {label}: planned {plan}, want the "
-                 "tensor-core kernel")
+                 "tensor-core kernel's prefill body")
         got = ops.linked_mlp(*args)
         if not torch.equal(got, ops.linked_mlp(*args)):
             fail(f"linked_mlp {label}: two launches gave different bits")
@@ -1701,9 +1781,12 @@ def linked_mlp_batched(torch, ops, gen, row, M: int = SLOTS * PROMPT_LENS[1],
             if v <= MLP_ORDER_FACTOR * e_p:
                 fail(f"linked_mlp {label} set {i}: the planted "
                      f"fault {k} ({v:.3f}) passes the test")
+        held = hold_bf16(torch, ops, f"{label} set {i}", args, got, plain)
         worst = {"kernel": max(worst["kernel"], e_k),
                  "plain": max(worst["plain"], e_p),
-                 "ratio": max(worst["ratio"], e_k / e_p)}
+                 "ratio": max(worst["ratio"], e_k / e_p),
+                 "vs_limit": max(worst.get("vs_limit", 0.0),
+                                 held["kernel"])}
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0),
                                  (got.float() - plain.float()).abs().max()
                                  .item())
@@ -1748,14 +1831,24 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
               "gemma3_prefill_c32": (SLOTS * 32, G3_D_MODEL, G3_D_FF, bf16),
               "hymba_decode": (SLOTS, HY_D_MODEL, HY_D_FF, bf16),
               "hymba_prefill_c32": (SLOTS * 32, HY_D_MODEL, HY_D_FF, bf16)}
+    # ragged M in bf16 on more input sets (its own generator: the shared
+    # one keeps drawing what it drew for every later check)
+    rgen = new_gen(torch, MLP_RAGGED_SEED)
+    extra = {"ragged_m_bf16": [
+        mlp_inputs(torch, *cases["ragged_m_bf16"], rgen)
+        for _ in range(MLP_RAGGED_SETS)]}
     for label, shape in {**cases, **others}.items():
         linked_mlp_case(torch, ops, gen, label, shape, row,
-                        timed=label in served or label in others)
+                        timed=label in served or label in others,
+                        sets=extra.get(label, ()))
     for label, (M, d, ff, dt) in others.items():
         plan = row["per_shape"][label]["plan"]
-        if plan["path"] != "tc" or plan["cl"] != -(-d // ops.TC_DS):
+        ds = ops.TP_DS if plan["body"] == "prefill" else ops.TC_DS
+        if plan["path"] != "tc" or plan["cl"] != -(-d // ds) or \
+                plan["body"] != ("prefill" if M >= ops.PREFILL_ROWS
+                                 else "decode"):
             fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
-                 f"kernel on a cluster of {-(-d // ops.TC_DS)}")
+                 f"kernel's body for {M} rows on a cluster of {-(-d // ds)}")
     linked_mlp_batched(torch, ops, gen, row)
     linked_mlp_batched(torch, ops, gen, row, M=LONG_PROMPT,
                        label="long_prefill", n_sets=1)
@@ -2205,15 +2298,21 @@ def swiglu_layers(cfg) -> int:
     return cfg.n_layers if cfg.d_ff and cfg.family != "audio" else 0
 
 
-def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
+def check_launches(label, run, cfg, decode_tc, attn: dict,
+                   replanned: bool = False) -> None:
     """Every prefill launch of ``linked_mlp`` goes through the tensor-core
-    kernel (decode's through the one the planner picks), each
-    decode-attention kernel launches ``attn[kernel]`` times every decode
-    step (K1 times that at a verify of width K1), and ``fused_mask`` once
-    a sampler dispatch; a graphed run's launches are its replays' plus its
-    graphs' warm-ups, each warm-up the launches of one replay.  A family
-    with no SwiGLU on the linked site (mamba2, olmoe's experts) launches
-    no ``linked_mlp`` at all."""
+    kernel's prefill body (``linked_mlp_tc_prefill``) and every decode
+    one through its decode body (``linked_mlp_tc``; the FFMA kernel where
+    the planner picks it for decode).  ``replanned``: the run may have
+    adopted 8-token chunks (8 slots x 8 rows, under the prefill body's
+    ``PREFILL_ROWS``), whose whole prefill calls (a launch a layer) take
+    the decode body.  Each decode-attention kernel
+    launches ``attn[kernel]`` times every decode step (K1 times that at a
+    verify of width K1), and ``fused_mask`` once a sampler dispatch; a
+    graphed run's launches are its replays' plus its graphs' warm-ups,
+    each warm-up the launches of one replay.  A family with no SwiGLU on
+    the linked site (mamba2, olmoe's experts) launches no ``linked_mlp``
+    at all."""
     ln, warm = run["launches"], run["warmup"]
     for name, g in run["graphs"].items():
         want = {k: g["captures"] * n for k, n in g["launches"].items()}
@@ -2229,7 +2328,7 @@ def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
             + f"; linked_mlp {ln.get('linked_mlp', 0)}; fused_mask "
             f"{ln['fused_mask']} over {run['sampler_calls']} sampler "
             f"dispatches and warm-ups {warm.get('fused_mask', 0)}")
-        for k in ("linked_mlp", "linked_mlp_tc"):
+        for k in ("linked_mlp", "linked_mlp_tc", "linked_mlp_tc_prefill"):
             if ln.get(k, 0):
                 fail(f"{label}: {k} launched {ln[k]} times, want none")
         want = run["sampler_calls"] + warm.get("fused_mask", 0)
@@ -2244,22 +2343,37 @@ def check_launches(label, run, cfg, decode_tc, attn: dict) -> None:
         return
     decode_mlp = swiglu_layers(cfg) * run["kernel_steps"] + warm.get(
         "linked_mlp", 0)
-    want_tc = ln["linked_mlp"] - (0 if decode_tc else decode_mlp)
-    print(f"{label}: linked_mlp {ln['linked_mlp']} launches, linked_mlp_tc "
-          f"{ln['linked_mlp_tc']} (prefill {ln['linked_mlp'] - decode_mlp}, "
-          f"decode and verify {decode_mlp} on {'tc' if decode_tc else 'ffma'}"
-          f", warm-ups included); " + "; ".join(
+    prefill_mlp = ln["linked_mlp"] - decode_mlp
+    want_tc = decode_mlp if decode_tc else 0
+    # prefill calls of 64 rows or fewer on the decode body (replanned runs)
+    small = ln["linked_mlp_tc"] - want_tc if replanned and decode_tc else 0
+    if small % swiglu_layers(cfg) or small < 0:
+        fail(f"{label}: {small} decode-body launches past decode's are no "
+             "whole prefill calls")
+    prefill_mlp -= small
+    print(f"{label}: linked_mlp {ln['linked_mlp']} launches: prefill "
+          f"{prefill_mlp}, linked_mlp_tc_prefill "
+          f"{ln.get('linked_mlp_tc_prefill', 0)}; decode and verify "
+          f"{decode_mlp} on {'tc' if decode_tc else 'ffma'}, linked_mlp_tc "
+          f"{ln['linked_mlp_tc']} (warm-ups included); " + "; ".join(
               f"{k} {ln[k]} ({n} a step) over {run['kernel_steps']} "
               f"decode-kernel steps and warm-ups {warm.get(k, 0)}"
               for k, n in attn.items())
           + f"; fused_mask {ln['fused_mask']} over "
           f"{run['sampler_calls']} sampler dispatches and warm-ups "
           f"{warm.get('fused_mask', 0)}")
-    if ln["linked_mlp_tc"] != want_tc or want_tc <= 0:
+    if ln.get("linked_mlp_tc_prefill", 0) != prefill_mlp or \
+            prefill_mlp <= 0:
+        fail(f"{label}: linked_mlp_tc_prefill launched "
+             f"{ln.get('linked_mlp_tc_prefill', 0)} times, want every "
+             f"prefill launch ({prefill_mlp})")
+    if ln["linked_mlp_tc"] != want_tc + small:
         fail(f"{label}: linked_mlp_tc launched {ln['linked_mlp_tc']} times, "
-             f"want every prefill launch ({want_tc})")
+             f"want every decode and verify launch ({want_tc})"
+             + (f" and {small} of short prefill chunks" if small else ""))
     for name in [k for k, n in attn.items() if n] + [
-            "fused_mask", "linked_mlp", "linked_mlp_tc"]:
+            "fused_mask", "linked_mlp", "linked_mlp_tc_prefill"] + (
+                ["linked_mlp_tc"] if decode_tc else []):
         if ln.get(name, 0) <= 0:
             fail(f"{label}: kernel {name} was never launched")
     want = run["sampler_calls"] + warm.get("fused_mask", 0)
@@ -2317,7 +2431,7 @@ def serving_phases(torch, kernels, serve, model, params, paged_args,
         torch, kernels, serve, serve.build_engine(replan_args, model, params),
         replan_args, label, 13)
     check_launches(label, runs[label], cfg, decode_tc,
-                   decode_kernels(model, "dense"))
+                   decode_kernels(model, "dense"), replanned=True)
     replans = runs[label]["stages"].get("replan", {"calls": 0})["calls"]
     if replans < 1:
         fail(f"{label}: the engine never replanned")
@@ -2557,10 +2671,10 @@ def tree_bytes(params) -> tuple[int, int]:
 def large_run(torch, kernels, serve, model, params, label, args, seed):
     """One phase 3h run: graphed, then its eager twin on the same
     requests (each engine freed before the next is built), streams equal
-    bit for bit.  Every ``linked_mlp`` launch, prefill and decode, is a
-    ``linked_mlp_tc`` one; a decode replay launches ``linked_mlp_tc`` and
-    the KV layout's decode-attention kernel once a layer and
-    ``fused_mask`` once."""
+    bit for bit.  Every ``linked_mlp`` launch is a tensor-core one: prefill
+    on its prefill body, decode on its decode body (``check_launches``);
+    a decode replay launches ``linked_mlp_tc`` and the KV layout's
+    decode-attention kernel once a layer and ``fused_mask`` once."""
     cfg = model.cfg
     attn = decode_kernels(model, args.kv)
     runs = {}
@@ -2573,9 +2687,10 @@ def large_run(torch, kernels, serve, model, params, label, args, seed):
         del engine
         ln = runs[name]["launches"]
         check_launches(name, runs[name], cfg, True, attn)
-        if ln["linked_mlp"] != ln["linked_mlp_tc"]:
-            fail(f"{name}: {ln['linked_mlp'] - ln['linked_mlp_tc']} "
-                 "linked_mlp launches went to the FFMA kernel")
+        tc = ln["linked_mlp_tc"] + ln["linked_mlp_tc_prefill"]
+        if ln["linked_mlp"] != tc:
+            fail(f"{name}: {ln['linked_mlp'] - tc} linked_mlp launches "
+                 "went to the FFMA kernel")
         if graphed:
             want = {**attn, "linked_mlp_tc": cfg.n_layers, "fused_mask": 1}
             got = runs[name]["graphs"]["serve_sample"]["launches"]
@@ -3007,7 +3122,8 @@ def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
                 fail(f"{name}: {attn} launched {ln[attn]} times, want "
                      f"{cfg.n_layers} a decode step ({want})")
             if ln["fused_mask"] != run["sampler_calls"] \
-                    or ln["linked_mlp"] or ln["linked_mlp_tc"]:
+                    or ln["linked_mlp"] or ln["linked_mlp_tc"] \
+                    or ln["linked_mlp_tc_prefill"]:
                 fail(f"{name}: fused_mask {ln['fused_mask']} over "
                      f"{run['sampler_calls']} sampler dispatches, "
                      f"linked_mlp {ln['linked_mlp']} (want none)")
@@ -5541,9 +5657,26 @@ def main() -> int:
         else:
             row["launches"] = sum(r.get("launches", {}).get(name, 0)
                                   for r in runs.values())
-        table.append({k: row[k] for k in (
+        entry = {k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "linked_mlp":
+            # the tensor-core kernel's two bodies: each one's launches on
+            # the main path, and its time at a shape it serves
+            entry["name"] = "linked_mlp (linked_mlp_tc, linked_mlp_tc_prefill)"
+            ps = row["per_shape"]
+            entry["bodies"] = {}
+            for body, shape in (("linked_mlp_tc", "decode"),
+                                ("linked_mlp_tc_prefill", "batched_prefill")):
+                entry["bodies"][body] = {
+                    "launches": sum(r.get("launches", {}).get(body, 0)
+                                    for r in runs.values()),
+                    "shape": ps[shape]["shape"], "ms": ps[shape]["ms"],
+                    "bound_ms": ps[shape]["bound_ms"],
+                    "unlinked_ms": ps[shape]["unlinked_ms"]}
+            entry["bodies"]["linked_mlp_tc_prefill"]["decode_body_ms"] = \
+                ps["batched_prefill"]["decode_body"]["ms"]
+        table.append(entry)
     result["table"] = table
     result["smoke_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1,

@@ -26,7 +26,8 @@
 // 1.48 ms at M 4352 (operations); chameleon-34b's (8192, 22016) 0.323 /
 // 4.76 ms.
 //
-// Two kernels, chosen per call by ops.py's planner (``mlp_plan``), which
+// Two kernels (the tensor-core one with two bodies), chosen per call by
+// ops.py's planner (``mlp_plan``), which
 // also picks every grid size from the shapes, the device's SM count and
 // the clusters of the tensor-core kernel it runs at once.
 // Both keep the operator linking: the hidden activation h (M x ff) is
@@ -79,6 +80,42 @@
 //     sums the S partials in split order.  No atomics: two launches give
 //     the same bits.
 //
+// linked_mlp_tc_prefill (the same shapes, from ops.py's PREFILL_ROWS rows
+// on): the tensor-core kernel's prefill body.  The decode body runs each
+// 64-deep step as a chain nothing overlaps (cp.async, a block barrier,
+// one m64n64 product a warpgroup, a wait to zero) and feeds each weight
+// tile to 64 rows; at M 4352 it took ~0.7 us a step, 3-5x the tensor
+// cores' time.  This body:
+//   * Tiles of 128 rows: warpgroups 1 and 2 each take 64 rows against the
+//     same weight tiles; an up step is one m64n128 product a warpgroup
+//     ([g | u]: Wg's 64 columns, then Wu's, side by side in the stage).
+//     A CTA owns 128 columns of y, so a cluster of up to 16 covers d 2048
+//     (past it, clusters split d as the decode body's do).
+//   * A TMA ring (4 stages of 32 KB, 128-byte swizzle, zero fill past M,
+//     d and ff) with full / empty mbarriers, filled by one thread of
+//     warpgroup 0.  The x tile is the same for every rank of a cluster:
+//     each rank loads its share of 8-row boxes and multicasts them to all,
+//     so a stage is free only when every rank's consumers released it
+//     (the empty barrier counts 2 C arrivals).
+//   * h crosses the cluster by bulk copies: at down step j rank i
+//     multiplies block (i + j) % nblk, whose rank pushes its h (16 KB)
+//     into the free half of rank i's stage, counted by that stage's full
+//     barrier; each rank sends one block a step, not all at once.  A
+//     round's h is published with release-arrivals on every rank's hready
+//     barrier after a proxy fence; the wait acquires.
+//   * The two consumer warpgroups take turns issuing their products (two
+//     named barriers), so one folds and waits while the tensor core runs
+//     the other's step.  Each 64-deep step is summed from zero and folded
+//     by IEEE fp32 adds, as in the decode body (the same bits where the
+//     plan is the same).
+//   * 168 registers a thread (three warps share each SM sub-partition):
+//     y (64), the fold (64) and a step's product (64) do not fit at once,
+//     so y is parked in shared memory over the up-projection.
+// S = 1 stores y directly, S > 1 goes through the workspace and
+// linked_mlp_reduce, as the decode body.  The host encodes the four
+// tensor maps at each launch (kernel parameters, so a CUDA graph keeps
+// them).
+//
 // linked_mlp_partial (fp32, and bf16 shapes the tensor-core kernel does
 // not take): the FFMA kernel.  Each thread block computes one (BM <= 8
 // rows) x (64 ff columns) block of h on chip and consumes it there, and
@@ -110,6 +147,7 @@
 // can be captured into a CUDA graph.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -890,6 +928,506 @@ int max_clusters(int C) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// linked_mlp_tc_prefill: bf16 on the tensor cores, 128-row tiles
+// ---------------------------------------------------------------------------
+
+namespace tp {
+
+using bf16 = __nv_bfloat16;
+using tc::desc;
+using tc::reg_fence;
+using tc::smem_u32;
+using tc::wg_commit;
+using tc::wg_fence;
+using tc::wg_wait0;
+using tc::wgmma_n128;
+
+// Warpgroup 0 loads (one thread), warpgroups 1 and 2 compute.  Three
+// warps share each SM sub-partition's registers: 168 a thread.
+constexpr int kThreads = 384;
+constexpr int kBM = 128;            // rows an M tile: 64 a consumer
+constexpr int kBF = 64;             // ff columns a block
+constexpr int kBK = 64;             // d (k) an up-projection step
+constexpr int kDS = 128;            // y columns a CTA owns
+constexpr int kMaxCluster = 16;     // non-portable past 8
+constexpr int kStages = 4;
+constexpr int kStage = 32768;       // bytes: an up step's x (128 x 64) and
+                                    // Wg, Wu (64 x 64); a down step's Wd
+                                    // (64 x 128) and the h block it takes
+constexpr int kH = kBM * kBF * 2;   // bytes of an h block (128 x 64 bf16)
+constexpr int kXBox = 8;            // x rows a multicast box
+constexpr int kY = kBM * kDS * 4;   // bytes of y's fp32 block
+// 1024 of alignment slack, the ring, own h (two buffers), y parked over
+// the up-projection, the full, empty and two hready barriers
+constexpr size_t kSmemBytes = 1024 + static_cast<size_t>(kStages) * kStage +
+                              2 * kH + kY + (2 * kStages + 2) * 8;
+static_assert(kSmemBytes <= 232448, "fits one CTA's opt-in shared memory");
+// a wait longer than this (~9 s) is a protocol fault: trap, not hang
+constexpr long long kHangCycles = 1ll << 34;
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// ``kCluster``: acquire at cluster scope (what other ranks wrote before
+// their release-arrivals is visible after the wait)
+template <bool kCluster = false>
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned ok;
+  if (kCluster)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  return ok != 0;
+}
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait<kCluster>(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait<kCluster>(bar, parity))
+    if (clock64() - t0 > kHangCycles) __trap();
+}
+// Arrive on the barrier at `bar`'s offset in cluster rank `rank`.
+// ``kRelease``: release at cluster scope, so that this CTA's writes made
+// before it (ordered by a block barrier) reach the rank's readers; a
+// membar over the whole device, so once a round, never a step.
+template <bool kRelease = false>
+__device__ __forceinline__ void mbar_arrive_rank(unsigned bar, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(bar), "r"(rank));
+  if (kRelease)
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::
+            "r"(remote)
+        : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                     remote)
+                 : "memory");
+}
+// a 2-D tile of `map` at (c0 inner, c1 outer) into this CTA's `dst`
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         unsigned bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the same into `dst` of every rank in `mask`, each signalling its own
+// barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(unsigned dst,
+                                                   const CUtensorMap* map,
+                                                   unsigned bar, int c0,
+                                                   int c1,
+                                                   unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
+}
+// `bytes` of this CTA's shared memory at `src` into `dst` of cluster rank
+// `rank`, signalling the barrier at `bar`'s offset there
+__device__ __forceinline__ void push_rank(unsigned dst, unsigned src,
+                                          unsigned bytes, unsigned bar,
+                                          unsigned rank) {
+  unsigned rdst, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rdst)
+               : "r"(dst), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rbar)
+               : "r"(bar), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(rdst),
+      "r"(src), "r"(bytes), "r"(rbar)
+      : "memory");
+}
+// the cluster barrier: every thread of every rank
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Tensor maps (128-byte swizzle, zero fill past the edges): x (d, M) in
+// boxes of 64 x kXBox, wg / wu (ff, d) and wd (d, ff) in boxes of 64 x 64;
+// part (S, M, d) fp32 (S > 1) or out (M, d) bf16 (S == 1).  gridDim = (n
+// C, ceil(M / 128), S), cluster (C, 1, 1).
+__global__ void __launch_bounds__(kThreads, 1)
+linked_mlp_tc_prefill(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_g,
+                      const __grid_constant__ CUtensorMap tm_u,
+                      const __grid_constant__ CUtensorMap tm_d,
+                      float* __restrict__ part, bf16* __restrict__ out,
+                      int M, int d, int ff, int C, int S) {
+  extern __shared__ __align__(1024) unsigned char tp_smem_raw[];
+  unsigned char* base_ptr = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(tp_smem_raw) + 1023) & ~size_t(1023));
+  const unsigned ring = smem_u32(base_ptr);
+  unsigned char* hown_ptr = base_ptr + kStages * kStage;   // [2][128][64]
+  const unsigned hown = ring + kStages * kStage;
+  float* ypark = reinterpret_cast<float*>(hown_ptr + 2 * kH);  // [2][64][128]
+  const unsigned bars = ring + kStages * kStage + 2 * kH + kY;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  // hready[b]: every consumer warpgroup of every rank has written its h
+  // of a round r with r % 2 == b (and read the round before's)
+  auto hready = [&](int b) { return bars + 8 * (2 * kStages + b); };
+
+  const int rank = static_cast<int>(blockIdx.x) % C;
+  const int m0 = blockIdx.y * kBM;
+  const int s = blockIdx.z;
+  const int col0 = static_cast<int>(blockIdx.x) * kDS;
+  const int nb = (ff + kBF - 1) / kBF;
+  const int jb0 = static_cast<int>(static_cast<long long>(s) * nb / S);
+  const int jb1 = static_cast<int>(static_cast<long long>(s + 1) * nb / S);
+  const int R = (jb1 - jb0 + C - 1) / C;       // rounds
+  const int n_up = (d + kBK - 1) / kBK;        // up steps a round
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      // every consumer warpgroup of every rank releases each stage: the
+      // x multicast writes all ranks' copies of it
+      mbar_init(empty(i), 2 * C);
+    }
+    mbar_init(hready(0), 2 * C);
+    mbar_init(hready(1), 2 * C);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();              // every rank's barriers exist before any
+                               // copy or arrival reaches them
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full ----
+    if (threadIdx.x != 0) return;
+    const unsigned short mask = static_cast<unsigned short>((1u << C) - 1);
+    int n = 0;                 // steps issued
+    for (int r = 0; r < R; ++r) {
+      const int blk0 = jb0 + r * C;
+      // this rank's block; past jb1 it is computed (zero past ff) and
+      // never read, so every rank walks the same steps
+      const int f0 = (blk0 + rank) * kBF;
+      for (int i = 0; i < n_up; ++i, ++n) {
+        const int slot = n % kStages;
+        mbar_wait(empty(slot), ((n / kStages) & 1) ^ 1);
+        const unsigned st = ring + slot * kStage;
+        mbar_expect_tx(full(slot), kStage);
+        for (int g = rank; g < kBM / kXBox; g += C)
+          tma_load_multicast(st + g * kXBox * 128, &tm_x, full(slot),
+                             i * kBK, m0 + g * kXBox, mask);
+        tma_load(st + 16384, &tm_g, full(slot), f0, i * kBK);
+        tma_load(st + 24576, &tm_u, full(slot), f0, i * kBK);
+      }
+      // down step j of rank i takes block (i + j) % nblk: at every step
+      // each rank's h goes to one rank (ceil(C / nblk) in a short last
+      // round), not to all at once
+      const int nblk = min(C, jb1 - blk0);
+      for (int j = 0; j < nblk; ++j, ++n) {
+        const int slot = n % kStages;
+        mbar_wait(empty(slot), ((n / kStages) & 1) ^ 1);
+        const unsigned st = ring + slot * kStage;
+        // Wd's 64 x 128 tile, and the block's h from its rank's push
+        mbar_expect_tx(full(slot), kStage);
+        const int f = (blk0 + (rank + j) % nblk) * kBF;
+        tma_load(st, &tm_d, full(slot), col0, f);
+        tma_load(st + 8192, &tm_d, full(slot), col0 + 64, f);
+        if (rank < nblk) {
+          // this rank's h of the round is written (its consumers' proxy
+          // fences and release-arrivals): push it into the stage of every
+          // rank i that takes it now, (i + j) % nblk == rank, whose slot
+          // every rank has released (the empty barrier counts them all)
+          if (j == 0) mbar_wait<true>(hready(r & 1), (r >> 1) & 1);
+          for (int q = ((rank - j) % nblk + nblk) % nblk; q < C; q += nblk)
+            push_rank(st + 16384, hown + (r & 1) * kH, kH, full(slot), q);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w takes rows 64 w .. 64 w + 63 ----
+  const int w = threadIdx.x / 128 - 1;
+  const int tg = threadIdx.x & 127, lane = tg & 31, w4 = tg >> 5;
+  // release stage `slot` to every rank's producer (thread q signals rank
+  // q); the warp meets again before its next .aligned instruction
+  auto release = [&](int slot) {
+    if (tg < C) mbar_arrive_rank(empty(slot), tg);
+    __syncwarp();
+  };
+  // The round barrier over the consumers of every rank (the producer
+  // runs ahead): the warpgroup's h stores are ordered by its block
+  // barrier before thread q's release-arrival on rank q's hready[b]; the
+  // wait acquires every rank's.
+  auto round_sync = [&](int r) {
+    tc::fence_async_smem();    // h's stores reach the pushes' reads
+    wg_barrier(1 + w);
+    if (tg < C) mbar_arrive_rank<true>(hready(r & 1), tg);
+    mbar_wait<true>(hready(r & 1), (r >> 1) & 1);
+    __syncwarp();
+  };
+  // a stage's data has landed (each lane polls; the warp meets again)
+  auto await = [&](int slot, int n) {
+    mbar_wait(full(slot), (n / kStages) & 1);
+    __syncwarp();
+  };
+  // y (64 registers), the fold (64) and a step's product (64) do not fit
+  // in 168 at once (ptxas allocates a kernel under its launch bound;
+  // setmaxnreg's larger count for the consumers spilled the same).  So y
+  // lives in registers over the down-projection only and is parked in
+  // shared memory (this thread's 64 values, 128 apart) over the
+  // up-projection.
+  float* ymine = ypark + w * 64 * 128 + tg;
+  // The two warpgroups take turns issuing their products (named
+  // barriers 3 and 4, both warpgroups' 256 threads): the tensor core
+  // runs one's step while the other folds and waits, instead of both
+  // issuing together and both folding while it idles.  Warpgroup 0 goes
+  // first.
+  auto take_turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(3 + w) : "memory");
+  };
+  auto pass_turn = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - w) : "memory");
+  };
+  if (w == 1) pass_turn();
+  float yacc[64];
+  int n = 0;                   // steps consumed
+  for (int r = 0; r < R; ++r) {
+    const int blk0 = jb0 + r * C;
+    {
+      // [g | u] of this rank's block for 64 rows: the tensor core sums
+      // each 64-deep step from zero (m64n128: Wg's 64 columns, then
+      // Wu's); IEEE fp32 adds fold the steps in k order
+      float acc[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      for (int i = 0; i < n_up; ++i, ++n) {
+        const int slot = n % kStages;
+        await(slot, n);
+        const unsigned st = ring + slot * kStage;
+        float t[64];
+#pragma unroll
+        for (int e = 0; e < 64; ++e) t[e] = 0.f;
+        take_turn();
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks)
+          wgmma_n128(t, desc(st + w * 8192 + ks * 32, 0, 1024),
+                     desc(st + 16384 + ks * 2048, 8192, 1024), ks);
+        wg_commit();
+        pass_turn();
+        wg_wait0();
+        reg_fence(t);
+        release(slot);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] += t[e];
+      }
+      // h = silu(g) * u, rounded to bf16, into this round's own buffer
+      bf16* hb =
+          reinterpret_cast<bf16*>(hown_ptr + (r & 1) * kH) + 64 * 64 * w;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 16 * w4 + (lane >> 2) + 8 * half;
+          const int e = 4 * j + 2 * half;
+          const float g0 = acc[e], g1 = acc[e + 1];
+          const float h0 = g0 / (1.f + expf(-g0)) * acc[32 + e];
+          const float h1 = g1 / (1.f + expf(-g1)) * acc[32 + e + 1];
+          *reinterpret_cast<__nv_bfloat162*>(
+              hb + row * kBF + ((j ^ (row & 7)) << 3) + 2 * (lane & 3)) =
+              __floats2bfloat162_rn(h0, h1);
+        }
+    }
+    // every rank's h of this round is written
+    round_sync(r);
+#pragma unroll
+    for (int e = 0; e < 64; ++e) yacc[e] = r == 0 ? 0.f : ymine[e * 128];
+    // y[rows, col0 ..] += h_b @ Wd[block b, col0 ..] for the round's
+    // blocks b = (rank + j) % nblk, j = 0, 1, ...: block b's rank pushed
+    // its h into the free half of this rank's stage (the stage's full
+    // barrier counts those bytes too)
+    const int nblk = min(C, jb1 - blk0);
+    for (int j = 0; j < nblk; ++j, ++n) {
+      const int slot = n % kStages;
+      await(slot, n);
+      const unsigned st = ring + slot * kStage;
+      float t[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) t[e] = 0.f;
+      take_turn();
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBF / 16; ++ks)
+        wgmma_n128(t, desc(st + 16384 + w * 8192 + ks * 32, 0, 1024),
+                   desc(st + ks * 2048, 8192, 1024), ks);
+      wg_commit();
+      pass_turn();
+      wg_wait0();
+      reg_fence(t);
+      release(slot);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) yacc[e] += t[e];
+    }
+    if (r + 1 < R)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) ymine[e * 128] = yacc[e];
+  }
+  // no CTA leaves while another reads its h
+  round_sync(R);
+  if (w == 0) take_turn();     // warpgroup 1's last turn
+
+  // y block: cast and store (S == 1) or this split's fp32 partial
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int gm = m0 + 64 * w + 16 * w4 + (lane >> 2) + 8 * half;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int gc = col0 + 8 * j + 2 * (lane & 3);
+      if (gc >= d) continue;
+      const float v0 = yacc[4 * j + 2 * half];
+      const float v1 = yacc[4 * j + 2 * half + 1];
+      if (S == 1)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<size_t>(gm) * d + gc) =
+            __floats2bfloat162_rn(v0, v1);
+      else
+        *reinterpret_cast<float2*>(
+            part + (static_cast<size_t>(s) * M + gm) * d + gc) =
+            make_float2(v0, v1);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, through the runtime's entry-point query (no
+// -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 (rows, cols) tensor in boxes of (box_rows, 64 columns:
+// one 128-byte swizzle row)
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int grid_x(int d, int C) {
+  const int blocks = (d + kDS - 1) / kDS;
+  return (blocks + C - 1) / C * C;
+}
+
+struct Config {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  Config(int gx, int M, int C, int S, cudaStream_t stream) {
+    cfg.gridDim = dim3(gx, (M + kBM - 1) / kBM, S);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmemBytes;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+cudaError_t prepare() {
+  static bool attr_set = false;
+  if (attr_set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      linked_mlp_tc_prefill, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(linked_mlp_tc_prefill,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err == cudaSuccess) attr_set = true;
+  return err;
+}
+
+cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu,
+                   const bf16* wd, float* part, bf16* out, int M, int d,
+                   int ff, int C, int S, cudaStream_t stream) {
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  CUtensorMap mx, mg, mu, md;
+  if (!tensor_map(&mx, x, M, d, kXBox) || !tensor_map(&mg, wg, d, ff, 64) ||
+      !tensor_map(&mu, wu, d, ff, 64) || !tensor_map(&md, wd, ff, d, 64))
+    return cudaErrorInvalidValue;
+  Config c(grid_x(d, C), M, C, S, stream);
+  err = cudaLaunchKernelEx(&c.cfg, linked_mlp_tc_prefill, mx, mg, mu, md,
+                           part, out, M, d, ff, C, S);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return reduce<bf16>(part, out, static_cast<size_t>(M) * d, S, stream);
+}
+
+}  // namespace tp
+
 }  // namespace
 
 // The FFMA kernel: x (M,d), wg/wu (d,ff), wd (ff,d), out (M,d): contiguous,
@@ -948,4 +1486,31 @@ extern "C" int repro_linked_mlp_tc(const void* x, const void* wg,
 extern "C" int repro_linked_mlp_tc_clusters(int cl) {
   if (cl < 1 || cl > tc::kMaxCluster) return -1;
   return tc::max_clusters(cl);
+}
+
+// The tensor-core kernel's prefill body: the same operands and checks as
+// repro_linked_mlp_tc, 128-row tiles, cl CTAs of 128 columns a cluster (1
+// <= cl <= 16, at most ceil(d / 128)), ceil(d / (128 cl)) clusters
+// splitting d.  Returns the cudaError_t of the launches (an invalid value
+// where cuTensorMapEncodeTiled is missing or refuses a tensor).
+extern "C" int repro_linked_mlp_tc_prefill(const void* x, const void* wg,
+                                           const void* wu, const void* wd,
+                                           void* part, void* out, int M,
+                                           int d, int ff, int cl, int S,
+                                           void* stream) {
+  const size_t addr = reinterpret_cast<size_t>(x) |
+                      reinterpret_cast<size_t>(wg) |
+                      reinterpret_cast<size_t>(wu) |
+                      reinterpret_cast<size_t>(wd);
+  if (M <= 0 || d <= 0 || ff <= 0 || d % 8 || ff % 8 || (addr & 15) ||
+      cl < 1 || cl > (d + tp::kDS - 1) / tp::kDS || cl > tp::kMaxCluster ||
+      S < 1 || S > (ff + tp::kBF - 1) / tp::kBF ||
+      (S > 1 && part == nullptr) || (M + tp::kBM - 1) / tp::kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using tp::bf16;
+  return static_cast<int>(tp::launch(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+      static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
+      static_cast<float*>(part), static_cast<bf16*>(out), M, d, ff, cl, S,
+      static_cast<cudaStream_t>(stream)));
 }

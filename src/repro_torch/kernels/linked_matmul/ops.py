@@ -12,9 +12,16 @@ tensors it launches one of the two kernels of ``csrc/linked_mlp.cu`` on
 the current stream, both of which keep h on chip: the tensor-core kernel
 (``tc``) for the bf16 shapes it takes, the FFMA kernel (``ffma``) for the
 rest; :func:`mlp_plan` chooses, from the shapes alone, and sizes the
-grid.  For CPU tensors it runs :func:`linked_mlp_plain`.  Nothing on the
-CUDA path falls back to the plain version, and ragged M, d and ff are
-masked in the kernels.
+grid.  The tensor-core kernel has two bodies: ``decode`` (64-row tiles,
+``cp.async``) below :data:`PREFILL_ROWS` rows and ``prefill`` (128-row
+tiles fed by TMA, warp-specialised) from there on.  For CPU tensors it
+runs :func:`linked_mlp_plain`.  Nothing on the CUDA path falls back to
+the plain version, and ragged M, d and ff are masked in the kernels.
+
+:func:`mlp_reference` is the bf16 check that the card tests and
+``chip_smoke.py`` hold both the kernel and the plain version to: the
+fp64-summed MLP with a limit that admits one bf16 step of every h
+element a correct fp32 order can round apart from the fp64 h.
 """
 from __future__ import annotations
 
@@ -34,6 +41,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: CTA owns, the largest cluster (non-portable past TC_PORTABLE) and the
 #: largest portable one
 TC_BM, TC_BF, TC_DS, TC_MAX_CLUSTER, TC_PORTABLE = 64, 64, 256, 16, 8
+#: its prefill body: rows an M tile (two consumer warpgroups of 64) and y
+#: columns a CTA owns
+TP_BM, TP_DS = 128, 128
+#: rows from which the tensor-core kernel takes its prefill body: past
+#: one 64-row tile of the decode body (mlp_plan's docstring)
+PREFILL_ROWS = 65
 #: the FFMA kernel: ff columns a block, warps a CTA
 FFMA_BF, FFMA_WARPS = 64, 8
 
@@ -41,16 +54,19 @@ FFMA_BF, FFMA_WARPS = 64, 8
 class MlpPlan(NamedTuple):
     """How one call runs.  ``path``: "tc" or "ffma".  ``bm``: rows an M
     tile.  ``cl``: CTAs a cluster, sharing h (tc, whose
-    ``ceil(d / (TC_DS cl))`` clusters split d: :func:`tc_columns`; 1 for
+    ``ceil(d / (ds cl))`` clusters split d: :func:`tc_columns`; 1 for
     ffma).  ``S``: splits of ff.  ``v``: elements an FFMA lane loads at
     once (16 bytes or 2; 8 for tc).  ``workspace``: fp32 elements of the
-    (S, M, d) partial-y workspace (0: y is stored directly)."""
+    (S, M, d) partial-y workspace (0: y is stored directly).  ``body``:
+    the tensor-core kernel's "decode" or "prefill" body ("ffma" for the
+    FFMA kernel)."""
     path: str
     bm: int
     cl: int
     S: int
     v: int
     workspace: int
+    body: str = "decode"
 
 
 def linked_mlp_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -60,6 +76,72 @@ def linked_mlp_plain(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     xf = x.float()
     h = (F.silu(xf @ wg.float()) * (xf @ wu.float())).to(x.dtype)
     return (h.float() @ wd.float()).to(x.dtype)
+
+
+#: how far a correct fp32 summation order of an up-projection may move h
+#: from its fp64 value, in units of 2^-24 sqrt(d) times each sum's terms'
+#: 2-norm (carried through silu(g) u): over four times what the plain
+#: version and 16- and 64-deep stepped orders move it
+#: (tests/test_torch_mlp_prefill.py)
+H_ORDER_MARGIN = 16.0
+
+
+def _bf16_ulp(h: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at |h| (8 significand bits); 0 at h == 0."""
+    e = torch.frexp(h)[1]
+    return torch.where(h == 0, torch.zeros_like(h),
+                       torch.ldexp(torch.ones_like(h), e - 8))
+
+
+def h_rounding_slack(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                     wd: torch.Tensor, g: torch.Tensor | None = None,
+                     u: torch.Tensor | None = None) -> torch.Tensor:
+    """How far two correct bf16 MLPs may land apart through h's rounding
+    alone, (M, d) in fp64: ``slack[i, k] = sum_j ulp(h[i, j]) |wd[j, k]|``
+    over the h elements that a correct fp32 order of the up-projections
+    can round to another bf16 value than the fp64 h does: those whose
+    fp64 value lies within the orders' reach (``H_ORDER_MARGIN`` 2^-24
+    sqrt(d) times each sum's terms' 2-norm, carried through silu(g) u) of
+    a rounding midpoint.  ``g`` / ``u``: x @ wg / x @ wu in fp64, where
+    the caller has them."""
+    x64, g64, u64 = (a.double() for a in (x, wg, wu))
+    g = x64 @ g64 if g is None else g
+    u = x64 @ u64 if u is None else u
+    sig = torch.sigmoid(g)
+    h = g * sig * u
+    x2 = x64 * x64
+    reach = (H_ORDER_MARGIN * 2.0 ** -24 * x.shape[-1] ** 0.5) * (
+        (sig * (1 + g * (1 - sig)) * u).abs() * (x2 @ (g64 * g64)).sqrt()
+        + (g * sig).abs() * (x2 @ (u64 * u64)).sqrt())
+    ulp = _bf16_ulp(h)
+    q = h.abs() / torch.where(ulp > 0, ulp, torch.ones_like(ulp))
+    to_mid = (q - q.floor() - 0.5).abs() * ulp
+    # a reach past a quarter step may cross into the next binade's grid
+    near = (to_mid <= reach) | (4 * reach >= ulp)
+    return torch.where(near, ulp, torch.zeros_like(ulp)) @ wd.double().abs()
+
+
+def mlp_reference(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                  wd: torch.Tensor, rtol: float = 2e-2, atol: float = 1e-3
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 check's reference and limit, both (M, d) fp64: the MLP
+    summed in fp64 with h and y rounded to bf16 as in the plain version,
+    and ``atol + rtol |ref| + h_rounding_slack``.  Any correct summation
+    order lies within the limit; :func:`reference_err` measures a result
+    against it."""
+    x64, g64, u64, d64 = (a.double() for a in (x, wg, wu, wd))
+    g, u = x64 @ g64, x64 @ u64
+    h = (F.silu(g) * u).to(x.dtype)
+    ref = (h.double() @ d64).to(x.dtype).double()
+    del h
+    return ref, atol + rtol * ref.abs() + h_rounding_slack(x, wg, wu, wd,
+                                                           g, u)
+
+
+def reference_err(got: torch.Tensor, ref: torch.Tensor,
+                  limit: torch.Tensor) -> float:
+    """Worst |got - ref| / limit over the elements (<= 1: within)."""
+    return ((got.double() - ref).abs() / limit).max().item()
 
 
 def ffma_smem_bytes(bm: int, d: int) -> int:
@@ -77,13 +159,14 @@ def tc_takes(dtype: torch.dtype, d: int, ff: int, aligned: bool) -> bool:
             and aligned)
 
 
-def tc_clusters(d: int) -> list[int]:
+def tc_clusters(d: int, ds: int = TC_DS) -> list[int]:
     """The cluster sizes the planner weighs for width d, largest first:
-    ``ceil(nd / n)`` for n clusters splitting d's ``nd = ceil(d / TC_DS)``
-    column blocks, from the fewest clusters of at most TC_MAX_CLUSTER
-    CTAs up to those of at most TC_PORTABLE.  One size, ``nd``, up to
-    d 2048."""
-    nd = -(-d // TC_DS)
+    ``ceil(nd / n)`` for n clusters splitting d's ``nd = ceil(d / ds)``
+    column blocks (``ds``: TC_DS for the decode body, TP_DS for the
+    prefill body), from the fewest clusters of at most TC_MAX_CLUSTER
+    CTAs up to those of at most TC_PORTABLE.  One size, ``nd``, up to d
+    2048 in the decode body."""
+    nd = -(-d // ds)
     lo, hi = -(-nd // TC_MAX_CLUSTER), -(-nd // TC_PORTABLE)
     return sorted({-(-nd // n) for n in range(lo, hi + 1)}, reverse=True)
 
@@ -91,31 +174,40 @@ def tc_clusters(d: int) -> list[int]:
 def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
              sms: int, path: str | None = None,
              slots: Callable[[int], int] | None = None,
-             cl: int | None = None) -> MlpPlan | None:
-    """Choose the kernel and its grid for an (M, d, ff) call.
+             cl: int | None = None, body: str | None = None
+             ) -> MlpPlan | None:
+    """Choose the kernel, its body and its grid for an (M, d, ff) call.
 
     ``aligned``: all four tensors 16-byte aligned.  ``sms``: the device's
     SM count.  ``slots(cl)``: clusters of cl CTAs of the tensor-core
     kernel the device runs at once (default sms // cl - 1: one CTA an SM,
     and a cluster lives in one GPC; the occupancy calculator gives 15
-    clusters of 8 on a 132-SM H100).
+    clusters of 8 on a 132-SM H100).  Both bodies take one SM a CTA, so
+    they run as many clusters of a size.
     ``path`` forces a kernel ("tc" raises where it does not take the
     shapes); by default bf16 calls that the tensor-core kernel takes go to
     it (decode too: it timed faster there than the FFMA kernel), the rest
-    to the FFMA kernel.  ``cl`` (tc) forces one of :func:`tc_clusters`'
-    sizes (for timing the others).
-    Returns None where the FFMA kernel cannot fit one row of d.
+    to the FFMA kernel.  ``body`` forces the tensor-core kernel's body and
+    ``cl`` one of :func:`tc_clusters`' sizes for it (for timing the
+    others).  Returns None where the FFMA kernel cannot fit one row of d.
 
-    tc: TC_BM-row tiles; a cluster of cl CTAs of TC_DS columns, and
-    n = ceil(d / (TC_DS cl)) clusters splitting d, each computing its
-    split's h again (cl from :func:`tc_clusters`: one size up to d 2048).
-    For each cl: S = 1 where the n x M tiles' clusters fill a wave (y is
-    stored directly, no workspace); else S, the ff splits, is the fewest
-    that minimise waves x rounds, where waves = ceil(n x M tiles x S /
-    clusters a wave) and rounds = ceil(ff blocks a split / cl).  Of the
-    sizes, the least waves x rounds x (d's 64-deep up-projection steps +
-    cl down-projection steps a round), ties to the larger cl (fewer
-    FLOPs).
+    tc: the body is "prefill" from PREFILL_ROWS (65) rows on, else
+    "decode": wherever the decode body needs a second 64-row tile.  The
+    rule is the card's (``launch/gemm_timing.py --sweep``, H100 SXM, both
+    bodies forced): up to 64 rows the decode body is faster at every
+    served width (one tile; the prefill body's 128-row tile is half
+    padding); from 96 rows the prefill body is faster at d 1600, 2048 and
+    4096 (not at gemma3's d 1152 below 256 rows, nor chatglm3's 192), and
+    from 256 rows at every width.  A body's
+    tiles are bm rows (TC_BM, TP_BM); a cluster of cl CTAs of ds columns
+    (TC_DS, TP_DS), and n = ceil(d / (ds cl)) clusters splitting d, each
+    computing its split's h again (cl from :func:`tc_clusters`).  For each
+    cl: S = 1 where the n x M tiles' clusters fill a wave (y is stored
+    directly, no workspace); else S, the ff splits, is the fewest that
+    minimise waves x rounds, where waves = ceil(n x M tiles x S / clusters
+    a wave) and rounds = ceil(ff blocks a split / cl).  Of the sizes, the
+    least waves x rounds x (d's 64-deep up-projection steps + cl
+    down-projection steps a round), ties to the larger cl (fewer FLOPs).
 
     ffma: the tallest row tile of 8, 4, 2, 1 whose shared memory fits,
     and S splits filling the SMs; its partials always go through the
@@ -129,9 +221,14 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
             raise ValueError(f"linked_mlp: the tensor-core kernel does not "
                              f"take d={d}, ff={ff}, {dtype}, aligned="
                              f"{aligned}")
-        m_tiles = -(-M // TC_BM)
+        if body is None:
+            body = "prefill" if M >= PREFILL_ROWS else "decode"
+        if body not in ("decode", "prefill"):
+            raise ValueError(f"linked_mlp: unknown body {body!r}")
+        bm, ds = (TP_BM, TP_DS) if body == "prefill" else (TC_BM, TC_DS)
+        m_tiles = -(-M // bm)
         n_up = -(-d // TC_BF)
-        sizes = tc_clusters(d)
+        sizes = tc_clusters(d, ds)
         if cl is not None:
             if cl not in sizes:
                 raise ValueError(f"linked_mlp: d={d} splits over clusters "
@@ -139,7 +236,7 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
             sizes = [cl]
         best = None
         for cl in sizes:
-            n = -(-(-(-d // TC_DS)) // cl)
+            n = -(-(-(-d // ds)) // cl)
             wave = slots(cl) if slots is not None else max(1, sms // cl - 1)
             if wave <= 0:
                 continue            # the device runs no cluster of cl
@@ -154,9 +251,10 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
                 best = (key, cl, S)
         if best is None:
             raise ValueError(f"linked_mlp: this device runs no cluster of "
-                             f"{sizes} CTAs of the tensor-core kernel")
+                             f"{sizes} CTAs of the tensor-core kernel's "
+                             f"{body} body")
         _, cl, S = best
-        return MlpPlan("tc", TC_BM, cl, S, 8, S * M * d if S > 1 else 0)
+        return MlpPlan("tc", bm, cl, S, 8, S * M * d if S > 1 else 0, body)
     if path != "ffma":
         raise ValueError(f"linked_mlp: unknown path {path!r}")
     bm = next((b for b in (8, 4, 2, 1)
@@ -166,7 +264,7 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
     vec = 16 // (4 if dtype == torch.float32 else 2)
     v = vec if aligned and d % vec == 0 and ff % vec == 0 else 2
     S = max(1, min(n_blocks, sms // -(-M // bm)))
-    return MlpPlan("ffma", bm, 1, S, v, S * M * d)
+    return MlpPlan("ffma", bm, 1, S, v, S * M * d, "ffma")
 
 
 def split_blocks(n_blocks: int, S: int, s: int) -> tuple[int, int]:
@@ -177,16 +275,17 @@ def split_blocks(n_blocks: int, S: int, s: int) -> tuple[int, int]:
     return s * n_blocks // S, (s + 1) * n_blocks // S
 
 
-def tc_columns(d: int, cl: int) -> list[tuple[int, int, int, int]]:
+def tc_columns(d: int, cl: int, ds: int = TC_DS
+               ) -> list[tuple[int, int, int, int]]:
     """The tensor-core kernel's ownership of y's columns: ``(cluster,
     rank, c0, c1)`` for every CTA along the grid's first axis.  CTA x
-    (cluster x // cl, rank x % cl) owns ``[TC_DS x, TC_DS (x + 1))``
-    clipped to d; the axis is ``ceil(d / TC_DS)`` rounded up to whole
-    clusters, so a last cluster's last CTAs may own nothing
-    (``c0 == c1``)."""
-    nd = -(-d // TC_DS)
+    (cluster x // cl, rank x % cl) owns ``[ds x, ds (x + 1))`` clipped to
+    d (``ds``: TC_DS for the decode body, TP_DS for the prefill body);
+    the axis is ``ceil(d / ds)`` rounded up to whole clusters, so a last
+    cluster's last CTAs may own nothing (``c0 == c1``)."""
+    nd = -(-d // ds)
     gx = -(-nd // cl) * cl
-    return [(x // cl, x % cl, min(d, TC_DS * x), min(d, TC_DS * (x + 1)))
+    return [(x // cl, x % cl, min(d, ds * x), min(d, ds * (x + 1)))
             for x in range(gx)]
 
 
@@ -201,6 +300,9 @@ def _lib():
         lib.repro_linked_mlp_tc.restype = ctypes.c_int
         lib.repro_linked_mlp_tc_clusters.argtypes = [ctypes.c_int]
         lib.repro_linked_mlp_tc_clusters.restype = ctypes.c_int
+        lib.repro_linked_mlp_tc_prefill.argtypes = \
+            lib.repro_linked_mlp_tc.argtypes
+        lib.repro_linked_mlp_tc_prefill.restype = ctypes.c_int
     return lib
 
 
@@ -279,9 +381,10 @@ def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     if plan.path == "tc":
-        err = lib.repro_linked_mlp_tc(
-            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-            part_ptr, out.data_ptr(), M, d, ff, plan.cl, plan.S, stream)
+        fn = (lib.repro_linked_mlp_tc_prefill if plan.body == "prefill"
+              else lib.repro_linked_mlp_tc)
+        err = fn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                 part_ptr, out.data_ptr(), M, d, ff, plan.cl, plan.S, stream)
     else:
         err = lib.repro_linked_mlp(
             _DTYPE_CODE[x.dtype], x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
@@ -290,5 +393,6 @@ def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     check_launch(err, "linked_mlp")
     count_launch("linked_mlp")
     if plan.path == "tc":
-        count_launch("linked_mlp_tc")
+        count_launch("linked_mlp_tc_prefill" if plan.body == "prefill"
+                     else "linked_mlp_tc")
     return out

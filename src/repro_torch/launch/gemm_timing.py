@@ -1,23 +1,38 @@
 """Time the two GEMM kernels' plans at the main path's shapes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.gemm_timing
+    PYTHONPATH=src python -m repro_torch.launch.gemm_timing --sweep
+    PYTHONPATH=<tree>/src python src/repro_torch/launch/gemm_timing.py \\
+        --planned --passes 2 --label parent
 
 ``split_matmul`` at bert_s's two DSP-plan FFN tiles (seq 128, d 768):
 every (CTA shape, cluster size) the kernel takes, the planner's pick and
-``torch.addmm``.  ``linked_mlp`` (bf16, d 2048, ff 6144, qwen3-1.7b's
-MLP) at decode (M = 8), chunked prefill (M = 256, 512) and batched
-prefill (M = 4352): the planner's pick, the FFMA kernel, the tensor-core
-kernel at each ff split count S up to two waves of clusters (and S = 1),
-and the unlinked three-matmul form; two weight sets rotate past the 50 MB L2.  Then, at
-M = 256, 512 and 4352, each kernel's and the plain version's worst error
-from the fp64-summed MLP in units of the bf16 limit (1e-3 + 2e-2 |ref|),
-and the elements where the kernel and the plain version lie more than a
-limit apart.  Device ms are CUDA events around calls queued behind a
-spin kernel.  Prints one line per measurement and one JSON line.
+``torch.addmm``.  ``linked_mlp`` in bf16 at the shapes of ``MLP_SHAPES``
+(qwen3-1.7b's decode, chunks and batched and one-shot prefill; gemma3-1b
+and hymba-1.5b at a 32-token chunk; the large decoders at a chunk and at
+batched prefill): the planned body, the decode body forced at the same
+shape (the design before the prefill body), the unlinked three-matmul
+form, the bound (bytes each read once over 3.35 TB/s, or FLOPs over the
+989 TFLOP/s bf16 peak) and the body's share of it; two weight sets
+rotate past the 50 MB L2.  Then, at M = 256, 512 and 4352, each body's
+and the plain version's worst error from the fp64-summed MLP in units
+of the bf16 limit (1e-3 + 2e-2 |ref|).
+
+``--sweep``: both tensor-core bodies forced at M = 16 ... 1024 over the
+served widths (``mlp_plan``'s ``PREFILL_ROWS`` comes from it).
+``--planned``: the planned kernel alone at every shape of
+``MLP_SHAPES``, median of ``--passes`` passes, using only what every
+tree of the port has (``linked_mlp`` and its plan), so the same script
+times an earlier tree put first on ``PYTHONPATH`` (an A/B in one call).
+
+Device ms are CUDA events around calls queued behind a spin kernel.
+Prints one line per measurement and one JSON line.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import statistics
 import subprocess
 
 import torch
@@ -31,9 +46,36 @@ SPIN_CYCLES = 200_000_000
 #: (M, K, N, block_n, block_k): bert_s's FFN tiles under the DSP spec
 SPLIT_SHAPES = {"ffn1": (128, 768, 3072, 1024, 768),
                 "ffn2": (128, 3072, 768, 256, 3072)}
-D_MODEL, D_FF = 2048, 6144
-MLP_ROWS = {"decode": 8, "prefill_c32": 256, "prefill_c64": 512,
-            "batched": 4352}
+#: H100 SXM data-sheet peaks: bytes/s and bf16 FLOP/s
+HBM_BW, BF16_PEAK = 3.35e12, 989e12
+#: linked_mlp's timed shapes (M, d, ff): qwen3-1.7b (2048, 6144) at
+#: decode (8 slots), 8-slot chunks of 8, 32 and 64 tokens, batched prefill
+#: (8 x 544) and the one-shot 31,744-token prompt; gemma3-1b, hymba-1.5b
+#: and the large dense decoders at a 32-token chunk; chatglm3-6b and
+#: internlm2-20b at batched prefill
+MLP_SHAPES = {"qwen3_decode": (8, 2048, 6144),
+              "qwen3_c8": (64, 2048, 6144),
+              "qwen3_c32": (256, 2048, 6144),
+              "qwen3_c64": (512, 2048, 6144),
+              "qwen3_batched": (4352, 2048, 6144),
+              "qwen3_long": (31744, 2048, 6144),
+              "gemma3_decode": (8, 1152, 6912),
+              "gemma3_c32": (256, 1152, 6912),
+              "hymba_decode": (8, 1600, 5504),
+              "hymba_c32": (256, 1600, 5504),
+              "chatglm3_decode": (8, 4096, 13696),
+              "chatglm3_c32": (256, 4096, 13696),
+              "granite_c32": (256, 4096, 14336),
+              "internlm2_decode": (8, 6144, 16384),
+              "internlm2_c32": (256, 6144, 16384),
+              "chameleon_decode": (8, 8192, 22016),
+              "chameleon_c32": (256, 8192, 22016),
+              "chatglm3_batched": (4352, 4096, 13696),
+              "internlm2_batched": (4352, 6144, 16384)}
+#: --sweep: rows and widths
+SWEEP_ROWS = (16, 32, 64, 96, 128, 192, 256, 384, 512, 1024)
+SWEEP_WIDTHS = {"qwen3": (2048, 6144), "gemma3": (1152, 6912),
+                "hymba": (1600, 5504), "chatglm3": (4096, 13696)}
 TOL = dict(rtol=2e-2, atol=1e-3)
 
 
@@ -51,6 +93,11 @@ def device_ms(fns, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def iters_for(M: int, d: int, ff: int) -> int:
+    """Fewer calls where one takes milliseconds."""
+    return 20 if M * d * ff < 2e11 else 5
 
 
 def time_split(gen, sms: int) -> dict:
@@ -78,53 +125,107 @@ def time_split(gen, sms: int) -> dict:
     return out
 
 
-def mlp_inputs(gen, M):
+def mlp_inputs(gen, M, d, ff):
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     bf = torch.bfloat16
-    return (rnd(M, D_MODEL).to(bf),
-            (rnd(D_MODEL, D_FF) / D_MODEL ** 0.5).to(bf),
-            (rnd(D_MODEL, D_FF) / D_MODEL ** 0.5).to(bf),
-            (rnd(D_FF, D_MODEL) / D_FF ** 0.5).to(bf))
+    return (rnd(M, d).to(bf), (rnd(d, ff) / d ** 0.5).to(bf),
+            (rnd(d, ff) / d ** 0.5).to(bf), (rnd(ff, d) / ff ** 0.5).to(bf))
 
 
 def unlinked(x, wg, wu, wd):
     return (F.silu(x @ wg) * (x @ wu)) @ wd
 
 
+def bound(M: int, d: int, ff: int) -> tuple[float, str]:
+    """The least ms for the MLP on the card: its bytes (x, the three
+    weights and y once each) or its matmuls' FLOPs at the bf16 peak."""
+    t_bytes = 2 * (3 * d * ff + 2 * M * d) / HBM_BW
+    t_ops = (6 * M * d * ff + 4 * M * ff) / BF16_PEAK
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def forced(M, d, ff, sms, slots, body):
+    return lm.mlp_plan(M, d, ff, torch.bfloat16, True, sms, path="tc",
+                       slots=slots, body=body)
+
+
 def time_mlp(gen, sms: int) -> dict:
+    """Every shape of MLP_SHAPES: the planned body beside the decode body
+    forced, the unlinked form and the bound."""
     slots = lm.cluster_slots(torch.device("cuda", 0))
-    cl = -(-D_MODEL // lm.TC_DS)
-    out = {"slots": slots(cl)}
-    print(f"linked_mlp_tc: {out['slots']} clusters of {cl} a wave")
-    for label, M in MLP_ROWS.items():
-        sets = [mlp_inputs(gen, M) for _ in range(2)]
-        planned = lm.mlp_plan(M, D_MODEL, D_FF, torch.bfloat16, True, sms,
+    out = {"slots": {cl: slots(cl) for cl in (5, 7, 8, 9, 13, 16)}}
+    print(f"linked_mlp: clusters a wave {out['slots']}", flush=True)
+    for label, (M, d, ff) in MLP_SHAPES.items():
+        sets = [mlp_inputs(gen, M, d, ff) for _ in range(2)]
+        n = iters_for(M, d, ff)
+        planned = lm.mlp_plan(M, d, ff, torch.bfloat16, True, sms,
                               slots=slots)
-        ffma = lm.mlp_plan(M, D_MODEL, D_FF, torch.bfloat16, True, sms,
-                           path="ffma")
-        row = {"planned": planned._asdict(),
+        b_ms, b_by = bound(M, d, ff)
+        row = {"shape": [M, d, ff], "planned": planned._asdict(),
                "ms": device_ms([lambda a=a: lm.linked_mlp(*a)
-                                for a in sets]),
-               "ffma_ms": device_ms([lambda a=a: lm.linked_mlp(
-                   *a, plan=ffma) for a in sets]),
+                                for a in sets], iters=n),
                "unlinked_ms": device_ms([lambda a=a: unlinked(*a)
-                                         for a in sets]),
-               "tc_ms": {}}
-        m_tiles = -(-M // lm.TC_BM)
-        for S in (1, 2, 3, 4, 6, 8, 12, 16):
-            if S > 1 and m_tiles * S > 2 * out["slots"]:
-                continue
-            p = planned._replace(path="tc", S=S,
-                                 workspace=S * M * D_MODEL if S > 1 else 0)
-            row["tc_ms"][S] = device_ms(
-                [lambda a=a, p=p: lm.linked_mlp(*a, plan=p) for a in sets])
-        print(f"linked_mlp {label} M={M}: planned {tuple(planned)} "
-              f"{row['ms']:.4f} ms, ffma {row['ffma_ms']:.4f} ms, unlinked "
-              f"{row['unlinked_ms']:.4f} ms, tc by S "
-              + ", ".join(f"{k}: {v:.4f}" for k, v in row["tc_ms"].items()),
-              flush=True)
+                                         for a in sets], iters=n),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["share"] = b_ms / row["ms"]
+        if planned.body == "prefill":
+            dplan = forced(M, d, ff, sms, slots, "decode")
+            row["decode_body"] = {"plan": dplan._asdict(), "ms": device_ms(
+                [lambda a=a: lm.linked_mlp(*a, plan=dplan) for a in sets],
+                iters=n)}
+        print(f"linked_mlp {label} ({M},{d},{ff}): {planned.body} body "
+              f"{tuple(planned)} {row['ms']:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), share {row['share']:.3f}, unlinked "
+              f"{row['unlinked_ms']:.4f} ms"
+              + (f", decode body forced {row['decode_body']['ms']:.4f} ms"
+                 if "decode_body" in row else ""), flush=True)
         out[label] = row
         del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep(gen, sms: int) -> dict:
+    """Both bodies forced, by rows, at the served widths."""
+    slots = lm.cluster_slots(torch.device("cuda", 0))
+    out = {}
+    for name, (d, ff) in SWEEP_WIDTHS.items():
+        for M in SWEEP_ROWS:
+            sets = [mlp_inputs(gen, M, d, ff) for _ in range(2)]
+            row = {}
+            for body in ("decode", "prefill"):
+                p = forced(M, d, ff, sms, slots, body)
+                row[body] = device_ms([lambda a=a, p=p: lm.linked_mlp(
+                    *a, plan=p) for a in sets])
+            print(f"linked_mlp sweep {name} M={M}: decode body "
+                  f"{row['decode']:.4f} ms, prefill body "
+                  f"{row['prefill']:.4f} ms", flush=True)
+            out[f"{name}_{M}"] = row
+            del sets
+    return out
+
+
+def planned_passes(gen, passes: int, label: str) -> dict:
+    """The planned kernel at every shape, ``passes`` passes over the
+    shapes, the median a shape."""
+    data = {k: [mlp_inputs(gen, *shape) for _ in range(2)]
+            for k, shape in MLP_SHAPES.items() if shape[0] < 8192}
+    runs: dict = {k: [] for k in MLP_SHAPES}
+    for _ in range(passes):
+        for k, shape in MLP_SHAPES.items():
+            sets = data.get(k) or [mlp_inputs(gen, *shape)]
+            runs[k].append(device_ms([lambda a=a: lm.linked_mlp(*a)
+                                      for a in sets],
+                                     iters=iters_for(*shape)))
+            if k not in data:
+                del sets
+                torch.cuda.empty_cache()
+    out = {k: statistics.median(v) for k, v in runs.items()}
+    for k, v in out.items():
+        print(f"linked_mlp planned {label} {k} {MLP_SHAPES[k]}: {v:.4f} ms "
+              f"(passes {', '.join(f'{t:.4f}' for t in runs[k])})",
+              flush=True)
     return out
 
 
@@ -140,33 +241,39 @@ def limits(got, ref) -> torch.Tensor:
 
 
 def accuracy(gen, sms: int) -> dict:
+    """Each body's and the plain version's worst error from the
+    fp64-summed MLP (units of the bf16 limit), qwen3's widths."""
+    slots = lm.cluster_slots(torch.device("cuda", 0))
     out = {}
-    for label in ("prefill_c32", "prefill_c64", "batched"):
-        M = MLP_ROWS[label]
+    for label in ("qwen3_c32", "qwen3_c64", "qwen3_batched"):
+        M, d, ff = MLP_SHAPES[label]
         rows = []
         for _ in range(2):
-            a = mlp_inputs(gen, M)
+            a = mlp_inputs(gen, M, d, ff)
             ref = mlp_fp64(*a)
-            plain = lm.linked_mlp_plain(*a)
-            r = {"plain": limits(plain, ref).max().item()}
-            for path in ("tc", "ffma"):
-                got = lm.linked_mlp(*a, plan=lm.mlp_plan(
-                    M, D_MODEL, D_FF, torch.bfloat16, True, sms, path=path,
-                    slots=lm.cluster_slots(a[0].device)))
-                r[path] = limits(got, ref).max().item()
-                r[f"{path}_vs_plain_over"] = int(
-                    (limits(got, plain) > 1).sum())
+            r = {"plain": limits(lm.linked_mlp_plain(*a), ref).max().item()}
+            for body in ("decode", "prefill"):
+                got = lm.linked_mlp(*a, plan=forced(M, d, ff, sms, slots,
+                                                    body))
+                r[body] = limits(got, ref).max().item()
             rows.append(r)
-            del a, ref, plain, got
+            del a, ref, got
         print(f"linked_mlp {label} worst err / limit from fp64: "
-              + "; ".join(", ".join(f"{k} {v:.3f}" if isinstance(v, float)
-                                    else f"{k} {v}" for k, v in r.items())
+              + "; ".join(", ".join(f"{k} {v:.3f}" for k, v in r.items())
                           for r in rows), flush=True)
         out[label] = rows
     return out
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="both tensor-core bodies by rows")
+    ap.add_argument("--planned", action="store_true",
+                    help="the planned kernel alone at every shape")
+    ap.add_argument("--passes", type=int, default=1)
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("gemm_timing times the card: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -174,13 +281,19 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip())
-    kernels.build(("linked_mlp", "split_matmul"))
+    kernels.build(("linked_mlp",) if args.planned or args.sweep
+                  else ("linked_mlp", "split_matmul"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {"card": smi.stdout.strip(), "sms": sms,
-              "split_matmul": time_split(gen, sms),
-              "linked_mlp": time_mlp(gen, sms),
-              "accuracy": accuracy(gen, sms)}
+    result = {"card": smi.stdout.strip(), "sms": sms, "label": args.label}
+    if args.planned:
+        result["planned"] = planned_passes(gen, args.passes, args.label)
+    elif args.sweep:
+        result["sweep"] = sweep(gen, sms)
+    else:
+        result.update({"split_matmul": time_split(gen, sms),
+                       "linked_mlp": time_mlp(gen, sms),
+                       "accuracy": accuracy(gen, sms)})
     print(json.dumps(result))
     return 0
 

@@ -916,9 +916,48 @@ def _plan(x, wg, wu, wd):
                          slots=t_lm.cluster_slots(x.device))
 
 
-#: linked_mlp: element-wise, by input type (bf16: h and y rounded)
+#: linked_mlp: fp32 element-wise against the plain version; bf16 against
+#: the fp64-summed MLP (``_hold_bf16``)
 MLP_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
            "bfloat16": dict(rtol=2e-2, atol=1e-3)}
+
+
+def _mlp_faults(x, wg, wu, wd):
+    """The planted faults' inputs (``chip_smoke.mlp_faults``'): the
+    up-projection term of the largest |x| left out, and the ff column
+    whose h is largest left out."""
+    x_cut = x.clone()
+    x_cut[:, x.float().abs().amax(0).argmax()] = 0
+    wd_cut = wd.clone()
+    wd_cut[(torch.nn.functional.silu(x.float() @ wg.float())
+            * (x.float() @ wu.float())).abs().amax(0).argmax()] = 0
+    return [(x_cut, wg, wu, wd), (x, wg, wu, wd_cut)]
+
+
+def _hold_bf16(got, x, wg, wu, wd, plan=None):
+    """The bf16 check (``mlp_reference``, shared with chip_smoke.py): the
+    kernel's result and the plain version's within the fp64-summed MLP's
+    limit; both planted faults, launched through the kernel (``plan``),
+    outside it."""
+    ref, limit = t_lm.mlp_reference(x, wg, wu, wd)
+    assert t_lm.reference_err(got, ref, limit) <= 1.0
+    assert t_lm.reference_err(t_lm.linked_mlp_plain(x, wg, wu, wd), ref,
+                              limit) <= 1.0
+    for args in _mlp_faults(x, wg, wu, wd):
+        assert t_lm.reference_err(t_lm.linked_mlp(*args, plan=plan), ref,
+                                  limit) > 1.0
+
+
+def _body_launches(plan, n):
+    """The launch counts ``n`` launches of ``plan`` leave."""
+    return {"linked_mlp": n,
+            "linked_mlp_tc": n if plan.body == "decode" else 0,
+            "linked_mlp_tc_prefill": n if plan.body == "prefill" else 0}
+
+
+def _launches():
+    return {k: kernels.LAUNCHES[k] for k in (
+        "linked_mlp", "linked_mlp_tc", "linked_mlp_tc_prefill")}
 
 
 @pytest.mark.cuda
@@ -941,21 +980,27 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     ff block of 8 or 16 columns) and scalar loads where not, a d wide
     enough to shrink the row tile, and more row tiles than SMs (one ff
     split: each CTA walks all of ff); two launches give the same bits (no
-    atomics)."""
+    atomics).  fp32 element-wise against the plain version, bf16 against
+    the fp64-summed MLP (``_hold_bf16``)."""
     dt = getattr(torch, dtype)
     x, wg, wu, wd = _mlp(card, M, d, ff, dt)
+    plan = _plan(x, wg, wu, wd)
     kernels.reset_launches()
     got = t_lm.linked_mlp(x, wg, wu, wd)
     again = t_lm.linked_mlp(x, wg, wu, wd)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["linked_mlp"] == 2
-    assert kernels.LAUNCHES["linked_mlp_tc"] == \
-        (2 if _plan(x, wg, wu, wd).path == "tc" else 0)
+    want = _body_launches(plan, 2)
+    if plan.path != "tc":
+        want.update(linked_mlp_tc=0, linked_mlp_tc_prefill=0)
+    assert _launches() == want
     assert got.dtype == dt and got.shape == (M, d)
     assert torch.equal(got, again)
-    torch.testing.assert_close(got.float(),
-                               t_lm.linked_mlp_plain(x, wg, wu, wd).float(),
-                               **MLP_TOL[dtype])
+    if dtype == "bfloat16":
+        _hold_bf16(got, x, wg, wu, wd)
+    else:
+        torch.testing.assert_close(
+            got.float(), t_lm.linked_mlp_plain(x, wg, wu, wd).float(),
+            **MLP_TOL[dtype])
     batched = t_lm.linked_mlp(x[None], wg, wu, wd)
     assert batched.shape == (1, M, d) and torch.equal(batched[0], got)
 
@@ -982,15 +1027,15 @@ def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
     ownership: d 2056 (one column block past 2048), 4104 and 6152 (no
     cluster's 256-column ranks divide them), with ff no multiple of 64;
     chatglm3-6b's batched prefill.  The planner sends each of
-    these to the tensor-core kernel; two launches give the same bits.
-    Element-wise against the plain version up to 1024 rows; past that, as
-    for batched prefill, two correct fp32 summation orders that each round
-    h to bf16 can land a few ulps apart, so the kernel's worst error from
-    the fp64-summed MLP is held within MLP_ORDER_FACTOR times the plain
-    version's."""
+    these to the tensor-core kernel (the prefill body from PREFILL_ROWS
+    rows on); two launches give the same bits.  Every shape is held
+    against the fp64-summed MLP (``_hold_bf16``); past 1024 rows the
+    kernel's worst error from it also within MLP_ORDER_FACTOR times the
+    plain version's."""
     x, wg, wu, wd = _mlp(card, M, d, ff, torch.bfloat16)
     plan = _plan(x, wg, wu, wd)
     assert plan.path == "tc"
+    assert plan.body == ("prefill" if M >= t_lm.PREFILL_ROWS else "decode")
     if (M, ff) == (200, 320):
         assert -(-ff // 64) < plan.cl
     if M == 4352:
@@ -999,15 +1044,12 @@ def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
     got = t_lm.linked_mlp(x, wg, wu, wd)
     again = t_lm.linked_mlp(x, wg, wu, wd)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["linked_mlp"] == 2
-    assert kernels.LAUNCHES["linked_mlp_tc"] == 2
+    assert _launches() == _body_launches(plan, 2)
     assert torch.equal(got, again)
-    plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
-    if M <= 1024:
-        torch.testing.assert_close(got.float(), plain.float(),
-                                   **MLP_TOL["bfloat16"])
-    else:
+    _hold_bf16(got, x, wg, wu, wd)
+    if M > 1024:
         ref = _mlp_fp64(x, wg, wu, wd)
+        plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
         assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * _mlp_err(plain, ref)
 
 
@@ -1039,17 +1081,19 @@ def test_linked_mlp_tc_batched_at_internlm2_width_on_real_clusters(card):
     plan = _plan(x, wg, wu, wd)
     assert plan == t_lm.mlp_plan(4352, 6144, 16384, torch.bfloat16, True,
                                  sms, slots=slots)
-    assert plan.path == "tc" and plan.cl in t_lm.tc_clusters(6144)
-    assert slots(plan.cl) > 0 and plan.cl * t_lm.TC_DS < 6144
+    assert plan.path == "tc" and plan.body == "prefill"
+    assert plan.cl in t_lm.tc_clusters(6144, t_lm.TP_DS)
+    assert slots(plan.cl) > 0 and plan.cl * t_lm.TP_DS < 6144
     kernels.reset_launches()
     got = t_lm.linked_mlp(x, wg, wu, wd)
     again = t_lm.linked_mlp(x, wg, wu, wd)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["linked_mlp_tc"] == 2
+    assert kernels.LAUNCHES["linked_mlp_tc_prefill"] == 2
     assert torch.equal(got, again)
     ref = _mlp_fp64(x, wg, wu, wd)
     plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
     assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * _mlp_err(plain, ref)
+    _hold_bf16(got, x, wg, wu, wd)
 
 
 #: batched prefill's shape, bf16: the kernel's worst error from the
@@ -1084,7 +1128,7 @@ def test_linked_mlp_batched_prefill_within_order_noise(card):
     e_plain = _mlp_err(t_lm.linked_mlp_plain(x, wg, wu, wd), ref)
     kernels.reset_launches()
     got = t_lm.linked_mlp(x, wg, wu, wd)
-    assert kernels.LAUNCHES["linked_mlp_tc"] == 1
+    assert kernels.LAUNCHES["linked_mlp_tc_prefill"] == 1
     assert torch.equal(got, t_lm.linked_mlp(x, wg, wu, wd))
     assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * e_plain
     x[:, -1] = 0
@@ -1129,6 +1173,81 @@ def test_linked_mlp_rejects_what_it_does_not_take(card):
     wide = _mlp(card, 1, 30000, 8, torch.float32)
     with pytest.raises(ValueError, match="does not fit"):
         t_lm.linked_mlp(*wide)
+
+
+def _prefill_plan(x, wg, wu, wd, **kw):
+    """The prefill body's plan for these tensors, forced."""
+    return t_lm.mlp_plan(x.numel() // x.shape[-1], x.shape[-1], wg.shape[1],
+                         x.dtype, True,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count, path="tc",
+                         slots=t_lm.cluster_slots(x.device), body="prefill",
+                         **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d,ff", [
+    (127, 2048, 6144), (128, 2048, 6144), (129, 2048, 6144),
+    (4352, 2048, 6144), (256, 1152, 6912), (129, 1600, 5504),
+    (256, 4096, 13696), (129, 6144, 16384), (1, 2048, 6144),
+    (300, 1000, 520), (4352, 2056, 1032)])
+def test_linked_mlp_prefill_body_against_fp64(card, M, d, ff):
+    """The prefill body (128-row tiles, TMA ring, x multicast to the
+    cluster, h pushed between ranks) at tile edges (M 128 +- 1, one row,
+    batched prefill's 4352) and at d 1152 / 1600 / 2048 / 4096 / 6144
+    (clusters of 9, 13, 16 ranks of 128 columns; past 2048, clusters
+    splitting d), a ragged d and ff: held against the fp64-summed MLP
+    with the shared check, both planted faults launched through the body
+    failing it; two launches give the same bits."""
+    x, wg, wu, wd = _mlp(card, M, d, ff, torch.bfloat16)
+    plan = _prefill_plan(x, wg, wu, wd)
+    assert plan.body == "prefill" and plan.bm == t_lm.TP_BM
+    kernels.reset_launches()
+    got = t_lm.linked_mlp(x, wg, wu, wd, plan=plan)
+    again = t_lm.linked_mlp(x, wg, wu, wd, plan=plan)
+    torch.cuda.synchronize()
+    assert _launches() == _body_launches(plan, 2)
+    assert torch.equal(got, again)
+    _hold_bf16(got, x, wg, wu, wd, plan=plan)
+
+
+@pytest.mark.cuda
+def test_linked_mlp_prefill_body_replays_in_a_cuda_graph(card):
+    """Captured (tensor maps encoded at capture, the workspace from the
+    graph's pool) and replayed on new inputs written in place: each
+    replay equals an eager launch, with S > 1 and with S = 1."""
+    x, wg, wu, wd = _mlp(card, 256, 1024, 2048, torch.bfloat16)
+    for S in (None, 1):
+        plan = _prefill_plan(x, wg, wu, wd)
+        if S is not None:
+            plan = plan._replace(S=1, workspace=0)
+        graph, out = _graphed(lambda: t_lm.linked_mlp(x, wg, wu, wd,
+                                                      plan=plan))
+        for _ in range(2):
+            x.copy_(torch.randn(x.shape, generator=card, device="cuda"))
+            graph.replay()
+            assert torch.equal(out, t_lm.linked_mlp(x, wg, wu, wd,
+                                                    plan=plan))
+
+
+@pytest.mark.cuda
+def test_linked_mlp_prefill_body_refuses_what_it_does_not_take(card):
+    """No fallback: fp32 and unaligned rows are not the body's (the
+    planner raises), and a plan the body refuses (more ranks than d's
+    128-column blocks, more splits than ff blocks) raises at launch."""
+    x, wg, wu, wd = _mlp(card, 256, 512, 1024, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        t_lm.mlp_plan(256, 512, 1024, torch.float32, True, 132, path="tc",
+                      body="prefill")
+    with pytest.raises(ValueError, match="does not take"):
+        t_lm.mlp_plan(256, 516, 1024, torch.bfloat16, True, 132,
+                      path="tc", body="prefill")
+    plan = _prefill_plan(x, wg, wu, wd)
+    for bad in (plan._replace(cl=5), plan._replace(S=17, workspace=17 *
+                                                   256 * 512)):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            t_lm.linked_mlp(x, wg, wu, wd, plan=bad)
+    torch.cuda.synchronize()
 
 
 #: split_matmul: element-wise, IEEE fp32 both sides
@@ -1650,25 +1769,25 @@ def test_decode_kernel_at_hymba_shapes(card, dtype):
 def test_linked_mlp_tc_at_hymba_width(card, M):
     """hymba-1.5b's MLP, d 1600 and ff 5504: a cluster of 7 whose last
     rank owns 64 columns, half of warpgroup 0's 128 (every served shape
-    before left a whole warpgroup); decode, a 32-token chunk of 8 slots
-    and batched prefill's rows (held as in the tile-edge test past 1024
-    rows)."""
+    before left a whole warpgroup; the prefill body's cluster of 13 ranks
+    of 128 columns leaves its last rank 64 too); decode, a 32-token chunk
+    of 8 slots and batched prefill's rows (held as in the tile-edge
+    test)."""
     x, wg, wu, wd = _mlp(card, M, 1600, 5504, torch.bfloat16)
     plan = _plan(x, wg, wu, wd)
-    assert plan.path == "tc" and plan.cl == 7
-    assert 1600 - (plan.cl - 1) * t_lm.TC_DS == 64
+    ds = t_lm.TP_DS if plan.body == "prefill" else t_lm.TC_DS
+    assert plan.path == "tc" and plan.cl == (13 if ds == 128 else 7)
+    assert 1600 - (plan.cl - 1) * ds == 64
     kernels.reset_launches()
     got = t_lm.linked_mlp(x, wg, wu, wd)
     again = t_lm.linked_mlp(x, wg, wu, wd)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["linked_mlp_tc"] == 2
+    assert _launches() == _body_launches(plan, 2)
     assert torch.equal(got, again)
-    plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
-    if M <= 1024:
-        torch.testing.assert_close(got.float(), plain.float(),
-                                   **MLP_TOL["bfloat16"])
-    else:
+    _hold_bf16(got, x, wg, wu, wd)
+    if M > 1024:
         ref = _mlp_fp64(x, wg, wu, wd)
+        plain = t_lm.linked_mlp_plain(x, wg, wu, wd)
         assert _mlp_err(got, ref) <= MLP_ORDER_FACTOR * _mlp_err(plain, ref)
 
 

@@ -131,16 +131,23 @@ def _cost(plan, M, ff, wave):
 @pytest.mark.parametrize("wave", [15, 13, 7])
 def test_mlp_plan_by_rows(M, wave):
     """qwen3-1.7b's MLP in bf16 takes the tensor-core kernel at every M,
-    decode included, with a cluster of 8 ranks of 256 columns.  S = 1
+    decode included: below ``PREFILL_ROWS`` its decode body with a
+    cluster of 8 ranks of 256 columns, from there on its prefill body
+    (128-row tiles) with a cluster of 16 ranks of 128 columns.  S = 1
     where the M tiles fill a wave of clusters; else S is the fewest ff
     splits of least waves x rounds.  S never exceeds the ff blocks, and
     only S > 1 has a workspace, (S, M, d) fp32."""
     plan = lm.mlp_plan(M, D, FF, torch.bfloat16, True, 132,
                        slots=lambda cl: wave)
-    assert (plan.path, plan.bm, plan.cl) == ("tc", lm.TC_BM, 8)
+    if M < lm.PREFILL_ROWS:
+        assert (plan.path, plan.body, plan.bm, plan.cl) == (
+            "tc", "decode", lm.TC_BM, 8)
+    else:
+        assert (plan.path, plan.body, plan.bm, plan.cl) == (
+            "tc", "prefill", lm.TP_BM, 16)
     n_blocks = -(-FF // lm.TC_BF)
     assert 1 <= plan.S <= n_blocks
-    if -(-M // lm.TC_BM) >= wave:
+    if -(-M // plan.bm) >= wave:
         assert plan.S == 1
     else:
         best = min(_cost(plan._replace(S=S), M, FF, wave)
@@ -160,12 +167,15 @@ def test_mlp_plan_batched_prefill_stores_y_directly(sms):
 
 
 def test_mlp_plan_follows_the_sm_count():
-    """Chunked prefill's 8 M tiles (M = 512): 15 clusters of 8 a wave on
-    132 SMs run 12 one-round splits in 7 waves (cost 7), 13 on 114 SMs
-    would need 8 waves, so 3 splits of 4 rounds in 2 waves (cost 8) win
-    there.  Decode's 12 one-round splits fit one wave on either."""
-    assert lm.mlp_plan(512, D, FF, torch.bfloat16, True, 132).S == 12
-    assert lm.mlp_plan(512, D, FF, torch.bfloat16, True, 114).S == 3
+    """The decode body's 8 M tiles of 512 rows (forced: chunked prefill
+    takes the prefill body there): 15 clusters of 8 a wave on 132 SMs run
+    12 one-round splits in 7 waves (cost 7), 13 on 114 SMs would need 8
+    waves, so 3 splits of 4 rounds in 2 waves (cost 8) win there.
+    Decode's 12 one-round splits fit one wave on either."""
+    assert lm.mlp_plan(512, D, FF, torch.bfloat16, True, 132,
+                       body="decode").S == 12
+    assert lm.mlp_plan(512, D, FF, torch.bfloat16, True, 114,
+                       body="decode").S == 3
     for sms in (114, 132):
         assert lm.mlp_plan(8, D, FF, torch.bfloat16, True, sms).S == 12
 
@@ -191,15 +201,17 @@ def test_mlp_shapes_the_tc_kernel_does_not_take_go_to_ffma(M, d, ff, dtype,
        ff8=st.integers(1, 1000), sms=st.sampled_from([8, 114, 132]))
 def test_tc_grid_covers_y_and_deals_each_block_once(M, d8, ff8, sms):
     """Every row, every column of d and every ff block once: M tiles of
-    bm rows; cluster ranks' slices of d; the S splits' block ranges;
-    within a split, each block owned by one rank in one round (whose h
-    every rank then reads)."""
+    bm rows; cluster ranks' slices of d (256 columns in the decode body,
+    128 in the prefill body); the S splits' block ranges; within a split,
+    each block owned by one rank in one round (whose h every rank then
+    reads)."""
     d, ff = 8 * d8, 8 * ff8
     plan = lm.mlp_plan(M, d, ff, torch.bfloat16, True, sms, path="tc")
     assert plan.cl <= lm.TC_MAX_CLUSTER
+    ds = lm.TP_DS if plan.body == "prefill" else lm.TC_DS
     cols = np.zeros(d, np.int32)
-    for c in range(plan.cl):
-        cols[c * lm.TC_DS:(c + 1) * lm.TC_DS] += 1
+    for _, _, c0, c1 in lm.tc_columns(d, plan.cl, ds):
+        cols[c0:c1] += 1
     assert (cols == 1).all()
     assert -(-M // plan.bm) * plan.bm >= M
     n_blocks = -(-ff // lm.TC_BF)

@@ -81,13 +81,18 @@ def test_registry_swiglu_widths():
 @pytest.mark.parametrize("M", [8, 256, 4352])
 @pytest.mark.parametrize("d,ff", sorted(SWIGLU_WIDTHS))
 def test_tc_plans_every_swiglu_width(d, ff, M):
-    """bf16 at every registered width plans the tensor-core kernel, on a
-    cluster size of ``tc_clusters(d)`` (one size, ceil(d / 256), up to d
-    2048: today's), S within the ff blocks and the workspace only where
-    S > 1; the same plan with and without ``path="tc"``."""
+    """bf16 at every registered width plans the tensor-core kernel (its
+    decode body at 8 rows, its prefill body at 256 and 4352), on a
+    cluster size of ``tc_clusters(d, ds)`` for the body's columns a CTA
+    (the decode body: one size, ceil(d / 256), up to d 2048), S within
+    the ff blocks and the workspace only where S > 1; the same plan with
+    and without ``path="tc"``."""
     plan = lm.mlp_plan(M, d, ff, torch.bfloat16, True, 132, slots=_slots)
-    assert plan.path == "tc" and plan.bm == lm.TC_BM
-    assert plan.cl in lm.tc_clusters(d) and plan.cl <= lm.TC_MAX_CLUSTER
+    body = "prefill" if M >= lm.PREFILL_ROWS else "decode"
+    bm, ds = (lm.TP_BM, lm.TP_DS) if body == "prefill" else (lm.TC_BM,
+                                                              lm.TC_DS)
+    assert (plan.path, plan.body, plan.bm) == ("tc", body, bm)
+    assert plan.cl in lm.tc_clusters(d, ds) and plan.cl <= lm.TC_MAX_CLUSTER
     if d <= 2048:
         assert lm.tc_clusters(d) == [-(-d // lm.TC_DS)]
     assert 1 <= plan.S <= -(-ff // lm.TC_BF)
