@@ -27,12 +27,13 @@ Phases (any failure exits non-zero before the result line):
    mid-row) and a global layer's 2048-slot horizon, dense and paged
    (the mixed pool's block size and 16), one row at the D = 256 split
    cap, timed beside SDPA; ``fused_mask`` at (8, 262144), served and
-   greedy; ``linked_mlp_tc`` at d 1152, ff 6912 (a cluster of 5), M = 8
-   and 256, beside the unlinked form; and at hymba-1.5b's and
+   greedy; ``linked_mlp`` at d 1152, ff 6912, M = 8 (the swap body, a
+   cluster of 3) and 256 (the prefill body), beside the unlinked form;
+   and at hymba-1.5b's and
    mamba2-370m's: ``gqa_decode`` at 25 q / 5 kv heads of 64 (G = 5) over
    1024-slot rings (wrapped spans, prefixes), timed beside SDPA;
-   ``linked_mlp_tc`` at d 1600, ff 5504 (a cluster of 7, its last rank
-   64 columns), M = 8 and 256; ``fused_mask`` at (8, 32001) in a
+   ``linked_mlp`` at d 1600, ff 5504 (the swap body at M = 8, the
+   prefill body at 256); ``fused_mask`` at (8, 32001) in a
    32,256-wide row and at (8, 50280) in a 50,432-wide one, served and
    greedy; and at a concat-TP rank's heads (qwen3's over 2 ranks, 8 q / 4
    kv, and over 4, 4 / 2), both decode kernels against their plain
@@ -44,14 +45,18 @@ Phases (any failure exits non-zero before the result line):
    beside SDPA; ``fused_mask`` at (8, 50304) in 50,432-wide rows and at
    (8, 256206) in 256,256-wide rows, served and greedy; and at the large
    dense decoders': ``linked_mlp`` at chatglm3-6b's, granite-8b's,
-   internlm2-20b's and chameleon-34b's widths (d 4096-8192, where
-   clusters split d) at decode and a 32-token chunk of the slots,
-   arctic-480b's dense residual (d 7168) at decode, batched prefill's
-   4352 rows at chatglm3's and internlm2's widths (against the fp64 sum),
-   each timed beside the unlinked form, the FFMA kernel forced by its
-   plan, the plain version and the bound, and untimed at the ragged
-   ownership edges (d 2056, 4104, 6152, ff no multiple of 64): the
-   tensor-core kernel planned at every one, the same bits twice; both
+   internlm2-20b's and chameleon-34b's widths (d 4096-8192) at decode
+   (the swap body: one cluster over d) and a 32-token chunk of the
+   slots (the prefill body, clusters splitting d), arctic-480b's dense
+   residual (d 7168) at decode, batched prefill's 4352 rows at
+   chatglm3's and internlm2's widths (against the fp64 sum), each timed
+   beside the unlinked form, the FFMA kernel forced by its plan, the
+   decode body forced (at decode), the plain version and the bound, and
+   untimed at the ragged ownership edges (d 2056, 4104, 6152, ff no
+   multiple of 64): the tensor-core kernel planned at every one, the
+   same bits twice; the swap body forced at 1-64 rows at d 2056, 4104,
+   6152 and 8200 wherever it takes them, against the fp64 sum with both
+   planted faults, twice, and replayed in a CUDA graph; both
    decode kernels at 32 q / 2 kv (G 16), 48 / 8 and 64 / 8 heads of 128,
    element by element, then timed beside SDPA;
 3. serve full-width qwen3-1.7b (random weights from ``Model.init``,
@@ -68,8 +73,9 @@ Phases (any failure exits non-zero before the result line):
    it (``linked_mlp`` in both: every layer's SwiGLU MLP, prefill and
    decode; every prefill launch must go through its tensor-core kernel's
    prefill body, counted as ``linked_mlp_tc_prefill``, and every decode
-   launch through its decode body, ``linked_mlp_tc``; the replanning run
-   may also send 8-token chunks, 64 rows, to the decode body); each
+   launch through its swap body, ``linked_mlp_tc_swap``; the replanning
+   run may also send 8-token chunks, 64 rows, to the decode body,
+   ``linked_mlp_tc``); each
    run's decode-attention kernel
    must launch once per layer of every decode step (K1 times at a verify
    of width K1), and ``fused_mask`` once per dispatch of the engine's
@@ -101,7 +107,7 @@ Phases (any failure exits non-zero before the result line):
    KV greedy and the mixed pool sampled (T 0.8, top-k 50, top-p 0.95),
    each graphed beside its eager twin, streams equal bit for bit; a
    decode tick launches ``gqa_decode`` 12 times (dense) or 10 times plus
-   ``gqa_decode_paged`` twice (mixed), ``linked_mlp_tc`` 12 times and
+   ``gqa_decode_paged`` twice (mixed), ``linked_mlp_tc_swap`` 12 times and
    ``fused_mask`` once; every request holds a classic and a ring lease,
    the ring lease window / block size blocks whatever its context; then
    qwen3-1.7b with a 512-token window, 8 requests, ring-paged beside
@@ -120,9 +126,10 @@ Phases (any failure exits non-zero before the result line):
    admitted into slots the first freed); each run
    graphed beside its eager twin, streams equal bit for bit, the plan's
    ``kv_growth`` "constant"; a hymba decode replay launches
-   ``gqa_decode`` and ``linked_mlp_tc`` once a layer and ``fused_mask``
-   once, a mamba2 one ``fused_mask`` alone (no attention or MLP kernel
-   ever).  Prints each run's steady step, busy share and cache bytes
+   ``gqa_decode`` and ``linked_mlp_tc_swap`` once a layer and
+   ``fused_mask`` once, a mamba2 one ``fused_mask`` alone (no attention
+   or MLP kernel ever).  Prints each run's steady step, busy share and
+   cache bytes
    (ring KV, SSM state, conv register) beside hymba's full-attention KV;
 3e. replica routing and concat tensor parallelism on qwen3-1.7b at full
    width: (a) two graphed, paged replicas on the one card behind a
@@ -161,7 +168,7 @@ Phases (any failure exits non-zero before the result line):
    weights its rows route to, and its share of a graphed tick; (b)
    reduced arctic-480b (2 layers, d 256, 4 experts top 2, its dense
    SwiGLU residual), dense greedy, graphed ≡ eager, a decode replay 2
-   ``linked_mlp_tc``; (c) seamless-m4t-large-v2 (24 + 24 layers, d
+   ``linked_mlp_tc_swap``; (c) seamless-m4t-large-v2 (24 + 24 layers, d
    1024, ff 8192, 16 / 16 heads of 64, vocab 256,206) through
    ``launch/translate_audio.py``: 8 utterances of 512 stub frames, a
    4-token prompt and 64 decode steps, greedy and sampled, 48
@@ -198,8 +205,9 @@ Phases (any failure exits non-zero before the result line):
    full depth does not fit one card), 8 greedy.  Each run graphed beside
    its eager twin, streams equal bit for bit; every ``linked_mlp``
    launch a tensor-core one (prefill ``linked_mlp_tc_prefill``, decode
-   ``linked_mlp_tc``); a decode replay
-   launches ``linked_mlp_tc`` and the decode-attention kernel once a
+   the swap body, ``linked_mlp_tc_swap``: one cluster over d); a decode
+   replay launches ``linked_mlp_tc_swap`` and the decode-attention
+   kernel once a
    layer and ``fused_mask`` once.  Prints each model's init peak beside
    its bf16 and largest-leaf fp32 bytes, steady step, device ms a tick,
    busy share, weights and KV bytes and the MLP's device ms a tick
@@ -341,8 +349,8 @@ version's; two planted faults must fail that test); every bf16 case
 each, against the fp64-summed MLP with ``linked_matmul.ops``'s
 ``mlp_reference`` limit (the h-rounding slack), both planted faults
 failing it; timing the planned body, the decode body forced at prefill
-shapes (the design before the prefill body), its plain version and the
-unlinked three-matmul form at the served shapes; and
+and swap-body shapes (the design before each), its plain version and
+the unlinked three-matmul form at the served shapes; and
 ``split_matmul`` against ``split_matmul_plain`` (fp32, 2e-5 / 2e-5) at
 bert_s's two plan tiles, inC splits (one with a cluster split inside
 each of its K tiles), M = 1 and ragged cases, twice each (the same
@@ -602,7 +610,8 @@ def check_close(label: str, got, want, dtype: str,
 
 
 #: kernels whose registers and spills phase 1 prints, by the pattern of
-#: their mangled names: the tensor-core linked_mlp's two bodies,
+#: their mangled names: the tensor-core linked_mlp's three bodies (the
+#: swap body by its rows, N),
 #: split_matmul (rows a
 #: CTA, k halves, cluster size, 16-byte copies), fused_mask (cluster
 #: size, 16-byte copies), cbr_avgpool (thread columns and rows, k parts,
@@ -611,6 +620,7 @@ def check_close(label: str, got, want, dtype: str,
 PTXAS_KERNELS = {
     r"linked_mlp_tcE": "linked_mlp_tc",
     r"linked_mlp_tc_prefillE": "linked_mlp_tc_prefill",
+    r"linked_mlp_tc_swapILi(\d+)E": "linked_mlp_tc_swap<N={}>",
     r"split_matmul_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E":
         "split_matmul_kernel<BM={},KH={},CL={},VEC={}>",
     r"fused_mask_kernelILi(\d+)ELb(\d)E": "fused_mask_kernel<CL={},VEC={}>",
@@ -1591,16 +1601,18 @@ def mlp_faults(torch, args) -> dict:
     return {"d_term": (x_cut, wg, wu, wd), "ff_column": (x, wg, wu, wd_cut)}
 
 
-def hold_bf16(torch, ops, label, args, got, plain) -> dict:
+def hold_bf16(torch, ops, label, args, got, plain, plan=None) -> dict:
     """The bf16 check (``ops.mlp_reference``): the kernel's result and the
     plain version's each within the fp64-summed MLP's limit, and both
-    planted faults, launched through the kernel, outside it.  Fails the
-    smoke otherwise; returns each one's worst err / limit."""
+    planted faults, launched through the kernel (``plan``: a forced
+    one), outside it.  Fails the smoke otherwise; returns each one's
+    worst err / limit."""
     ref, limit = ops.mlp_reference(*args)
     out = {"kernel": ops.reference_err(got, ref, limit),
            "plain": ops.reference_err(plain, ref, limit)}
     for k, fa in mlp_faults(torch, args).items():
-        out[k] = ops.reference_err(ops.linked_mlp(*fa), ref, limit)
+        out[k] = ops.reference_err(ops.linked_mlp(*fa, plan=plan), ref,
+                                   limit)
     print(f"linked_mlp {label}: worst err / (atol + rtol |fp64| + h slack): "
           + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
     for k in ("kernel", "plain"):
@@ -1613,6 +1625,24 @@ def hold_bf16(torch, ops, label, args, got, plain) -> dict:
                  f"({out[k]:.3f}) passes the fp64 limit")
     del ref, limit
     return out
+
+
+#: the launch counter of each tensor-core linked_mlp body
+MLP_BODY_KEY = {"decode": "linked_mlp_tc", "swap": "linked_mlp_tc_swap",
+                "prefill": "linked_mlp_tc_prefill"}
+
+
+def mlp_body_key(cfg, rows: int = SLOTS) -> str:
+    """The launch counter of the tensor-core body ``cfg``'s SwiGLU takes at
+    ``rows`` rows on this card (decode and each verify position: the
+    slots)."""
+    import torch
+    from repro_torch.kernels.linked_matmul import ops
+    plan = ops.mlp_plan(rows, cfg.d_model, cfg.d_ff, torch.bfloat16, True,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count,
+                        slots=ops.cluster_slots(torch.device("cuda", 0)))
+    return MLP_BODY_KEY[plan.body]
 
 
 def mlp_plan(torch, ops, args):
@@ -1646,8 +1676,9 @@ def time_mlp_case(torch, ops, gen, label, args, row, ffma=False):
         "unlinked_ms": cuda_ms([lambda a=a: unlinked_mlp(*a) for a in sets]),
         "bound_ms": b_ms, "bound_by": b_by})
     r["share"] = b_ms / r["ms"]
-    if plan.body == "prefill":
-        # the decode body forced at the same shape: the parent's design
+    if plan.body in ("prefill", "swap"):
+        # the decode body forced at the same shape: the design before
+        # this body
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         dplan = ops.mlp_plan(M, d, ff, args[0].dtype, True, sms, path="tc",
                              slots=ops.cluster_slots(args[0].device),
@@ -1666,8 +1697,10 @@ def time_mlp_case(torch, ops, gen, label, args, row, ffma=False):
                                 for a in sets], iters=n, warmup=min(3, n))
         # the cluster sizes the planner weighed and did not choose
         r["other_clusters"] = {}
-        ds = ops.TP_DS if plan.body == "prefill" else ops.TC_DS
-        for cl in ops.tc_clusters(d, ds):
+        sizes = ops.swap_clusters(M, d) if plan.body == "swap" else \
+            ops.tc_clusters(d, ops.TP_DS if plan.body == "prefill"
+                            else ops.TC_DS)
+        for cl in sizes:
             if cl == r["plan"]["cl"]:
                 continue
             alt = ops.mlp_plan(M, d, ff, x.dtype, True, sms, path="tc",
@@ -1843,12 +1876,14 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
                         sets=extra.get(label, ()))
     for label, (M, d, ff, dt) in others.items():
         plan = row["per_shape"][label]["plan"]
-        ds = ops.TP_DS if plan["body"] == "prefill" else ops.TC_DS
-        if plan["path"] != "tc" or plan["cl"] != -(-d // ds) or \
-                plan["body"] != ("prefill" if M >= ops.PREFILL_ROWS
-                                 else "decode"):
+        body = ops.tc_body(M, d)
+        sizes = ops.swap_clusters(M, d) if body == "swap" else \
+            [-(-d // (ops.TP_DS if body == "prefill" else ops.TC_DS))]
+        if plan["path"] != "tc" or plan["cl"] not in sizes or \
+                plan["body"] != body:
             fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
-                 f"kernel's body for {M} rows on a cluster of {-(-d // ds)}")
+                 f"kernel's {body} body for {M} rows on a cluster of "
+                 f"{sizes}")
     linked_mlp_batched(torch, ops, gen, row)
     linked_mlp_batched(torch, ops, gen, row, M=LONG_PROMPT,
                        label="long_prefill", n_sets=1)
@@ -1858,17 +1893,85 @@ def check_linked_mlp(torch, ops, gen, chunks, report):
                                      "bound_by", "unlinked_ms", "shape")})
 
 
+#: phase 2: the swap body forced at these rows at every ragged width of
+#: MLP_RAGGED_WIDE and d 8200 (one 64-column tile past 8192), where it
+#: takes them (one cluster covering d: up to 64 rows at d 2056, 32 at
+#: 4104 / 6152, 16 at 8200)
+SWAP_ROWS_HELD = (1, 8, 13, 32, 37, 64)
+SWAP_WIDTHS_HELD = ((2056, 6144), (4104, 13704), (6152, 16392),
+                    (8200, 22016))
+
+
+def check_swap_body(torch, ops, gen, row) -> None:
+    """The tensor-core kernel's swap body past d 2048 at 1-64 rows
+    (``SWAP_ROWS_HELD`` at ``SWAP_WIDTHS_HELD``), forced by its plan:
+    within ``hold_bf16``'s limit with both planted faults, launched
+    through the same plan, outside it; the same bits on two launches;
+    and a CUDA-graph capture (tensor maps encoded at capture, the
+    workspace from the graph's pool) replayed on new x written in place
+    equal to an eager launch.  Records the cases under
+    ``row["swap_held"]``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    held = row["swap_held"] = {}
+    for d, ff in SWAP_WIDTHS_HELD:
+        args = mlp_inputs(torch, max(SWAP_ROWS_HELD), d, ff, torch.bfloat16,
+                          gen)
+        for M in SWAP_ROWS_HELD:
+            if not ops.swap_clusters(M, d):
+                held[f"{M}x{d}"] = "not taken"
+                continue
+            a = (args[0][:M].contiguous(), *args[1:])
+            plan = ops.mlp_plan(M, d, ff, torch.bfloat16, True, sms,
+                                path="tc", body="swap",
+                                slots=ops.cluster_slots(a[0].device))
+            got = ops.linked_mlp(*a, plan=plan)
+            if not torch.equal(got, ops.linked_mlp(*a, plan=plan)):
+                fail(f"linked_mlp swap ({M},{d}): two launches gave "
+                     "different bits")
+            out = hold_bf16(torch, ops, f"swap ({M},{d})@({d},{ff}) plan "
+                            f"{tuple(plan)}", a, got,
+                            ops.linked_mlp_plain(*a), plan=plan)
+            x = a[0].clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                ops.linked_mlp(x, *a[1:], plan=plan)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y = ops.linked_mlp(x, *a[1:], plan=plan)
+            for _ in range(2):
+                x.copy_(torch.randn(x.shape, generator=gen, device=DEV))
+                graph.replay()
+                if not torch.equal(y, ops.linked_mlp(x, *a[1:], plan=plan)):
+                    fail(f"linked_mlp swap ({M},{d}): a graph replay "
+                         "differs from an eager launch")
+            del graph, y, x
+            held[f"{M}x{d}"] = {"plan": plan._asdict(), **out}
+            row["worst_vs_fp64"] = max(row.get("worst_vs_fp64", 0.0),
+                                       out["kernel"])
+        del args
+        torch.cuda.empty_cache()
+    taken = [k for k, v in held.items() if isinstance(v, dict)]
+    print(f"linked_mlp swap body: {len(taken)} (rows, d) cases within the "
+          f"fp64 limit, bit for bit on two launches and under graph "
+          f"replay; not taken {sorted(set(held) - set(taken))}")
+
+
 def check_linked_mlp_large(torch, ops, gen, get_config, report):
-    """The tensor-core kernel past d 2048, where clusters split d
-    (``tc_columns``).  Each large decoder's SwiGLU (``LARGE_ARCHS``) at
+    """The tensor-core kernel past d 2048: the swap body at decode rows
+    (one cluster over d), the prefill body from 65 rows (clusters split
+    d, ``tc_columns``).  Each large decoder's SwiGLU (``LARGE_ARCHS``) at
     decode (slots rows) and a 32-token chunk of the slots, arctic-480b's
     dense residual at decode, batched prefill's rows at chatglm3-6b's
     and internlm2-20b's widths (held against the fp64-summed MLP, as at
     qwen3's), each timed beside the unlinked form, the FFMA kernel (the
-    route of every bf16 width past 2048 before), the plain version and
-    the bound; the ragged ownership edges (``MLP_RAGGED_WIDE``).  Every
-    one must plan the tensor-core kernel; the rows go under
-    ``per_shape``."""
+    route of every bf16 width past 2048 before), the decode body forced
+    (the design before the swap body), the plain version and the bound;
+    the ragged ownership edges (``MLP_RAGGED_WIDE``) and the swap body at
+    1-64 rows there (``check_swap_body``).  Every one must plan the
+    tensor-core kernel, every decode shape its swap body; the rows go
+    under ``per_shape``."""
     bf16 = torch.bfloat16
     row = report["linked_mlp"]
     widths = {arch.split("-")[0]: (get_config(arch).d_model,
@@ -1891,12 +1994,17 @@ def check_linked_mlp_large(torch, ops, gen, get_config, report):
         if plan.path != "tc":
             fail(f"linked_mlp {label}: planned {plan}, want the tensor-core "
                  "kernel")
+        got = row["per_shape"].get(label, {}).get("plan", {}).get("body")
+        if label in timed and label.endswith("_decode") and got != "swap":
+            fail(f"linked_mlp {label}: planned the {got} body, want the "
+                 "swap body")
         torch.cuda.empty_cache()
     for name in ("chatglm3", "internlm2"):
         d, ff = widths[name]
         linked_mlp_batched(torch, ops, gen, row, label=f"{name}_batched",
                            n_sets=1, d=d, ff=ff, ffma=True)
         torch.cuda.empty_cache()
+    check_swap_body(torch, ops, gen, row)
     faster = {k: r["ms"] < r["ffma_ms"] for k, r in row["per_shape"].items()
               if "ffma_ms" in r}
     print(f"linked_mlp past d 2048: the tensor-core kernel faster than the "
@@ -2302,11 +2410,13 @@ def check_launches(label, run, cfg, decode_tc, attn: dict,
                    replanned: bool = False) -> None:
     """Every prefill launch of ``linked_mlp`` goes through the tensor-core
     kernel's prefill body (``linked_mlp_tc_prefill``) and every decode
-    one through its decode body (``linked_mlp_tc``; the FFMA kernel where
+    one (each verify position too: the slots' rows) through the body the
+    planner gives the slots' rows (``mlp_body_key``: the swap body,
+    ``linked_mlp_tc_swap``, wherever it takes them; the FFMA kernel where
     the planner picks it for decode).  ``replanned``: the run may have
     adopted 8-token chunks (8 slots x 8 rows, under the prefill body's
     ``PREFILL_ROWS``), whose whole prefill calls (a launch a layer) take
-    the decode body.  Each decode-attention kernel
+    a 64-row body (swap or decode).  Each decode-attention kernel
     launches ``attn[kernel]`` times every decode step (K1 times that at a
     verify of width K1), and ``fused_mask`` once a sampler dispatch; a
     graphed run's launches are its replays' plus its graphs' warm-ups,
@@ -2328,7 +2438,7 @@ def check_launches(label, run, cfg, decode_tc, attn: dict,
             + f"; linked_mlp {ln.get('linked_mlp', 0)}; fused_mask "
             f"{ln['fused_mask']} over {run['sampler_calls']} sampler "
             f"dispatches and warm-ups {warm.get('fused_mask', 0)}")
-        for k in ("linked_mlp", "linked_mlp_tc", "linked_mlp_tc_prefill"):
+        for k in ("linked_mlp", *MLP_BODY_KEY.values()):
             if ln.get(k, 0):
                 fail(f"{label}: {k} launched {ln[k]} times, want none")
         want = run["sampler_calls"] + warm.get("fused_mask", 0)
@@ -2341,21 +2451,25 @@ def check_launches(label, run, cfg, decode_tc, attn: dict,
                 fail(f"{label}: {k} launched {ln.get(k, 0)} times, want {n} "
                      f"per decode-kernel step and the warm-ups' ({want})")
         return
+    dkey = mlp_body_key(cfg) if decode_tc else None
     decode_mlp = swiglu_layers(cfg) * run["kernel_steps"] + warm.get(
         "linked_mlp", 0)
     prefill_mlp = ln["linked_mlp"] - decode_mlp
     want_tc = decode_mlp if decode_tc else 0
-    # prefill calls of 64 rows or fewer on the decode body (replanned runs)
-    small = ln["linked_mlp_tc"] - want_tc if replanned and decode_tc else 0
+    small_keys = ("linked_mlp_tc", "linked_mlp_tc_swap")
+    # prefill calls of 64 rows or fewer on a 64-row body (replanned runs)
+    small = sum(ln.get(k, 0) for k in small_keys) - want_tc \
+        if replanned and decode_tc else 0
     if small % swiglu_layers(cfg) or small < 0:
-        fail(f"{label}: {small} decode-body launches past decode's are no "
+        fail(f"{label}: {small} 64-row-body launches past decode's are no "
              "whole prefill calls")
     prefill_mlp -= small
     print(f"{label}: linked_mlp {ln['linked_mlp']} launches: prefill "
           f"{prefill_mlp}, linked_mlp_tc_prefill "
           f"{ln.get('linked_mlp_tc_prefill', 0)}; decode and verify "
-          f"{decode_mlp} on {'tc' if decode_tc else 'ffma'}, linked_mlp_tc "
-          f"{ln['linked_mlp_tc']} (warm-ups included); " + "; ".join(
+          f"{decode_mlp} on {dkey or 'ffma'}, linked_mlp_tc_swap "
+          f"{ln.get('linked_mlp_tc_swap', 0)}, linked_mlp_tc "
+          f"{ln.get('linked_mlp_tc', 0)} (warm-ups included); " + "; ".join(
               f"{k} {ln[k]} ({n} a step) over {run['kernel_steps']} "
               f"decode-kernel steps and warm-ups {warm.get(k, 0)}"
               for k, n in attn.items())
@@ -2367,13 +2481,18 @@ def check_launches(label, run, cfg, decode_tc, attn: dict,
         fail(f"{label}: linked_mlp_tc_prefill launched "
              f"{ln.get('linked_mlp_tc_prefill', 0)} times, want every "
              f"prefill launch ({prefill_mlp})")
-    if ln["linked_mlp_tc"] != want_tc + small:
-        fail(f"{label}: linked_mlp_tc launched {ln['linked_mlp_tc']} times, "
-             f"want every decode and verify launch ({want_tc})"
+    if sum(ln.get(k, 0) for k in small_keys) != want_tc + small or \
+            (dkey and ln.get(dkey, 0) < want_tc) or \
+            (not small and any(ln.get(k, 0) for k in small_keys
+                               if k != dkey)):
+        fail(f"{label}: linked_mlp_tc_swap / linked_mlp_tc launched "
+             f"{ln.get('linked_mlp_tc_swap', 0)} / "
+             f"{ln.get('linked_mlp_tc', 0)} times, want every decode and "
+             f"verify launch ({want_tc}) on {dkey}"
              + (f" and {small} of short prefill chunks" if small else ""))
     for name in [k for k, n in attn.items() if n] + [
             "fused_mask", "linked_mlp", "linked_mlp_tc_prefill"] + (
-                ["linked_mlp_tc"] if decode_tc else []):
+                [dkey] if decode_tc else []):
         if ln.get(name, 0) <= 0:
             fail(f"{label}: kernel {name} was never launched")
     want = run["sampler_calls"] + warm.get("fused_mask", 0)
@@ -2612,7 +2731,8 @@ def recurrent_phase(torch, kernels, serve, hymba, mamba2) -> dict:
     mamba2-370m at full width, greedy, each graphed beside its eager twin
     (the same requests, replanning off, dense KV), streams equal bit for
     bit.  A hymba decode replay launches ``gqa_decode`` and
-    ``linked_mlp_tc`` once a layer and ``fused_mask`` once; a mamba2 one
+    ``linked_mlp_tc_swap`` once a layer and ``fused_mask`` once; a mamba2
+    one
     ``fused_mask`` alone.  Prints each run's steady step, busy share and
     cache bytes beside the full-attention KV of the same slots and
     horizon (``kv_bytes``; 0 for mamba2)."""
@@ -2641,7 +2761,8 @@ def recurrent_phase(torch, kernels, serve, hymba, mamba2) -> dict:
                            {"gqa_decode": n, "gqa_decode_paged": 0})
             if graphed:
                 want = {"gqa_decode": n, "gqa_decode_paged": 0,
-                        "linked_mlp_tc": n, "fused_mask": 1}
+                        mlp_body_key(cfg) if n else "linked_mlp_tc_swap": n,
+                        "fused_mask": 1}
                 got = runs[name]["graphs"]["serve_sample"]["launches"]
                 if {k: got.get(k, 0) for k in want} != want:
                     fail(f"{name}: a decode replay launches {got}, want "
@@ -2672,8 +2793,8 @@ def large_run(torch, kernels, serve, model, params, label, args, seed):
     """One phase 3h run: graphed, then its eager twin on the same
     requests (each engine freed before the next is built), streams equal
     bit for bit.  Every ``linked_mlp`` launch is a tensor-core one: prefill
-    on its prefill body, decode on its decode body (``check_launches``);
-    a decode replay launches ``linked_mlp_tc`` and the KV layout's
+    on its prefill body, decode on its swap body (``check_launches``);
+    a decode replay launches ``linked_mlp_tc_swap`` and the KV layout's
     decode-attention kernel once a layer and ``fused_mask`` once."""
     cfg = model.cfg
     attn = decode_kernels(model, args.kv)
@@ -2687,12 +2808,13 @@ def large_run(torch, kernels, serve, model, params, label, args, seed):
         del engine
         ln = runs[name]["launches"]
         check_launches(name, runs[name], cfg, True, attn)
-        tc = ln["linked_mlp_tc"] + ln["linked_mlp_tc_prefill"]
+        tc = sum(ln[k] for k in MLP_BODY_KEY.values())
         if ln["linked_mlp"] != tc:
             fail(f"{name}: {ln['linked_mlp'] - tc} linked_mlp launches "
                  "went to the FFMA kernel")
         if graphed:
-            want = {**attn, "linked_mlp_tc": cfg.n_layers, "fused_mask": 1}
+            want = {**attn, mlp_body_key(cfg): cfg.n_layers,
+                    "fused_mask": 1}
             got = runs[name]["graphs"]["serve_sample"]["launches"]
             if {k: got.get(k, 0) for k in want} != want:
                 fail(f"{name}: a decode replay launches {got}, want {want}")
@@ -3122,8 +3244,8 @@ def tp_phase(torch, kernels, serve, model, params, card: str) -> dict:
                 fail(f"{name}: {attn} launched {ln[attn]} times, want "
                      f"{cfg.n_layers} a decode step ({want})")
             if ln["fused_mask"] != run["sampler_calls"] \
-                    or ln["linked_mlp"] or ln["linked_mlp_tc"] \
-                    or ln["linked_mlp_tc_prefill"]:
+                    or any(ln[k] for k in ("linked_mlp",
+                                           *MLP_BODY_KEY.values())):
                 fail(f"{name}: fused_mask {ln['fused_mask']} over "
                      f"{run['sampler_calls']} sampler dispatches, "
                      f"linked_mlp {ln['linked_mlp']} (want none)")
@@ -3293,7 +3415,7 @@ def moe_phase(torch, kernels, serve, Model, card: str) -> dict:
             check_launches(name, runs[name], cfg, True, attn)
             if graphed:
                 want = {**attn, "fused_mask": 1, "linked_mlp": 0,
-                        "linked_mlp_tc": 0}
+                        "linked_mlp_tc": 0, "linked_mlp_tc_swap": 0}
                 got = runs[name]["graphs"]["serve_sample"]["launches"]
                 if {k: got.get(k, 0) for k in want} != want:
                     fail(f"{name}: a decode replay launches {got}, want "
@@ -3365,7 +3487,7 @@ def arctic_phase(torch, kernels, serve, Model, lm_ops, gen) -> dict:
     """Phase 3f (b): reduced arctic-480b in bf16 (2 layers, d 256, 4
     experts top 2, its dense SwiGLU residual on the linked site), one
     dense greedy run graphed beside eager, streams bit for bit; each
-    decode replay launches ``linked_mlp_tc`` once a layer (the dense
+    decode replay launches ``linked_mlp_tc_swap`` once a layer (the dense
     residual: the one path to ``linked_mlp`` in this phase)."""
     from repro_torch.configs.base import get_config
     cfg = dataclasses.replace(get_config("arctic-480b").reduced(),
@@ -3388,7 +3510,7 @@ def arctic_phase(torch, kernels, serve, Model, lm_ops, gen) -> dict:
         check_launches(name, runs[name], cfg, decode_tc,
                        decode_kernels(model, "dense"))
     got = runs["arctic_dense_greedy"]["graphs"]["serve_sample"]["launches"]
-    want = {"gqa_decode": cfg.n_layers, "linked_mlp_tc": cfg.n_layers}
+    want = {"gqa_decode": cfg.n_layers, mlp_body_key(cfg): cfg.n_layers}
     if {k: got.get(k, 0) for k in want} != want:
         fail(f"arctic: a decode replay launches {got}, want {want}")
     same_streams("arctic graphed vs eager", runs["arctic_dense_greedy"],
@@ -5661,12 +5783,16 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name == "linked_mlp":
-            # the tensor-core kernel's two bodies: each one's launches on
-            # the main path, and its time at a shape it serves
-            entry["name"] = "linked_mlp (linked_mlp_tc, linked_mlp_tc_prefill)"
+            # the tensor-core kernel's three bodies: each one's launches
+            # on the main path, and its time at a shape it serves beside
+            # the decode body's there (the swap body at every decode shape
+            # past d 2048 too)
+            entry["name"] = ("linked_mlp (linked_mlp_tc_swap, linked_mlp_tc, "
+                             "linked_mlp_tc_prefill)")
             ps = row["per_shape"]
             entry["bodies"] = {}
-            for body, shape in (("linked_mlp_tc", "decode"),
+            for body, shape in (("linked_mlp_tc_swap", "decode"),
+                                ("linked_mlp_tc", "prefill_c8"),
                                 ("linked_mlp_tc_prefill", "batched_prefill")):
                 entry["bodies"][body] = {
                     "launches": sum(r.get("launches", {}).get(body, 0)
@@ -5674,8 +5800,15 @@ def main() -> int:
                     "shape": ps[shape]["shape"], "ms": ps[shape]["ms"],
                     "bound_ms": ps[shape]["bound_ms"],
                     "unlinked_ms": ps[shape]["unlinked_ms"]}
-            entry["bodies"]["linked_mlp_tc_prefill"]["decode_body_ms"] = \
-                ps["batched_prefill"]["decode_body"]["ms"]
+                if "decode_body" in ps[shape]:
+                    entry["bodies"][body]["decode_body_ms"] = \
+                        ps[shape]["decode_body"]["ms"]
+            entry["bodies"]["linked_mlp_tc_swap"]["wide"] = {
+                k: {f: r[f] for f in ("shape", "ms", "bound_ms",
+                                      "unlinked_ms")}
+                | {"decode_body_ms": r["decode_body"]["ms"]}
+                for k, r in ps.items() if k.endswith("_decode")
+                and r["shape"][1] > 2048 and "decode_body" in r}
         table.append(entry)
     result["table"] = table
     result["smoke_s"] = time.perf_counter() - t_start

@@ -26,7 +26,7 @@
 // 1.48 ms at M 4352 (operations); chameleon-34b's (8192, 22016) 0.323 /
 // 4.76 ms.
 //
-// Two kernels (the tensor-core one with two bodies), chosen per call by
+// Two kernels (the tensor-core one with three bodies), chosen per call by
 // ops.py's planner (``mlp_plan``), which
 // also picks every grid size from the shapes, the device's SM count and
 // the clusters of the tensor-core kernel it runs at once.
@@ -115,6 +115,36 @@
 // linked_mlp_reduce, as the decode body.  The host encodes the four
 // tensor maps at each launch (kernel parameters, so a CUDA graph keeps
 // them).
+//
+// linked_mlp_tc_swap (the same shapes, at decode rows: ops.py's tc_body):
+// the tensor-core kernel's swap body.  Past d 2048 the decode body's
+// clusters split d, each computing every h block of its ff split again
+// ((2n + 1) / 3 of the FLOPs, Wg and Wu read n times), because a CTA's
+// 64 x 256 fp32 y block in registers (56 of 64 rows padding at 8 rows)
+// caps it at 256 columns.  This body swaps the operands: g^T = Wg^T x^T,
+// u^T = Wu^T x^T, then y^T += Wd^T h^T, so wgmma's M runs over ff and d
+// (64 a product) and its N over the rows, M padded to N = 8, 16, 32 or 64.
+//   * A y tile is 64 columns x N rows: N / 2 fp32 registers a thread.  A
+//     rank owns T tiles (at most 16, and 256 / N: 64 registers of y), so
+//     one cluster of C <= 16 ranks owns all of d up to 16384 columns at 8
+//     rows: every h block is computed once, every weight byte read once.
+//     Grid: (C, 1, S), one cluster a split of ff; S fills the card.
+//   * Per round each rank computes its own ff block's g^T (warpgroup 1)
+//     and u^T (warpgroup 2), A = the Wg / Wu tile (64 k x 64 ff, MN-major:
+//     transposed), B = x's tile (N rows x 64 k, K-major), each 64-deep
+//     step summed from zero and folded by IEEE fp32 adds (the decode
+//     body's arithmetic); h = silu(g) * u, rounded to bf16, lands in the
+//     rank's own buffer in the K-major layout of a down product's B.
+//     After the round barrier (mbarriers, release / acquire at cluster
+//     scope) each rank pulls the round's h blocks through distributed
+//     shared memory, two buffers deep, in the order (rank + j) % nblk, and
+//     adds Wd[block, tile]^T h^T into its tiles, two tiles a step (one a
+//     warpgroup), the tensor core chaining y over the whole ff walk.
+//   * One thread of warpgroup 0 feeds a TMA ring of 6 stages (Wg, Wu and
+//     x's tiles of an up step; two Wd tiles of a down step), running
+//     ahead across rounds; 4 and 8 stages timed slower (PERF.md).
+//   * S = 1 stores y directly, S > 1 goes through the workspace and
+//     linked_mlp_reduce, as the other bodies.
 //
 // linked_mlp_partial (fp32, and bf16 shapes the tensor-core kernel does
 // not take): the FFMA kernel.  Each thread block computes one (BM <= 8
@@ -1428,6 +1458,451 @@ cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu,
 
 }  // namespace tp
 
+// ---------------------------------------------------------------------------
+// linked_mlp_tc_swap: bf16 on the tensor cores at decode rows, the operands
+// swapped
+// ---------------------------------------------------------------------------
+
+namespace ts {
+
+using bf16 = __nv_bfloat16;
+using tc::desc;
+using tc::fence_async_smem;
+using tc::reg_fence;
+using tc::smem_u32;
+using tc::wg_commit;
+using tc::wg_fence;
+using tc::wg_wait0;
+using tp::cluster_sync;
+using tp::mbar_arrive_rank;
+using tp::mbar_expect_tx;
+using tp::mbar_init;
+using tp::mbar_wait;
+using tp::tma_load;
+using tp::wg_barrier;
+
+// d (64 x N fp32, the warpgroup's fragments) = A @ B (scale_d = 0) or +=
+// A @ B, bf16 in, the operands swapped: A (64 rows of ff or of y's
+// columns) MN-major, B (x or h, N rows) K-major; one overload an N
+__device__ __forceinline__ void wgmma_t(float (&d)[4], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_t(float (&d)[8], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_t(float (&d)[16], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_t(float (&d)[32], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Warpgroup 0 loads (one thread), warpgroups 1 and 2 compute.
+constexpr int kThreads = 384;
+constexpr int kBF = 64;             // ff rows of an up product: an h block
+constexpr int kBK = 64;             // d an up step
+constexpr int kTile = 64;           // y columns of a down product
+constexpr int kMaxCluster = 16;     // non-portable past 8
+constexpr int kMaxRows = 64;        // rows the body takes (wgmma's N)
+constexpr int kW = 8192;            // bytes of a 64 x 64 bf16 weight tile
+
+// The sizes that follow from N, the rows padded to 8, 16, 32 or 64.
+template <int N>
+struct Shape {
+  // x's tile (N rows x 64 of d) in a stage, whole 1024-byte swizzle
+  // periods
+  static constexpr int kX = N * 128 < 1024 ? 1024 : N * 128;
+  // an up step: Wg's and Wu's 64 x 64 tiles and x's; a down step: two
+  // 64 x 64 tiles of Wd
+  static constexpr int kStage = 2 * kW + kX;
+  static constexpr int kH = N * 128;          // bytes of an h block
+  static constexpr int kEx = N * 256;         // u on its way: 64 x N fp32
+  // alignment slack, own h and the pulled h (two buffers each), u
+  static constexpr int kFixed = 1024 + 4 * kH + kEx;
+  static constexpr int kFit = (232448 - kFixed - 18 * 8) / kStage;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  // y tiles a rank owns at most: a warpgroup holds half of them, N / 2
+  // fp32 registers a tile, 64 registers in all
+  static constexpr int kMaxTiles = 256 / N < 16 ? 256 / N : 16;
+  static constexpr int kTW = (kMaxTiles + 1) / 2;
+  static constexpr size_t kSmem =
+      kFixed + static_cast<size_t>(kStages) * kStage + (2 * kStages + 2) * 8;
+  static_assert(kStages >= 4 && kSmem <= 232448, "fits one CTA");
+};
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Tensor maps (128-byte swizzle, zero fill past the edges): x (d, M) in
+// boxes of 64 x N, wg / wu (ff, d) and wd (d, ff) in boxes of 64 x 64;
+// part (S, M, d) fp32 (S > 1) or out (M, d) bf16 (S == 1).  gridDim = (C,
+// 1, S), cluster (C, 1, 1); rank c owns y's columns [64 T c, 64 T (c + 1)).
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+linked_mlp_tc_swap(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_g,
+                   const __grid_constant__ CUtensorMap tm_u,
+                   const __grid_constant__ CUtensorMap tm_d,
+                   float* __restrict__ part, bf16* __restrict__ out, int M,
+                   int d, int ff, int C, int T, int S) {
+  using Sh = Shape<N>;
+  constexpr int kStages = Sh::kStages, kStage = Sh::kStage;
+  extern __shared__ __align__(1024) unsigned char ts_smem_raw[];
+  unsigned char* base_ptr = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(ts_smem_raw) + 1023) & ~size_t(1023));
+  const unsigned ring = smem_u32(base_ptr);
+  unsigned char* hown_ptr = base_ptr + kStages * kStage;    // [2][N][64]
+  unsigned char* hall_ptr = hown_ptr + 2 * Sh::kH;          // [2][N][64]
+  float* ex = reinterpret_cast<float*>(hall_ptr + 2 * Sh::kH);
+  const unsigned bars = smem_u32(ex) + Sh::kEx;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  // hready[b]: every consumer warpgroup of every rank has written its h of
+  // a round r with r % 2 == b (and pulled the round before's)
+  auto hready = [&](int b) { return bars + 8 * (2 * kStages + b); };
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int rank = static_cast<int>(blockIdx.x) % C;
+  const int s = blockIdx.z;
+  const int col0 = rank * T * kTile;
+  // y tiles this rank owns (the last ranks of a ragged d fewer, or none),
+  // and its down steps a block: two tiles a step, one a warpgroup
+  const int Tr = max(0, min(T, (d - col0 + kTile - 1) / kTile));
+  const int P = (Tr + 1) / 2;
+  const int nb = (ff + kBF - 1) / kBF;
+  const int jb0 = static_cast<int>(static_cast<long long>(s) * nb / S);
+  const int jb1 = static_cast<int>(static_cast<long long>(s + 1) * nb / S);
+  const int R = (jb1 - jb0 + C - 1) / C;       // rounds
+  const int n_up = (d + kBK - 1) / kBK;        // up steps a round
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 2);  // one arrival a consumer warpgroup
+    }
+    mbar_init(hready(0), 2 * C);
+    mbar_init(hready(1), 2 * C);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();              // every rank's barriers exist before any
+                               // arrival reaches them
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full, in the consumers'
+    // order: a round's up steps (its own block, if it has one), then
+    // its down steps, block by block ----
+    if (threadIdx.x != 0) return;
+    int n = 0;                 // steps issued
+    for (int r = 0; r < R; ++r) {
+      const int blk0 = jb0 + r * C;
+      if (blk0 + rank < jb1) {
+        const int f0 = (blk0 + rank) * kBF;
+        for (int i = 0; i < n_up; ++i, ++n) {
+          const int slot = n % kStages;
+          mbar_wait(empty(slot), ((n / kStages) & 1) ^ 1);
+          const unsigned st = ring + slot * kStage;
+          mbar_expect_tx(full(slot), 2 * kW + N * 128);
+          tma_load(st, &tm_g, full(slot), f0, i * kBK);
+          tma_load(st + kW, &tm_u, full(slot), f0, i * kBK);
+          tma_load(st + 2 * kW, &tm_x, full(slot), i * kBK, 0);
+        }
+      }
+      // down step (j, p) of rank i: block (i + j) % nblk of the round,
+      // Wd's tiles 2p and 2p + 1 of the rank's columns
+      const int nblk = min(C, jb1 - blk0);
+      for (int j = 0; j < nblk; ++j) {
+        const int f = (blk0 + (rank + j) % nblk) * kBF;
+        for (int p = 0; p < P; ++p, ++n) {
+          const int slot = n % kStages;
+          mbar_wait(empty(slot), ((n / kStages) & 1) ^ 1);
+          const unsigned st = ring + slot * kStage;
+          const bool two = 2 * p + 1 < Tr;
+          mbar_expect_tx(full(slot), two ? 2 * kW : kW);
+          tma_load(st, &tm_d, full(slot), col0 + 2 * p * kTile, f);
+          if (two)
+            tma_load(st + kW, &tm_d, full(slot), col0 + (2 * p + 1) * kTile,
+                     f);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w computes g (w 0) or u (w 1) of the own
+  // block, and y's tiles 2p + w of the rank's columns ----
+  const int w = threadIdx.x / 128 - 1;
+  const int tg = threadIdx.x & 127, lane = tg & 31, w4 = tg >> 5;
+  const int ct = threadIdx.x - 128;            // 0 .. 255
+  auto release = [&](int slot) {
+    if (tg == 0) mbar_arrive(empty(slot));
+  };
+  auto await = [&](int slot, int n) {
+    mbar_wait(full(slot), (n / kStages) & 1);
+    __syncwarp();
+  };
+  // both consumer warpgroups (named barrier 1)
+  auto both = [&]() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+  // The round barrier over the consumers of every rank (the producer runs
+  // ahead): the warpgroup's writes are ordered by its block barrier
+  // before thread q's release-arrival on rank q's hready[b]; the wait
+  // acquires every rank's.
+  auto round_sync = [&](int r) {
+    wg_barrier(2 + w);
+    if (tg < C) mbar_arrive_rank<true>(hready(r & 1), tg);
+    mbar_wait<true>(hready(r & 1), (r >> 1) & 1);
+    __syncwarp();
+  };
+  // an h block through distributed shared memory: 16-byte chunks, this
+  // thread's loaded now and stored later
+  constexpr int kChunks = N * 8;
+  constexpr int kPer = (kChunks + 255) / 256;
+  auto pull = [&](const unsigned char* src_local, int b, uint4 (&v)[kPer]) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(cluster.map_shared_rank(src_local, b));
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (ct + 256 * u < kChunks) v[u] = src[ct + 256 * u];
+  };
+  auto put = [&](int buf, const uint4 (&v)[kPer]) {
+    uint4* dst = reinterpret_cast<uint4*>(hall_ptr + buf * Sh::kH);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (ct + 256 * u < kChunks) dst[ct + 256 * u] = v[u];
+  };
+
+  // y^T: the warpgroup's tiles 2p + w, 64 of y's columns x N rows each,
+  // summed by the tensor core over the whole ff walk
+  float y[Sh::kTW][N / 2];
+#pragma unroll
+  for (int p = 0; p < Sh::kTW; ++p)
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) y[p][e] = 0.f;
+  int n = 0;                   // steps consumed
+  for (int r = 0; r < R; ++r) {
+    const int blk0 = jb0 + r * C;
+    unsigned char* hb = hown_ptr + (r & 1) * Sh::kH;
+    if (blk0 + rank < jb1) {
+      // g^T (w 0) or u^T (w 1) of the own block, 64 ff x N rows: the tensor
+      // core sums each 64-deep step from zero; IEEE fp32 adds fold the
+      // steps in k order (the decode body's arithmetic)
+      float acc[N / 2];
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[e] = 0.f;
+      for (int i = 0; i < n_up; ++i, ++n) {
+        const int slot = n % kStages;
+        await(slot, n);
+        const unsigned st = ring + slot * kStage;
+        float t[N / 2];
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) t[e] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks)
+          wgmma_t(t, desc(st + w * kW + ks * 2048, 8192, 1024),
+                  desc(st + 2 * kW + ks * 32, 0, 1024), ks);
+        wg_commit();
+        wg_wait0();
+        reg_fence(t);
+        release(slot);
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) acc[e] += t[e];
+      }
+      // u to warpgroup 0 through shared memory, then h = silu(g) * u,
+      // rounded to bf16, into this round's own buffer (N rows of 64, the
+      // 128-byte swizzle's K-major layout: the down products' B)
+      if (w == 1)
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) ex[e * 128 + tg] = acc[e];
+      both();
+      if (w == 0) {
+        bf16* h = reinterpret_cast<bf16*>(hb);
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) {
+          const int f = 16 * w4 + (lane >> 2) + 8 * ((e >> 1) & 1);
+          const int m = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+          const float g = acc[e];
+          h[m * 64 + (((f >> 3) ^ (m & 7)) << 3) + (f & 7)] =
+              __float2bfloat16(g / (1.f + expf(-g)) * ex[e * 128 + tg]);
+        }
+      }
+    }
+    // every rank's h of this round is written
+    round_sync(r);
+    // y^T[rank's tiles] += Wd[block b, tile]^T h_b^T for the round's blocks b
+    // = (rank + j) % nblk: h_b comes from rank b through distributed
+    // shared memory into hall[j & 1], block j + 1 loaded while block j
+    // multiplies
+    const int nblk = min(C, jb1 - blk0);
+    if (P > 0) {
+      {
+        uint4 v[kPer];
+        pull(hb, rank % nblk, v);
+        put(0, v);
+      }
+      fence_async_smem();
+      both();
+      for (int j = 0; j < nblk; ++j) {
+        const bool more = j + 1 < nblk;
+        uint4 v[kPer];
+        if (more) pull(hb, (rank + j + 1) % nblk, v);
+        const unsigned hl = smem_u32(hall_ptr + (j & 1) * Sh::kH);
+#pragma unroll
+        for (int p = 0; p < Sh::kTW; ++p) {
+          if (p < P) {
+            const int slot = n % kStages;
+            await(slot, n);
+            if (2 * p + w < Tr) {
+              const unsigned st = ring + slot * kStage + w * kW;
+              wg_fence();
+#pragma unroll
+              for (int ks = 0; ks < kBF / 16; ++ks)
+                wgmma_t(y[p], desc(st + ks * 2048, 8192, 1024),
+                        desc(hl + ks * 32, 0, 1024), 1);
+              wg_commit();
+              wg_wait0();
+              reg_fence(y[p]);
+            }
+            release(slot);
+            ++n;
+          }
+        }
+        if (more) {
+          put((j + 1) & 1, v);
+          fence_async_smem();
+        }
+        both();
+      }
+    }
+  }
+  // no CTA leaves while another reads its h
+  round_sync(R);
+
+  // y^T tiles: cast and store (S == 1) or this split's fp32 partial
+#pragma unroll
+  for (int p = 0; p < Sh::kTW; ++p) {
+    const int tile = 2 * p + w;
+    if (tile >= Tr) continue;
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const int c = col0 + tile * kTile + 16 * w4 + (lane >> 2) +
+                    8 * ((e >> 1) & 1);
+      const int m = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+      if (m >= M || c >= d) continue;
+      if (S == 1)
+        out[static_cast<size_t>(m) * d + c] = __float2bfloat16(y[p][e]);
+      else
+        part[(static_cast<size_t>(s) * M + m) * d + c] = y[p][e];
+    }
+  }
+}
+
+// N: M padded to wgmma's 8, 16, 32 or 64 rows (0: more than 64)
+int rows_n(int M) {
+  return M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= kMaxRows ? 64 : 0;
+}
+int max_tiles(int N) {
+  switch (N) {
+    case 8: return Shape<8>::kMaxTiles;
+    case 16: return Shape<16>::kMaxTiles;
+    case 32: return Shape<32>::kMaxTiles;
+    case 64: return Shape<64>::kMaxTiles;
+    default: return 0;
+  }
+}
+
+template <int N>
+cudaError_t prepare() {
+  static bool attr_set = false;
+  if (attr_set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      linked_mlp_tc_swap<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Shape<N>::kSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(linked_mlp_tc_swap<N>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err == cudaSuccess) attr_set = true;
+  return err;
+}
+
+template <int N>
+cudaError_t launch_n(const bf16* x, const bf16* wg, const bf16* wu,
+                     const bf16* wd, float* part, bf16* out, int M, int d,
+                     int ff, int C, int T, int S, cudaStream_t stream) {
+  cudaError_t err = prepare<N>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap mx, mg, mu, md;
+  if (!tp::tensor_map(&mx, x, M, d, N) || !tp::tensor_map(&mg, wg, d, ff, 64) ||
+      !tp::tensor_map(&mu, wu, d, ff, 64) ||
+      !tp::tensor_map(&md, wd, ff, d, 64))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(C, 1, S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Shape<N>::kSmem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, linked_mlp_tc_swap<N>, mx, mg, mu, md, part,
+                           out, M, d, ff, C, T, S);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return err;
+  return reduce<bf16>(part, out, static_cast<size_t>(M) * d, S, stream);
+}
+
+cudaError_t launch(const bf16* x, const bf16* wg, const bf16* wu,
+                   const bf16* wd, float* part, bf16* out, int M, int d,
+                   int ff, int C, int T, int S, cudaStream_t stream) {
+  switch (rows_n(M)) {
+    case 8:
+      return launch_n<8>(x, wg, wu, wd, part, out, M, d, ff, C, T, S, stream);
+    case 16:
+      return launch_n<16>(x, wg, wu, wd, part, out, M, d, ff, C, T, S,
+                          stream);
+    case 32:
+      return launch_n<32>(x, wg, wu, wd, part, out, M, d, ff, C, T, S,
+                          stream);
+    case 64:
+      return launch_n<64>(x, wg, wu, wd, part, out, M, d, ff, C, T, S,
+                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace ts
+
 }  // namespace
 
 // The FFMA kernel: x (M,d), wg/wu (d,ff), wd (ff,d), out (M,d): contiguous,
@@ -1512,5 +1987,35 @@ extern "C" int repro_linked_mlp_tc_prefill(const void* x, const void* wg,
       static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
       static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
       static_cast<float*>(part), static_cast<bf16*>(out), M, d, ff, cl, S,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-core kernel's swapped decode body: the same operands and
+// checks as repro_linked_mlp_tc, 1 <= M <= 64 rows, one cluster of cl CTAs
+// (1 <= cl <= 16) over all of d, rank c owning y's columns [64 T c, 64 T
+// (c + 1)) for T = ceil(ceil(d / 64) / cl), at most 16 tiles and 256 / N
+// (N: M padded to 8, 16, 32 or 64); S ff splits (1 <= S <= ceil(ff /
+// 64)).  Returns the cudaError_t of the launches (an invalid value where
+// cuTensorMapEncodeTiled is missing or refuses a tensor).
+extern "C" int repro_linked_mlp_tc_swap(const void* x, const void* wg,
+                                        const void* wu, const void* wd,
+                                        void* part, void* out, int M, int d,
+                                        int ff, int cl, int S, void* stream) {
+  const size_t addr = reinterpret_cast<size_t>(x) |
+                      reinterpret_cast<size_t>(wg) |
+                      reinterpret_cast<size_t>(wu) |
+                      reinterpret_cast<size_t>(wd);
+  if (M <= 0 || M > ts::kMaxRows || d <= 0 || ff <= 0 || d % 8 || ff % 8 ||
+      (addr & 15) || cl < 1 || cl > ts::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int T = ((d + ts::kTile - 1) / ts::kTile + cl - 1) / cl;
+  if (T > ts::max_tiles(ts::rows_n(M)) || S < 1 ||
+      S > (ff + ts::kBF - 1) / ts::kBF || (S > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using ts::bf16;
+  return static_cast<int>(ts::launch(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+      static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
+      static_cast<float*>(part), static_cast<bf16*>(out), M, d, ff, cl, T, S,
       static_cast<cudaStream_t>(stream)));
 }

@@ -50,6 +50,7 @@ LAUNCHES: dict[str, int] = {"gqa_decode": 0, "gqa_decode_paged": 0,
                             "fused_mask": 0, "cbr_avgpool": 0,
                             "linked_mlp": 0, "linked_mlp_tc": 0,
                             "linked_mlp_tc_prefill": 0,
+                            "linked_mlp_tc_swap": 0,
                             "split_matmul": 0}
 
 #: kernel name -> launches recorded into CUDA graphs under capture

@@ -12,11 +12,14 @@ tensors it launches one of the two kernels of ``csrc/linked_mlp.cu`` on
 the current stream, both of which keep h on chip: the tensor-core kernel
 (``tc``) for the bf16 shapes it takes, the FFMA kernel (``ffma``) for the
 rest; :func:`mlp_plan` chooses, from the shapes alone, and sizes the
-grid.  The tensor-core kernel has two bodies: ``decode`` (64-row tiles,
-``cp.async``) below :data:`PREFILL_ROWS` rows and ``prefill`` (128-row
-tiles fed by TMA, warp-specialised) from there on.  For CPU tensors it
-runs :func:`linked_mlp_plain`.  Nothing on the CUDA path falls back to
-the plain version, and ragged M, d and ff are masked in the kernels.
+grid.  The tensor-core kernel has three bodies: ``swap`` (the operands
+swapped, so that one cluster covers all of d: gᵀ = Wgᵀ xᵀ, yᵀ += Wdᵀ hᵀ,
+fed by TMA) at decode rows, ``decode`` (64-row tiles, ``cp.async``) for
+the other rows below :data:`PREFILL_ROWS` and ``prefill`` (128-row
+tiles fed by TMA, warp-specialised) from there on (:func:`tc_body`).
+For CPU tensors it runs :func:`linked_mlp_plain`.  Nothing on the CUDA
+path falls back to the plain version, and ragged M, d and ff are masked
+in the kernels.
 
 :func:`mlp_reference` is the bf16 check that the card tests and
 ``chip_smoke.py`` hold both the kernel and the plain version to: the
@@ -47,6 +50,13 @@ TP_BM, TP_DS = 128, 128
 #: rows from which the tensor-core kernel takes its prefill body: past
 #: one 64-row tile of the decode body (mlp_plan's docstring)
 PREFILL_ROWS = 65
+#: its swap body (operands swapped at decode rows): y columns of a down
+#: product (wgmma's M), the rows it pads M to (wgmma's N), the most y
+#: tiles a rank owns (64 fp32 registers a thread of y: min(16, 256 / N))
+#: and the rows it is planned at: up to SWAP_ROWS at every width, up to
+#: 64 past d SWAP_WIDE_D (mlp_plan's docstring)
+TS_TILE, TS_ROWS, TS_MAX_TILES = 64, (8, 16, 32, 64), 16
+SWAP_ROWS, SWAP_WIDE_D = 32, 2048
 #: the FFMA kernel: ff columns a block, warps a CTA
 FFMA_BF, FFMA_WARPS = 64, 8
 
@@ -54,12 +64,13 @@ FFMA_BF, FFMA_WARPS = 64, 8
 class MlpPlan(NamedTuple):
     """How one call runs.  ``path``: "tc" or "ffma".  ``bm``: rows an M
     tile.  ``cl``: CTAs a cluster, sharing h (tc, whose
-    ``ceil(d / (ds cl))`` clusters split d: :func:`tc_columns`; 1 for
-    ffma).  ``S``: splits of ff.  ``v``: elements an FFMA lane loads at
-    once (16 bytes or 2; 8 for tc).  ``workspace``: fp32 elements of the
-    (S, M, d) partial-y workspace (0: y is stored directly).  ``body``:
-    the tensor-core kernel's "decode" or "prefill" body ("ffma" for the
-    FFMA kernel)."""
+    ``ceil(d / (ds cl))`` clusters split d: :func:`tc_columns`; the
+    swap body's one cluster covers d: :func:`swap_ds`; 1 for ffma).
+    ``S``: splits of ff.  ``v``: elements an FFMA lane loads at once (16
+    bytes or 2; 8 for tc).  ``workspace``: fp32 elements of the (S, M, d)
+    partial-y workspace (0: y is stored directly).  ``body``: the
+    tensor-core kernel's "decode", "swap" or "prefill" body ("ffma" for
+    the FFMA kernel); the swap body's ``bm`` is M padded to wgmma's N."""
     path: str
     bm: int
     cl: int
@@ -171,6 +182,75 @@ def tc_clusters(d: int, ds: int = TC_DS) -> list[int]:
     return sorted({-(-nd // n) for n in range(lo, hi + 1)}, reverse=True)
 
 
+def tc_body(M: int, d: int) -> str:
+    """The tensor-core kernel's body for M rows at width d, by
+    :func:`mlp_plan`'s rule: "prefill" from PREFILL_ROWS rows on; "swap"
+    up to SWAP_ROWS rows, and up to 64 past d SWAP_WIDE_D, wherever one
+    cluster covers d (:func:`swap_clusters`); else "decode"."""
+    if M >= PREFILL_ROWS:
+        return "prefill"
+    if swap_clusters(M, d) and (M <= SWAP_ROWS or d > SWAP_WIDE_D):
+        return "swap"
+    return "decode"
+
+
+def swap_rows(M: int) -> int:
+    """The swap body's wgmma N for M rows: M padded to 8, 16, 32 or 64 (0
+    past 64: the body does not take it)."""
+    return next((n for n in TS_ROWS if n >= M), 0)
+
+
+def swap_max_tiles(M: int) -> int:
+    """The most 64-column y tiles a rank of the swap body owns at M rows:
+    each of its two consumer warpgroups holds half of them in N / 2 fp32
+    registers a tile, 64 in all (0 past 64 rows)."""
+    n = swap_rows(M)
+    return min(TS_MAX_TILES, 256 // n) if n else 0
+
+
+def swap_ds(d: int, cl: int) -> int:
+    """y columns a rank of the swap body owns: whole 64-column tiles, d's
+    ``ceil(d / 64)`` of them dealt ``ceil(tiles / cl)`` a rank."""
+    return TS_TILE * -(-(-(-d // TS_TILE)) // cl)
+
+
+def swap_clusters(M: int, d: int) -> list[int]:
+    """The cluster sizes the swap body takes at (M, d), largest first:
+    every cl up to TC_MAX_CLUSTER whose ranks' tiles cover d within
+    :func:`swap_max_tiles`, each rank owning at least one (one cluster
+    over all of d; empty where none does)."""
+    most = swap_max_tiles(M)
+    nt = -(-d // TS_TILE)
+    return [cl for cl in range(TC_MAX_CLUSTER, 0, -1)
+            if -(-nt // cl) <= most and (cl - 1) * -(-nt // cl) < nt]
+
+
+def _swap_plan(M: int, d: int, ff: int, sizes: list[int],
+               slots: Callable[[int], int]) -> tuple[int, int] | None:
+    """(cl, S) of the swap body, in one wave: for each cl, S the fewest
+    splits (at most a wave of clusters) that minimise rounds = ceil(ff
+    blocks a split / cl); of the sizes, the least rounds x (d's up steps +
+    the down steps of a round's cl blocks, ceil(T / 2) each), ties to the
+    larger cl.  Fitted to every (cl, S) timed at the served decode shapes
+    (``launch/gemm_timing.py --swap-grid``, PERF.md)."""
+    n_blocks = -(-ff // TC_BF)
+    n_up = -(-d // TC_BF)
+    best = None
+    for cl in sizes:
+        wave = min(n_blocks, slots(cl))
+        if wave <= 0:
+            continue
+
+        def rounds(S):
+            return -(-(-(-n_blocks // S)) // cl)
+        S = min(range(1, wave + 1), key=lambda S: (rounds(S), S))
+        key = (rounds(S) * (n_up + cl * -(-(swap_ds(d, cl) // TS_TILE)
+                                          // 2)), -cl)
+        if best is None or key < best[0]:
+            best = (key, cl, S)
+    return None if best is None else best[1:]
+
+
 def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
              sms: int, path: str | None = None,
              slots: Callable[[int], int] | None = None,
@@ -182,23 +262,43 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
     SM count.  ``slots(cl)``: clusters of cl CTAs of the tensor-core
     kernel the device runs at once (default sms // cl - 1: one CTA an SM,
     and a cluster lives in one GPC; the occupancy calculator gives 15
-    clusters of 8 on a 132-SM H100).  Both bodies take one SM a CTA, so
+    clusters of 8 on a 132-SM H100).  Every body takes one SM a CTA, so
     they run as many clusters of a size.
     ``path`` forces a kernel ("tc" raises where it does not take the
     shapes); by default bf16 calls that the tensor-core kernel takes go to
     it (decode too: it timed faster there than the FFMA kernel), the rest
     to the FFMA kernel.  ``body`` forces the tensor-core kernel's body and
-    ``cl`` one of :func:`tc_clusters`' sizes for it (for timing the
-    others).  Returns None where the FFMA kernel cannot fit one row of d.
+    ``cl`` one of its sizes (:func:`tc_clusters`, :func:`swap_clusters`;
+    for timing the others).  Returns None where the FFMA kernel cannot
+    fit one row of d.
 
-    tc: the body is "prefill" from PREFILL_ROWS (65) rows on, else
-    "decode": wherever the decode body needs a second 64-row tile.  The
-    rule is the card's (``launch/gemm_timing.py --sweep``, H100 SXM, both
-    bodies forced): up to 64 rows the decode body is faster at every
-    served width (one tile; the prefill body's 128-row tile is half
-    padding); from 96 rows the prefill body is faster at d 1600, 2048 and
-    4096 (not at gemma3's d 1152 below 256 rows, nor chatglm3's 192), and
-    from 256 rows at every width.  A body's
+    tc, the body (:func:`tc_body`): "prefill" from PREFILL_ROWS (65) rows
+    on, wherever the 64-row bodies need a second tile; below, "swap" up
+    to SWAP_ROWS (32) rows at every width and up to 64 past d SWAP_WIDE_D
+    (2048), wherever its one cluster covers d (up to d 4096 at 33-64
+    rows); "decode" for the rest.  The rule is the card's
+    (``launch/gemm_timing.py --sweep``, H100 SXM 700 W, the bodies forced
+    by rows at every served width; PERF.md): the swap body is faster than
+    the decode body at 1-32 rows at every width (qwen3 M 8 0.036 against
+    0.042 ms, chameleon-34b 0.379 against 0.662), and at 33-64 rows past
+    d 2048 where it takes them (chatglm3-6b M 64 0.135 against 0.143); at
+    d 1152-2048 and 40-64 rows the two are within 2% at qwen3's and
+    hymba's widths and the decode body is faster at gemma3's (M 64 0.0320
+    against 0.0347).  Up to 64 rows the
+    decode body is faster than the prefill body at every served width
+    (one tile; the prefill body's 128-row tile is half padding); from 96
+    rows the prefill body is faster at d 1600, 2048 and 4096 (not at
+    gemma3's d 1152 below 256 rows, nor chatglm3's 192), and from 256
+    rows at every width.
+
+    swap: M padded to N = 8, 16, 32 or 64 rows (``bm``); one cluster of
+    cl CTAs covers d, rank c owning y's 64-column tiles [T c, T (c + 1))
+    for T = ceil(ceil(d / 64) / cl) (:func:`swap_ds`), at most
+    :func:`swap_max_tiles` (cl from :func:`swap_clusters`); no h block is
+    computed twice.  S, the ff splits, fills at most one wave of clusters
+    (:func:`_swap_plan`).
+
+    decode and prefill: a body's
     tiles are bm rows (TC_BM, TP_BM); a cluster of cl CTAs of ds columns
     (TC_DS, TP_DS), and n = ceil(d / (ds cl)) clusters splitting d, each
     computing its split's h again (cl from :func:`tc_clusters`).  For each
@@ -222,9 +322,29 @@ def mlp_plan(M: int, d: int, ff: int, dtype: torch.dtype, aligned: bool,
                              f"take d={d}, ff={ff}, {dtype}, aligned="
                              f"{aligned}")
         if body is None:
-            body = "prefill" if M >= PREFILL_ROWS else "decode"
-        if body not in ("decode", "prefill"):
+            body = tc_body(M, d)
+        if body not in ("decode", "swap", "prefill"):
             raise ValueError(f"linked_mlp: unknown body {body!r}")
+        if body == "swap":
+            sizes = swap_clusters(M, d)
+            if not sizes:
+                raise ValueError(f"linked_mlp: the swap body does not take "
+                                 f"M={M}, d={d}")
+            if cl is not None:
+                if cl not in sizes:
+                    raise ValueError(f"linked_mlp: d={d} at M={M} takes "
+                                     f"swap clusters of {sizes} CTAs, not "
+                                     f"{cl}")
+                sizes = [cl]
+            got = _swap_plan(M, d, ff, sizes, slots or (
+                lambda cl: max(1, sms // cl - 1)))
+            if got is None:
+                raise ValueError(f"linked_mlp: this device runs no cluster "
+                                 f"of {sizes} CTAs of the tensor-core "
+                                 f"kernel's swap body")
+            cl, S = got
+            return MlpPlan("tc", swap_rows(M), cl, S, 8,
+                           S * M * d if S > 1 else 0, "swap")
         bm, ds = (TP_BM, TP_DS) if body == "prefill" else (TC_BM, TC_DS)
         m_tiles = -(-M // bm)
         n_up = -(-d // TC_BF)
@@ -280,9 +400,10 @@ def tc_columns(d: int, cl: int, ds: int = TC_DS
     """The tensor-core kernel's ownership of y's columns: ``(cluster,
     rank, c0, c1)`` for every CTA along the grid's first axis.  CTA x
     (cluster x // cl, rank x % cl) owns ``[ds x, ds (x + 1))`` clipped to
-    d (``ds``: TC_DS for the decode body, TP_DS for the prefill body);
-    the axis is ``ceil(d / ds)`` rounded up to whole clusters, so a last
-    cluster's last CTAs may own nothing (``c0 == c1``)."""
+    d (``ds``: TC_DS for the decode body, TP_DS for the prefill body,
+    ``swap_ds(d, cl)`` for the swap body, whose one cluster owns all of
+    d); the axis is ``ceil(d / ds)`` rounded up to whole clusters, so a
+    last cluster's last CTAs may own nothing (``c0 == c1``)."""
     nd = -(-d // ds)
     gx = -(-nd // cl) * cl
     return [(x // cl, x % cl, min(d, ds * x), min(d, ds * (x + 1)))
@@ -303,8 +424,16 @@ def _lib():
         lib.repro_linked_mlp_tc_prefill.argtypes = \
             lib.repro_linked_mlp_tc.argtypes
         lib.repro_linked_mlp_tc_prefill.restype = ctypes.c_int
+        lib.repro_linked_mlp_tc_swap.argtypes = \
+            lib.repro_linked_mlp_tc.argtypes
+        lib.repro_linked_mlp_tc_swap.restype = ctypes.c_int
     return lib
 
+
+#: each tensor-core body's launch counter; its C entry point is the same
+#: name after "repro_"
+TC_COUNTER = {"decode": "linked_mlp_tc", "swap": "linked_mlp_tc_swap",
+              "prefill": "linked_mlp_tc_prefill"}
 
 _SLOTS: dict[tuple[int, int], int] = {}
 
@@ -381,8 +510,7 @@ def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
     if plan.path == "tc":
-        fn = (lib.repro_linked_mlp_tc_prefill if plan.body == "prefill"
-              else lib.repro_linked_mlp_tc)
+        fn = getattr(lib, "repro_" + TC_COUNTER[plan.body])
         err = fn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
                  part_ptr, out.data_ptr(), M, d, ff, plan.cl, plan.S, stream)
     else:
@@ -393,6 +521,5 @@ def linked_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     check_launch(err, "linked_mlp")
     count_launch("linked_mlp")
     if plan.path == "tc":
-        count_launch("linked_mlp_tc_prefill" if plan.body == "prefill"
-                     else "linked_mlp_tc")
+        count_launch(TC_COUNTER[plan.body])
     return out

@@ -63,7 +63,8 @@ LONG_LIVE = 31744 + 32
 #: name -> (B, H, K, D, W, live slots a row, paged too): phase 2's timed
 #: decode rows (qwen3-1.7b, a TP rank's half, gemma3-1b's sliding and
 #: global layers, hymba-1.5b's windows, olmoe-1b-7b, seamless's cross and
-#: self spans, the long-context row, the large decoders)
+#: self spans, the long-context row, the large decoders: granite-8b's
+#: G 4, which phase 2 does not time, included)
 SWEEP = {
     "qwen3": (8, 16, 8, 128, 2048, LENGTHS, True),
     "qwen3_rank_k4": (8, 8, 4, 128, 2048, LENGTHS, True),
@@ -76,6 +77,7 @@ SWEEP = {
     "qwen3_w32768": (1, 16, 8, 128, 32768, [LONG_LIVE], True),
     "gemma3_w32768": (1, 4, 1, 256, 32768, [LONG_LIVE], True),
     "chatglm3": (8, 32, 2, 128, 2048, LENGTHS, True),
+    "granite": (8, 32, 8, 128, 2048, LENGTHS, True),
     "internlm2": (8, 48, 8, 128, 2048, LENGTHS, True),
     "chameleon": (8, 64, 8, 128, 2048, LENGTHS, True),
 }

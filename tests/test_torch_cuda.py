@@ -948,16 +948,30 @@ def _hold_bf16(got, x, wg, wu, wd, plan=None):
                                   limit) > 1.0
 
 
+#: each tensor-core body's launch counter
+_BODY_KEY = {"decode": "linked_mlp_tc", "swap": "linked_mlp_tc_swap",
+             "prefill": "linked_mlp_tc_prefill"}
+
+
 def _body_launches(plan, n):
     """The launch counts ``n`` launches of ``plan`` leave."""
-    return {"linked_mlp": n,
-            "linked_mlp_tc": n if plan.body == "decode" else 0,
-            "linked_mlp_tc_prefill": n if plan.body == "prefill" else 0}
+    return {"linked_mlp": n, **{k: n if plan.body == body else 0
+                                for body, k in _BODY_KEY.items()}}
 
 
 def _launches():
-    return {k: kernels.LAUNCHES[k] for k in (
-        "linked_mlp", "linked_mlp_tc", "linked_mlp_tc_prefill")}
+    return {k: kernels.LAUNCHES[k] for k in ("linked_mlp",
+                                             *_BODY_KEY.values())}
+
+
+def _decode_key(cfg, rows=None):
+    """The counter of the body ``cfg``'s SwiGLU takes at decode (the
+    engine's slots' rows) on this card."""
+    x = torch.empty((rows or SERVE_SLOTS, cfg.d_model), dtype=torch.bfloat16,
+                    device="cuda")
+    w = torch.empty((cfg.d_model, cfg.d_ff), dtype=torch.bfloat16,
+                    device="cuda")
+    return _BODY_KEY[_plan(x, w, w, w.t()).body]
 
 
 @pytest.mark.cuda
@@ -970,12 +984,14 @@ def _launches():
     ("bfloat16", 37, 256, 208), ("float32", 1100, 256, 512),
     ("bfloat16", 8, 1152, 6912), ("bfloat16", 256, 1152, 6912),
     ("bfloat16", 8, 4096, 13696), ("bfloat16", 8, 6144, 16384),
-    ("bfloat16", 8, 8192, 22016)])
+    ("bfloat16", 8, 8192, 22016), ("bfloat16", 8, 4096, 14336),
+    ("bfloat16", 8, 7168, 4864), ("bfloat16", 1, 8192, 22016)])
 def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     """The serving shapes (decode M = 8, prefill M = 8 x 32, M = 1; qwen3's
     d 2048, gemma3's d 1152, ff 6912, and the large decoders' decode:
-    chatglm3-6b's d 4096, internlm2-20b's 6144, chameleon-34b's 8192,
-    where clusters split d), fp32,
+    chatglm3-6b's d 4096, granite-8b's ff 14336, internlm2-20b's 6144,
+    chameleon-34b's 8192 (at M 1 too), arctic-480b's dense residual (d
+    7168, ff 4864): the swap body, one cluster over d), fp32,
     ragged M, d and ff with 16-byte loads where rows are aligned (a last
     ff block of 8 or 16 columns) and scalar loads where not, a d wide
     enough to shrink the row tile, and more row tiles than SMs (one ff
@@ -991,7 +1007,8 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     torch.cuda.synchronize()
     want = _body_launches(plan, 2)
     if plan.path != "tc":
-        want.update(linked_mlp_tc=0, linked_mlp_tc_prefill=0)
+        want.update(linked_mlp_tc=0, linked_mlp_tc_swap=0,
+                    linked_mlp_tc_prefill=0)
     assert _launches() == want
     assert got.dtype == dt and got.shape == (M, d)
     assert torch.equal(got, again)
@@ -1014,7 +1031,10 @@ def test_linked_mlp_kernel_matches_plain(card, dtype, M, d, ff):
     (4352, 2048, 1032), (8, 1152, 6912), (256, 1152, 6912),
     (65, 1152, 6912), (256, 4096, 14336), (256, 6144, 16384),
     (256, 8192, 22016), (8, 7168, 4864), (37, 2056, 6144),
-    (8, 4104, 13704), (65, 6152, 16392), (4352, 4096, 13696)])
+    (8, 4104, 13704), (65, 6152, 16392), (4352, 4096, 13696),
+    (1, 2056, 6144), (64, 2056, 6144), (33, 4096, 13696), (13, 4104, 13704),
+    (32, 6152, 16392), (16, 8200, 22016), (32, 8192, 22016),
+    (33, 6144, 16384)])
 def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
     """The tensor-core kernel on either side of its 16-row m16 tiles, its
     64-row M tiles and its 64-column ff blocks; d and ff multiples of 8
@@ -1026,16 +1046,21 @@ def test_linked_mlp_tc_path_at_tile_edges(card, M, d, ff):
     8192), arctic-480b's dense residual (d 7168), and the ragged
     ownership: d 2056 (one column block past 2048), 4104 and 6152 (no
     cluster's 256-column ranks divide them), with ff no multiple of 64;
-    chatglm3-6b's batched prefill.  The planner sends each of
-    these to the tensor-core kernel (the prefill body from PREFILL_ROWS
-    rows on); two launches give the same bits.  Every shape is held
+    chatglm3-6b's batched prefill; the swap body's rows (one cluster
+    over d: 1-64 rows at d 2056 and 4096, up to 32 at 4104-8192, 16 at
+    8200) and past them (33 rows at d 6144: the decode body).  The
+    planner sends each of these to the tensor-core kernel (``tc_body``:
+    the prefill body from PREFILL_ROWS rows on, the swap body at decode
+    rows); two launches give the same bits.  Every shape is held
     against the fp64-summed MLP (``_hold_bf16``); past 1024 rows the
     kernel's worst error from it also within MLP_ORDER_FACTOR times the
     plain version's."""
     x, wg, wu, wd = _mlp(card, M, d, ff, torch.bfloat16)
     plan = _plan(x, wg, wu, wd)
     assert plan.path == "tc"
-    assert plan.body == ("prefill" if M >= t_lm.PREFILL_ROWS else "decode")
+    covers = M <= 64 and d <= 64 * 16 * min(16, 256 // t_lm.swap_rows(M))
+    assert plan.body == ("prefill" if M >= t_lm.PREFILL_ROWS else "swap"
+                         if covers and (M <= 32 or d > 2048) else "decode")
     if (M, ff) == (200, 320):
         assert -(-ff // 64) < plan.cl
     if M == 4352:
@@ -1139,15 +1164,25 @@ def test_linked_mlp_batched_prefill_within_order_noise(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,path,one_split", [
     ("float32", "ffma", False), ("bfloat16", "tc", False),
-    ("bfloat16", "tc", True)])
+    ("bfloat16", "tc", True), ("bfloat16", "swap", False),
+    ("bfloat16", "swap", True), ("bfloat16", "swap_wide", False)])
 def test_linked_mlp_replays_in_a_cuda_graph(card, dtype, path, one_split):
     """Captured with its workspace from the graph's pool, replayed on new
     inputs written in place: each replay equals an eager launch (the FFMA
-    kernel, the tensor-core kernel with the planner's S > 1 and with S =
-    1)."""
-    x, wg, wu, wd = _mlp(card, 8, 512, 1536, getattr(torch, dtype))
+    kernel; the tensor-core kernel's decode body, forced, and its swap
+    body, planned, with the planner's S > 1 and with S = 1; the swap
+    body past d 2048, at 13 rows of d 4104)."""
+    M, d, ff = (13, 4104, 13704) if path == "swap_wide" else (8, 512, 1536)
+    x, wg, wu, wd = _mlp(card, M, d, ff, getattr(torch, dtype))
     plan = _plan(x, wg, wu, wd)
-    assert plan.path == path and plan.S > 1
+    if path == "tc":
+        plan = t_lm.mlp_plan(8, 512, 1536, x.dtype, True,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count, path="tc",
+                             slots=t_lm.cluster_slots(x.device),
+                             body="decode")
+    assert plan.body == {"ffma": "ffma", "tc": "decode"}.get(path, "swap")
+    assert plan.S > 1
     if one_split:
         plan = plan._replace(S=1, workspace=0)
     graph, out = _graphed(lambda: t_lm.linked_mlp(x, wg, wu, wd, plan=plan))
@@ -1525,7 +1560,7 @@ def test_cache_family_engines_graphed_match_eager(card, pattern, kv):
     want = {"gqa_decode": model.cfg.n_layers - (n_global if kv == "paged"
                                                 else 0),
             "gqa_decode_paged": n_global if kv == "paged" else 0,
-            "linked_mlp_tc": model.cfg.n_layers, "fused_mask": 1}
+            _decode_key(model.cfg): model.cfg.n_layers, "fused_mask": 1}
     got = eng.stats()["graphs"]["serve_sample"]["launches"]
     assert {k: got.get(k, 0) for k in want} == want
 
@@ -1767,16 +1802,17 @@ def test_decode_kernel_at_hymba_shapes(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [8, 256, 4352])
 def test_linked_mlp_tc_at_hymba_width(card, M):
-    """hymba-1.5b's MLP, d 1600 and ff 5504: a cluster of 7 whose last
-    rank owns 64 columns, half of warpgroup 0's 128 (every served shape
-    before left a whole warpgroup; the prefill body's cluster of 13 ranks
-    of 128 columns leaves its last rank 64 too); decode, a 32-token chunk
-    of 8 slots and batched prefill's rows (held as in the tile-edge
-    test)."""
+    """hymba-1.5b's MLP, d 1600 and ff 5504: a cluster of 13 ranks of 128
+    columns whose last rank owns 64, half its columns (the swap body at
+    decode: warpgroup 2's 64-column tile idle there; the prefill body:
+    half of a warpgroup's 128); decode, a 32-token chunk of 8 slots and
+    batched prefill's rows (held as in the tile-edge test)."""
     x, wg, wu, wd = _mlp(card, M, 1600, 5504, torch.bfloat16)
     plan = _plan(x, wg, wu, wd)
-    ds = t_lm.TP_DS if plan.body == "prefill" else t_lm.TC_DS
-    assert plan.path == "tc" and plan.cl == (13 if ds == 128 else 7)
+    assert plan.body == ("swap" if M == 8 else "prefill")
+    ds = t_lm.TP_DS if plan.body == "prefill" else t_lm.swap_ds(1600,
+                                                                plan.cl)
+    assert plan.path == "tc" and plan.cl == 13 and ds == 128
     assert 1600 - (plan.cl - 1) * ds == 64
     kernels.reset_launches()
     got = t_lm.linked_mlp(x, wg, wu, wd)
@@ -1820,15 +1856,17 @@ def test_recurrent_engines_graphed_match_eager(card, arch, sampled):
     """The hybrid and SSM engines on the card: the graphed engine emits
     the eager one's streams bit for bit (admissions, priorities and
     preemption, SSM state carried through the captured decode step), and
-    a decode replay launches ``gqa_decode`` and ``linked_mlp_tc`` once a
-    hybrid layer, none for mamba2, and ``fused_mask`` once."""
+    a decode replay launches ``gqa_decode`` and the decode body of
+    ``linked_mlp`` (the swap body, ``linked_mlp_tc_swap``) once a hybrid
+    layer, none for mamba2, and ``fused_mask`` once."""
     model, params = _recurrent_model(arch)
     trace = _serve_trace(11 + sampled, sampled, model.cfg.vocab)
     eager, _ = _serve_trace_run(model, params, trace, "dense", False)
     graphed, eng = _serve_trace_run(model, params, trace, "dense", True)
     assert graphed == eager
     n = model.cfg.n_layers if model.cfg.family == "hybrid" else 0
-    want = {"gqa_decode": n, "gqa_decode_paged": 0, "linked_mlp_tc": n,
+    want = {"gqa_decode": n, "gqa_decode_paged": 0,
+            "linked_mlp_tc_swap" if n == 0 else _decode_key(model.cfg): n,
             "fused_mask": 1}
     got = eng.stats()["graphs"]["serve_sample"]["launches"]
     assert {k: got.get(k, 0) for k in want} == want
@@ -2047,6 +2085,7 @@ def test_tp_engine_on_one_card_within_the_margin_rule(card, kv, tmp_path):
         assert ln[attn] == model.cfg.n_layers * st > 0
         assert ln["fused_mask"] == sc > 0
         assert ln["linked_mlp"] == 0 and ln["linked_mlp_tc"] == 0
+        assert ln["linked_mlp_tc_swap"] == 0
 
 
 # -- MoE and encoder-decoder ---------------------------------------------------
@@ -2071,8 +2110,9 @@ def test_moe_engine_graphed_matches_eager(card, arch, kv, spec):
     """The MoE decode and verify steps captured as CUDA graphs emit the
     eager engine's streams bit for bit (sampled, with preemption and
     speculation); a decode replay launches the decode kernel once a
-    layer, ``fused_mask`` once, and ``linked_mlp_tc`` once a layer for
-    arctic's dense residual only (the experts have no kernel site)."""
+    layer, ``fused_mask`` once, and ``linked_mlp``'s decode body (the
+    swap body) once a layer for arctic's dense residual only (the experts
+    have no kernel site)."""
     from repro_torch.serving.speculative import SpecParams
     model, params = _moe_model(arch)
     trace = _serve_trace(11, True, model.cfg.vocab)
@@ -2085,9 +2125,9 @@ def test_moe_engine_graphed_matches_eager(card, arch, kv, spec):
     attn = "gqa_decode" if kv == "dense" else "gqa_decode_paged"
     got = g_eng.stats()["graphs"]["serve_sample"]["launches"]
     mlp = n if model.cfg.moe_dense_residual else 0
+    key = _decode_key(model.cfg) if mlp else "linked_mlp_tc_swap"
     assert (got.get(attn, 0), got.get("fused_mask", 0),
-            got.get("linked_mlp_tc", 0), got.get("linked_mlp", 0)) == \
-        (n, 1, mlp, mlp)
+            got.get(key, 0), got.get("linked_mlp", 0)) == (n, 1, mlp, mlp)
 
 
 @pytest.mark.cuda

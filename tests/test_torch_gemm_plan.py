@@ -131,22 +131,30 @@ def _cost(plan, M, ff, wave):
 @pytest.mark.parametrize("wave", [15, 13, 7])
 def test_mlp_plan_by_rows(M, wave):
     """qwen3-1.7b's MLP in bf16 takes the tensor-core kernel at every M,
-    decode included: below ``PREFILL_ROWS`` its decode body with a
-    cluster of 8 ranks of 256 columns, from there on its prefill body
-    (128-row tiles) with a cluster of 16 ranks of 128 columns.  S = 1
+    decode included: up to ``SWAP_ROWS`` (32) rows its swap body (M
+    padded to 8, 16 or 32 rows; one cluster over d, S at most a wave of
+    clusters), up to 64 its decode body with a cluster of 8 ranks of 256
+    columns, from ``PREFILL_ROWS`` on its prefill body (128-row tiles)
+    with a cluster of 16 ranks of 128 columns.  Decode and prefill: S = 1
     where the M tiles fill a wave of clusters; else S is the fewest ff
     splits of least waves x rounds.  S never exceeds the ff blocks, and
     only S > 1 has a workspace, (S, M, d) fp32."""
     plan = lm.mlp_plan(M, D, FF, torch.bfloat16, True, 132,
                        slots=lambda cl: wave)
+    n_blocks = -(-FF // lm.TC_BF)
+    assert 1 <= plan.S <= n_blocks
+    assert plan.workspace == (plan.S * M * D if plan.S > 1 else 0)
+    if M <= lm.SWAP_ROWS:
+        assert (plan.path, plan.body) == ("tc", "swap")
+        assert plan.bm == next(n for n in (8, 16, 32) if n >= M)
+        assert plan.cl in lm.swap_clusters(M, D) and plan.S <= wave
+        return
     if M < lm.PREFILL_ROWS:
         assert (plan.path, plan.body, plan.bm, plan.cl) == (
             "tc", "decode", lm.TC_BM, 8)
     else:
         assert (plan.path, plan.body, plan.bm, plan.cl) == (
             "tc", "prefill", lm.TP_BM, 16)
-    n_blocks = -(-FF // lm.TC_BF)
-    assert 1 <= plan.S <= n_blocks
     if -(-M // plan.bm) >= wave:
         assert plan.S == 1
     else:
@@ -171,13 +179,15 @@ def test_mlp_plan_follows_the_sm_count():
     takes the prefill body there): 15 clusters of 8 a wave on 132 SMs run
     12 one-round splits in 7 waves (cost 7), 13 on 114 SMs would need 8
     waves, so 3 splits of 4 rounds in 2 waves (cost 8) win there.
-    Decode's 12 one-round splits fit one wave on either."""
+    The decode body's 12 one-round splits at 8 rows fit one wave on
+    either."""
     assert lm.mlp_plan(512, D, FF, torch.bfloat16, True, 132,
                        body="decode").S == 12
     assert lm.mlp_plan(512, D, FF, torch.bfloat16, True, 114,
                        body="decode").S == 3
     for sms in (114, 132):
-        assert lm.mlp_plan(8, D, FF, torch.bfloat16, True, sms).S == 12
+        assert lm.mlp_plan(8, D, FF, torch.bfloat16, True, sms,
+                           body="decode").S == 12
 
 
 @pytest.mark.parametrize("M,d,ff,dtype,aligned", [
@@ -204,11 +214,12 @@ def test_tc_grid_covers_y_and_deals_each_block_once(M, d8, ff8, sms):
     bm rows; cluster ranks' slices of d (256 columns in the decode body,
     128 in the prefill body); the S splits' block ranges; within a split,
     each block owned by one rank in one round (whose h every rank then
-    reads)."""
+    reads).  The swap body's one cluster owns all of d (``swap_ds``)."""
     d, ff = 8 * d8, 8 * ff8
     plan = lm.mlp_plan(M, d, ff, torch.bfloat16, True, sms, path="tc")
     assert plan.cl <= lm.TC_MAX_CLUSTER
-    ds = lm.TP_DS if plan.body == "prefill" else lm.TC_DS
+    ds = {"prefill": lm.TP_DS, "decode": lm.TC_DS}.get(
+        plan.body) or lm.swap_ds(d, plan.cl)
     cols = np.zeros(d, np.int32)
     for _, _, c0, c1 in lm.tc_columns(d, plan.cl, ds):
         cols[c0:c1] += 1
@@ -241,7 +252,8 @@ def test_tc_cluster_with_fewer_blocks_than_ranks():
 
 
 def test_cpu_wrapper_runs_the_plain_version_on_any_plan():
-    """On CPU tensors neither kernel launches, whatever plan is given."""
+    """On CPU tensors neither kernel launches, whatever plan is given
+    (the planned one at 20 rows is the swap body's)."""
     rng = np.random.default_rng(0)
     x, wg, wu, wd = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                      .bfloat16() for s in ((20, 64), (64, 96), (64, 96),
@@ -253,3 +265,4 @@ def test_cpu_wrapper_runs_the_plain_version_on_any_plan():
                            lm.linked_mlp_plain(x, wg, wu, wd))
     assert kernels.LAUNCHES["linked_mlp"] == 0
     assert kernels.LAUNCHES["linked_mlp_tc"] == 0
+    assert kernels.LAUNCHES["linked_mlp_tc_swap"] == 0

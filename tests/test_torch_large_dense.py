@@ -82,17 +82,21 @@ def test_registry_swiglu_widths():
 @pytest.mark.parametrize("d,ff", sorted(SWIGLU_WIDTHS))
 def test_tc_plans_every_swiglu_width(d, ff, M):
     """bf16 at every registered width plans the tensor-core kernel (its
-    decode body at 8 rows, its prefill body at 256 and 4352), on a
-    cluster size of ``tc_clusters(d, ds)`` for the body's columns a CTA
-    (the decode body: one size, ceil(d / 256), up to d 2048), S within
-    the ff blocks and the workspace only where S > 1; the same plan with
-    and without ``path="tc"``."""
+    swap body at 8 rows, its prefill body at 256 and 4352), on a cluster
+    size of ``swap_clusters(M, d)`` (one cluster over d) or of
+    ``tc_clusters(d, TP_DS)`` (the decode body's sizes: one,
+    ceil(d / 256), up to d 2048), S within the ff blocks and the
+    workspace only where S > 1; the same plan with and without
+    ``path="tc"``."""
     plan = lm.mlp_plan(M, d, ff, torch.bfloat16, True, 132, slots=_slots)
-    body = "prefill" if M >= lm.PREFILL_ROWS else "decode"
-    bm, ds = (lm.TP_BM, lm.TP_DS) if body == "prefill" else (lm.TC_BM,
-                                                              lm.TC_DS)
-    assert (plan.path, plan.body, plan.bm) == ("tc", body, bm)
-    assert plan.cl in lm.tc_clusters(d, ds) and plan.cl <= lm.TC_MAX_CLUSTER
+    if M >= lm.PREFILL_ROWS:
+        assert (plan.path, plan.body, plan.bm) == ("tc", "prefill",
+                                                   lm.TP_BM)
+        assert plan.cl in lm.tc_clusters(d, lm.TP_DS)
+    else:
+        assert (plan.path, plan.body, plan.bm) == ("tc", "swap", 8)
+        assert plan.cl in lm.swap_clusters(M, d)
+    assert plan.cl <= lm.TC_MAX_CLUSTER
     if d <= 2048:
         assert lm.tc_clusters(d) == [-(-d // lm.TC_DS)]
     assert 1 <= plan.S <= -(-ff // lm.TC_BF)
@@ -135,15 +139,16 @@ def test_tc_cluster_sizes_past_2048():
 
 
 def test_tc_plan_forces_one_of_its_cluster_sizes():
-    """``cl=`` plans one of ``tc_clusters(d)``'s sizes (phase 2 times the
-    ones the planner did not choose) and raises for any other."""
+    """``cl=`` plans one of the decode body's ``tc_clusters(d)`` sizes
+    (phase 2 times the ones the planner did not choose) and raises for
+    any other."""
     for cl in lm.tc_clusters(6144):
         plan = lm.mlp_plan(8, 6144, 16384, torch.bfloat16, True, 132,
-                           path="tc", slots=_slots, cl=cl)
+                           path="tc", slots=_slots, cl=cl, body="decode")
         assert plan.path == "tc" and plan.cl == cl
     with pytest.raises(ValueError, match="not 16"):
         lm.mlp_plan(8, 6144, 16384, torch.bfloat16, True, 132, path="tc",
-                    cl=16)
+                    cl=16, body="decode")
 
 
 @pytest.mark.parametrize("M", [8, 4352])

@@ -203,12 +203,19 @@ def test_every_swiglu_width_is_registered():
 @pytest.mark.parametrize("sms", [114, 132])
 def test_mlp_plan_picks_the_body_by_rows(d, ff, sms):
     """The prefill body from ``PREFILL_ROWS`` rows on (128-row tiles, 128
-    columns a CTA), the decode body below (64-row tiles, 256 columns)."""
+    columns a CTA); below, the swap body up to 32 rows at every width and
+    up to 64 past d 2048 where one cluster covers d at 64 rows (d 4096),
+    the decode body for the rest (64-row tiles, 256 columns)."""
     t = lm.PREFILL_ROWS
-    for M in (1, 8, 64, t - 1, t, t + 1, 256, 4352, 31744):
+    for M in (1, 8, 32, 33, 64, t - 1, t, t + 1, 256, 4352, 31744):
         plan = lm.mlp_plan(M, d, ff, torch.bfloat16, True, sms)
-        want = "prefill" if M >= t else "decode"
+        want = "prefill" if M >= t else "swap" if (
+            M <= 32 or 2048 < d <= 4096) else "decode"
         assert (plan.path, plan.body) == ("tc", want), M
+        if want == "swap":
+            assert plan.bm == lm.swap_rows(M)
+            assert plan.cl in lm.swap_clusters(M, d)
+            continue
         assert plan.bm == (lm.TP_BM if want == "prefill" else lm.TC_BM)
         ds = lm.TP_DS if want == "prefill" else lm.TC_DS
         assert plan.cl in lm.tc_clusters(d, ds)
@@ -272,5 +279,11 @@ def test_cpu_wrapper_runs_the_plain_version_on_either_body():
                            path="tc", body=body)
         assert plan.body == body
         assert torch.equal(lm.linked_mlp(x, wg, wu, wd, plan=plan), want)
+    plan = lm.mlp_plan(64, 64, 96, torch.bfloat16, True, 132, path="tc",
+                       body="swap")
+    assert plan.body == "swap"
+    assert torch.equal(lm.linked_mlp(x[:64], wg, wu, wd, plan=plan),
+                       lm.linked_mlp_plain(x[:64], wg, wu, wd))
     assert all(kernels.LAUNCHES[k] == 0 for k in (
-        "linked_mlp", "linked_mlp_tc", "linked_mlp_tc_prefill"))
+        "linked_mlp", "linked_mlp_tc", "linked_mlp_tc_prefill",
+        "linked_mlp_tc_swap"))
